@@ -1,0 +1,54 @@
+"""Build optimisers directly from raw problem arrays (counterpart of
+``io/arrays.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from ..graph import GraphOptimisationOptions
+from ..optimizer import TorchGraphOptimisation
+from ..solver.block_solver import outside_slice
+from .synthetic import BAProblem, MixedBAProblem
+
+
+def optimizer_from_problem(
+    problem: Union[BAProblem, MixedBAProblem],
+    options: Optional[GraphOptimisationOptions] = None,
+    rk: int = 0,
+    delta: float = 1.0,
+    outlier_threshold: float = 0.0,
+    device: Union[str, torch.device] = "cpu",
+) -> TorchGraphOptimisation:
+    """Create an optimiser on ``device`` packed from a :class:`BAProblem`.
+
+    Call ``optimize(n)`` directly on the result; estimates stay in
+    ``opt.solver.graph`` (``q``/``t``/``Xw`` tensors on ``device``), and
+    ``opt.solver.result_poses()`` / ``result_landmarks()`` return them in
+    the problem's order.  A :class:`MixedBAProblem` (several edge sets)
+    waits for ROADMAP A8.
+    """
+    if isinstance(problem, MixedBAProblem):
+        raise outside_slice("mixed mono+stereo problems", "A8")
+    opt = TorchGraphOptimisation(options, device)
+    spec = dict(
+        kind=problem.kind,
+        meas=problem.meas,
+        pose_idx=problem.pose_idx,
+        lm_idx=problem.lm_idx,
+        omega=problem.omega,
+        cam=problem.cam,
+        rk=rk,
+        delta=delta,
+        outlier_threshold=outlier_threshold,
+    )
+    opt.solver.initialize_from_arrays(
+        pose_q=problem.pose_q,
+        pose_t=problem.pose_t,
+        num_active_poses=problem.num_active_poses,
+        landmarks=problem.landmarks,
+        num_active_landmarks=problem.num_active_landmarks,
+        edge_specs=[spec],
+    )
+    return opt

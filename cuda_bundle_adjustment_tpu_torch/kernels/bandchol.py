@@ -1,0 +1,152 @@
+"""Kernels B7/B8: banded block Cholesky factor and solve
+(``csrc/bandchol.cu``) and their plain twins.
+
+Counterparts of ``pallas/bandchol.py band_factor2`` and ``band_solve``, in
+f32, with the same block-row band layout: ``band [(Pa + SB) * SB, 36]``,
+row ``c*SB + d`` = upper block ``(c, c+d)``; the factor stores ``inv(L_cc)``
+at ``d = 0`` and ``L_{(c+d),c}^T`` at ``d >= 1``.  ``SB`` is a runtime value
+up to 48 (one kernel for the TPU's v1 and v2 factors).  A non-SPD band gives
+non-finite output, which the solver reads as a rejected step.
+
+Each wrapper dispatches on the tensor's device only: a CPU tensor runs the
+plain PyTorch twin, a CUDA tensor launches the kernel (or raises).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+MAX_SB = 48
+
+
+def _check_band(band: torch.Tensor, Pa: int, SB: int) -> None:
+    if not 1 <= SB <= MAX_SB:
+        raise ValueError(f"band height SB={SB} outside 1..{MAX_SB}")
+    if band.dtype != torch.float32 or band.shape != ((Pa + SB) * SB, 36):
+        raise ValueError(
+            f"band must be f32 [{(Pa + SB) * SB}, 36], got {band.dtype} {tuple(band.shape)}"
+        )
+
+
+def _chol6_inv_plain(A: torch.Tensor) -> torch.Tensor:
+    """inv(L) for the Cholesky factor L of a symmetric 6x6 block (lower
+    triangle read); a non-positive pivot yields inf/NaN."""
+    D = A.clone()
+    L = torch.zeros_like(A)
+    for k in range(6):
+        r = 1.0 / torch.sqrt(D[k, k])
+        L[k:, k] = D[k:, k] * r
+        col = L[k + 1 :, k]
+        D[k + 1 :, k + 1 :] -= col[:, None] * col[None, :]
+    inv = torch.zeros_like(A)
+    eye = torch.eye(6, dtype=A.dtype, device=A.device)
+    for i in range(6):
+        acc = eye[i] - (L[i, :i, None] * inv[:i]).sum(0) if i else eye[i]
+        inv[i] = acc / L[i, i]
+    return inv
+
+
+def band_factor_plain(band: torch.Tensor, Pa: int, SB: int) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`band_factor`: a loop over the columns."""
+    _check_band(band, Pa, SB)
+    out = band.clone()
+    blocks = out.view(-1, 36)
+    # trailing-update targets (c+d2, d1-d2) for 1 <= d2 <= d1 < SB, relative
+    # to column c's first row
+    d1, d2 = torch.meshgrid(
+        torch.arange(1, SB, device=band.device),
+        torch.arange(1, SB, device=band.device),
+        indexing="ij",
+    )
+    keep = d2 <= d1
+    d1, d2 = d1[keep], d2[keep]
+    rel = d2 * SB + (d1 - d2)
+    for c in range(Pa):
+        base = c * SB
+        S = blocks[base : base + SB].view(SB, 6, 6)
+        invL = _chol6_inv_plain(S[0])
+        Lt = torch.matmul(invL, S[1:])  # [SB-1, 6, 6]
+        blocks[base] = invL.reshape(36)
+        blocks[base + 1 : base + SB] = Lt.reshape(SB - 1, 36)
+        upd = torch.matmul(Lt[d2 - 1].transpose(-1, -2), Lt[d1 - 1]).reshape(-1, 36)
+        rows = base + rel
+        blocks[rows] = blocks[rows] - upd
+    return out
+
+
+def band_solve_plain(L: torch.Tensor, b: torch.Tensor, Pa: int, SB: int, bw: int) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`band_solve`: forward then back block
+    substitution, a loop over the columns."""
+    _check_band(L, Pa, SB)
+    L3 = L.view(-1, SB, 6, 6)
+    x = b.clone()
+    for c in range(Pa):
+        y = L3[c, 0] @ x[c]
+        x[c] = y
+        n = min(bw, Pa - 1 - c)
+        if n:
+            x[c + 1 : c + 1 + n] -= (L3[c, 1 : 1 + n] * y[None, :, None]).sum(1)
+    for c in range(Pa - 1, -1, -1):
+        n = min(bw, Pa - 1 - c)
+        z = x[c]
+        if n:
+            z = z - (L3[c, 1 : 1 + n] * x[c + 1 : c + 1 + n, None, :]).sum((0, 2))
+        x[c] = L3[c, 0].T @ z
+    return x
+
+
+def _fns():
+    lib = _build.load("bandchol")
+    f, s = lib.tba_band_factor, lib.tba_band_solve
+    if f.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        f.argtypes = [vp, vp, ci, ci, vp]
+        f.restype = ci
+        s.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+        s.restype = ci
+    return f, s
+
+
+def band_factor(band: torch.Tensor, Pa: int, SB: int) -> torch.Tensor:
+    """Factor the block-row band (kernel B7 on CUDA); same layout out."""
+    if band.device.type == "cpu":
+        return band_factor_plain(band, Pa, SB)
+    if band.device.type != "cuda":
+        raise NotImplementedError(f"band_factor: no kernel for device {band.device}")
+    _check_band(band, Pa, SB)
+    band = band.contiguous()
+    out = torch.empty_like(band)
+    status = _fns()[0](band.data_ptr(), out.data_ptr(), Pa, SB, _build.stream_ptr(band))
+    _build.check(status, "band_factor")
+    band_factor.launches += 1
+    return out
+
+
+def band_solve(L: torch.Tensor, b: torch.Tensor, Pa: int, SB: int, bw: int) -> torch.Tensor:
+    """Solve ``A x = b`` with the factor of :func:`band_factor`;
+    ``b [Pa, 6] f32 -> [Pa, 6] f32`` (kernel B8 on CUDA)."""
+    if L.device.type == "cpu":
+        return band_solve_plain(L, b, Pa, SB, bw)
+    if L.device.type != "cuda":
+        raise NotImplementedError(f"band_solve: no kernel for device {L.device}")
+    _check_band(L, Pa, SB)
+    if not 0 <= bw < SB:
+        raise ValueError(f"bandwidth bw={bw} must satisfy 0 <= bw < SB={SB}")
+    if b.dtype != torch.float32 or b.shape != (Pa, 6) or b.device != L.device:
+        raise ValueError(f"b must be f32 [{Pa}, 6] on {L.device}")
+    L, b = L.contiguous(), b.contiguous()
+    x = torch.empty_like(b)
+    status = _fns()[1](
+        L.data_ptr(), b.data_ptr(), x.data_ptr(), Pa, SB, bw, _build.stream_ptr(L)
+    )
+    _build.check(status, "band_solve")
+    band_solve.launches += 1
+    return x
+
+
+band_factor.launches = 0
+band_solve.launches = 0

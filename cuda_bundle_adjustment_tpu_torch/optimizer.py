@@ -1,0 +1,157 @@
+"""The Levenberg-Marquardt graph optimiser (counterpart of ``optimizer.py``).
+
+:class:`TorchGraphOptimisation` is the counterpart of the JAX package's
+``TpuGraphOptimisation`` and runs its host LM loop statement for statement:
+``maxq = 10`` inner trials, ``tau = 1e-5`` initial-lambda factor, the
+``clamp(1 - (2 rho - 1)^3, 1/3, 2/3)`` attenuation, the ``+1e-3`` scale
+epsilon and the same termination tests.  The device-resident fused loop
+waits for ROADMAP A6.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Optional, Union
+
+import torch
+
+from .graph import GraphOptimisationOptions
+from .solver.block_solver import BlockSolver, outside_slice
+from .utils import profiling as prof
+from .utils.stats import BatchInfo, BatchStatistics
+
+MAX_INNER_ITERATIONS = 10  # maxq
+TAU = 1e-5  # initial lambda factor
+RHO_DONE = 1e-6  # outer-termination rho threshold
+
+
+def attenuation(rho: float) -> float:
+    """Lambda attenuation on an accepted step."""
+    x = 2.0 * rho - 1.0
+    return 1.0 - x * x * x
+
+
+class TorchGraphOptimisation:
+    """Graph optimiser holding a block solver on one torch device."""
+
+    def __init__(
+        self,
+        options: Optional[GraphOptimisationOptions] = None,
+        device: Union[str, torch.device] = "cpu",
+    ):
+        self.options = options or GraphOptimisationOptions()
+        self.solver = BlockSolver(self.options, device)
+        self.stats = BatchStatistics()
+        self.timer = prof.StageTimer()
+        self.verbose = False
+        self.should_profile = False
+        self.use_fused_loop = False
+
+    @classmethod
+    def create(
+        cls,
+        options: Optional[GraphOptimisationOptions] = None,
+        device: Union[str, torch.device] = "cpu",
+    ):
+        return cls(options, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.solver.device
+
+    # -- lifecycle ---------------------------------------------------------------
+
+    def initialize(self) -> None:
+        self.solver.initialize((), ())
+
+    def optimize(self, niterations: int) -> None:
+        solver = self.solver
+        if solver.graph is None:
+            raise RuntimeError("optimize() called before the graph was packed")
+        if self.use_fused_loop:
+            raise outside_slice("the fused device-resident LM loop", "A6")
+
+        t0 = time.perf_counter()
+        solver.build_structure()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        self.timer.add(prof.PROF_SYMBOLIC_DECOMP, solver.symbolic_ms)
+        self.timer.add(prof.PROF_BUILD_STRUCTURE, total_ms - solver.symbolic_ms)
+        self._optimize_host(niterations)
+
+    def _optimize_host(self, niterations: int) -> None:
+        solver = self.solver
+
+        nu = 2.0
+        lam = 0.0
+        F = 0.0
+        rho = -1.0
+        q = 0
+
+        timer = self.timer if self.should_profile else None
+
+        for iteration in range(niterations):
+            it_t0 = time.perf_counter()
+
+            chi_dev, sys = solver.head(timer)
+            F = float(chi_dev)
+
+            if iteration == 0:
+                lam = TAU * solver.max_diagonal(sys)
+
+            q = 0
+            rho = -1.0
+            while q < MAX_INNER_ITERATIONS and rho < 0:
+                new_graph, Fhat_dev, scale_dev, success_dev = solver.trial(sys, lam, timer)
+                Fhat = float(Fhat_dev)
+                scale = float(scale_dev) + 1e-3
+                success = bool(success_dev)
+                Fdiff = Fhat - F
+                rho = (F - Fhat) / scale if success else -1.0
+
+                if rho > 0:
+                    lam *= min(max(attenuation(rho), 1.0 / 3.0), 2.0 / 3.0)
+                    nu = 2.0
+                    F = Fhat
+                    solver.accept(new_graph)
+                    break
+                else:
+                    lam *= nu
+                    nu *= 2.0
+                    if not math.isfinite(lam) or Fdiff < 1e-4:
+                        break
+                    q += 1
+
+            time_taken = (time.perf_counter() - it_t0) * 1e3
+            self.stats.add_stat(BatchInfo(iteration, F))
+
+            if self.verbose:
+                print(
+                    f"iteration= {iteration};   time(ms): {time_taken:.4f}   "
+                    f"chi2= {F:f};   lambda= {lam:f}   rho= {rho:f}\t   "
+                    f"nedges= {solver.nedges()}    levenberg iterations = {q}   "
+                    f"outliers = 0"
+                )
+
+            if q == MAX_INNER_ITERATIONS or rho < RHO_DONE or not math.isfinite(lam):
+                break
+
+    # -- introspection -------------------------------------------------------------
+
+    def batch_statistics(self) -> BatchStatistics:
+        return self.stats
+
+    def time_profile(self) -> prof.TimeProfile:
+        return dict(self.timer.profile)
+
+    def set_verbose(self, flag: bool = True) -> None:
+        self.verbose = bool(flag)
+
+    def set_profile(self, flag: bool = True) -> None:
+        self.should_profile = bool(flag)
+
+    # camelCase aliases matching the reference API
+    batchStatistics = batch_statistics
+    timeProfile = time_profile
+    setVerbose = set_verbose
+    setProfile = set_profile

@@ -1,0 +1,476 @@
+"""Block solver: packing, structure analysis and the LM pipeline stages
+(counterpart of ``solver/block_solver.py``, slice stages only).
+
+Same stage decomposition and math as the JAX package's XLA path, in plain
+PyTorch around four hand-written kernels:
+
+* per-edge state gathers through kernel B2 (``models/ba.py``);
+* the Schur pair products through kernel B6 (:func:`schur_reduce`);
+* the f32 band factor and solves through kernels B7 and B8
+  (:func:`solve_reduced_band`), followed by exactly two f64 refinement
+  rounds and the ``1e-8 ||b||`` residual check.
+
+Every per-pose, per-landmark and per-block-row sum is a fixed-order CSR
+segment sum over rows sorted by target once per structure
+(:class:`Segments`), never a float atomic, so two runs on one device give
+the same chi2 trace bit for bit.  Anything outside the slice raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels import band_factor, band_solve, schur_pair_products
+from ..models.ba import MonoModel
+from ..ops import components as C
+from ..ops.lie import se3_exp, se3_update_left
+from ..types import GraphArrays, PackedEdges, SystemBlocks
+from ..utils import profiling as prof
+from .symbolic import SchurStructure, build_schur_structure, sort_triples
+
+# widest band the band kernels take (bw + 1 <= MAX_BAND); a wider Hsc needs
+# the PCG or dense solve of ROADMAP A10
+MAX_BAND = 48
+
+
+class EdgeSetMeta(NamedTuple):
+    """Static per-edge-set info."""
+
+    kind: str
+    rk: int  # RobustKernelType value
+    delta: float
+    nedges: int
+
+
+class BandMeta(NamedTuple):
+    bw: int  # block bandwidth (max col - row over the Hsc pattern)
+    sb: int  # band height: bw + 1 rounded up to a multiple of 8
+
+
+class Segments(NamedTuple):
+    """A fixed-order segment sum plan: ``sum_j values[order[j]]`` over
+    ``offsets[s] <= j < offsets[s+1]`` for segment ``s``.  ``order`` is a
+    stable sort of the rows by target, truncated to rows whose target is in
+    range (rows of fixed vertices drop out)."""
+
+    order: torch.Tensor  # [n] int64
+    offsets: torch.Tensor  # [nseg + 1] int64
+
+
+class SchurPlan(NamedTuple):
+    """Device-side plan for the stages, constant per structure."""
+
+    ba_pose_idx: torch.Tensor  # [E] int64
+    ba_lm_idx: torch.Tensor  # [E] int64
+    blk_row: torch.Tensor  # [nnz] int64 (sorted by row, then col)
+    blk_col: torch.Tensor  # [nnz]
+    diag_pos: torch.Tensor  # [Pa]
+    tri_ei: torch.Tensor  # [T] triples sorted by target block
+    tri_ej: torch.Tensor  # [T]
+    tri_offsets: torch.Tensor  # [nnz + 1] CSR offsets of the triples
+    pose_seg: Segments  # edges -> poses
+    lm_seg: Segments  # edges -> landmarks
+    row_seg: Segments  # Hsc blocks -> block rows
+    col_seg: Segments  # Hsc blocks -> block columns
+    band: BandMeta
+
+
+def _segments(ids: np.ndarray, nseg: int, device) -> Segments:
+    ids = np.asarray(ids, dtype=np.int64)
+    order = np.argsort(ids, kind="stable")
+    offsets = np.searchsorted(ids[order], np.arange(nseg + 1), side="left")
+    return Segments(
+        order=torch.as_tensor(order[: offsets[-1]], device=device),
+        offsets=torch.as_tensor(offsets.astype(np.int64), device=device),
+    )
+
+
+def segment_sum(values: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """Fixed-order sum of the rows of ``values`` per segment (no atomics)."""
+    return torch.segment_reduce(
+        values.index_select(0, seg.order), "sum", offsets=seg.offsets
+    )
+
+
+def outside_slice(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is outside the PyTorch port's current slice (ROADMAP {item})"
+    )
+
+
+# ---------------------------------------------------------------------------
+# pipeline stages
+# ---------------------------------------------------------------------------
+
+
+def compute_chi(graph: GraphArrays, data: PackedEdges, meta: EdgeSetMeta) -> torch.Tensor:
+    """Total chi2 (reference stage "2: Compute Error")."""
+    return MonoModel.chi(graph, data, meta.rk, meta.delta).sum()
+
+
+def build_system(
+    graph: GraphArrays, data: PackedEdges, meta: EdgeSetMeta, plan: SchurPlan
+) -> SystemBlocks:
+    """Assemble Hpp/bp/Hll/bl and per-edge Hpl blocks (stage "3: Build
+    System").  Contributions of fixed vertices drop out because their rows
+    are not in the segment plans."""
+    pose_stack, lm_stack, hpl = MonoModel.terms(graph, data, meta.rk, meta.delta)
+    pose_acc = segment_sum(pose_stack, plan.pose_seg)  # [Pa, 42]
+    lm_acc = segment_sum(lm_stack, plan.lm_seg)  # [La, 12]
+    Pa = pose_acc.shape[0]
+    return SystemBlocks(
+        Hpp=pose_acc[:, :36].reshape(Pa, 6, 6),
+        bp=pose_acc[:, 36:],
+        Hll=lm_acc[:, :9],
+        bl=lm_acc[:, 9:],
+        Hpl=hpl,
+    )
+
+
+def max_diagonal(sys: SystemBlocks) -> torch.Tensor:
+    """Max Hessian diagonal entry for the initial lambda."""
+    m = torch.diagonal(sys.Hpp, dim1=-2, dim2=-1).max()
+    return torch.maximum(m, sys.Hll[:, [0, 4, 8]].max())
+
+
+def schur_reduce(
+    sys: SystemBlocks, lam: float, plan: SchurPlan
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage "4: Schur Complement": damp, invert the Hll blocks, form
+    ``bsc = bp - Hpl inv(Hll) bl`` and the Hsc blocks
+    ``(Hpp + lam I) - Hpl inv(Hll) Hpl^T`` on the symbolic block pattern.
+    Returns ``(blocks [nnz, 36], bsc [Pa, 6], invHll [La, 9])``."""
+    Pa, La = sys.bp.shape[0], sys.bl.shape[0]
+    dtype, dev = sys.bp.dtype, sys.bp.device
+    Hpp_d = sys.Hpp + lam * torch.eye(6, dtype=dtype, device=dev)
+    diag9 = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=dtype, device=dev)
+    invHll = C.flat_sym3x3_inv(sys.Hll + lam * diag9)
+    # bsc re-associates as Hpl (inv(Hll) bl), as on the kernel path of the
+    # JAX package, so no per-edge W is materialised for it either
+    y = C.flat_mv_3x3(invHll, sys.bl)
+    bsc_rows = C.flat_mv_6x3(sys.Hpl, y[plan.ba_lm_idx.clamp(max=La - 1)])
+    bsc = sys.bp - segment_sum(bsc_rows, plan.pose_seg)
+    blocks = -schur_pair_products(
+        sys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets
+    )
+    blocks[plan.diag_pos] = blocks[plan.diag_pos] + Hpp_d.reshape(Pa, 36)
+    return blocks, bsc, invHll
+
+
+def scaled_band(blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan):
+    """Symmetric Jacobi scaling of the reduced system and its f32 block-row
+    band.  Returns ``(band, bl_s, bv, s)``: the band, the scaled f64 blocks
+    and right-hand side, and the scale vector."""
+    Pa = bsc.shape[0]
+    nnz = blocks.shape[0]
+    brow, bcol, SB = plan.blk_row, plan.blk_col, plan.band.sb
+    # BA Hessian diagonals span many orders of magnitude (focal-length-
+    # squared pixel terms vs unit-metric terms)
+    diag = blocks[plan.diag_pos][:, [0, 7, 14, 21, 28, 35]]  # [Pa, 6]
+    s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-300))
+    bl_s = blocks * (s[brow][:, :, None] * s[bcol][:, None, :]).reshape(nnz, 36)
+    band = torch.zeros(((Pa + SB) * SB, 36), dtype=torch.float32, device=blocks.device)
+    band[brow * SB + (bcol - brow)] = bl_s.to(torch.float32)
+    return band, bl_s, bsc * s, s
+
+
+def solve_reduced_band(
+    blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve ``Hsc xp = bsc`` (stage "6: Numerical Decomposition") under
+    ``solver_precision="mixed"``: symmetric Jacobi scaling, the f32 band
+    factor and solves (kernels B7/B8), then exactly two f64 refinement
+    rounds against the f64 blocks.  Success requires the refined residual
+    below ``1e-8 ||b||`` and a finite result, as in the JAX package: an f64
+    factor here would accept steps the reference rejects."""
+    Pa = bsc.shape[0]
+    dtype = blocks.dtype
+    brow, bcol = plan.blk_row, plan.blk_col
+    SB, bw = plan.band.sb, plan.band.bw
+
+    band, bl_s, bv, s = scaled_band(blocks, bsc, plan)
+    Lb = band_factor(band, Pa, SB)
+
+    def tri_solve(r):
+        return band_solve(Lb, r.to(torch.float32), Pa, SB, bw).to(dtype)
+
+    offm = (brow != bcol).to(dtype)[:, None]
+    bl_s_off = bl_s * offm
+
+    def matvec(xv):  # symmetric block SpMV in the scaled space, f64
+        y = segment_sum(C.flat_mv_6x6(bl_s, xv[bcol]), plan.row_seg)
+        return y + segment_sum(C.flat_mtv_6x6(bl_s_off, xv[brow]), plan.col_seg)
+
+    x = tri_solve(bv)
+    # two rounds suffice for LM-damped, Jacobi-scaled systems; the residual
+    # check below rejects any solve they do not converge
+    for _ in range(2):
+        x = x + tri_solve(bv - matvec(x))
+
+    res = torch.linalg.vector_norm(bv - matvec(x))
+    ok = torch.isfinite(res) & (res <= 1e-8 * (torch.linalg.vector_norm(bv) + 1e-300))
+    xp = x * s
+    return xp, ok & torch.all(torch.isfinite(xp))
+
+
+def schur_back_substitute(
+    sys: SystemBlocks, invHll: torch.Tensor, xp: torch.Tensor, plan: SchurPlan
+) -> torch.Tensor:
+    """Landmark back-substitution ``xl = inv(Hll)(bl - Hpl^T xp)``."""
+    Pa = xp.shape[0]
+    xp_e = xp[plan.ba_pose_idx.clamp(max=Pa - 1)]
+    contrib = C.flat_mtv_6x3(sys.Hpl, xp_e)
+    cl = sys.bl - segment_sum(contrib, plan.lm_seg)
+    return C.flat_mv_3x3(invHll, cl)
+
+
+def apply_update(graph: GraphArrays, xp: torch.Tensor, xl: torch.Tensor) -> GraphArrays:
+    """SE3-exp left-compose pose update + additive landmark update (stage
+    "7: Update Solution")."""
+    Pa, La = xp.shape[0], xl.shape[0]
+    dq, dt = se3_exp(xp)
+    q_new, t_new = se3_update_left(dq, dt, graph.q[:Pa], graph.t[:Pa])
+    return GraphArrays(
+        q=torch.cat([q_new, graph.q[Pa:]], dim=0),
+        t=torch.cat([t_new, graph.t[Pa:]], dim=0),
+        Xw=torch.cat([graph.Xw[:La] + xl, graph.Xw[La:]], dim=0),
+    )
+
+
+def compute_scale(
+    xp: torch.Tensor, xl: torch.Tensor, sys: SystemBlocks, lam: float
+) -> torch.Tensor:
+    """LM gain-ratio denominator ``sum x (lam x + b)``."""
+    return torch.sum(xp * (lam * xp + sys.bp)) + torch.sum(xl * (lam * xl + sys.bl))
+
+
+# ---------------------------------------------------------------------------
+# host orchestration
+# ---------------------------------------------------------------------------
+
+
+class BlockSolver:
+    """Owns the packed device arrays, the symbolic structure and the plan."""
+
+    def __init__(self, options, device):
+        if options.dtype != "float64":
+            raise outside_slice(f"dtype={options.dtype!r}", "A8")
+        if options.solver_precision != "mixed":
+            raise outside_slice(
+                f"solver_precision={options.solver_precision!r} (dense f64 solve)", "A10"
+            )
+        self.options = options
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but no CUDA device is available")
+        self.dtype = torch.float64
+        self.graph: Optional[GraphArrays] = None
+        self.packed: Optional[PackedEdges] = None
+        self.meta: Optional[EdgeSetMeta] = None
+        self.P = self.Pa = self.L = self.La = 0
+        self.schur: Optional[SchurStructure] = None
+        self.plan: Optional[SchurPlan] = None
+        self.pose_perm = None  # RCM pose order; None = identity
+        self.symbolic_ms = 0.0
+        self._host_idx: Optional[tuple[np.ndarray, np.ndarray]] = None
+
+    # -- packing ------------------------------------------------------------
+
+    def initialize(self, edge_sets, vertex_sets) -> None:
+        raise outside_slice("the object-graph API (initialize)", "A3")
+
+    def initialize_from_arrays(
+        self,
+        pose_q: np.ndarray,
+        pose_t: np.ndarray,
+        num_active_poses: int,
+        landmarks: np.ndarray,
+        num_active_landmarks: int,
+        edge_specs: Sequence[dict],
+    ) -> None:
+        """Pack array inputs into device state (stage "0: Initialize").
+
+        Each ``edge_spec`` dict has keys ``kind, meas [E,K], pose_idx [E],
+        lm_idx [E], omega [E], cam ([5] or [E,5])`` and optional ``rk,
+        delta, active, outlier_threshold``.  Vertices are active-first: the
+        first ``num_active_*`` rows are free, the rest fixed."""
+        if len(edge_specs) != 1:
+            raise outside_slice(f"{len(edge_specs)} edge sets (one mono set only)", "A8")
+        spec = edge_specs[0]
+        kind = spec["kind"]
+        if kind != "mono":
+            raise outside_slice(f"{kind!r} edges", "A9" if kind in ("depth", "line", "plane") else "A8")
+        if int(spec.get("rk", 0)) != 0:
+            raise outside_slice("robust kernels", "A8")
+        if np.any(np.asarray(spec.get("outlier_threshold", 0.0)) > 0):
+            raise outside_slice("outlier thresholding (update_edges)", "A9")
+        cam = np.asarray(spec.get("cam", np.zeros(5)), dtype=np.float64).reshape(-1, 5)
+        if not np.all(cam == cam[0]):
+            raise outside_slice("per-edge camera", "A9")
+
+        self.P = pose_q.shape[0]
+        self.Pa = int(num_active_poses)
+        self.L = landmarks.shape[0]
+        self.La = int(num_active_landmarks)
+        if self.La == 0:
+            raise outside_slice("pose-only graphs", "A9")
+        pose_q = np.asarray(pose_q, dtype=np.float64)
+        pose_t = np.asarray(pose_t, dtype=np.float64)
+        landmarks = np.asarray(landmarks, dtype=np.float64).reshape(-1, 3)
+        meas = np.asarray(spec["meas"], dtype=np.float64)
+        E = meas.shape[0]
+        pose_idx = np.asarray(spec["pose_idx"], dtype=np.int64)
+        lm_idx = np.asarray(spec["lm_idx"], dtype=np.int64)
+
+        # bandwidth-reducing pose ordering, applied as in the JAX package:
+        # trajectory graphs keep the identity order
+        from .ordering import plan_pose_order
+
+        self.pose_perm = None
+        perm, _, _ = plan_pose_order(pose_idx, lm_idx, self.Pa, self.La)
+        if perm is not None:
+            self.pose_perm = perm  # perm[i] = old pose at new position i
+            new_of_old = np.empty(self.Pa, dtype=np.int64)
+            new_of_old[perm] = np.arange(self.Pa)
+            pose_q = np.concatenate([pose_q[perm], pose_q[self.Pa :]])
+            pose_t = np.concatenate([pose_t[perm], pose_t[self.Pa :]])
+            pose_idx = np.where(
+                pose_idx < self.Pa, new_of_old[np.minimum(pose_idx, self.Pa - 1)], pose_idx
+            )
+
+        dev, dt = self.device, self.dtype
+        self.graph = GraphArrays(
+            q=torch.as_tensor(pose_q, dtype=dt, device=dev),
+            t=torch.as_tensor(pose_t, dtype=dt, device=dev),
+            Xw=torch.as_tensor(landmarks, dtype=dt, device=dev),
+        )
+        omega = np.asarray(spec["omega"], dtype=np.float64).reshape(-1)
+        if omega.size and np.all(omega == omega[0]):
+            omega = omega[:1]  # a uniform weight broadcasts from one value
+        active = np.broadcast_to(
+            np.asarray(spec.get("active", 1.0), dtype=np.float64), (E,)
+        )
+        pose_idx_d = torch.as_tensor(pose_idx, device=dev)
+        lm_idx_d = torch.as_tensor(lm_idx, device=dev)
+        self.packed = PackedEdges(
+            meas=torch.as_tensor(np.ascontiguousarray(meas.T), dtype=dt, device=dev),
+            omega=torch.as_tensor(omega, dtype=dt, device=dev),
+            cam=torch.as_tensor(cam[:1].T.copy(), dtype=dt, device=dev),
+            pose_idx=pose_idx_d,
+            lm_idx=lm_idx_d,
+            both_free=((pose_idx_d < self.Pa) & (lm_idx_d < self.La)).to(dt),
+            active=torch.as_tensor(active > 0, device=dev).to(dt),
+        )
+        self.meta = EdgeSetMeta(
+            kind=kind,
+            rk=0,
+            delta=float(spec.get("delta", 1.0)),
+            nedges=int(np.sum(active > 0)),
+        )
+        self._host_idx = (pose_idx, lm_idx)
+        self.schur = None
+        self.plan = None
+
+    # -- structure ------------------------------------------------------------
+
+    def build_structure(self) -> None:
+        """Host symbolic analysis and the device plan (stages "1: Build
+        Structure" + "5: Symbolic Decomposition")."""
+        pose_idx, lm_idx = self._host_idx
+        Pa, La, dev = self.Pa, self.La, self.device
+        t0 = time.perf_counter()
+        s = build_schur_structure(pose_idx, lm_idx, Pa, La)
+        tri_ei, tri_ej, tri_off = sort_triples(s)
+        self.symbolic_ms = (time.perf_counter() - t0) * 1e3
+        self.schur = s
+
+        # banded Hsc -> band kernels (B7/B8)
+        bw = int(np.max(s.blk_col.astype(np.int64) - s.blk_row))
+        if bw + 1 > MAX_BAND:
+            raise outside_slice(
+                f"an Hsc band of width {bw + 1} (> {MAX_BAND}: PCG or dense solve)", "A10"
+            )
+        sb = -(-(bw + 1) // 8) * 8
+
+        def up(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+        self.plan = SchurPlan(
+            ba_pose_idx=self.packed.pose_idx,
+            ba_lm_idx=self.packed.lm_idx,
+            blk_row=up(s.blk_row),
+            blk_col=up(s.blk_col),
+            diag_pos=up(s.diag_pos),
+            tri_ei=up(tri_ei),
+            tri_ej=up(tri_ej),
+            tri_offsets=up(tri_off),
+            pose_seg=_segments(pose_idx, Pa, dev),
+            lm_seg=_segments(lm_idx, La, dev),
+            row_seg=_segments(s.blk_row, Pa, dev),
+            col_seg=_segments(s.blk_col, Pa, dev),
+            band=BandMeta(bw=bw, sb=sb),
+        )
+
+    # -- stage API used by the LM loop -----------------------------------------
+    # With a ``timer`` (profile mode) each stage is timed and ends in a device
+    # synchronise; the arithmetic is the same either way.
+
+    def _stage(self, timer, name: str):
+        if timer is None:
+            return contextlib.nullcontext()
+        return timer.stage(name, self.device)
+
+    def head(self, timer=None):
+        """Chi2 and the linearised system at the current state."""
+        with self._stage(timer, prof.PROF_COMPUTE_ERROR):
+            chi = compute_chi(self.graph, self.packed, self.meta)
+        with self._stage(timer, prof.PROF_BUILD_SYSTEM):
+            sys = build_system(self.graph, self.packed, self.meta, self.plan)
+        return chi, sys
+
+    def max_diagonal(self, sys: SystemBlocks) -> float:
+        return float(max_diagonal(sys))
+
+    def trial(self, sys: SystemBlocks, lam: float, timer=None):
+        """One damped trial: ``(new_graph, Fhat, scale, success)`` in the
+        order of the JAX package's trial stage."""
+        with self._stage(timer, prof.PROF_SCHUR_COMPLEMENT):
+            blocks, bsc, invHll = schur_reduce(sys, lam, self.plan)
+        with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):
+            xp, success = solve_reduced_band(blocks, bsc, self.plan)
+        with self._stage(timer, prof.PROF_UPDATE):
+            xl = schur_back_substitute(sys, invHll, xp, self.plan)
+            new_graph = apply_update(self.graph, xp, xl)
+        with self._stage(timer, prof.PROF_COMPUTE_ERROR):
+            Fhat = compute_chi(new_graph, self.packed, self.meta)
+        scale = compute_scale(xp, xl, sys, lam)
+        return new_graph, Fhat, scale, success
+
+    def accept(self, new_graph: GraphArrays) -> None:
+        self.graph = new_graph
+
+    def nedges(self) -> int:
+        return self.meta.nedges
+
+    # -- results ---------------------------------------------------------------
+
+    def result_poses(self) -> tuple[np.ndarray, np.ndarray]:
+        """Pose estimates ``(q, t)`` in the caller's order (undoes RCM)."""
+        q = self.graph.q.cpu().numpy()
+        t = self.graph.t.cpu().numpy()
+        if self.pose_perm is None:
+            return q, t
+        out_q, out_t = q.copy(), t.copy()
+        out_q[self.pose_perm] = q[: self.Pa]
+        out_t[self.pose_perm] = t[: self.Pa]
+        return out_q, out_t
+
+    def result_landmarks(self) -> np.ndarray:
+        """Landmark estimates in the caller's order."""
+        return self.graph.Xw.cpu().numpy()

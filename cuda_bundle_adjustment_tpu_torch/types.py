@@ -1,0 +1,48 @@
+"""Array containers passed between solver stages (counterpart of ``types.py``).
+
+Same fields and row-major block contract as the JAX package's XLA path;
+the TPU-only fields (one-hot expand plans, group-layout metadata, the
+component-major landmark copy, the stereo mask) have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class PackedEdges(NamedTuple):
+    """Struct-of-arrays packed edge set, resident on the solver's device.
+
+    ``active`` is a float mask (1.0 active, 0.0 masked).  CONTRACT: ``meas``
+    of rows with ``active == 0`` is undefined; every consumer multiplies by
+    ``active``.
+    """
+
+    meas: torch.Tensor  # [K, E] measurement payload, component-first
+    omega: torch.Tensor  # [E] or [1] scalar information
+    cam: torch.Tensor  # [5, 1] fx fy cx cy bf (one camera per edge set)
+    pose_idx: torch.Tensor  # [E] int64 dense pose index
+    lm_idx: torch.Tensor  # [E] int64 dense landmark index
+    both_free: torch.Tensor  # [E] float mask: pose AND landmark free
+    active: torch.Tensor  # [E] float mask: 1.0 active, 0.0 masked
+
+
+class GraphArrays(NamedTuple):
+    """Packed vertex state, active vertices first."""
+
+    q: torch.Tensor  # [P, 4] pose quaternions (xyzw)
+    t: torch.Tensor  # [P, 3] pose translations
+    Xw: torch.Tensor  # [L, 3] landmarks
+
+
+class SystemBlocks(NamedTuple):
+    """The assembled block system for one LM iteration (undamped), with the
+    large per-landmark / per-edge blocks stored flat row-major."""
+
+    Hpp: torch.Tensor  # [Pa, 6, 6]
+    bp: torch.Tensor  # [Pa, 6]
+    Hll: torch.Tensor  # [La, 9] flat symmetric blocks
+    bl: torch.Tensor  # [La, 3]
+    Hpl: torch.Tensor  # [E, 18] flat 6x3 per-edge blocks

@@ -1,0 +1,187 @@
+"""The PyTorch port's kernel twins (kernels B2, B6, B7, B8) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU, and against the
+XLA triple path.  Same inputs, made from a seed with numpy, go to both sides.
+The CUDA kernels themselves are held against their twins on the card by
+tests/test_torch_gpu.py and chip_smoke.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
+from cuda_bundle_adjustment_tpu.io.synthetic import make_ba_problem
+from cuda_bundle_adjustment_tpu.ops.components import flat_sym3x3_inv as jax_sym3x3_inv
+from cuda_bundle_adjustment_tpu.solver import block_solver as jbs
+from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+from cuda_bundle_adjustment_tpu_torch.kernels import bandchol, gather, pairprod
+from cuda_bundle_adjustment_tpu_torch.solver import block_solver as tbs
+from cuda_bundle_adjustment_tpu_torch.types import SystemBlocks
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _jax_system_in_port_order(js, jsys):
+    """The JAX solver's system (group-layout edge and landmark order) in the
+    problem's own order, as the port packs it."""
+    lay = js.group_layout
+    perm = lay.edge_perm
+    rows = perm >= 0
+    E = int(perm[rows].max()) + 1
+    Hpl = np.zeros((E, 18))
+    Hpl[perm[rows]] = np.asarray(jsys.Hpl)[rows]
+    ren = lay.lm_renumber[: js.La_real]
+    return SystemBlocks(
+        Hpp=_t(jsys.Hpp), bp=_t(jsys.bp), Hll=_t(np.asarray(jsys.Hll)[ren]),
+        bl=_t(np.asarray(jsys.bl)[ren]), Hpl=_t(Hpl),
+    )
+
+
+def _systems(problem):
+    """(JAX solver, its system, port solver, JAX system in port order)."""
+    js = jax_optimizer(problem).solver
+    js.build_structure()
+    _, jsys = js.head()
+    ts = optimizer_from_problem(problem).solver
+    ts.build_structure()
+    return js, jsys, ts, _jax_system_in_port_order(js, jsys)
+
+
+# -- B2 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,E", [(40, 12, 300), (300, 3, 2000)])
+def test_gather_twin_matches_pallas_expand(M, K, E):
+    """Bit-exact against ``onehot.expand`` (interpret), sentinel rows included."""
+    from cuda_bundle_adjustment_tpu.pallas.onehot import build_expand_plan, expand
+
+    rng = np.random.default_rng(M)
+    table = rng.standard_normal((M, K))
+    idx = rng.integers(0, M + 1, E)  # == M: the zero-row sentinel
+    plan = build_expand_plan(idx, M, chunk=1024)
+    want = np.asarray(expand(jnp.asarray(table), plan, interpret=True))  # [K, E]
+    got = gather.gather_rows(_t(table), _t(idx)).numpy()  # [E, K]
+    np.testing.assert_array_equal(got.T, want)
+
+
+# -- B6 ---------------------------------------------------------------------
+
+
+def test_pairprod_twin_matches_xla_triple_path():
+    """Pair products on the JAX system's own Hpl/inv(Hll) against the JAX
+    package's XLA triple path (CPU, real f64).  Tolerance 1e-12 x max|block|:
+    the two sum the same products in different orders."""
+    problem = make_ba_problem(
+        num_poses=16, num_landmarks=120, mean_obs_per_landmark=4.0, kind="mono", seed=13
+    )
+    js, jsys, ts, psys = _systems(problem)
+    lam = 1e-3
+    ref_blocks, _, _ = jbs.schur_reduce(
+        jsys, jnp.asarray(lam), js.plan, js.Pa, js.La, js.schur.nnz_blocks
+    )
+    Hpp_d = np.asarray(jsys.Hpp) + lam * np.eye(6)
+    ref = -np.asarray(ref_blocks)
+    ref[np.asarray(js.schur.diag_pos)] += Hpp_d.reshape(-1, 36)  # pair products only
+
+    invHll = _t(jax_sym3x3_inv(jnp.asarray(psys.Hll.numpy()) + lam * np.array(
+        [1.0, 0, 0, 0, 1, 0, 0, 0, 1])))
+    plan = ts.plan
+    got = pairprod.schur_pair_products(
+        psys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets
+    ).numpy()
+    np.testing.assert_array_equal(ts.schur.blk_row, js.schur.blk_row)
+    np.testing.assert_array_equal(ts.schur.blk_col, js.schur.blk_col)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12 * scale)
+
+
+def test_pairprod_twin_matches_pallas_kernel():
+    """Port blocks against the JAX kernel path with ``schur_pair_rows_v2`` in
+    interpret mode.  Tolerance f32-relative, as tests/test_groups.py: interpret
+    mode loses the kernel's double-float compensation."""
+    import cuda_bundle_adjustment_tpu.pallas.pairprod as pp
+
+    problem = make_ba_problem(
+        num_poses=12, num_landmarks=80, exact_obs_per_landmark=4, kind="mono", seed=3
+    )
+    js, jsys, ts, psys = _systems(problem)
+    lam = 1e-3
+    kplan = js.plan._replace(layout=js.plan.layout._replace(use_kernel=True))
+    orig = pp.schur_pair_rows_v2
+    pp.schur_pair_rows_v2 = lambda H, I, p_, interpret=True: orig(H, I, p_, interpret=True)
+    try:
+        ref_blocks, ref_bsc, _ = jbs.schur_reduce(
+            jsys, jnp.asarray(lam), kplan, js.Pa, js.La, js.schur.nnz_blocks
+        )
+    finally:
+        pp.schur_pair_rows_v2 = orig
+    blocks, bsc, _ = tbs.schur_reduce(psys, lam, ts.plan)
+    scale = float(np.abs(np.asarray(ref_blocks)).max())
+    np.testing.assert_allclose(blocks.numpy(), np.asarray(ref_blocks), atol=2e-5 * scale)
+    bscale = float(np.abs(np.asarray(ref_bsc)).max())
+    np.testing.assert_allclose(bsc.numpy(), np.asarray(ref_bsc), atol=1e-9 * bscale)
+
+
+# -- B7 / B8 ----------------------------------------------------------------
+
+
+def _random_banded_spd(Pa, bw, SB, rng):
+    n = Pa * 6
+    A = np.zeros((n, n))
+    for c in range(Pa):
+        for d in range(min(bw + 1, Pa - c)):
+            if d > 0 and rng.random() < 0.3:
+                continue  # band holes
+            A[c * 6 : (c + 1) * 6, (c + d) * 6 : (c + d + 1) * 6] = rng.normal(size=(6, 6))
+    A = A + A.T
+    A += np.eye(n) * (np.abs(A).sum(axis=1).max() + 1.0)
+    band = np.zeros(((Pa + SB) * SB, 36), np.float32)
+    for c in range(Pa):
+        for d in range(min(bw + 1, Pa - c)):
+            band[c * SB + d] = A[c * 6 : (c + 1) * 6, (c + d) * 6 : (c + d + 1) * 6].reshape(-1)
+    return A, band
+
+
+@pytest.mark.parametrize("Pa,bw,SB", [(23, 4, 8), (19, 11, 16)])
+def test_band_twins_match_pallas(Pa, bw, SB):
+    """Factor against ``band_factor2`` and solve against ``band_solve``
+    (interpret), at f32 tolerance: 1e-5 x max|L| for the factor (as
+    tests/test_bandchol.py), 1e-5 relative for the solve, 5e-5 against the
+    f64 dense solve."""
+    from cuda_bundle_adjustment_tpu.pallas.bandchol import band_factor2, band_solve
+
+    rng = np.random.default_rng(Pa)
+    A, band = _random_banded_spd(Pa, bw, SB, rng)
+    b = rng.normal(size=(Pa, 6)).astype(np.float32)
+
+    L_ref = np.asarray(band_factor2(jnp.asarray(band), Pa, SB, interpret=True))
+    L_got = bandchol.band_factor(_t(band), Pa, SB)
+    live = Pa * SB
+    np.testing.assert_allclose(
+        L_got.numpy()[:live], L_ref[:live], atol=1e-5 * max(np.abs(L_ref).max(), 1.0)
+    )
+
+    x_ref = np.asarray(band_solve(jnp.asarray(L_ref), jnp.asarray(b), Pa, SB, bw, interpret=True))
+    x_got = bandchol.band_solve(_t(L_ref), _t(b), Pa, SB, bw).numpy()
+    assert np.linalg.norm(x_got - x_ref) / np.linalg.norm(x_ref) < 1e-5
+    x_dense = np.linalg.solve(A, b.reshape(-1)).reshape(Pa, 6)
+    rel = np.linalg.norm(bandchol.band_solve(L_got, _t(b), Pa, SB, bw).numpy() - x_dense)
+    assert rel / np.linalg.norm(x_dense) < 5e-5
+
+
+def test_band_twin_nonspd_goes_nonfinite():
+    """A non-SPD band surfaces as non-finite output (the LM rejection
+    signal), not as silently wrong numbers."""
+    rng = np.random.default_rng(1)
+    Pa, bw, SB = 9, 2, 8
+    _, band = _random_banded_spd(Pa, bw, SB, rng)
+    band[0] = -np.eye(6).reshape(-1)
+    b = rng.normal(size=(Pa, 6)).astype(np.float32)
+    L = bandchol.band_factor(_t(band), Pa, SB)
+    x = bandchol.band_solve(L, _t(b), Pa, SB, bw)
+    assert not bool(torch.isfinite(x).all())

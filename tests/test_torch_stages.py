@@ -1,0 +1,275 @@
+"""The PyTorch port's copied modules and pipeline stages against the JAX
+package on the CPU (real f64), on the same inputs.
+
+Stage tolerances are 1e-12 relative to the largest magnitude of the
+compared array (the two sum the same terms in different orders), except
+1e-9 where the f32 band factor enters (the refined pose step).
+"""
+
+import ast
+import inspect
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from cuda_bundle_adjustment_tpu.io import synthetic as jsyn
+from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
+from cuda_bundle_adjustment_tpu.solver import block_solver as jbs
+from cuda_bundle_adjustment_tpu.solver import ordering as jord
+from cuda_bundle_adjustment_tpu.solver import symbolic as jsym
+from cuda_bundle_adjustment_tpu.types import GraphArrays as JaxGraph
+from cuda_bundle_adjustment_tpu.utils import dense_reference as jdense
+from cuda_bundle_adjustment_tpu.utils import stats as jstats
+from cuda_bundle_adjustment_tpu_torch import GraphOptimisationOptions, TorchGraphOptimisation
+from cuda_bundle_adjustment_tpu_torch.io import synthetic as tsyn
+from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+from cuda_bundle_adjustment_tpu_torch.solver import block_solver as tbs
+from cuda_bundle_adjustment_tpu_torch.solver import ordering as tord
+from cuda_bundle_adjustment_tpu_torch.solver import symbolic as tsym
+from cuda_bundle_adjustment_tpu_torch.types import GraphArrays, SystemBlocks
+from cuda_bundle_adjustment_tpu_torch.utils import dense_reference as tdense
+from cuda_bundle_adjustment_tpu_torch.utils import stats as tstats
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _close(got, want, rtol):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=rtol * np.abs(want).max())
+
+
+# -- copies --------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "orig,copy", [(jsyn, tsyn), (jdense, tdense), (jstats, tstats)],
+    ids=["synthetic", "dense_reference", "stats"],
+)
+def test_numpy_modules_are_verbatim_copies(orig, copy):
+    """Same code statement for statement (module docstrings may differ)."""
+
+    def body(mod):
+        tree = ast.parse(inspect.getsource(mod))
+        stmts = tree.body
+        if stmts and isinstance(stmts[0], ast.Expr) and isinstance(stmts[0].value, ast.Constant):
+            stmts = stmts[1:]
+        return [ast.dump(s) for s in stmts]
+
+    assert body(copy) == body(orig)
+
+
+@pytest.mark.parametrize("seed,kind", [(0, "mono"), (3, "stereo"), (7, "depth")])
+def test_synthetic_copy_gives_identical_arrays(seed, kind):
+    kw = dict(num_poses=30, num_landmarks=400, kind=kind, seed=seed)
+    for a, b in zip(jsyn.make_ba_problem(**kw), tsyn.make_ba_problem(**kw)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_kitti00_problem_copy_gives_identical_arrays():
+    a = jsyn.kitti00_scale_problem(kind="mono", seed=0)
+    b = tsyn.kitti00_scale_problem(kind="mono", seed=0)
+    assert b.pose_q.shape == (1322, 4) and b.landmarks.shape == (133383, 3)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_dense_reference_copy_gives_identical_trace():
+    p = jsyn.make_ba_problem(num_poses=8, num_landmarks=40, seed=4)
+    a, b = jdense.DenseLM(p), tdense.DenseLM(p)
+    assert a.optimize(4) == b.optimize(4)
+    for x, y in [(a.q, b.q), (a.t, b.t), (a.Xw, b.Xw)]:
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("long_range", [0.0, 0.02])
+def test_ordering_copy_gives_identical_permutation(long_range):
+    p = jsyn.make_loop_closure_problem(
+        num_poses=150, num_landmarks=1500, long_range_fraction=long_range, seed=5
+    )
+    Pa, La = p.num_active_poses, p.num_active_landmarks
+    want = jord.plan_pose_order(p.pose_idx, p.lm_idx, Pa, La)
+    got = tord.plan_pose_order(p.pose_idx, p.lm_idx, Pa, La)
+    assert got[1:] == want[1:]
+    if want[0] is None:
+        assert got[0] is None
+    else:
+        np.testing.assert_array_equal(got[0], want[0])
+    keys = jord.pose_pairs(p.pose_idx, p.lm_idx, Pa, La)
+    np.testing.assert_array_equal(tord.pose_pairs(p.pose_idx, p.lm_idx, Pa, La), keys)
+    np.testing.assert_array_equal(tord.rcm_order(keys, Pa), jord.rcm_order(keys, Pa))
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_symbolic_copy_gives_identical_structure(seed):
+    p = jsyn.make_ba_problem(num_poses=12, num_landmarks=150, seed=seed)
+    args = (p.pose_idx, p.lm_idx, p.num_active_poses, p.num_active_landmarks)
+    want = jsym.build_schur_structure(*args, use_native=False)
+    got = tsym.build_schur_structure(*args)
+    for name in want._fields:
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+    # triples in target-block order, each block's run in enumeration order
+    ei, ej, off = tsym.sort_triples(got)
+    k = np.repeat(np.arange(got.nnz_blocks), np.diff(off))
+    order = np.lexsort((np.arange(got.tri_k.size), got.tri_k))
+    np.testing.assert_array_equal(k, got.tri_k[order])
+    np.testing.assert_array_equal(ei, got.tri_ei[order])
+    np.testing.assert_array_equal(ej, got.tri_ej[order])
+
+
+# -- stages ---------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def systems():
+    """Both solvers on one problem (duplicate pose observations included),
+    their first linearisation, and the JAX system in the port's order."""
+    problem = jsyn.make_ba_problem(
+        num_poses=14, num_landmarks=100, mean_obs_per_landmark=4.0, seed=21
+    )
+    js = jax_optimizer(problem).solver
+    js.build_structure()
+    jchi, jsys = js.head()
+    ts = optimizer_from_problem(problem).solver
+    ts.build_structure()
+    tchi, tsys = ts.head()
+    lay = js.group_layout
+    perm = lay.edge_perm
+    rows = perm >= 0
+    Hpl = np.zeros((problem.meas.shape[0], 18))
+    Hpl[perm[rows]] = np.asarray(jsys.Hpl)[rows]
+    ren = lay.lm_renumber[: js.La_real]
+    psys = SystemBlocks(
+        Hpp=_t(jsys.Hpp), bp=_t(jsys.bp), Hll=_t(np.asarray(jsys.Hll)[ren]),
+        bl=_t(np.asarray(jsys.bl)[ren]), Hpl=_t(Hpl),
+    )
+    # the first LM trial's damping (TAU x max diagonal): the refined step is
+    # compared at 1e-9, which needs the conditioning LM damping gives
+    lam = 1e-5 * float(jbs.max_diagonal(jsys))
+    return dict(js=js, jsys=jsys, jchi=jchi, ts=ts, tsys=tsys, tchi=tchi,
+                psys=psys, ren=ren, lam=lam)
+
+
+def test_build_system_matches_jax(systems):
+    s = systems
+    _close(float(s["tchi"]), float(s["jchi"]), 1e-12)
+    for name in ("Hpp", "bp", "Hll", "bl", "Hpl"):
+        _close(getattr(s["tsys"], name).numpy(), getattr(s["psys"], name).numpy(), 1e-12)
+
+
+def test_schur_reduce_matches_jax(systems):
+    s = systems
+    js = s["js"]
+    jb, jbsc, jinv = jbs.schur_reduce(
+        s["jsys"], jnp.asarray(s["lam"]), js.plan, js.Pa, js.La, js.schur.nnz_blocks
+    )
+    blocks, bsc, inv = tbs.schur_reduce(s["psys"], s["lam"], s["ts"].plan)
+    _close(blocks.numpy(), jb, 1e-12)
+    # the port forms bsc as Hpl (inv(Hll) bl), as the JAX kernel path does;
+    # the CPU path here forms (Hpl inv(Hll)) bl.  The rounding differs
+    # relative to the terms bp - sum(...) cancels, so measure it against bp
+    bscale = np.abs(np.asarray(s["jsys"].bp)).max()
+    np.testing.assert_allclose(bsc.numpy(), np.asarray(jbsc), rtol=0, atol=1e-12 * bscale)
+    _close(inv.numpy(), np.asarray(jinv)[s["ren"]], 1e-12)
+
+
+def _jax_step(s):
+    js = s["js"]
+    p = js.plan
+    jb, jbsc, jinv = jbs.schur_reduce(
+        s["jsys"], jnp.asarray(s["lam"]), p, js.Pa, js.La, js.schur.nnz_blocks
+    )
+    xp, ok = jbs._solve_reduced_blocks(
+        jb, p.blk_row, p.blk_col, p.diag_pos, jbsc, js.Pa, True,
+        p.blk_row_plan, p.blk_col_plan, p.band, p.pcg,
+    )
+    return jb, jbsc, jinv, xp, ok
+
+
+def test_refined_pose_step_matches_jax(systems):
+    """Band twins (B7/B8) + two f64 refinement rounds against the JAX
+    package's mixed solve (dense f32 factor + refinement on the CPU)."""
+    s = systems
+    jb, jbsc, _, jxp, jok = _jax_step(s)
+    xp, ok = tbs.solve_reduced_band(_t(jb), _t(jbsc), s["ts"].plan)
+    assert bool(ok) and bool(jok)
+    _close(xp.numpy(), jxp, 1e-9)
+
+
+def test_back_substitute_matches_jax(systems):
+    s = systems
+    js = s["js"]
+    _, _, jinv, jxp, _ = _jax_step(s)
+    jxl = jbs.schur_back_substitute(s["jsys"], jinv, jxp, js.plan, js.Pa)
+    ren = s["ren"]
+    xl = tbs.schur_back_substitute(
+        s["psys"], _t(np.asarray(jinv)[ren]), _t(jxp), s["ts"].plan
+    )
+    _close(xl.numpy(), np.asarray(jxl)[ren], 1e-12)
+
+
+def test_apply_update_matches_jax():
+    """SE3-exp update, both Rodrigues branches (rows 0-1 below the
+    theta < 1e-5 Taylor threshold), and the landmark update."""
+    rng = np.random.default_rng(9)
+    P, Pa, L, La = 12, 10, 30, 25
+    q = rng.normal(size=(P, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    t, Xw = rng.normal(size=(P, 3)), rng.normal(size=(L, 3))
+    xp = rng.normal(scale=0.05, size=(Pa, 6))
+    xp[:2, :3] *= 1e-5
+    xl = rng.normal(scale=0.1, size=(La, 3))
+    want = jbs.apply_update(
+        JaxGraph(jnp.asarray(q), jnp.asarray(t), jnp.asarray(Xw)),
+        jnp.asarray(xp), jnp.asarray(xl), Pa, La,
+    )
+    got = tbs.apply_update(GraphArrays(_t(q), _t(t), _t(Xw)), _t(xp), _t(xl))
+    for g, w in zip(got, want):
+        _close(g.numpy(), w, 1e-12)
+
+
+# -- outside the slice ----------------------------------------------------------
+
+
+def _mono(**kw):
+    return tsyn.make_ba_problem(num_poses=6, num_landmarks=30, seed=1, **kw)
+
+
+@pytest.mark.parametrize(
+    "make,item",
+    [
+        (lambda: optimizer_from_problem(_mono(kind="stereo")), "A8"),
+        (lambda: optimizer_from_problem(_mono(kind="depth")), "A9"),
+        (lambda: optimizer_from_problem(_mono(), rk=2, delta=1.0), "A8"),
+        (lambda: optimizer_from_problem(
+            _mono(), options=GraphOptimisationOptions(dtype="float32")), "A8"),
+        (lambda: optimizer_from_problem(
+            _mono(), options=GraphOptimisationOptions(solver_precision="exact")), "A10"),
+        (lambda: optimizer_from_problem(
+            tsyn.make_mixed_ba_problem(num_poses=6, num_landmarks=30, seed=1)), "A8"),
+        (lambda: optimizer_from_problem(_mono(), outlier_threshold=5.0), "A9"),
+        (lambda: TorchGraphOptimisation().initialize(), "A3"),
+    ],
+    ids=["stereo", "depth", "robust", "float32", "exact", "mixed", "outliers", "object-api"],
+)
+def test_outside_the_slice_raises(make, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        make()
+
+
+def test_fused_loop_and_wide_band_raise():
+    opt = optimizer_from_problem(_mono())
+    opt.use_fused_loop = True
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        opt.optimize(1)
+    # long-range co-visibility everywhere: no banded order exists
+    p = tsyn.make_loop_closure_problem(
+        num_poses=120, num_landmarks=1200, long_range_fraction=0.3, seed=2
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        optimizer_from_problem(p).optimize(1)
