@@ -8,16 +8,21 @@ nothing of JAX.  In order, each phase failing the run (no phase's failure is
 caught):
 
 1. prints the card's name and power limit and the torch/CUDA/nvcc versions;
-2. builds the four kernels from ``cuda_bundle_adjustment_tpu_torch/csrc``;
+2. builds the eight kernels from ``cuda_bundle_adjustment_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together);
 3. holds each kernel against its plain PyTorch twin on the card, at the
-   shapes of the ``kitti00_mono`` problem's first linearisation, and times
-   both (median of CUDA-event-timed calls);
-4. runs a small problem on the card and on the CPU and holds both chi2
-   traces and the card's final state against the numpy ``DenseLM`` oracle;
-5. runs ``kitti00_mono`` (``optimizer_from_problem(...).optimize(10)``) with
-   the launch counters zeroed just before, then again: the two traces must
-   repeat bit for bit, the chi2 must fall and every kernel must have been
-   launched; prints cold and warm times.
+   shapes of the ``kitti00_mono`` problem's first linearisation, and B1, B3,
+   B5 and B9 again at those of ``kitti00_mixed``; times both (median of
+   CUDA-event-timed calls);
+4. runs a small mono, stereo and mixed problem on the card and on the CPU
+   and holds both chi2 traces and the card's final state against the numpy
+   ``DenseLM`` oracle;
+5. runs ``kitti00_mono``, ``kitti00_stereo`` and ``kitti00_mixed``
+   (``optimizer_from_problem(...).optimize(10)``), each with the launch
+   counters zeroed just before its first run and read just after: every
+   kernel must have been launched, the later runs' traces must repeat the
+   first bit for bit and the chi2 must fall; prints cold and warm times and
+   a per-stage profile.
 
 The last two lines are a JSON line describing the kernels and the JSON
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -36,17 +41,23 @@ import time
 SRC = "cuda_bundle_adjustment_tpu_torch/csrc"
 # file:line of the pallas_call each kernel replaces
 KERNEL_INFO = {
+    "chi_edges": (f"{SRC}/terms.cu", "cuda_bundle_adjustment_tpu/pallas/terms.py:549"),
     "gather_rows": (f"{SRC}/gather.cu", "cuda_bundle_adjustment_tpu/pallas/onehot.py:243"),
+    "linearise": (f"{SRC}/terms.cu", "cuda_bundle_adjustment_tpu/pallas/terms.py:461"),
+    "hpl_mv_segment_sum": (f"{SRC}/schurvec.cu", "cuda_bundle_adjustment_tpu/pallas/schurvec.py:128"),
     "schur_pair_products": (f"{SRC}/pairprod.cu", "cuda_bundle_adjustment_tpu/pallas/pairprod.py:201"),
     "band_factor": (f"{SRC}/bandchol.cu", "cuda_bundle_adjustment_tpu/pallas/bandchol.py:412"),
     "band_solve": (f"{SRC}/bandchol.cu", "cuda_bundle_adjustment_tpu/pallas/bandchol.py:275"),
+    "hpl_mtv_segment_sum": (f"{SRC}/schurvec.cu", "cuda_bundle_adjustment_tpu/pallas/schurvec.py:152"),
 }
+# f64 kernels against their twins: the same terms, fused multiply-adds and
+# another summation order, as a fraction of the largest magnitude
+F64_TOL = 1e-12
 # f32 factor/solve agreement between the kernel and its twin (two f32
 # implementations of the same recurrence, different rounding order), as a
 # fraction of the largest magnitude
 F32_TOL = 1e-3
 TIMED_REPS = 5
-WARM_RUNS = 3
 
 
 def nvidia_smi_line() -> str:
@@ -87,29 +98,93 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def first_linearisation(problem, dev):
+    """The solver at the problem's first linearisation, its system and the
+    LM's first damping (TAU x max diagonal)."""
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.optimizer import TAU
+
+    solver = optimizer_from_problem(problem, device=dev).solver
+    solver.build_structure()
+    _, sys_ = solver.head()
+    return solver, sys_, TAU * solver.max_diagonal(sys_)
+
+
+def _held(name, k_out, p_out, what) -> float:
+    """Max abs error of a kernel's outputs against its twin's, each within
+    ``F64_TOL`` x its largest magnitude."""
+    errs = []
+    for k, p, w in zip(k_out, p_out, what):
+        err = (k - p).abs().max().item()
+        scale = p.abs().max().item()
+        check(k.shape == p.shape, f"{name}: {w} shape {tuple(k.shape)} != {tuple(p.shape)}")
+        check(err <= F64_TOL * scale, f"{name}: {w} err {err} > {F64_TOL} x {scale}")
+        print(f"  {name} {w} {tuple(k.shape)}: max_abs_err {err:.3e} (max|value| {scale:.3e})")
+        errs.append(err)
+    return max(errs)
+
+
+def path_kernel_checks(solver, sys_, lam, label) -> dict:
+    """B1, B3, B5 and B9 against their twins at one linearisation."""
+    from cuda_bundle_adjustment_tpu_torch.kernels import schurvec, terms
+    from cuda_bundle_adjustment_tpu_torch.models.ba import edge_state
+    from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mv_3x3
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    plan, data, graph = solver.plan, solver.packed, solver.graph
+    mdim = data.meas.shape[0]
+    m3 = 0 if data.mask3 is None else int(data.mask3.sum().item())
+    print(f"{label}: mdim={mdim}, {m3} stereo rows of {data.meas.shape[1]} (mask3)")
+    res = {}
+    qt, xw = edge_state(graph, data)
+
+    def held_timed(name, kernel, plain, what):
+        k_out, p_out = kernel(), plain()
+        if not isinstance(k_out, tuple):
+            k_out, p_out = (k_out,), (p_out,)
+        res[name] = dict(
+            max_abs_err=_held(name, k_out, p_out, what),
+            ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+        )
+
+    held_timed("chi_edges", lambda: terms.chi_edges(qt, xw, data),
+               lambda: terms.chi_edges_plain(qt, xw, data), ["chi"])
+    segs = (plan.pose_seg, plan.lm_seg)
+    held_timed("linearise", lambda: terms.linearise(qt, xw, data, *segs),
+               lambda: terms.linearise_plain(qt, xw, data, *segs),
+               ["Hpp|bp", "Hll|bl", "Hpl"])
+    blocks, bsc, invHll = bs.schur_reduce(sys_, lam, plan)
+    y = flat_mv_3x3(invHll, sys_.bl)
+    mv = (sys_.Hpl, y, plan.ba_lm_idx, sys_.bp, plan.pose_seg)
+    held_timed("hpl_mv_segment_sum", lambda: schurvec.hpl_mv_segment_sum(*mv),
+               lambda: schurvec.hpl_mv_segment_sum_plain(*mv), ["bsc"])
+    xp, ok = bs.solve_reduced_band(blocks, bsc, plan)
+    check(bool(ok), f"{label}: the first trial's reduced solve was rejected")
+    mtv = (sys_.Hpl, xp, plan.ba_pose_idx, sys_.bl, plan.lm_seg)
+    held_timed("hpl_mtv_segment_sum", lambda: schurvec.hpl_mtv_segment_sum(*mtv),
+               lambda: schurvec.hpl_mtv_segment_sum_plain(*mtv), ["cl"])
+    for name, r in res.items():
+        print(f"{label} {name}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms")
+    return res
+
+
 def kernel_checks(problem, dev) -> dict:
     """Phase 3: each kernel against its twin at the problem's shapes."""
     import torch
 
-    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
     from cuda_bundle_adjustment_tpu_torch.kernels import bandchol, gather, pairprod
     from cuda_bundle_adjustment_tpu_torch.models.ba import _pose_state_table
     from cuda_bundle_adjustment_tpu_torch.ops.components import flat_sym3x3_inv
-    from cuda_bundle_adjustment_tpu_torch.optimizer import TAU
     from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
 
-    opt = optimizer_from_problem(problem, device=dev)
-    solver = opt.solver
-    solver.build_structure()
-    _, sys_ = solver.head()
-    lam = TAU * solver.max_diagonal(sys_)
+    solver, sys_, lam = first_linearisation(problem, dev)
     plan, data, graph = solver.plan, solver.packed, solver.graph
     Pa, SB, bw = solver.Pa, plan.band.sb, plan.band.bw
     print(
         f"shapes: P={solver.P} Pa={Pa} L={solver.L} E={data.pose_idx.shape[0]} "
         f"nnz={plan.blk_row.shape[0]} T={plan.tri_ei.shape[0]} bw={bw} SB={SB}"
     )
-    res = {}
+    res = path_kernel_checks(solver, sys_, lam, "kitti00_mono")
 
     # B2: bit-exact against the masked gather
     table = _pose_state_table(graph)
@@ -197,41 +272,50 @@ def _to_device(x, dev):
 
 
 def small_problem_checks(dev) -> None:
-    """Phase 4: card vs CPU vs the numpy DenseLM oracle on a small graph."""
+    """Phase 4: card vs CPU vs the numpy DenseLM oracle on a small mono,
+    stereo and mixed graph."""
     import numpy as np
 
     from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
-    from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
+    from cuda_bundle_adjustment_tpu_torch.io.synthetic import (
+        make_ba_problem,
+        make_mixed_ba_problem,
+    )
     from cuda_bundle_adjustment_tpu_torch.utils.dense_reference import DenseLM
 
-    problem = make_ba_problem(
-        num_poses=16, num_landmarks=120, mean_obs_per_landmark=4.0, kind="mono", seed=13
-    )
-    traces, solvers = {}, {}
-    for d in (dev, "cpu"):
-        opt = optimizer_from_problem(problem, device=d)
-        opt.optimize(10)
-        traces[d] = [s.chi2 for s in opt.batch_statistics().get()]
-        solvers[d] = opt.solver
-    np.testing.assert_allclose(traces[dev], traces["cpu"], rtol=1e-9)
-    ref = DenseLM(problem)
-    want = ref.optimize(10)
-    check(len(want) == len(traces[dev]), "small problem: trace length differs from DenseLM")
-    np.testing.assert_allclose(traces[dev], want, rtol=1e-6)
-    s = solvers[dev]
-    q, t = s.result_poses()
-    Pa, La = s.Pa, s.La
-    np.testing.assert_allclose(q[:Pa], ref.q[:Pa], atol=1e-7)
-    np.testing.assert_allclose(t[:Pa], ref.t[:Pa], atol=1e-6)
-    np.testing.assert_allclose(s.result_landmarks()[:La], ref.Xw[:La], atol=1e-6)
-    print(
-        f"small problem (16 poses, 120 landmarks, seed 13): {len(want)} iterations, "
-        f"cuda/cpu/DenseLM agree; chi2 {traces[dev][0]:.6f} -> {traces[dev][-1]:.6f}"
-    )
+    kw = dict(num_poses=16, num_landmarks=120, mean_obs_per_landmark=4.0, seed=13)
+    for kind in ("mono", "stereo", "mixed"):
+        if kind == "mixed":
+            problem = make_mixed_ba_problem(**kw)
+        else:
+            problem = make_ba_problem(kind=kind, **kw)
+        traces, solvers = {}, {}
+        for d in (dev, "cpu"):
+            opt = optimizer_from_problem(problem, device=d)
+            opt.optimize(10)
+            traces[d] = [s.chi2 for s in opt.batch_statistics().get()]
+            solvers[d] = opt.solver
+        np.testing.assert_allclose(traces[dev], traces["cpu"], rtol=1e-9)
+        ref = DenseLM(problem)
+        want = ref.optimize(10)
+        check(len(want) == len(traces[dev]), f"small {kind}: trace length differs from DenseLM")
+        np.testing.assert_allclose(traces[dev], want, rtol=1e-6)
+        s = solvers[dev]
+        q, t = s.result_poses()
+        Pa, La = s.Pa, s.La
+        np.testing.assert_allclose(q[:Pa], ref.q[:Pa], atol=1e-7)
+        np.testing.assert_allclose(t[:Pa], ref.t[:Pa], atol=1e-6)
+        np.testing.assert_allclose(s.result_landmarks()[:La], ref.Xw[:La], atol=1e-6)
+        print(
+            f"small {kind} problem (16 poses, 120 landmarks, seed 13): {len(want)} "
+            f"iterations, cuda/cpu/DenseLM agree; chi2 {traces[dev][0]:.6f} -> "
+            f"{traces[dev][-1]:.6f}"
+        )
 
 
-def main_path(problem, dev):
-    """Phase 5: kitti00_mono optimize(10), counted, repeated and timed."""
+def main_path(problem, dev, label: str, warm_runs: int) -> dict:
+    """Phase 5: one configuration's optimize(10), counted, repeated and
+    timed.  Returns the launch counts of its first run."""
     import numpy as np
     import torch
 
@@ -251,7 +335,7 @@ def main_path(problem, dev):
     counts = kernels.launch_counts()
     trace = [s.chi2 for s in opt.batch_statistics().get()]
     warm, traces = [], []
-    for _ in range(WARM_RUNS):
+    for _ in range(warm_runs):
         o, sec = run()
         warm.append(sec)
         traces.append([s.chi2 for s in o.batch_statistics().get()])
@@ -267,26 +351,26 @@ def main_path(problem, dev):
     po.optimize(10)
     traces.append([s.chi2 for s in po.batch_statistics().get()])
 
-    print("kitti00_mono chi2 trace:", json.dumps(trace))
+    print(f"{label} chi2 trace:", json.dumps(trace))
     print(
-        f"stage profile of one profiled run (ms; packing {pack_ms:.1f}):",
+        f"{label} stage profile of one profiled run (ms; packing {pack_ms:.1f}):",
         json.dumps(po.time_profile()),
     )
-    check(all(tr == trace for tr in traces), "kitti00_mono: traces differ between runs")
-    check(np.all(np.isfinite(trace)), "kitti00_mono: non-finite chi2")
-    check(trace[-1] < trace[0], "kitti00_mono: chi2 did not fall")
+    check(all(tr == trace for tr in traces), f"{label}: traces differ between runs")
+    check(np.all(np.isfinite(trace)), f"{label}: non-finite chi2")
+    check(trace[-1] < trace[0], f"{label}: chi2 did not fall")
     g = opt.solver.graph
     check(
         g.q.shape == (problem.pose_q.shape[0], 4)
         and g.Xw.shape == problem.landmarks.shape
         and bool(torch.isfinite(g.q).all() and torch.isfinite(g.t).all() and torch.isfinite(g.Xw).all()),
-        "kitti00_mono: final state has the wrong shape or non-finite values",
+        f"{label}: final state has the wrong shape or non-finite values",
     )
     for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-    print(f"launch counts (one optimize(10) run): {json.dumps(counts)}")
+        check(n > 0, f"{label}: kernel {name} was not launched")
+    print(f"{label} launch counts (one optimize(10) run): {json.dumps(counts)}")
     print(
-        f"kitti00_mono optimizer_from_problem+optimize(10): cold {cold_s:.4f} s, "
+        f"{label} optimizer_from_problem+optimize(10): cold {cold_s:.4f} s, "
         f"warm median {statistics.median(warm):.4f} s over {len(warm)} runs "
         f"{json.dumps([round(w, 4) for w in warm])} [{nvidia_smi_line()}]"
     )
@@ -305,7 +389,10 @@ def main() -> int:
         f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {nvcc_version()}"
     )
-    from cuda_bundle_adjustment_tpu_torch.io.synthetic import kitti00_scale_problem
+    from cuda_bundle_adjustment_tpu_torch.io.synthetic import (
+        kitti00_scale_mixed_problem,
+        kitti00_scale_problem,
+    )
     from cuda_bundle_adjustment_tpu_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
@@ -313,10 +400,15 @@ def main() -> int:
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
 
-    problem = kitti00_scale_problem(kind="mono", seed=0)
-    res = kernel_checks(problem, dev)
+    mono = kitti00_scale_problem(kind="mono", seed=0)
+    mixed = kitti00_scale_mixed_problem(seed=0)
+    res = kernel_checks(mono, dev)
+    mixed_res = path_kernel_checks(*first_linearisation(mixed, dev), "kitti00_mixed")
+    print("kitti00_mixed kernel checks:", json.dumps(mixed_res))
     small_problem_checks(dev)
-    counts = main_path(problem, dev)
+    counts = main_path(mono, dev, "kitti00_mono", warm_runs=3)
+    main_path(kitti00_scale_problem(kind="stereo", seed=0), dev, "kitti00_stereo", warm_runs=2)
+    main_path(mixed, dev, "kitti00_mixed", warm_runs=2)
 
     rows = []
     for name, (src, replaces) in KERNEL_INFO.items():

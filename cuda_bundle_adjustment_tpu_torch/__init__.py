@@ -4,12 +4,14 @@ The JAX package ``cuda_bundle_adjustment_tpu`` is the reference; this
 package mirrors its module and function names so each counterpart is easy to
 find, but imports ``torch`` and never ``jax``.
 
-This first slice runs the ``kitti00_mono`` configuration end to end: one mono
-edge set with one global camera, f64 state, no robust kernel,
-``solver_precision="mixed"`` and the host LM loop.  Four kernels on that path
-are hand-written CUDA C++ for ``sm_90a`` (``csrc/``); every other stage is
-plain PyTorch.  Everything outside the slice raises ``NotImplementedError``
-naming its ROADMAP item.
+The port runs the ``kitti00_mono``, ``kitti00_stereo`` and ``kitti00_mixed``
+configurations end to end: one mono or stereo edge set, or a mono and a
+stereo set merged into one masked stereo set, with one global camera, f64
+state, no robust kernel, ``solver_precision="mixed"`` and the host LM loop.
+Eight kernels on that path are hand-written CUDA C++ for ``sm_90a``
+(``csrc/``, listed in ``kernels``); every other stage is plain PyTorch.
+Everything outside the slice raises ``NotImplementedError`` naming its open
+ROADMAP item.
 
 Quick start::
 

@@ -9,7 +9,6 @@ import torch
 
 from ..graph import GraphOptimisationOptions
 from ..optimizer import TorchGraphOptimisation
-from ..solver.block_solver import outside_slice
 from .synthetic import BAProblem, MixedBAProblem
 
 
@@ -21,34 +20,42 @@ def optimizer_from_problem(
     outlier_threshold: float = 0.0,
     device: Union[str, torch.device] = "cpu",
 ) -> TorchGraphOptimisation:
-    """Create an optimiser on ``device`` packed from a :class:`BAProblem`.
+    """Create an optimiser on ``device`` packed from a :class:`BAProblem`
+    (one edge set) or a :class:`MixedBAProblem` (several edge sets over
+    shared vertices; a mono and a stereo set merge into one masked stereo
+    set).
 
     Call ``optimize(n)`` directly on the result; estimates stay in
     ``opt.solver.graph`` (``q``/``t``/``Xw`` tensors on ``device``), and
     ``opt.solver.result_poses()`` / ``result_landmarks()`` return them in
-    the problem's order.  A :class:`MixedBAProblem` (several edge sets)
-    waits for ROADMAP A8.
+    the problem's order.
     """
-    if isinstance(problem, MixedBAProblem):
-        raise outside_slice("mixed mono+stereo problems", "A8")
     opt = TorchGraphOptimisation(options, device)
-    spec = dict(
-        kind=problem.kind,
-        meas=problem.meas,
-        pose_idx=problem.pose_idx,
-        lm_idx=problem.lm_idx,
-        omega=problem.omega,
-        cam=problem.cam,
-        rk=rk,
-        delta=delta,
-        outlier_threshold=outlier_threshold,
-    )
+    if isinstance(problem, MixedBAProblem):
+        specs = [
+            dict(s, rk=rk, delta=delta, outlier_threshold=outlier_threshold)
+            for s in problem.specs
+        ]
+    else:
+        specs = [
+            dict(
+                kind=problem.kind,
+                meas=problem.meas,
+                pose_idx=problem.pose_idx,
+                lm_idx=problem.lm_idx,
+                omega=problem.omega,
+                cam=problem.cam,
+                rk=rk,
+                delta=delta,
+                outlier_threshold=outlier_threshold,
+            )
+        ]
     opt.solver.initialize_from_arrays(
         pose_q=problem.pose_q,
         pose_t=problem.pose_t,
         num_active_poses=problem.num_active_poses,
         landmarks=problem.landmarks,
         num_active_landmarks=problem.num_active_landmarks,
-        edge_specs=[spec],
+        edge_specs=specs,
     )
     return opt

@@ -1,14 +1,20 @@
 """Hand-written Hopper kernels of the slice, each beside its plain twin.
 
-=========================  =====================  ==================================
-wrapper                    source                 replaces (JAX package)
-=========================  =====================  ==================================
-``gather_rows``   (B2)     ``csrc/gather.cu``     ``pallas/onehot.py`` ``expand``
-``schur_pair_products``    ``csrc/pairprod.cu``   ``pallas/pairprod.py``
-(B6)                                              ``_pairprod_call_v2``
-``band_factor``   (B7)     ``csrc/bandchol.cu``   ``pallas/bandchol.py`` ``band_factor2``
-``band_solve``    (B8)     ``csrc/bandchol.cu``   ``pallas/bandchol.py`` ``band_solve``
-=========================  =====================  ==================================
+=============================  =====================  ==================================
+wrapper                        source                 replaces (JAX package)
+=============================  =====================  ==================================
+``chi_edges``          (B1)    ``csrc/terms.cu``      ``pallas/terms.py`` ``chi_class_call``
+``gather_rows``        (B2)    ``csrc/gather.cu``     ``pallas/onehot.py`` ``expand``
+``linearise``          (B3)    ``csrc/terms.cu``      ``pallas/terms.py`` ``terms_class_call``
+``hpl_mv_segment_sum`` (B5)    ``csrc/schurvec.cu``   ``pallas/schurvec.py``
+                                                      ``hpl_mv_class_call``
+``schur_pair_products`` (B6)   ``csrc/pairprod.cu``   ``pallas/pairprod.py``
+                                                      ``_pairprod_call_v2``
+``band_factor``        (B7)    ``csrc/bandchol.cu``   ``pallas/bandchol.py`` ``band_factor2``
+``band_solve``         (B8)    ``csrc/bandchol.cu``   ``pallas/bandchol.py`` ``band_solve``
+``hpl_mtv_segment_sum`` (B9)   ``csrc/schurvec.cu``   ``pallas/schurvec.py``
+                                                      ``hpl_mtv_class_call``
+=============================  =====================  ==================================
 
 Every wrapper counts its kernel launches in a plain integer attribute,
 ``wrapper.launches``, incremented only where the kernel is launched.
@@ -17,8 +23,13 @@ Every wrapper counts its kernel launches in a plain integer attribute,
 from .bandchol import band_factor, band_solve
 from .gather import gather_rows
 from .pairprod import schur_pair_products
+from .schurvec import hpl_mtv_segment_sum, hpl_mv_segment_sum
+from .terms import chi_edges, linearise
 
-KERNELS = (gather_rows, schur_pair_products, band_factor, band_solve)
+KERNELS = (
+    chi_edges, gather_rows, linearise, hpl_mv_segment_sum, schur_pair_products,
+    band_factor, band_solve, hpl_mtv_segment_sum,
+)
 
 
 def reset_launch_counts() -> None:

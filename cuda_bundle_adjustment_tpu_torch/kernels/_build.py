@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -28,7 +29,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("gather", "pairprod", "bandchol")
+SOURCES = ("gather", "terms", "schurvec", "pairprod", "bandchol")
+# terms.cu and schurvec.cu evaluate their plain twins' per-edge expressions
+# operation for operation, so that per-edge values agree bit for bit: no
+# a * b + c may be contracted into a fused multiply-add there (the residual
+# cancels terms as large as the projected pixel coordinates, bsc and cl
+# cancel their right-hand sides)
+SOURCE_FLAGS = {"terms": ("-fmad=false",), "schurvec": ("-fmad=false",)}
+
+
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -49,7 +60,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Content-addressed path of the built library for ``csrc/<name>.cu``."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src + "\0".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
@@ -58,7 +69,7 @@ def _build(name: str, out: Path) -> None:
     fd, tmp = tempfile.mkstemp(prefix=f".lib{name}-", suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -84,8 +95,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def _build_missing(name: str) -> None:
+    path = library_path(name)
+    if not path.exists():
+        _build(name, path)
+
+
 def build_all() -> None:
-    """Build and load every kernel source (``chip_smoke.py`` times this)."""
+    """Build every kernel source, one ``nvcc`` each, all started together,
+    then load them (``chip_smoke.py`` times this)."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        for f in [pool.submit(_build_missing, name) for name in SOURCES]:
+            f.result()
     for name in SOURCES:
         load(name)
 

@@ -1,0 +1,156 @@
+"""Kernels B1 (per-edge chi) and B3 (linearisation) (``csrc/terms.cu``) and
+their plain twins.
+
+Counterparts of ``pallas/terms.py`` ``chi_class_call`` and
+``terms_class_call``.  Both take the per-edge state that kernel B2 gathers
+(``models/ba.py edge_state``: pose ``[E, 12]``, landmark ``[E, 3]``) and the
+edge payload of :class:`PackedEdges`: ``meas [mdim, E]`` (mdim 2 runs the
+mono model, 3 the stereo model, with ``mask3`` masking the third row of a
+merged mono+stereo set), ``omega [1] or [E]``, ``active``, ``both_free``
+and the camera ``[5, 1]``.  Only ``rk = 0`` (the solver's slice) is taken:
+B1 returns ``omega * active * |e|^2`` per edge.  The wrappers dispatch on
+the tensor's device only: a CPU tensor runs the plain PyTorch twin (the
+models of ``models/ba.py``), a CUDA tensor launches the kernel (or raises).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..solver.segments import Segments, segment_sum
+from ..types import PackedEdges
+from . import _build
+
+
+def _model(data: PackedEdges):
+    from ..models.ba import MonoModel, StereoModel
+
+    return MonoModel if data.meas.shape[0] == 2 else StereoModel
+
+
+def chi_edges_plain(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Tensor:
+    """Plain PyTorch twin of B1: the model's per-edge chi at ``rk = 0``."""
+    return _model(data).chi(None, data, 0, 1.0, state=(qt, xw))
+
+
+def linearise_plain(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments):
+    """Plain PyTorch twin of B3: the model's per-edge stacks at ``rk = 0``,
+    then fixed-order segment sums per pose and per landmark."""
+    pose_stack, lm_stack, hpl = _model(data).terms(None, data, 0, 1.0, state=(qt, xw))
+    return segment_sum(pose_stack, pose_seg), segment_sum(lm_stack, lm_seg), hpl
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _check(name, qt, xw, data: PackedEdges, segs=()):
+    """Validate the operands of a CUDA launch; returns them contiguous."""
+    E = qt.shape[0]
+    mdim = data.meas.shape[0]
+    floats = [qt, xw, data.meas, data.omega, data.cam, data.active, data.both_free, data.mask3]
+    floats = [t for t in floats if t is not None]
+    ints = [t for s in segs for t in s]
+    if any(t.dtype != torch.float64 for t in floats) or any(t.dtype != torch.int64 for t in ints):
+        raise TypeError(f"{name}: expects f64 edge data and int64 segment plans")
+    if any(t.device != qt.device for t in floats + ints):
+        raise ValueError(f"{name}: all operands must be on one device")
+    if mdim not in (2, 3) or data.meas.shape != (mdim, E):
+        raise ValueError(f"{name}: expects meas [2 or 3, E]")
+    if qt.shape != (E, 12) or xw.shape != (E, 3) or data.cam.numel() != 5:
+        raise ValueError(f"{name}: expects pose state [E, 12], landmark [E, 3], camera [5]")
+    if data.omega.shape not in ((1,), (E,)):
+        raise ValueError(f"{name}: expects omega [1] or [E]")
+    for t in (data.active, data.both_free, data.mask3):
+        if t is not None and t.shape != (E,):
+            raise ValueError(f"{name}: expects active, both_free and mask3 of shape [E]")
+    if data.mask3 is not None and mdim != 3:
+        raise ValueError(f"{name}: mask3 needs a stereo (mdim 3) measurement")
+    return (
+        qt.contiguous(), xw.contiguous(),
+        data._replace(
+            meas=data.meas.contiguous(), omega=data.omega.contiguous(),
+            cam=data.cam.reshape(5).contiguous(), active=_contiguous(data.active),
+            both_free=_contiguous(data.both_free), mask3=_contiguous(data.mask3),
+        ),
+    )
+
+
+def _contiguous(t):
+    return None if t is None else t.contiguous()
+
+
+_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = {
+    # qt xw meas omega active m3 cam | E omega_stride mdim | out stream
+    "tba_chi_edges": [_VP] * 7 + [_LL, _INT, _INT, _VP, _VP],
+    # qt xw meas omega active both_free m3 cam | E omega_stride mdim |
+    # pose order, offsets, Pa | lm order, offsets, La | 3 outputs, stream
+    "tba_linearise": [_VP] * 8 + [_LL, _INT, _INT, _VP, _VP, _LL, _VP, _VP, _LL]
+    + [_VP] * 4,
+}
+
+
+def _fn(name: str):
+    fn = getattr(_build.load("terms"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def chi_edges(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Tensor:
+    """Per-edge ``omega * active * |e|^2`` ``[E]`` f64 (kernel B1 on CUDA)."""
+    if qt.device.type == "cpu":
+        return chi_edges_plain(qt, xw, data)
+    if qt.device.type != "cuda":
+        raise NotImplementedError(f"chi_edges: no kernel for device {qt.device}")
+    qt, xw, d = _check("chi_edges", qt, xw, data)
+    E = qt.shape[0]
+    out = torch.empty(E, dtype=qt.dtype, device=qt.device)
+    if E == 0:
+        return out
+    status = _fn("tba_chi_edges")(
+        qt.data_ptr(), xw.data_ptr(), d.meas.data_ptr(), d.omega.data_ptr(),
+        _ptr(d.active), _ptr(d.mask3), d.cam.data_ptr(), E,
+        int(d.omega.shape[0] != 1), d.meas.shape[0], out.data_ptr(),
+        _build.stream_ptr(qt),
+    )
+    _build.check(status, "chi_edges")
+    chi_edges.launches += 1
+    return out
+
+
+def linearise(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments):
+    """``(Hpp|bp [Pa, 42], Hll|bl [La, 12], Hpl [E, 18])`` f64, summed in
+    segment order (kernel B3 on CUDA)."""
+    if qt.device.type == "cpu":
+        return linearise_plain(qt, xw, data, pose_seg, lm_seg)
+    if qt.device.type != "cuda":
+        raise NotImplementedError(f"linearise: no kernel for device {qt.device}")
+    qt, xw, d = _check("linearise", qt, xw, data, (pose_seg, lm_seg))
+    pose_seg = Segments(*(t.contiguous() for t in pose_seg))
+    lm_seg = Segments(*(t.contiguous() for t in lm_seg))
+    E = qt.shape[0]
+    Pa, La = pose_seg.offsets.shape[0] - 1, lm_seg.offsets.shape[0] - 1
+    kw = dict(dtype=qt.dtype, device=qt.device)
+    pose, lm, hpl = torch.empty((Pa, 42), **kw), torch.empty((La, 12), **kw), torch.empty((E, 18), **kw)
+    if E + Pa + La == 0:
+        return pose, lm, hpl
+    status = _fn("tba_linearise")(
+        qt.data_ptr(), xw.data_ptr(), d.meas.data_ptr(), d.omega.data_ptr(),
+        _ptr(d.active), _ptr(d.both_free), _ptr(d.mask3), d.cam.data_ptr(), E,
+        int(d.omega.shape[0] != 1), d.meas.shape[0],
+        pose_seg.order.data_ptr(), pose_seg.offsets.data_ptr(), Pa,
+        lm_seg.order.data_ptr(), lm_seg.offsets.data_ptr(), La,
+        pose.data_ptr(), lm.data_ptr(), hpl.data_ptr(), _build.stream_ptr(qt),
+    )
+    _build.check(status, "linearise")
+    linearise.launches += 1
+    return pose, lm, hpl
+
+
+chi_edges.launches = 0
+linearise.launches = 0

@@ -1,24 +1,28 @@
-"""The mono bundle-adjustment model (counterpart of ``models/ba.py``).
+"""The mono and stereo bundle-adjustment models (counterpart of
+``models/ba.py``).
 
-Two batched stage functions, in the JAX package's component form (every
-intermediate an ``[E]`` vector) and with its g2o Jacobian convention
+Two batched stage functions per model, in the JAX package's component form
+(every intermediate an ``[E]`` vector) and with its g2o Jacobian convention
 ``J = -d(proj)/d(state)``, so ``b = sum w J^T e`` is the negative gradient:
 
-* ``MonoModel.chi(graph, data, rk, delta)``   -> per-edge robustified chi2
-  ``[E]``
-* ``MonoModel.terms(graph, data, rk, delta)`` -> ``(pose_stack [E,42],
+* ``Model.chi(graph, data, rk, delta)``   -> per-edge robustified chi2 ``[E]``
+* ``Model.terms(graph, data, rk, delta)`` -> ``(pose_stack [E,42],
   lm_stack [E,12], hpl [E,18])``
 
 The per-edge pose and landmark state comes in through kernel B2
-(``kernels.gather_rows``).  Stereo and depth wait for ROADMAP A8/A9; the
-solver admits only ``rk = 0`` until A8.
+(:func:`edge_state`); ``state=`` hands in a state gathered already, as the
+JAX package's ``pose_state=`` does.  These functions are the plain twins of
+kernels B1 and B3 (``kernels/terms.py``).  A merged mono+stereo set
+(``data.mask3``) runs the stereo model with the third residual component and
+Jacobian row masked per edge.  Depth waits for ROADMAP A9; the solver admits
+only ``rk = 0`` until ROADMAP A8.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import gather_rows
+from ..kernels.gather import gather_rows
 from ..ops import components as C
 from ..ops.robust import robust_derivative, robustify
 from ..types import GraphArrays, PackedEdges
@@ -32,10 +36,20 @@ def _pose_state_table(graph: GraphArrays) -> torch.Tensor:
     return torch.stack([graph.t[:, 0], graph.t[:, 1], graph.t[:, 2], *R], dim=1)
 
 
-def _edge_inputs(graph: GraphArrays, data: PackedEdges):
-    """Per-edge component vectors (all [E]) gathered from the state tables."""
-    qt = gather_rows(_pose_state_table(graph), data.pose_idx).T  # [12, E]
-    Xw3 = gather_rows(graph.Xw, data.lm_idx).T  # [3, E]
+def edge_state(graph: GraphArrays, data: PackedEdges):
+    """Per-edge pose state ``[E, 12]`` (t | R) and landmark ``[E, 3]``,
+    gathered by kernel B2."""
+    return (
+        gather_rows(_pose_state_table(graph), data.pose_idx),
+        gather_rows(graph.Xw, data.lm_idx),
+    )
+
+
+def _edge_inputs(graph, data: PackedEdges, state=None):
+    """Per-edge component vectors (all [E]) from the gathered state."""
+    if state is None:
+        state = edge_state(graph, data)
+    qt, Xw3 = state[0].T, state[1].T  # [12, E], [3, E]
     t = (qt[0], qt[1], qt[2])
     R = tuple(qt[3 + i] for i in range(9))
     cam = tuple(data.cam[i] for i in range(5))
@@ -50,22 +64,42 @@ def _edge_inputs(graph: GraphArrays, data: PackedEdges):
     return R, Xc, cam, inv_z
 
 
-def _chi_projective(graph: GraphArrays, data: PackedEdges, rk: int, delta: float):
+def _residual(kind: str, Xc, cam, meas, inv_z):
+    if kind == "mono":
+        return C.mono_residual_comps(Xc, cam, meas[0], meas[1], inv_z)
+    if kind == "stereo":
+        return C.stereo_residual_comps(Xc, cam, meas[0], meas[1], meas[2], inv_z)
+    raise ValueError(kind)
+
+
+def _chi_projective(kind, graph, data, rk, delta, state=None):
     # inactive rows produce finite garbage (inv_z is zeroed at the source)
     # and the trailing ``* active`` zeroes their chi exactly
-    _, Xc, cam, inv_z = _edge_inputs(graph, data)
-    e = C.mono_residual_comps(Xc, cam, data.meas[0], data.meas[1], inv_z)
-    x = data.omega * (e[0] * e[0] + e[1] * e[1])
+    _, Xc, cam, inv_z = _edge_inputs(graph, data, state)
+    e = _residual(kind, Xc, cam, data.meas, inv_z)
+    if data.mask3 is not None:
+        # merged mono+stereo set: mono rows (mask3 = 0) drop the third
+        # residual component
+        e = e[:2] + (e[2] * data.mask3,)
+    x = data.omega * C._sum(c * c for c in e)
     return robustify(rk, delta, x) * data.active
 
 
-def _terms_projective(graph: GraphArrays, data: PackedEdges, rk: int, delta: float):
-    R, Xc, cam, inv_z = _edge_inputs(graph, data)
-    e = C.mono_residual_comps(Xc, cam, data.meas[0], data.meas[1], inv_z)
-    x = data.omega * (e[0] * e[0] + e[1] * e[1])
+def _terms_projective(kind, jac_fn, graph, data, rk, delta, state=None):
+    R, Xc, cam, inv_z = _edge_inputs(graph, data, state)
+    e = _residual(kind, Xc, cam, data.meas, inv_z)
+    if data.mask3 is not None:
+        e = e[:2] + (e[2] * data.mask3,)
+    x = data.omega * C._sum(c * c for c in e)
     # ``* active`` in w zeroes every stack contribution of inactive rows
     w = data.omega * robust_derivative(rk, delta, x) * data.active
-    JP, JL = C.mono_jacobian_comps(Xc, R, cam, inv_z)
+    JP, JL = jac_fn(Xc, R, cam, inv_z)
+    if data.mask3 is not None:
+        # zero the third Jacobian row too: J^T J and J^T e then reduce to
+        # the mono quadratic form for mono rows
+        m3 = data.mask3
+        JP = (JP[0], JP[1], tuple(m3 * c for c in JP[2]))
+        JL = (JL[0], JL[1], tuple(m3 * c for c in JL[2]))
     pose_stack, lm_stack, hpl = C.weighted_block_stacks(JP, JL, e, w)
     return pose_stack, lm_stack, hpl * (w * data.both_free)[:, None]
 
@@ -75,9 +109,29 @@ class MonoModel:
     HAS_LANDMARK = True
 
     @staticmethod
-    def chi(graph: GraphArrays, data: PackedEdges, rk: int, delta: float):
-        return _chi_projective(graph, data, rk, delta)
+    def chi(graph, data, rk, delta, state=None):
+        return _chi_projective("mono", graph, data, rk, delta, state)
 
     @staticmethod
-    def terms(graph: GraphArrays, data: PackedEdges, rk: int, delta: float):
-        return _terms_projective(graph, data, rk, delta)
+    def terms(graph, data, rk, delta, state=None):
+        return _terms_projective(
+            "mono", C.mono_jacobian_comps, graph, data, rk, delta, state
+        )
+
+
+class StereoModel:
+    MDIM = 3
+    HAS_LANDMARK = True
+
+    @staticmethod
+    def chi(graph, data, rk, delta, state=None):
+        return _chi_projective("stereo", graph, data, rk, delta, state)
+
+    @staticmethod
+    def terms(graph, data, rk, delta, state=None):
+        return _terms_projective(
+            "stereo", C.stereo_jacobian_comps, graph, data, rk, delta, state
+        )
+
+
+MODEL_REGISTRY = {"mono": MonoModel, "stereo": StereoModel}

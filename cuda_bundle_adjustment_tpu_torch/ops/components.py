@@ -3,8 +3,8 @@
 
 Every per-edge quantity is a plain ``[E]`` vector and rank-2 per-edge blocks
 exist only as flat row-major ``[E, K]`` stacks, exactly as in the JAX
-package, so the two compute the same floats in the same order.  The stereo
-and depth comps wait for ROADMAP A8/A9.
+package, so the two compute the same floats in the same order.  The depth
+comps wait for ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -59,6 +59,17 @@ def mono_residual_comps(Xc, cam, m0, m1, inv_z):
     return e0, e1
 
 
+def stereo_residual_comps(Xc, cam, m0, m1, m2, inv_z):
+    """Stereo residual components ``[u_l, v, u_r] - meas``."""
+    Xx, Xy, _ = Xc
+    fx, fy, cx, cy, bf = cam
+    u = fx * inv_z * Xx + cx
+    e0 = u - m0
+    e1 = fy * inv_z * Xy + cy - m1
+    e2 = u - bf * inv_z - m2
+    return e0, e1, e2
+
+
 def mono_jacobian_comps(Xc, R, cam, inv_z):
     """g2o-convention mono Jacobians ``(JP [2][6], JL [2][3])`` of ``[E]``
     vectors (``J = -d(proj)/d(state)``)."""
@@ -84,6 +95,57 @@ def mono_jacobian_comps(Xc, R, cam, inv_z):
     jp0 = (fx * x * y, -fx * (1 + x * x), fx * y, -fx_iz, zero, fx_iz * x)
     jp1 = (fy * (1 + y * y), -fy * x * y, -fy * x, zero, -fy_iz, fy_iz * y)
     return (jp0, jp1), (jl0, jl1)
+
+
+def stereo_jacobian_comps(Xc, R, cam, inv_z):
+    """g2o-convention stereo Jacobians ``(JP [3][6], JL [3][3])``; rows 0-1
+    are the mono Jacobian written with ``inv_z * inv_z``."""
+    Xx, Xy, _ = Xc
+    fx, fy, _, _, bf = cam
+    inv_zz = inv_z * inv_z
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = R
+
+    jl0 = (
+        -fx * r00 * inv_z + fx * Xx * r20 * inv_zz,
+        -fx * r01 * inv_z + fx * Xx * r21 * inv_zz,
+        -fx * r02 * inv_z + fx * Xx * r22 * inv_zz,
+    )
+    jl1 = (
+        -fy * r10 * inv_z + fy * Xy * r20 * inv_zz,
+        -fy * r11 * inv_z + fy * Xy * r21 * inv_zz,
+        -fy * r12 * inv_z + fy * Xy * r22 * inv_zz,
+    )
+    jl2 = (
+        jl0[0] - bf * r20 * inv_zz,
+        jl0[1] - bf * r21 * inv_zz,
+        jl0[2] - bf * r22 * inv_zz,
+    )
+    zero = torch.zeros_like(inv_z)
+    jp0 = (
+        Xx * Xy * inv_zz * fx,
+        -(1 + Xx * Xx * inv_zz) * fx,
+        Xy * inv_z * fx,
+        -inv_z * fx,
+        zero,
+        Xx * inv_zz * fx,
+    )
+    jp1 = (
+        (1 + Xy * Xy * inv_zz) * fy,
+        -Xx * Xy * inv_zz * fy,
+        -Xx * inv_z * fy,
+        zero,
+        -inv_z * fy,
+        Xy * inv_zz * fy,
+    )
+    jp2 = (
+        jp0[0] - bf * Xy * inv_zz,
+        jp0[1] + bf * Xx * inv_zz,
+        jp0[2],
+        jp0[3],
+        zero,
+        jp0[5] - bf * inv_zz,
+    )
+    return (jp0, jp1, jp2), (jl0, jl1, jl2)
 
 
 def weighted_block_stacks(JP, JL, e, w):

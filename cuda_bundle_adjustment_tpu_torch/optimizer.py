@@ -70,7 +70,7 @@ class TorchGraphOptimisation:
         if solver.graph is None:
             raise RuntimeError("optimize() called before the graph was packed")
         if self.use_fused_loop:
-            raise outside_slice("the fused device-resident LM loop", "A6")
+            raise outside_slice("use_fused_loop", "A6: the device-resident LM loop")
 
         t0 = time.perf_counter()
         solver.build_structure()

@@ -1,17 +1,25 @@
 """Block solver: packing, structure analysis and the LM pipeline stages
 (counterpart of ``solver/block_solver.py``, slice stages only).
 
-Same stage decomposition and math as the JAX package's XLA path, in plain
-PyTorch around four hand-written kernels:
+Same stage decomposition and math as the JAX package's terms-kernel path
+(``TBA_DISABLE_LMINV_KERNEL=1``), in plain PyTorch around eight hand-written
+kernels:
 
-* per-edge state gathers through kernel B2 (``models/ba.py``);
-* the Schur pair products through kernel B6 (:func:`schur_reduce`);
+* per-edge state gathers through kernel B2 (``models/ba.py edge_state``);
+* chi through kernel B1 (:func:`compute_chi`) and the linearisation through
+  kernel B3 (:func:`build_system`), for mono, stereo and merged mono+stereo
+  edge sets;
+* the bsc product through kernel B5 and the Schur pair products through
+  kernel B6 (:func:`schur_reduce`);
 * the f32 band factor and solves through kernels B7 and B8
   (:func:`solve_reduced_band`), followed by exactly two f64 refinement
-  rounds and the ``1e-8 ||b||`` residual check.
+  rounds and the ``1e-8 ||b||`` residual check;
+* the back-substitution product through kernel B9
+  (:func:`schur_back_substitute`).
 
-Every per-pose, per-landmark and per-block-row sum is a fixed-order CSR
-segment sum over rows sorted by target once per structure
+The damped landmark inverse and its products stay plain tensor code until
+kernels B4 and B10.  Every per-pose, per-landmark and per-block-row sum is a
+fixed-order CSR segment sum over rows sorted by target once per structure
 (:class:`Segments`), never a float atomic, so two runs on one device give
 the same chi2 trace bit for bit.  Anything outside the slice raises
 ``NotImplementedError`` naming its ROADMAP item.
@@ -26,12 +34,21 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..kernels import band_factor, band_solve, schur_pair_products
-from ..models.ba import MonoModel
+from ..kernels import (
+    band_factor,
+    band_solve,
+    chi_edges,
+    hpl_mtv_segment_sum,
+    hpl_mv_segment_sum,
+    linearise,
+    schur_pair_products,
+)
+from ..models.ba import MODEL_REGISTRY, edge_state
 from ..ops import components as C
 from ..ops.lie import se3_exp, se3_update_left
 from ..types import GraphArrays, PackedEdges, SystemBlocks
 from ..utils import profiling as prof
+from .segments import Segments, make_segments, segment_sum
 from .symbolic import SchurStructure, build_schur_structure, sort_triples
 
 # widest band the band kernels take (bw + 1 <= MAX_BAND); a wider Hsc needs
@@ -53,16 +70,6 @@ class BandMeta(NamedTuple):
     sb: int  # band height: bw + 1 rounded up to a multiple of 8
 
 
-class Segments(NamedTuple):
-    """A fixed-order segment sum plan: ``sum_j values[order[j]]`` over
-    ``offsets[s] <= j < offsets[s+1]`` for segment ``s``.  ``order`` is a
-    stable sort of the rows by target, truncated to rows whose target is in
-    range (rows of fixed vertices drop out)."""
-
-    order: torch.Tensor  # [n] int64
-    offsets: torch.Tensor  # [nseg + 1] int64
-
-
 class SchurPlan(NamedTuple):
     """Device-side plan for the stages, constant per structure."""
 
@@ -81,27 +88,81 @@ class SchurPlan(NamedTuple):
     band: BandMeta
 
 
-def _segments(ids: np.ndarray, nseg: int, device) -> Segments:
-    ids = np.asarray(ids, dtype=np.int64)
-    order = np.argsort(ids, kind="stable")
-    offsets = np.searchsorted(ids[order], np.arange(nseg + 1), side="left")
-    return Segments(
-        order=torch.as_tensor(order[: offsets[-1]], device=device),
-        offsets=torch.as_tensor(offsets.astype(np.int64), device=device),
-    )
-
-
-def segment_sum(values: torch.Tensor, seg: Segments) -> torch.Tensor:
-    """Fixed-order sum of the rows of ``values`` per segment (no atomics)."""
-    return torch.segment_reduce(
-        values.index_select(0, seg.order), "sum", offsets=seg.offsets
-    )
-
-
 def outside_slice(what: str, item: str) -> NotImplementedError:
+    """The refusal for an input the port does not run yet; ``item`` names
+    the open ROADMAP item, e.g. ``"A8: robust kernels"``."""
     return NotImplementedError(
         f"{what} is outside the PyTorch port's current slice (ROADMAP {item})"
     )
+
+
+def _merge_ba_specs(edge_specs):
+    """Merge mono+stereo edge specs into one masked stereo spec.
+
+    The mono residual and Jacobian are the stereo model's rows 0-1, so a
+    per-edge third-component mask (``PackedEdges.mask3``) makes one stereo
+    set equivalent to running both sets.  Specs with differing robust
+    kernels stay unmerged.
+    """
+    kinds = [s["kind"] for s in edge_specs]
+    if (
+        len(edge_specs) < 2
+        or not all(k in ("mono", "stereo") for k in kinds)
+        or len({(s.get("rk", 0), s.get("delta", 1.0)) for s in edge_specs}) != 1
+    ):
+        return edge_specs
+
+    meas_p, mask_p, omega_p, cam_p, pi_p, li_p, act_p = [], [], [], [], [], [], []
+    thr = []
+    for s in edge_specs:
+        meas = np.asarray(s["meas"], dtype=np.float64)
+        E = meas.shape[0]
+        if s["kind"] == "mono":
+            meas = np.concatenate([meas, np.zeros((E, 1))], axis=1)
+            mask_p.append(np.zeros(E))
+        else:
+            mask_p.append(np.ones(E))
+        meas_p.append(meas)
+        omega_p.append(np.asarray(s["omega"], np.float64).reshape(-1))
+        cam = np.asarray(s.get("cam", np.zeros(5)), dtype=np.float64)
+        cam_p.append(cam.reshape(-1, 5))
+        pi_p.append(np.asarray(s["pose_idx"]))
+        li_p.append(np.asarray(s["lm_idx"]))
+        act = s.get("active")
+        act_p.append(np.ones(E) if act is None else np.asarray(act, dtype=np.float64))
+        t = s.get("outlier_threshold", 0.0)
+        thr.append((np.asarray(t, dtype=np.float64), E))
+    # uniform omega / camera stay one row
+    sizes = tuple(E for _, E in thr)
+    if all(o.size == 1 for o in omega_p) and all(
+        np.array_equal(o, omega_p[0]) for o in omega_p[1:]
+    ):
+        omega = omega_p[0]
+    else:
+        omega = np.concatenate([np.broadcast_to(o, (E,)) for o, E in zip(omega_p, sizes)])
+    if all(c.shape[0] == 1 for c in cam_p) and all(
+        np.array_equal(c, cam_p[0]) for c in cam_p[1:]
+    ):
+        cam_m = cam_p[0]
+    else:
+        cam_m = np.concatenate([np.broadcast_to(c, (E, 5)) for c, E in zip(cam_p, sizes)])
+    merged = dict(
+        kind="stereo",
+        meas=np.concatenate(meas_p, axis=0),
+        pose_idx=np.concatenate(pi_p),
+        lm_idx=np.concatenate(li_p),
+        omega=omega,
+        cam=cam_m,
+        rk=edge_specs[0].get("rk", 0),
+        delta=edge_specs[0].get("delta", 1.0),
+        mask3=np.concatenate(mask_p),
+        active=np.concatenate(act_p),
+    )
+    if any(np.any(t > 0) for t, _ in thr):
+        merged["outlier_threshold"] = np.concatenate(
+            [np.broadcast_to(t, (E,)) for t, E in thr]
+        )
+    return [merged]
 
 
 # ---------------------------------------------------------------------------
@@ -110,19 +171,20 @@ def outside_slice(what: str, item: str) -> NotImplementedError:
 
 
 def compute_chi(graph: GraphArrays, data: PackedEdges, meta: EdgeSetMeta) -> torch.Tensor:
-    """Total chi2 (reference stage "2: Compute Error")."""
-    return MonoModel.chi(graph, data, meta.rk, meta.delta).sum()
+    """Total chi2 (reference stage "2: Compute Error"): per-edge chi from
+    kernel B1 (``rk = 0``), summed."""
+    return chi_edges(*edge_state(graph, data), data).sum()
 
 
 def build_system(
     graph: GraphArrays, data: PackedEdges, meta: EdgeSetMeta, plan: SchurPlan
 ) -> SystemBlocks:
     """Assemble Hpp/bp/Hll/bl and per-edge Hpl blocks (stage "3: Build
-    System").  Contributions of fixed vertices drop out because their rows
-    are not in the segment plans."""
-    pose_stack, lm_stack, hpl = MonoModel.terms(graph, data, meta.rk, meta.delta)
-    pose_acc = segment_sum(pose_stack, plan.pose_seg)  # [Pa, 42]
-    lm_acc = segment_sum(lm_stack, plan.lm_seg)  # [La, 12]
+    System") through kernel B3.  Contributions of fixed vertices drop out
+    because their rows are not in the segment plans."""
+    pose_acc, lm_acc, hpl = linearise(
+        *edge_state(graph, data), data, plan.pose_seg, plan.lm_seg
+    )  # [Pa, 42], [La, 12], [E, 18]
     Pa = pose_acc.shape[0]
     return SystemBlocks(
         Hpp=pose_acc[:, :36].reshape(Pa, 6, 6),
@@ -146,7 +208,7 @@ def schur_reduce(
     ``bsc = bp - Hpl inv(Hll) bl`` and the Hsc blocks
     ``(Hpp + lam I) - Hpl inv(Hll) Hpl^T`` on the symbolic block pattern.
     Returns ``(blocks [nnz, 36], bsc [Pa, 6], invHll [La, 9])``."""
-    Pa, La = sys.bp.shape[0], sys.bl.shape[0]
+    Pa = sys.bp.shape[0]
     dtype, dev = sys.bp.dtype, sys.bp.device
     Hpp_d = sys.Hpp + lam * torch.eye(6, dtype=dtype, device=dev)
     diag9 = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=dtype, device=dev)
@@ -154,8 +216,7 @@ def schur_reduce(
     # bsc re-associates as Hpl (inv(Hll) bl), as on the kernel path of the
     # JAX package, so no per-edge W is materialised for it either
     y = C.flat_mv_3x3(invHll, sys.bl)
-    bsc_rows = C.flat_mv_6x3(sys.Hpl, y[plan.ba_lm_idx.clamp(max=La - 1)])
-    bsc = sys.bp - segment_sum(bsc_rows, plan.pose_seg)
+    bsc = hpl_mv_segment_sum(sys.Hpl, y, plan.ba_lm_idx, sys.bp, plan.pose_seg)
     blocks = -schur_pair_products(
         sys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets
     )
@@ -222,11 +283,9 @@ def solve_reduced_band(
 def schur_back_substitute(
     sys: SystemBlocks, invHll: torch.Tensor, xp: torch.Tensor, plan: SchurPlan
 ) -> torch.Tensor:
-    """Landmark back-substitution ``xl = inv(Hll)(bl - Hpl^T xp)``."""
-    Pa = xp.shape[0]
-    xp_e = xp[plan.ba_pose_idx.clamp(max=Pa - 1)]
-    contrib = C.flat_mtv_6x3(sys.Hpl, xp_e)
-    cl = sys.bl - segment_sum(contrib, plan.lm_seg)
+    """Landmark back-substitution ``xl = inv(Hll)(bl - Hpl^T xp)``, the
+    bracket through kernel B9."""
+    cl = hpl_mtv_segment_sum(sys.Hpl, xp, plan.ba_pose_idx, sys.bl, plan.lm_seg)
     return C.flat_mv_3x3(invHll, cl)
 
 
@@ -260,10 +319,10 @@ class BlockSolver:
 
     def __init__(self, options, device):
         if options.dtype != "float64":
-            raise outside_slice(f"dtype={options.dtype!r}", "A8")
+            raise outside_slice(f"dtype={options.dtype!r}", "A8: f32 mode")
         if options.solver_precision != "mixed":
             raise outside_slice(
-                f"solver_precision={options.solver_precision!r} (dense f64 solve)", "A10"
+                f"solver_precision={options.solver_precision!r}", "A10: the exact dense solve"
             )
         self.options = options
         self.device = torch.device(device)
@@ -283,7 +342,7 @@ class BlockSolver:
     # -- packing ------------------------------------------------------------
 
     def initialize(self, edge_sets, vertex_sets) -> None:
-        raise outside_slice("the object-graph API (initialize)", "A3")
+        raise outside_slice("initialize()", "A3: the object-graph API")
 
     def initialize_from_arrays(
         self,
@@ -299,27 +358,33 @@ class BlockSolver:
         Each ``edge_spec`` dict has keys ``kind, meas [E,K], pose_idx [E],
         lm_idx [E], omega [E], cam ([5] or [E,5])`` and optional ``rk,
         delta, active, outlier_threshold``.  Vertices are active-first: the
-        first ``num_active_*`` rows are free, the rest fixed."""
+        first ``num_active_*`` rows are free, the rest fixed.  One mono or
+        stereo set runs as it is; a mono and a stereo set merge into one
+        masked stereo set (:func:`_merge_ba_specs`)."""
+        edge_specs = _merge_ba_specs(edge_specs)
         if len(edge_specs) != 1:
-            raise outside_slice(f"{len(edge_specs)} edge sets (one mono set only)", "A8")
+            raise outside_slice(
+                f"{len(edge_specs)} edge sets that do not merge into one",
+                "A9: multiple edge sets",
+            )
         spec = edge_specs[0]
         kind = spec["kind"]
-        if kind != "mono":
-            raise outside_slice(f"{kind!r} edges", "A9" if kind in ("depth", "line", "plane") else "A8")
+        if kind not in MODEL_REGISTRY:
+            raise outside_slice(f"{kind!r} edges", "A9: the depth and ICP models")
         if int(spec.get("rk", 0)) != 0:
-            raise outside_slice("robust kernels", "A8")
+            raise outside_slice(f"robust kernel rk={spec['rk']}", "A8: robust kernels")
         if np.any(np.asarray(spec.get("outlier_threshold", 0.0)) > 0):
-            raise outside_slice("outlier thresholding (update_edges)", "A9")
+            raise outside_slice("outlier thresholding", "A9: update_edges outliers")
         cam = np.asarray(spec.get("cam", np.zeros(5)), dtype=np.float64).reshape(-1, 5)
         if not np.all(cam == cam[0]):
-            raise outside_slice("per-edge camera", "A9")
+            raise outside_slice("a per-edge camera", "A9: per-edge camera")
 
         self.P = pose_q.shape[0]
         self.Pa = int(num_active_poses)
         self.L = landmarks.shape[0]
         self.La = int(num_active_landmarks)
         if self.La == 0:
-            raise outside_slice("pose-only graphs", "A9")
+            raise outside_slice("a graph without free landmarks", "A9: pose-only solve")
         pose_q = np.asarray(pose_q, dtype=np.float64)
         pose_t = np.asarray(pose_t, dtype=np.float64)
         landmarks = np.asarray(landmarks, dtype=np.float64).reshape(-1, 3)
@@ -356,6 +421,7 @@ class BlockSolver:
         active = np.broadcast_to(
             np.asarray(spec.get("active", 1.0), dtype=np.float64), (E,)
         )
+        mask3 = spec.get("mask3")
         pose_idx_d = torch.as_tensor(pose_idx, device=dev)
         lm_idx_d = torch.as_tensor(lm_idx, device=dev)
         self.packed = PackedEdges(
@@ -366,6 +432,9 @@ class BlockSolver:
             lm_idx=lm_idx_d,
             both_free=((pose_idx_d < self.Pa) & (lm_idx_d < self.La)).to(dt),
             active=torch.as_tensor(active > 0, device=dev).to(dt),
+            mask3=None if mask3 is None else torch.as_tensor(
+                np.asarray(mask3) > 0, device=dev
+            ).to(dt),
         )
         self.meta = EdgeSetMeta(
             kind=kind,
@@ -394,7 +463,7 @@ class BlockSolver:
         bw = int(np.max(s.blk_col.astype(np.int64) - s.blk_row))
         if bw + 1 > MAX_BAND:
             raise outside_slice(
-                f"an Hsc band of width {bw + 1} (> {MAX_BAND}: PCG or dense solve)", "A10"
+                f"an Hsc band of width {bw + 1} (> {MAX_BAND})", "A10: PCG and the dense solve"
             )
         sb = -(-(bw + 1) // 8) * 8
 
@@ -410,10 +479,10 @@ class BlockSolver:
             tri_ei=up(tri_ei),
             tri_ej=up(tri_ej),
             tri_offsets=up(tri_off),
-            pose_seg=_segments(pose_idx, Pa, dev),
-            lm_seg=_segments(lm_idx, La, dev),
-            row_seg=_segments(s.blk_row, Pa, dev),
-            col_seg=_segments(s.blk_col, Pa, dev),
+            pose_seg=make_segments(pose_idx, Pa, dev),
+            lm_seg=make_segments(lm_idx, La, dev),
+            row_seg=make_segments(s.blk_row, Pa, dev),
+            col_seg=make_segments(s.blk_col, Pa, dev),
             band=BandMeta(bw=bw, sb=sb),
         )
 

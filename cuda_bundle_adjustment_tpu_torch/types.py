@@ -2,12 +2,12 @@
 
 Same fields and row-major block contract as the JAX package's XLA path;
 the TPU-only fields (one-hot expand plans, group-layout metadata, the
-component-major landmark copy, the stereo mask) have no counterpart here.
+component-major landmark copy) have no counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,6 +27,12 @@ class PackedEdges(NamedTuple):
     lm_idx: torch.Tensor  # [E] int64 dense landmark index
     both_free: torch.Tensor  # [E] float mask: pose AND landmark free
     active: torch.Tensor  # [E] float mask: 1.0 active, 0.0 masked
+    # [E] float mask of a merged mono+stereo set: 1.0 stereo row, 0.0 mono
+    # row.  The set runs the stereo model with the third residual component
+    # and Jacobian row masked per edge, which reduces exactly to the mono
+    # model on mono rows (the mono Jacobian is, in exact arithmetic, the stereo
+    # one's rows 0-1)
+    mask3: Optional[torch.Tensor] = None
 
 
 class GraphArrays(NamedTuple):

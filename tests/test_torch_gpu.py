@@ -14,8 +14,11 @@ import torch
 
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
-from cuda_bundle_adjustment_tpu_torch.kernels import bandchol, gather, pairprod
-from cuda_bundle_adjustment_tpu_torch.ops.components import flat_sym3x3_inv
+from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_mixed_ba_problem
+from cuda_bundle_adjustment_tpu_torch.kernels import bandchol, gather, pairprod, schurvec, terms
+from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mv_3x3, flat_sym3x3_inv
+from cuda_bundle_adjustment_tpu_torch.solver.segments import make_segments
+from cuda_bundle_adjustment_tpu_torch.types import PackedEdges
 
 torch.set_num_threads(1)
 
@@ -41,6 +44,110 @@ def _random_banded_spd(Pa, bw, SB, rng):
         for d in range(min(bw + 1, Pa - c)):
             band[c * SB + d] = A[c * 6 : (c + 1) * 6, (c + d) * 6 : (c + d + 1) * 6].reshape(-1)
     return A, band
+
+
+CAM = (718.856, 718.856, 607.1928, 185.2157, 386.1448)
+
+
+def _random_edges(rng, E, P, L, mdim, masked, dev):
+    """Seeded edge inputs around a plausible BA state: a tenth of the rows
+    inert, a few degenerate (z = 0 exactly, half of them active), some
+    vertices fixed (index past the free range).  Inert rows alone observe
+    pose P - 1, inert and degenerate rows alone landmark L - 1."""
+    q = rng.normal(0, 0.1, (E, 4)) + np.array([0, 0, 0, 1.0])
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    x, y, z, w = q.T
+    R = np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], axis=1)
+    t = rng.normal(0, 1.0, (E, 3))
+    xw = rng.normal(0, 2.0, (E, 3))
+    xw[:, 2] += 10.0
+    bad = rng.choice(E, max(4, E // 50), replace=False)
+    R[bad] = np.eye(3).reshape(-1)
+    t[bad] = 0.0
+    t[bad, 2] = -xw[bad, 2]
+    active = (rng.uniform(size=E) > 0.1).astype(np.float64)
+    active[bad[::2]] = 1.0
+    active[bad[1::2]] = 0.0
+    meas = rng.normal(0, 30.0, (mdim, E)) + np.array([600.0, 180.0, 560.0])[:mdim, None]
+    pose_idx = rng.integers(0, P + 1, E)
+    pose_idx[pose_idx == P - 1] = P + 1
+    pose_idx[active == 0] = P - 1
+    lm_idx = rng.integers(0, L + 1, E)
+    lm_idx[lm_idx == L - 1] = L + 1
+    lm_idx[active == 0] = L - 1
+    lm_idx[bad] = L - 1
+
+    def T(a, dt=torch.float64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    data = PackedEdges(
+        meas=T(meas), omega=T(np.abs(rng.normal(1.0, 0.2, E))),
+        cam=T(np.array(CAM)[:, None]), pose_idx=T(pose_idx, torch.int64),
+        lm_idx=T(lm_idx, torch.int64),
+        both_free=T((pose_idx < P) & (lm_idx < L)), active=T(active),
+        mask3=T(rng.uniform(size=E) > 0.5) if masked else None,
+    )
+    qt = T(np.concatenate([t, R], axis=1))
+    segs = (make_segments(pose_idx, P, dev), make_segments(lm_idx, L, dev))
+    return qt, T(xw), data, segs, active == 0
+
+
+def _close_rel(got, want, rtol=1e-12):
+    return (got - want).abs().max().item() <= rtol * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mdim,masked", [(2, False), (3, False), (3, True)],
+                         ids=["mono", "stereo", "mixed"])
+def test_terms_kernels_match_twins(mdim, masked):
+    """B1 and B3 against their twins within 1e-12 x max|value| (same
+    expressions, fused multiply-adds and another summation order), inert
+    rows exact zeros everywhere, degenerate rows exact zeros in Hpl and
+    Hll|bl, and a second launch bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(mdim + 10 * masked)
+    P, L = 300, 4000
+    qt, xw, data, (ps, ls), inert = _random_edges(rng, 20_000, P, L, mdim, masked, dev)
+    chi = terms.chi_edges(qt, xw, data)
+    assert _close_rel(chi, terms.chi_edges_plain(qt, xw, data))
+    got = terms.linearise(qt, xw, data, ps, ls)
+    want = terms.linearise_plain(qt, xw, data, ps, ls)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _close_rel(g, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, terms.linearise(qt, xw, data, ps, ls)))
+    inert = torch.as_tensor(inert, device=dev)
+    assert bool((chi[inert] == 0).all()) and bool((got[2][inert] == 0).all())
+    dead = data.lm_idx == L - 1  # inert and degenerate rows
+    assert bool((got[2][dead] == 0).all())
+    assert bool((got[0][P - 1] == 0).all()) and bool((got[1][L - 1] == 0).all())
+
+
+@pytest.mark.gpu
+def test_schurvec_kernels_match_twins():
+    """B5 and B9 against their twins within 1e-12 x max|value| on a mixed
+    problem's first linearisation, and bit for bit on a second launch."""
+    dev = _cuda()
+    s = optimizer_from_problem(make_mixed_ba_problem(num_poses=40, num_landmarks=1500, seed=2),
+                               device=dev).solver
+    s.build_structure()
+    _, sys_ = s.head()
+    p = s.plan
+    lam = 1e-5 * s.max_diagonal(sys_)
+    diag9 = torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1], dtype=torch.float64, device=dev)
+    y = flat_mv_3x3(flat_sym3x3_inv(sys_.Hll + lam * diag9), sys_.bl)
+    args = (sys_.Hpl, y, p.ba_lm_idx, sys_.bp, p.pose_seg)
+    bsc = schurvec.hpl_mv_segment_sum(*args)
+    assert _close_rel(bsc, schurvec.hpl_mv_segment_sum_plain(*args))
+    assert torch.equal(bsc, schurvec.hpl_mv_segment_sum(*args))
+    xp = torch.as_tensor(np.random.default_rng(3).normal(size=(s.Pa, 6)), device=dev)
+    args = (sys_.Hpl, xp, p.ba_pose_idx, sys_.bl, p.lm_seg)
+    cl = schurvec.hpl_mtv_segment_sum(*args)
+    assert _close_rel(cl, schurvec.hpl_mtv_segment_sum_plain(*args))
+    assert torch.equal(cl, schurvec.hpl_mtv_segment_sum(*args))
 
 
 @pytest.mark.gpu
@@ -110,11 +217,13 @@ def test_band_kernel_nonspd_goes_nonfinite():
 
 
 @pytest.mark.gpu
-def test_slice_on_gpu_matches_cpu_and_repeats():
+@pytest.mark.parametrize("kind", ["mono", "stereo", "mixed"])
+def test_slice_on_gpu_matches_cpu_and_repeats(kind):
     """The slice on the card against the CPU twins at rtol 1e-9, and a second
     run on the card bit for bit."""
     dev = _cuda()
-    problem = make_ba_problem(num_poses=16, num_landmarks=120, seed=13)
+    kw = dict(num_poses=16, num_landmarks=120, seed=13)
+    problem = make_mixed_ba_problem(**kw) if kind == "mixed" else make_ba_problem(kind=kind, **kw)
     traces = []
     for d in (dev, dev, "cpu"):
         opt = optimizer_from_problem(problem, device=d)

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_bundle_adjustment_tpu.io import synthetic as jsyn
 from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
-from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
+from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem, make_mixed_ba_problem
 from cuda_bundle_adjustment_tpu_torch.utils import profiling as prof
 from cuda_bundle_adjustment_tpu_torch.utils.dense_reference import DenseLM
 
@@ -47,6 +48,42 @@ def test_trace_matches_jax_and_dense_oracle():
     np.testing.assert_allclose(got, want, rtol=1e-6)
     Pa, La = opt.solver.Pa, opt.solver.La
     q, t = opt.solver.result_poses()
+    np.testing.assert_allclose(q[:Pa], ref.q[:Pa], atol=1e-7)
+    np.testing.assert_allclose(t[:Pa], ref.t[:Pa], atol=1e-6)
+    np.testing.assert_allclose(opt.solver.result_landmarks()[:La], ref.Xw[:La], atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["stereo", "mixed"])
+def test_stereo_and_mixed_traces_match_jax_and_dense_oracle(kind):
+    """A stereo set and a mono+stereo pair (merged into one masked stereo
+    set): chi2 trace of optimize(10) against the JAX package at rtol 1e-9
+    and its final state at 1e-9 of the state's scale, and against DenseLM
+    as above."""
+    kw = dict(num_poses=10, num_landmarks=60, mean_obs_per_landmark=4.0, seed=6)
+    if kind == "mixed":  # each package takes its own problem class
+        problem, jproblem = make_mixed_ba_problem(**kw), jsyn.make_mixed_ba_problem(**kw)
+    else:
+        problem = jproblem = make_ba_problem(kind=kind, **kw)
+    opt = optimizer_from_problem(problem)
+    opt.optimize(10)
+    got = _trace(opt)
+    assert (opt.solver.packed.mask3 is not None) == (kind == "mixed")
+
+    jopt = jax_optimizer(jproblem)
+    jopt.optimize(10)
+    assert len(got) == len(_trace(jopt)) >= 5
+    np.testing.assert_allclose(got, _trace(jopt), rtol=1e-9)
+    Pa, La = opt.solver.Pa, opt.solver.La
+    q, t = opt.solver.result_poses()
+    jq, jt = jopt.solver.result_poses()
+    for a, b in [(q, jq), (t, jt), (opt.solver.result_landmarks()[:La],
+                                     jopt.solver.result_landmarks()[:La])]:
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max())
+
+    ref = DenseLM(problem)
+    want = ref.optimize(10)
+    assert len(got) == len(want)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
     np.testing.assert_allclose(q[:Pa], ref.q[:Pa], atol=1e-7)
     np.testing.assert_allclose(t[:Pa], ref.t[:Pa], atol=1e-6)
     np.testing.assert_allclose(opt.solver.result_landmarks()[:La], ref.Xw[:La], atol=1e-6)

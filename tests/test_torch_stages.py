@@ -125,14 +125,11 @@ def test_symbolic_copy_gives_identical_structure(seed):
 # -- stages ---------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def systems():
-    """Both solvers on one problem (duplicate pose observations included),
-    their first linearisation, and the JAX system in the port's order."""
-    problem = jsyn.make_ba_problem(
-        num_poses=14, num_landmarks=100, mean_obs_per_landmark=4.0, seed=21
-    )
-    js = jax_optimizer(problem).solver
+def _both_systems(problem, jproblem=None):
+    """Both solvers on one problem, their first linearisation, and the JAX
+    system in the port's order (``jproblem``: the JAX package's own problem
+    class, where it differs)."""
+    js = jax_optimizer(problem if jproblem is None else jproblem).solver
     js.build_structure()
     jchi, jsys = js.head()
     ts = optimizer_from_problem(problem).solver
@@ -141,7 +138,7 @@ def systems():
     lay = js.group_layout
     perm = lay.edge_perm
     rows = perm >= 0
-    Hpl = np.zeros((problem.meas.shape[0], 18))
+    Hpl = np.zeros((ts.packed.pose_idx.shape[0], 18))
     Hpl[perm[rows]] = np.asarray(jsys.Hpl)[rows]
     ren = lay.lm_renumber[: js.La_real]
     psys = SystemBlocks(
@@ -155,11 +152,55 @@ def systems():
                 psys=psys, ren=ren, lam=lam)
 
 
+@pytest.fixture(scope="module")
+def systems():
+    """Both solvers on one problem (duplicate pose observations included)."""
+    return _both_systems(jsyn.make_ba_problem(
+        num_poses=14, num_landmarks=100, mean_obs_per_landmark=4.0, seed=21
+    ))
+
+
 def test_build_system_matches_jax(systems):
     s = systems
     _close(float(s["tchi"]), float(s["jchi"]), 1e-12)
     for name in ("Hpp", "bp", "Hll", "bl", "Hpl"):
         _close(getattr(s["tsys"], name).numpy(), getattr(s["psys"], name).numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("kind", ["stereo", "mixed"])
+def test_build_system_matches_jax_stereo_and_mixed(kind):
+    """chi and the system of a stereo set and of a merged mono+stereo pair."""
+    kw = dict(num_poses=12, num_landmarks=90, mean_obs_per_landmark=4.0, seed=22)
+    if kind == "mixed":
+        s = _both_systems(tsyn.make_mixed_ba_problem(**kw), jsyn.make_mixed_ba_problem(**kw))
+        assert s["ts"].packed.mask3 is not None
+    else:
+        s = _both_systems(jsyn.make_ba_problem(kind=kind, **kw))
+    _close(float(s["tchi"]), float(s["jchi"]), 1e-12)
+    for name in ("Hpp", "bp", "Hll", "bl", "Hpl"):
+        _close(getattr(s["tsys"], name).numpy(), getattr(s["psys"], name).numpy(), 1e-12)
+
+
+def test_merge_ba_specs_matches_jax():
+    """The mono+stereo merge against the JAX package's on the same specs:
+    per-edge weights, masks, inactive rows and outlier thresholds included;
+    unmergeable sets pass through."""
+    mp = tsyn.make_mixed_ba_problem(num_poses=8, num_landmarks=60, seed=4)
+    rng = np.random.default_rng(0)
+    mono, stereo = (dict(s) for s in mp.specs)
+    mono["omega"] = rng.uniform(0.5, 2.0, mono["meas"].shape[0])
+    stereo["active"] = (rng.uniform(size=stereo["meas"].shape[0]) > 0.2).astype(np.float64)
+    stereo["outlier_threshold"] = 5.0
+    for specs in ([mono, stereo], [stereo, mono], [mono, dict(stereo, rk=2)], [mono]):
+        want = jbs._merge_ba_specs(specs)
+        got = tbs._merge_ba_specs(specs)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            # the port writes nothing back to the unmerged sets, so it keeps
+            # no un-merge map
+            assert g.keys() == w.keys() - {"merged_sizes"}
+            for k in g:
+                np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]), err_msg=k)
 
 
 def test_schur_reduce_matches_jax(systems):
@@ -240,18 +281,27 @@ def _mono(**kw):
     return tsyn.make_ba_problem(num_poses=6, num_landmarks=30, seed=1, **kw)
 
 
+def _unmerged_mixed():
+    """A mono and a stereo set whose robust kernels differ: they stay two
+    edge sets."""
+    mp = tsyn.make_mixed_ba_problem(num_poses=6, num_landmarks=30, seed=1)
+    TorchGraphOptimisation().solver.initialize_from_arrays(
+        mp.pose_q, mp.pose_t, mp.num_active_poses, mp.landmarks,
+        mp.num_active_landmarks, [dict(mp.specs[0], rk=0), dict(mp.specs[1], rk=2)],
+    )
+
+
 @pytest.mark.parametrize(
     "make,item",
     [
-        (lambda: optimizer_from_problem(_mono(kind="stereo")), "A8"),
+        (lambda: optimizer_from_problem(_mono(kind="stereo"), rk=3, delta=1.0), "A8"),
         (lambda: optimizer_from_problem(_mono(kind="depth")), "A9"),
         (lambda: optimizer_from_problem(_mono(), rk=2, delta=1.0), "A8"),
         (lambda: optimizer_from_problem(
             _mono(), options=GraphOptimisationOptions(dtype="float32")), "A8"),
         (lambda: optimizer_from_problem(
             _mono(), options=GraphOptimisationOptions(solver_precision="exact")), "A10"),
-        (lambda: optimizer_from_problem(
-            tsyn.make_mixed_ba_problem(num_poses=6, num_landmarks=30, seed=1)), "A8"),
+        (_unmerged_mixed, "A9"),
         (lambda: optimizer_from_problem(_mono(), outlier_threshold=5.0), "A9"),
         (lambda: TorchGraphOptimisation().initialize(), "A3"),
     ],

@@ -1,0 +1,251 @@
+"""Kernels B1, B3, B5 and B9: the port's plain twins against the JAX package
+on the CPU, on the same seeded numpy inputs.
+
+* The B1/B3 twins (the port's ``MonoModel``/``StereoModel``) against the JAX
+  package's XLA models at 1e-12 x max|value|: the same expressions in real
+  f64, summed per vertex in another order.
+* One interpret-mode call each of ``terms_class_call``, ``chi_class_call``,
+  ``hpl_mv_class_call`` and ``hpl_mtv_class_call`` at ``d = gc = 1`` (one
+  edge per lane, so the outputs are per edge), against the twins over
+  identity segment plans.  Tolerance 1e-9, as tests/test_terms_kernel.py:
+  interpret mode loses part of the kernels' double-float compensation.
+  Each interpret call compiles for tens of seconds, so there are four.
+* Inert and degenerate rows give exact zeros.
+
+The CUDA kernels themselves are held against these twins on the card by
+tests/test_torch_gpu.py and chip_smoke.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from cuda_bundle_adjustment_tpu.models.ba import MonoModel as JaxMono
+from cuda_bundle_adjustment_tpu.models.ba import StereoModel as JaxStereo
+from cuda_bundle_adjustment_tpu.types import GraphArrays as JaxGraph
+from cuda_bundle_adjustment_tpu.types import PackedEdges as JaxEdges
+from cuda_bundle_adjustment_tpu_torch.kernels import schurvec, terms
+from cuda_bundle_adjustment_tpu_torch.models.ba import MODEL_REGISTRY, edge_state
+from cuda_bundle_adjustment_tpu_torch.solver.segments import make_segments
+from cuda_bundle_adjustment_tpu_torch.types import GraphArrays, PackedEdges
+
+torch.set_num_threads(1)
+
+CAM = np.array([718.856, 718.856, 607.1928, 185.2157, 386.1448])
+
+
+def _close(got, want, rtol):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=rtol * np.abs(want).max())
+
+
+def _rotmats(rng, n):
+    q = rng.normal(0, 0.1, (n, 4)) + np.array([0, 0, 0, 1.0])
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    x, y, z, w = q.T
+    R = np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], axis=1)
+    return q, R
+
+
+# -- the twins against the JAX package's XLA models ----------------------------
+
+
+def _graph_problem(rng, kind, masked, P=12, L=150, E=900):
+    """A graph state and an edge set over it.  Pose 0 has the identity
+    rotation and landmark 0 sits on its z = 0 plane, so the first six edges,
+    the only ones between them, are degenerate; a tenth of the rows are
+    inert; vertices P - 2.. and L - 2.. are fixed."""
+    q, _ = _rotmats(rng, P)
+    q[0] = [0, 0, 0, 1.0]
+    t = rng.normal(0, 1.0, (P, 3))
+    Xw = rng.normal(0, 2.0, (L, 3))
+    Xw[:, 2] += 10.0
+    t[0] = [0.0, 0.0, -Xw[0, 2]]
+    pose_idx = rng.integers(0, P, E)
+    lm_idx = rng.integers(1, L, E)
+    pose_idx[:6], lm_idx[:6] = 0, 0
+    mdim = 2 if kind == "mono" else 3
+    meas = rng.normal(0, 30.0, (mdim, E)) + np.array([600.0, 180.0, 560.0])[:mdim, None]
+    active = (rng.uniform(size=E) > 0.1).astype(np.float64)
+    active[:3] = 1.0
+    return dict(
+        q=q, t=t, Xw=Xw, meas=meas, omega=np.abs(rng.normal(1.0, 0.2, E)),
+        pose_idx=pose_idx, lm_idx=lm_idx, active=active,
+        both_free=((pose_idx < P - 2) & (lm_idx < L - 2)).astype(np.float64),
+        mask3=(rng.uniform(size=E) > 0.5).astype(np.float64) if masked else None,
+        P=P, L=L,
+    )
+
+
+def _jax_side(d):
+    graph = JaxGraph(jnp.asarray(d["q"]), jnp.asarray(d["t"]), jnp.asarray(d["Xw"]))
+    data = JaxEdges(
+        meas=jnp.asarray(d["meas"]), omega=jnp.asarray(d["omega"]),
+        cam=jnp.asarray(CAM[:, None]), pose_idx=jnp.asarray(d["pose_idx"], jnp.int32),
+        lm_idx=jnp.asarray(d["lm_idx"], jnp.int32), both_free=jnp.asarray(d["both_free"]),
+        active=jnp.asarray(d["active"]),
+        mask3=None if d["mask3"] is None else jnp.asarray(d["mask3"]),
+    )
+    return graph, data
+
+
+def _port_side(d):
+    T = torch.as_tensor
+    graph = GraphArrays(T(d["q"]), T(d["t"]), T(d["Xw"]))
+    data = PackedEdges(
+        meas=T(d["meas"]), omega=T(d["omega"]), cam=T(CAM[:, None]),
+        pose_idx=T(d["pose_idx"]), lm_idx=T(d["lm_idx"]), both_free=T(d["both_free"]),
+        active=T(d["active"]), mask3=None if d["mask3"] is None else T(d["mask3"]),
+    )
+    return graph, data
+
+
+@pytest.mark.parametrize(
+    "kind,masked", [("mono", False), ("stereo", False), ("stereo", True)],
+    ids=["mono", "stereo", "mixed"],
+)
+def test_twins_match_jax_xla_models(kind, masked):
+    """B1/B3 twins against the JAX XLA ``MonoModel``/``StereoModel`` per edge,
+    and B3's per-vertex sums against numpy sums of the JAX stacks."""
+    d = _graph_problem(np.random.default_rng(len(kind) + masked), kind, masked)
+    jgraph, jdata = _jax_side(d)
+    graph, data = _port_side(d)
+    jmodel = JaxMono if kind == "mono" else JaxStereo
+
+    qt, xw = edge_state(graph, data)
+    _close(terms.chi_edges(qt, xw, data).numpy(), jmodel.chi(jgraph, jdata, 0, 1.0), 1e-12)
+    want = [np.asarray(a) for a in jmodel.terms(jgraph, jdata, 0, 1.0)]
+    got = MODEL_REGISTRY[kind].terms(graph, data, 0, 1.0)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w, 1e-12)
+
+    P, L = d["P"], d["L"]
+    Pa, La = P - 2, L - 2
+    segs = make_segments(d["pose_idx"], Pa, "cpu"), make_segments(d["lm_idx"], La, "cpu")
+    pose, lm, hpl = terms.linearise(qt, xw, data, *segs)
+    want_pose, want_lm = np.zeros((Pa, 42)), np.zeros((La, 12))
+    pi, li = d["pose_idx"], d["lm_idx"]
+    np.add.at(want_pose, pi[pi < Pa], want[0][pi < Pa])
+    np.add.at(want_lm, li[li < La], want[1][li < La])
+    _close(pose.numpy(), want_pose, 1e-12)
+    _close(lm.numpy(), want_lm, 1e-12)
+    _close(hpl.numpy(), want[2], 1e-12)
+
+
+def test_inert_and_degenerate_rows_give_exact_zeros():
+    """Inert rows: exact zeros in chi, Hpl, Hpp|bp and Hll|bl.  Degenerate
+    active rows (z = 0): an exact zero inv_z, so JL, Hll|bl and Hpl are exact
+    zeros and everything else is finite."""
+    d = _graph_problem(np.random.default_rng(3), "stereo", True)
+    graph, data = _port_side(d)
+    qt, xw = edge_state(graph, data)
+    inert = d["active"] == 0
+    degenerate = d["lm_idx"] == 0
+    assert degenerate[:3].all() and not inert[:3].any() and d["both_free"][:6].all()
+    chi = terms.chi_edges(qt, xw, data).numpy()
+    pose, lm, hpl = terms.linearise(
+        qt, xw, data, make_segments(d["pose_idx"], d["P"], "cpu"),
+        make_segments(d["lm_idx"], d["L"], "cpu"),
+    )
+    assert np.all(chi[inert] == 0) and np.all(hpl.numpy()[inert | degenerate] == 0)
+    assert np.all(lm.numpy()[0] == 0)
+    assert np.all(np.isfinite(chi)) and bool(torch.isfinite(pose).all())
+    # inert rows alone: their per-edge stacks are exact zeros
+    stacks = MODEL_REGISTRY["stereo"].terms(graph, data, 0, 1.0)
+    for s in stacks:
+        assert np.all(s.numpy()[inert] == 0)
+
+
+# -- the twins against the Pallas kernels in interpret mode ---------------------
+
+
+def _lane_inputs(rng, E=128):
+    """One class of 128 lanes at d = gc = 1: per-edge state, stereo
+    measurements and a mono/stereo mask, with inert and degenerate rows."""
+    _, R = _rotmats(rng, E)
+    t = rng.normal(0, 1.0, (E, 3))
+    xw = rng.normal(0, 2.0, (E, 3))
+    xw[:, 2] += 10.0
+    R[:4] = np.eye(3).reshape(-1)
+    t[:4] = 0.0
+    t[:4, 2] = -xw[:4, 2]  # z = 0 exactly
+    active = (rng.uniform(size=E) > 0.1).astype(np.float64)
+    active[:2], active[2:4] = 1.0, 0.0
+    meas = rng.normal(0, 30.0, (3, E)) + np.array([600.0, 180.0, 560.0])[:, None]
+    m3 = (rng.uniform(size=E) > 0.5).astype(np.float64)
+    return np.concatenate([t, R], axis=1), xw, meas, np.abs(rng.normal(1.0, 0.2, E)), active, m3
+
+
+def _ff(x):
+    """(hi, lo) f32 pair of ``x`` with a [k, 1, 128] lane layout."""
+    from cuda_bundle_adjustment_tpu.pallas.terms import split_ff
+
+    h, lo = split_ff(jnp.asarray(x))
+    return h.reshape(x.shape[0], 1, -1), lo.reshape(x.shape[0], 1, -1)
+
+
+def _unff(h, lo):
+    return np.asarray(h, np.float64) + np.asarray(lo, np.float64)
+
+
+def test_terms_twins_match_pallas_interpret():
+    """``terms_class_call`` and ``chi_class_call`` (mdim 3, has_m3) against the
+    B3/B1 twins, per edge."""
+    from cuda_bundle_adjustment_tpu.pallas.terms import chi_class_call, terms_class_call
+
+    qt, xw, meas, omega, active, m3 = _lane_inputs(np.random.default_rng(7))
+    E = qt.shape[0]
+    hi = CAM.astype(np.float32)
+    lo = (CAM - hi.astype(np.float64)).astype(np.float32)
+    cam = jnp.asarray(np.broadcast_to(np.concatenate([hi, lo])[:, None], (10, 128)))
+    args = (
+        cam, *_ff(qt.T), *_ff(xw.T), *_ff(meas), *_ff((omega * active)[None]),
+        jnp.asarray(active, jnp.float32).reshape(1, E), jnp.asarray(m3, jnp.float32).reshape(1, E),
+    )
+    kw = dict(d=1, gc=1, mdim=3, has_m3=True, interpret=True)
+    ph, pl_, lh, ll, hh, hl = terms_class_call(*args, **kw)
+    ch, cl = chi_class_call(*args, **kw)
+
+    T = torch.as_tensor
+    data = PackedEdges(
+        meas=T(meas), omega=T(omega), cam=T(CAM[:, None]), pose_idx=T(np.arange(E)),
+        lm_idx=T(np.arange(E)), both_free=T(np.ones(E)), active=T(active), mask3=T(m3),
+    )
+    ident = make_segments(np.arange(E), E, "cpu")
+    pose, lm, hpl = terms.linearise(T(qt), T(xw), data, ident, ident)
+    for got, want in ((pose, _unff(ph, pl_)), (lm, _unff(lh, ll)), (hpl, _unff(hh, hl))):
+        want = want.reshape(want.shape[0], E).T
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+    want = _unff(ch, cl).reshape(E)
+    got = terms.chi_edges(T(qt), T(xw), data).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+    assert np.all(want[active == 0] == 0) and np.all(got[active == 0] == 0)
+
+
+def test_schurvec_twins_match_pallas_interpret():
+    """``hpl_mv_class_call`` and ``hpl_mtv_class_call`` against the B5/B9
+    twins, per edge (identity segments, zero right-hand sides: the twins
+    return ``-Hpl y`` and ``-Hpl^T xp``)."""
+    from cuda_bundle_adjustment_tpu.pallas.schurvec import hpl_mtv_class_call, hpl_mv_class_call
+
+    rng = np.random.default_rng(11)
+    E = 128
+    hpl = rng.normal(size=(E, 18)) * 1e3
+    y, xp = rng.normal(size=(E, 3)), rng.normal(size=(E, 6)) * 1e-2
+    mv = _unff(*hpl_mv_class_call(*_ff(hpl.T), *_ff(y.T), d=1, gc=1, interpret=True))
+    mtv = _unff(*hpl_mtv_class_call(*_ff(hpl.T), *_ff(xp.T), d=1, gc=1, interpret=True))
+
+    T = torch.as_tensor
+    idx = T(np.arange(E))
+    ident = make_segments(np.arange(E), E, "cpu")
+    got = schurvec.hpl_mv_segment_sum(T(hpl), T(y), idx, T(np.zeros((E, 6))), ident)
+    want = -mv.reshape(6, E).T
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+    got = schurvec.hpl_mtv_segment_sum(T(hpl), T(xp), idx, T(np.zeros((E, 3))), ident)
+    want = -mtv.reshape(3, E).T
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
