@@ -18,12 +18,15 @@ def optimizer_from_problem(
     rk: int = 0,
     delta: float = 1.0,
     outlier_threshold: float = 0.0,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> TorchGraphOptimisation:
     """Create an optimiser on ``device`` packed from a :class:`BAProblem`
     (one edge set) or a :class:`MixedBAProblem` (several edge sets over
     shared vertices; a mono and a stereo set merge into one masked stereo
-    set).
+    set).  The device is the CUDA card unless the caller asks for
+    ``device="cpu"``; without a card the default raises ``RuntimeError``.
+    ``rk`` (a ``RobustKernelType`` value) and ``delta`` select the robust
+    kernel of every edge set.
 
     Call ``optimize(n)`` directly on the result; estimates stay in
     ``opt.solver.graph`` (``q``/``t``/``Xw`` tensors on ``device``), and

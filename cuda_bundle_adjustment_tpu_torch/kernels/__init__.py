@@ -6,14 +6,17 @@ wrapper                        source                 replaces (JAX package)
 ``chi_edges``          (B1)    ``csrc/terms.cu``      ``pallas/terms.py`` ``chi_class_call``
 ``gather_rows``        (B2)    ``csrc/gather.cu``     ``pallas/onehot.py`` ``expand``
 ``linearise``          (B3)    ``csrc/terms.cu``      ``pallas/terms.py`` ``terms_class_call``
+``damped_inverse``     (B4)    ``csrc/lminv.cu``      ``pallas/lminv.py`` ``lminv_call``
 ``hpl_mv_segment_sum`` (B5)    ``csrc/schurvec.cu``   ``pallas/schurvec.py``
                                                       ``hpl_mv_class_call``
 ``schur_pair_products`` (B6)   ``csrc/pairprod.cu``   ``pallas/pairprod.py``
                                                       ``_pairprod_call_v2``
-``band_factor``        (B7)    ``csrc/bandchol.cu``   ``pallas/bandchol.py`` ``band_factor2``
+``band_factor``        (B7,    ``csrc/bandchol.cu``   ``pallas/bandchol.py`` ``band_factor2``
+                       B11)                           (SB <= 16) and ``band_factor`` (wider)
 ``band_solve``         (B8)    ``csrc/bandchol.cu``   ``pallas/bandchol.py`` ``band_solve``
 ``hpl_mtv_segment_sum`` (B9)   ``csrc/schurvec.cu``   ``pallas/schurvec.py``
                                                       ``hpl_mtv_class_call``
+``sym3x3_mv``          (B10)   ``csrc/lminv.cu``      ``pallas/lminv.py`` ``sym3x3_mv_call``
 =============================  =====================  ==================================
 
 Every wrapper counts its kernel launches in a plain integer attribute,
@@ -22,13 +25,14 @@ Every wrapper counts its kernel launches in a plain integer attribute,
 
 from .bandchol import band_factor, band_solve
 from .gather import gather_rows
+from .lminv import damped_inverse, sym3x3_mv
 from .pairprod import schur_pair_products
 from .schurvec import hpl_mtv_segment_sum, hpl_mv_segment_sum
 from .terms import chi_edges, linearise
 
 KERNELS = (
-    chi_edges, gather_rows, linearise, hpl_mv_segment_sum, schur_pair_products,
-    band_factor, band_solve, hpl_mtv_segment_sum,
+    chi_edges, gather_rows, linearise, damped_inverse, hpl_mv_segment_sum,
+    schur_pair_products, band_factor, band_solve, hpl_mtv_segment_sum, sym3x3_mv,
 )
 
 

@@ -29,13 +29,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("gather", "terms", "schurvec", "pairprod", "bandchol")
-# terms.cu and schurvec.cu evaluate their plain twins' per-edge expressions
-# operation for operation, so that per-edge values agree bit for bit: no
-# a * b + c may be contracted into a fused multiply-add there (the residual
-# cancels terms as large as the projected pixel coordinates, bsc and cl
-# cancel their right-hand sides)
-SOURCE_FLAGS = {"terms": ("-fmad=false",), "schurvec": ("-fmad=false",)}
+SOURCES = ("gather", "terms", "lminv", "schurvec", "pairprod", "bandchol")
+# terms.cu, lminv.cu and schurvec.cu evaluate their plain twins' per-element
+# expressions operation for operation, so that per-element values agree bit
+# for bit: no a * b + c may be contracted into a fused multiply-add there
+# (the residual cancels terms as large as the projected pixel coordinates,
+# the 3x3 determinant and cofactors cancel products of Hll entries, bsc and
+# cl cancel their right-hand sides)
+SOURCE_FLAGS = {name: ("-fmad=false",) for name in ("terms", "lminv", "schurvec")}
 
 
 def _flags(name: str) -> tuple[str, ...]:

@@ -7,8 +7,10 @@ Counterparts of ``pallas/terms.py`` ``chi_class_call`` and
 edge payload of :class:`PackedEdges`: ``meas [mdim, E]`` (mdim 2 runs the
 mono model, 3 the stereo model, with ``mask3`` masking the third row of a
 merged mono+stereo set), ``omega [1] or [E]``, ``active``, ``both_free``
-and the camera ``[5, 1]``.  Only ``rk = 0`` (the solver's slice) is taken:
-B1 returns ``omega * active * |e|^2`` per edge.  The wrappers dispatch on
+and the camera ``[5, 1]``.  Neither kernel knows a robust kernel: B1 returns
+``x = omega * active * |e|^2`` per edge, to which the solver applies rho for
+chi and rho' for the ``[E]`` weight it hands B3 in ``omega``
+(``solver/block_solver.py build_system``).  The wrappers dispatch on
 the tensor's device only: a CPU tensor runs the plain PyTorch twin (the
 models of ``models/ba.py``), a CUDA tensor launches the kernel (or raises).
 """
@@ -31,12 +33,14 @@ def _model(data: PackedEdges):
 
 
 def chi_edges_plain(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Tensor:
-    """Plain PyTorch twin of B1: the model's per-edge chi at ``rk = 0``."""
+    """Plain PyTorch twin of B1: the model's per-edge chi without a robust
+    kernel (``rk = 0``)."""
     return _model(data).chi(None, data, 0, 1.0, state=(qt, xw))
 
 
 def linearise_plain(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments):
-    """Plain PyTorch twin of B3: the model's per-edge stacks at ``rk = 0``,
+    """Plain PyTorch twin of B3: the model's per-edge stacks with the
+    weight as given (``rk = 0``; a robust set's ``omega`` comes in rescaled),
     then fixed-order segment sums per pose and per landmark."""
     pose_stack, lm_stack, hpl = _model(data).terms(None, data, 0, 1.0, state=(qt, xw))
     return segment_sum(pose_stack, pose_seg), segment_sum(lm_stack, lm_seg), hpl

@@ -14,8 +14,10 @@ The per-edge pose and landmark state comes in through kernel B2
 JAX package's ``pose_state=`` does.  These functions are the plain twins of
 kernels B1 and B3 (``kernels/terms.py``).  A merged mono+stereo set
 (``data.mask3``) runs the stereo model with the third residual component and
-Jacobian row masked per edge.  Depth waits for ROADMAP A9; the solver admits
-only ``rk = 0`` until ROADMAP A8.
+Jacobian row masked per edge.  The kernels take the robust kernel from
+outside: the solver applies rho to B1's per-edge chi and hands B3 the weight
+rescaled by rho', which equals ``Model.chi`` / ``Model.terms`` at that
+``rk, delta`` with the original weight.  Depth waits for ROADMAP A9.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 ``rho(x)`` rescales the per-edge chi2 value and ``rho'(x)`` rescales the
 information weight in the quadratic form (counterpart of the JAX package's
-``ops/robust.py``).  The slice's solver runs only ``NONE``; the other kernels
-are ported here with their math and wait for ROADMAP A8 in the solver.
+``ops/robust.py``).  The solver applies ``rho`` to the per-edge output of
+kernel B1 and ``rho'`` to the weight it hands kernel B3.
 """
 
 from __future__ import annotations

@@ -33,12 +33,14 @@ def attenuation(rho: float) -> float:
 
 
 class TorchGraphOptimisation:
-    """Graph optimiser holding a block solver on one torch device."""
+    """Graph optimiser holding a block solver on one torch device: the
+    CUDA card unless the caller asks for ``device="cpu"`` (without a card
+    the default raises ``RuntimeError``; there is no fallback)."""
 
     def __init__(
         self,
         options: Optional[GraphOptimisationOptions] = None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         self.options = options or GraphOptimisationOptions()
         self.solver = BlockSolver(self.options, device)
@@ -52,7 +54,7 @@ class TorchGraphOptimisation:
     def create(
         cls,
         options: Optional[GraphOptimisationOptions] = None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         return cls(options, device)
 

@@ -1,24 +1,25 @@
 """Block solver: packing, structure analysis and the LM pipeline stages
 (counterpart of ``solver/block_solver.py``, slice stages only).
 
-Same stage decomposition and math as the JAX package's terms-kernel path
-(``TBA_DISABLE_LMINV_KERNEL=1``), in plain PyTorch around eight hand-written
-kernels:
+Same stage decomposition and math as the JAX package's default accelerator
+path, in plain PyTorch around ten hand-written kernels:
 
 * per-edge state gathers through kernel B2 (``models/ba.py edge_state``);
 * chi through kernel B1 (:func:`compute_chi`) and the linearisation through
   kernel B3 (:func:`build_system`), for mono, stereo and merged mono+stereo
-  edge sets;
-* the bsc product through kernel B5 and the Schur pair products through
-  kernel B6 (:func:`schur_reduce`);
+  edge sets; a robust kernel (Huber, Cauchy, Tukey) applies rho to B1's
+  per-edge output and hands B3 the weight rescaled by rho';
+* the damped landmark inverse and ``y = inv(Hll) bl`` through kernel B4, the
+  bsc product through kernel B5 and the Schur pair products through kernel
+  B6 (:func:`schur_reduce`);
 * the f32 band factor and solves through kernels B7 and B8
-  (:func:`solve_reduced_band`), followed by exactly two f64 refinement
-  rounds and the ``1e-8 ||b||`` residual check;
-* the back-substitution product through kernel B9
+  (:func:`solve_reduced_band`) for any band height up to ``MAX_BAND``,
+  followed by exactly two f64 refinement rounds and the ``1e-8 ||b||``
+  residual check;
+* the back-substitution products through kernels B9 and B10
   (:func:`schur_back_substitute`).
 
-The damped landmark inverse and its products stay plain tensor code until
-kernels B4 and B10.  Every per-pose, per-landmark and per-block-row sum is a
+Every per-pose, per-landmark and per-block-row sum is a
 fixed-order CSR segment sum over rows sorted by target once per structure
 (:class:`Segments`), never a float atomic, so two runs on one device give
 the same chi2 trace bit for bit.  Anything outside the slice raises
@@ -38,14 +39,17 @@ from ..kernels import (
     band_factor,
     band_solve,
     chi_edges,
+    damped_inverse,
     hpl_mtv_segment_sum,
     hpl_mv_segment_sum,
     linearise,
     schur_pair_products,
+    sym3x3_mv,
 )
 from ..models.ba import MODEL_REGISTRY, edge_state
 from ..ops import components as C
 from ..ops.lie import se3_exp, se3_update_left
+from ..ops.robust import RobustKernelType, robust_derivative, robustify
 from ..types import GraphArrays, PackedEdges, SystemBlocks
 from ..utils import profiling as prof
 from .segments import Segments, make_segments, segment_sum
@@ -171,9 +175,11 @@ def _merge_ba_specs(edge_specs):
 
 
 def compute_chi(graph: GraphArrays, data: PackedEdges, meta: EdgeSetMeta) -> torch.Tensor:
-    """Total chi2 (reference stage "2: Compute Error"): per-edge chi from
-    kernel B1 (``rk = 0``), summed."""
-    return chi_edges(*edge_state(graph, data), data).sum()
+    """Total chi2 (reference stage "2: Compute Error"): the robust kernel's
+    rho on the per-edge ``omega |e|^2`` of kernel B1, summed (inert rows
+    give 0, and rho(0) = 0)."""
+    x = chi_edges(*edge_state(graph, data), data)
+    return robustify(meta.rk, meta.delta, x).sum()
 
 
 def build_system(
@@ -181,9 +187,16 @@ def build_system(
 ) -> SystemBlocks:
     """Assemble Hpp/bp/Hll/bl and per-edge Hpl blocks (stage "3: Build
     System") through kernel B3.  Contributions of fixed vertices drop out
-    because their rows are not in the segment plans."""
+    because their rows are not in the segment plans.  Under a robust kernel
+    the weight is rescaled by rho'(x) before the quadratic form, as the
+    reference does: x per edge from kernel B1, rho' in plain tensor code,
+    then B3 with the ``[E]`` weight."""
+    state = edge_state(graph, data)
+    if meta.rk:
+        x = chi_edges(*state, data)
+        data = data._replace(omega=data.omega * robust_derivative(meta.rk, meta.delta, x))
     pose_acc, lm_acc, hpl = linearise(
-        *edge_state(graph, data), data, plan.pose_seg, plan.lm_seg
+        *state, data, plan.pose_seg, plan.lm_seg
     )  # [Pa, 42], [La, 12], [E, 18]
     Pa = pose_acc.shape[0]
     return SystemBlocks(
@@ -204,18 +217,16 @@ def max_diagonal(sys: SystemBlocks) -> torch.Tensor:
 def schur_reduce(
     sys: SystemBlocks, lam: float, plan: SchurPlan
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stage "4: Schur Complement": damp, invert the Hll blocks, form
-    ``bsc = bp - Hpl inv(Hll) bl`` and the Hsc blocks
+    """Stage "4: Schur Complement": damp, invert the Hll blocks (kernel
+    B4), form ``bsc = bp - Hpl inv(Hll) bl`` and the Hsc blocks
     ``(Hpp + lam I) - Hpl inv(Hll) Hpl^T`` on the symbolic block pattern.
     Returns ``(blocks [nnz, 36], bsc [Pa, 6], invHll [La, 9])``."""
     Pa = sys.bp.shape[0]
     dtype, dev = sys.bp.dtype, sys.bp.device
     Hpp_d = sys.Hpp + lam * torch.eye(6, dtype=dtype, device=dev)
-    diag9 = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=dtype, device=dev)
-    invHll = C.flat_sym3x3_inv(sys.Hll + lam * diag9)
     # bsc re-associates as Hpl (inv(Hll) bl), as on the kernel path of the
     # JAX package, so no per-edge W is materialised for it either
-    y = C.flat_mv_3x3(invHll, sys.bl)
+    invHll, y = damped_inverse(sys.Hll, sys.bl, lam)
     bsc = hpl_mv_segment_sum(sys.Hpl, y, plan.ba_lm_idx, sys.bp, plan.pose_seg)
     blocks = -schur_pair_products(
         sys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets
@@ -283,10 +294,10 @@ def solve_reduced_band(
 def schur_back_substitute(
     sys: SystemBlocks, invHll: torch.Tensor, xp: torch.Tensor, plan: SchurPlan
 ) -> torch.Tensor:
-    """Landmark back-substitution ``xl = inv(Hll)(bl - Hpl^T xp)``, the
-    bracket through kernel B9."""
+    """Landmark back-substitution ``xl = inv(Hll)(bl - Hpl^T xp)``: the
+    bracket through kernel B9, the product through kernel B10."""
     cl = hpl_mtv_segment_sum(sys.Hpl, xp, plan.ba_pose_idx, sys.bl, plan.lm_seg)
-    return C.flat_mv_3x3(invHll, cl)
+    return sym3x3_mv(invHll, cl)
 
 
 def apply_update(graph: GraphArrays, xp: torch.Tensor, xl: torch.Tensor) -> GraphArrays:
@@ -356,8 +367,9 @@ class BlockSolver:
         """Pack array inputs into device state (stage "0: Initialize").
 
         Each ``edge_spec`` dict has keys ``kind, meas [E,K], pose_idx [E],
-        lm_idx [E], omega [E], cam ([5] or [E,5])`` and optional ``rk,
-        delta, active, outlier_threshold``.  Vertices are active-first: the
+        lm_idx [E], omega [E], cam ([5] or [E,5])`` and optional ``rk``
+        (a ``RobustKernelType`` value), ``delta, active,
+        outlier_threshold``.  Vertices are active-first: the
         first ``num_active_*`` rows are free, the rest fixed.  One mono or
         stereo set runs as it is; a mono and a stereo set merge into one
         masked stereo set (:func:`_merge_ba_specs`)."""
@@ -371,8 +383,9 @@ class BlockSolver:
         kind = spec["kind"]
         if kind not in MODEL_REGISTRY:
             raise outside_slice(f"{kind!r} edges", "A9: the depth and ICP models")
-        if int(spec.get("rk", 0)) != 0:
-            raise outside_slice(f"robust kernel rk={spec['rk']}", "A8: robust kernels")
+        rk = int(spec.get("rk", 0))
+        if rk not in tuple(RobustKernelType):
+            raise ValueError(f"unknown robust kernel rk={rk}")
         if np.any(np.asarray(spec.get("outlier_threshold", 0.0)) > 0):
             raise outside_slice("outlier thresholding", "A9: update_edges outliers")
         cam = np.asarray(spec.get("cam", np.zeros(5)), dtype=np.float64).reshape(-1, 5)
@@ -438,7 +451,7 @@ class BlockSolver:
         )
         self.meta = EdgeSetMeta(
             kind=kind,
-            rk=0,
+            rk=rk,
             delta=float(spec.get("delta", 1.0)),
             nedges=int(np.sum(active > 0)),
         )

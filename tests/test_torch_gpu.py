@@ -12,10 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import reverse_pose_blocks
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_mixed_ba_problem
-from cuda_bundle_adjustment_tpu_torch.kernels import bandchol, gather, pairprod, schurvec, terms
+from cuda_bundle_adjustment_tpu_torch.kernels import (
+    bandchol, gather, lminv, pairprod, schurvec, terms,
+)
 from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mv_3x3, flat_sym3x3_inv
 from cuda_bundle_adjustment_tpu_torch.solver.segments import make_segments
 from cuda_bundle_adjustment_tpu_torch.types import PackedEdges
@@ -151,6 +154,46 @@ def test_schurvec_kernels_match_twins():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lam", [1e-6, 0.37, 1e4])
+def test_lminv_kernels_match_twins_bit_for_bit(lam):
+    """B4 and B10 evaluate their twins' expressions operation for operation
+    (no fused multiply-add): equal bit for bit, zero blocks (every 17th row)
+    included, and a zero block inverts to I / lam."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    La = 40_001
+    G = rng.normal(size=(La, 3, 3))
+    H9 = (np.einsum("nij,nkj->nik", G, G) + np.eye(3) * 1e-3).reshape(La, 9)
+    H9 *= 10.0 ** rng.uniform(-3, 6, (La, 1))
+    bl = rng.normal(size=(La, 3))
+    H9[::17] = 0.0
+    H9, bl = torch.as_tensor(H9, device=dev), torch.as_tensor(bl, device=dev)
+    before = lminv.damped_inverse.launches, lminv.sym3x3_mv.launches
+    inv, y = lminv.damped_inverse(H9, bl, lam)
+    inv_p, y_p = lminv.damped_inverse_plain(H9, bl, lam)
+    assert torch.equal(inv, inv_p) and torch.equal(y, y_p)
+    assert bool(torch.isfinite(inv).all()) and bool(torch.isfinite(y).all())
+    eye = torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1], dtype=torch.float64, device=dev)
+    assert torch.allclose(inv[::17], (eye / lam).expand(inv[::17].shape), rtol=1e-15, atol=0)
+    cl = torch.as_tensor(rng.normal(size=(La, 3)), device=dev)
+    assert torch.equal(lminv.sym3x3_mv(inv, cl), lminv.sym3x3_mv_plain(inv, cl))
+    after = lminv.damped_inverse.launches, lminv.sym3x3_mv.launches
+    assert after == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_lminv_kernels_refuse_what_they_do_not_take():
+    dev = _cuda()
+    H9 = torch.zeros((4, 9), dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        lminv.damped_inverse(H9.float(), torch.zeros((4, 3), device=dev), 1.0)
+    with pytest.raises(ValueError):
+        lminv.damped_inverse(H9, torch.zeros((5, 3), dtype=torch.float64, device=dev), 1.0)
+    with pytest.raises(ValueError):
+        lminv.sym3x3_mv(H9, torch.zeros((4, 3), dtype=torch.float64))
+
+
+@pytest.mark.gpu
 def test_gather_kernel_matches_twin():
     """Bit-exact, out-of-range indices (-1 and M) included."""
     dev = _cuda()
@@ -204,6 +247,35 @@ def test_band_kernels_match_twins(bw, SB):
 
 
 @pytest.mark.gpu
+def test_wide_band_path_on_gpu():
+    """The renamed graph reaches band height 32: the band kernels against
+    their twins on its first linearisation's band (f32, 1e-3 x max|value|),
+    and its optimize(5) trace on the card against the CPU at rtol 1e-9."""
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    dev = _cuda()
+    problem, _ = reverse_pose_blocks(make_ba_problem(num_poses=80, num_landmarks=1500, seed=2))
+    s = optimizer_from_problem(problem, device=dev).solver
+    s.build_structure()
+    Pa, (bw, SB) = s.Pa, s.plan.band
+    assert (bw, SB) == (31, 32)
+    _, sys_ = s.head()
+    blocks, bsc, _ = bs.schur_reduce(sys_, 1e-5 * s.max_diagonal(sys_), s.plan)
+    band, _, bv, _ = bs.scaled_band(blocks, bsc, s.plan)
+    L, L_p = bandchol.band_factor(band, Pa, SB), bandchol.band_factor_plain(band, Pa, SB)
+    assert (L - L_p).abs().max() <= 1e-3 * L_p.abs().max()
+    b32 = bv.to(torch.float32)
+    x, x_p = bandchol.band_solve(L, b32, Pa, SB, bw), bandchol.band_solve_plain(L, b32, Pa, SB, bw)
+    assert (x - x_p).abs().max() <= 1e-3 * x_p.abs().max()
+    traces = []
+    for d in (dev, "cpu"):
+        opt = optimizer_from_problem(problem, device=d)
+        opt.optimize(5)
+        traces.append([st.chi2 for st in opt.batch_statistics().get()])
+    np.testing.assert_allclose(traces[0], traces[1], rtol=1e-9)
+
+
+@pytest.mark.gpu
 def test_band_kernel_nonspd_goes_nonfinite():
     dev = _cuda()
     rng = np.random.default_rng(1)
@@ -228,6 +300,26 @@ def test_slice_on_gpu_matches_cpu_and_repeats(kind):
     for d in (dev, dev, "cpu"):
         opt = optimizer_from_problem(problem, device=d)
         opt.optimize(10)
+        traces.append([s.chi2 for s in opt.batch_statistics().get()])
+    assert traces[0] == traces[1]
+    np.testing.assert_allclose(traces[0], traces[2], rtol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rk", [1, 2, 3], ids=["tukey", "cauchy", "huber"])
+@pytest.mark.parametrize("kind", ["mono", "stereo", "mixed"])
+def test_robust_slice_on_gpu_matches_cpu_and_repeats(kind, rk):
+    """Robust kernels on the card against the CPU at rtol 1e-9 (log and sqrt
+    may differ in the last place between host and card), a second run on the
+    card bit for bit, and the default device is the card."""
+    dev = _cuda()
+    kw = dict(num_poses=16, num_landmarks=120, seed=13)
+    problem = make_mixed_ba_problem(**kw) if kind == "mixed" else make_ba_problem(kind=kind, **kw)
+    traces = []
+    for d in ({}, {}, dict(device="cpu")):
+        opt = optimizer_from_problem(problem, rk=rk, delta=3.0, **d)
+        assert opt.device.type == d.get("device", "cuda")
+        opt.optimize(5)
         traces.append([s.chi2 for s in opt.batch_statistics().get()])
     assert traces[0] == traces[1]
     np.testing.assert_allclose(traces[0], traces[2], rtol=1e-9)

@@ -1,5 +1,5 @@
-"""The PyTorch port's kernel twins (kernels B2, B6, B7, B8) against the JAX
-package's Pallas kernels, run in interpret mode on the CPU, and against the
+"""The PyTorch port's kernel twins (kernels B2, B6, B7, B8, and B7 at the
+band heights of B11) against the JAX package's Pallas kernels, run in interpret mode on the CPU, and against the
 XLA triple path.  Same inputs, made from a seed with numpy, go to both sides.
 The CUDA kernels themselves are held against their twins on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
@@ -47,7 +47,7 @@ def _systems(problem):
     js = jax_optimizer(problem).solver
     js.build_structure()
     _, jsys = js.head()
-    ts = optimizer_from_problem(problem).solver
+    ts = optimizer_from_problem(problem, device="cpu").solver
     ts.build_structure()
     return js, jsys, ts, _jax_system_in_port_order(js, jsys)
 
@@ -166,6 +166,32 @@ def test_band_twins_match_pallas(Pa, bw, SB):
         L_got.numpy()[:live], L_ref[:live], atol=1e-5 * max(np.abs(L_ref).max(), 1.0)
     )
 
+    x_ref = np.asarray(band_solve(jnp.asarray(L_ref), jnp.asarray(b), Pa, SB, bw, interpret=True))
+    x_got = bandchol.band_solve(_t(L_ref), _t(b), Pa, SB, bw).numpy()
+    assert np.linalg.norm(x_got - x_ref) / np.linalg.norm(x_ref) < 1e-5
+    x_dense = np.linalg.solve(A, b.reshape(-1)).reshape(Pa, 6)
+    rel = np.linalg.norm(bandchol.band_solve(L_got, _t(b), Pa, SB, bw).numpy() - x_dense)
+    assert rel / np.linalg.norm(x_dense) < 5e-5
+
+
+@pytest.mark.parametrize("Pa,bw,SB", [(30, 20, 24), (36, 31, 32), (52, 47, 48)])
+def test_wide_band_twins_match_pallas_v1(Pa, bw, SB):
+    """The band heights of the wide-band path (16 < SB <= 48), where the JAX
+    package runs ``band_factor`` (v1): the factor twin against it and the
+    solve twin against ``band_solve`` (interpret), at the f32 tolerances of
+    :func:`test_band_twins_match_pallas`."""
+    from cuda_bundle_adjustment_tpu.pallas.bandchol import band_factor, band_solve
+
+    rng = np.random.default_rng(SB)
+    A, band = _random_banded_spd(Pa, bw, SB, rng)
+    b = rng.normal(size=(Pa, 6)).astype(np.float32)
+
+    L_ref = np.asarray(band_factor(jnp.asarray(band), Pa, SB, bw, interpret=True))
+    L_got = bandchol.band_factor(_t(band), Pa, SB)
+    live = Pa * SB
+    np.testing.assert_allclose(
+        L_got.numpy()[:live], L_ref[:live], atol=1e-5 * max(np.abs(L_ref).max(), 1.0)
+    )
     x_ref = np.asarray(band_solve(jnp.asarray(L_ref), jnp.asarray(b), Pa, SB, bw, interpret=True))
     x_got = bandchol.band_solve(_t(L_ref), _t(b), Pa, SB, bw).numpy()
     assert np.linalg.norm(x_got - x_ref) / np.linalg.norm(x_ref) < 1e-5

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import reverse_pose_blocks
 from cuda_bundle_adjustment_tpu.io import synthetic as jsyn
 from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
@@ -33,7 +34,7 @@ def test_trace_matches_jax_and_dense_oracle():
     problem = make_ba_problem(
         num_poses=10, num_landmarks=50, mean_obs_per_landmark=4.0, kind="mono", seed=5
     )
-    opt = optimizer_from_problem(problem)
+    opt = optimizer_from_problem(problem, device="cpu")
     opt.optimize(10)
     got = _trace(opt)
 
@@ -64,7 +65,7 @@ def test_stereo_and_mixed_traces_match_jax_and_dense_oracle(kind):
         problem, jproblem = make_mixed_ba_problem(**kw), jsyn.make_mixed_ba_problem(**kw)
     else:
         problem = jproblem = make_ba_problem(kind=kind, **kw)
-    opt = optimizer_from_problem(problem)
+    opt = optimizer_from_problem(problem, device="cpu")
     opt.optimize(10)
     got = _trace(opt)
     assert (opt.solver.packed.mask3 is not None) == (kind == "mixed")
@@ -89,13 +90,78 @@ def test_stereo_and_mixed_traces_match_jax_and_dense_oracle(kind):
     np.testing.assert_allclose(opt.solver.result_landmarks()[:La], ref.Xw[:La], atol=1e-6)
 
 
+@pytest.mark.parametrize("rk", [1, 2, 3], ids=["tukey", "cauchy", "huber"])
+@pytest.mark.parametrize("kind", ["mono", "stereo", "mixed"])
+def test_robust_traces_match_jax_and_dense_oracle(kind, rk):
+    """Tukey, Cauchy and Huber on a mono, a stereo and a merged mono+stereo
+    graph: the chi2 trace of optimize(5) against the JAX package on the CPU
+    at rtol 1e-9 and against DenseLM with the same kernel at 1e-6."""
+    kw = dict(num_poses=10, num_landmarks=60, mean_obs_per_landmark=4.0, seed=6)
+    robust = dict(rk=rk, delta=3.0)
+    if kind == "mixed":
+        problem, jproblem = make_mixed_ba_problem(**kw), jsyn.make_mixed_ba_problem(**kw)
+    else:
+        problem = jproblem = make_ba_problem(kind=kind, **kw)
+    opt = optimizer_from_problem(problem, device="cpu", **robust)
+    opt.optimize(5)
+    got = _trace(opt)
+    plain = optimizer_from_problem(problem, device="cpu")
+    plain.optimize(1)
+    assert got[0] < _trace(plain)[0]  # the kernel bites at the start
+
+    jopt = jax_optimizer(jproblem, **robust)
+    jopt.optimize(5)
+    assert len(got) == len(_trace(jopt)) == 5
+    np.testing.assert_allclose(got, _trace(jopt), rtol=1e-9)
+    want = DenseLM(problem, **robust).optimize(5)
+    assert len(got) == len(want)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_wide_band_graph_matches_its_narrow_self():
+    """The wide-band path end to end: a trajectory graph with its poses
+    renamed so that the Hsc band is 32 blocks high (the height at which the
+    JAX package takes its v1 band factor) against the JAX package on the
+    same renamed problem (trace 1e-9, state 1e-9 of its scale), and against
+    the same graph in its own order (band 16): the f32 factor runs in
+    another order, so traces agree to 1e-8 relative and the un-renamed
+    poses to 1e-7."""
+    problem = make_ba_problem(num_poses=80, num_landmarks=1500, seed=2)
+    wide_problem, rename = reverse_pose_blocks(problem)
+    narrow = optimizer_from_problem(problem, device="cpu")
+    wide = optimizer_from_problem(wide_problem, device="cpu")
+    narrow.optimize(5)
+    wide.optimize(5)
+    assert narrow.solver.plan.band == (11, 16) and narrow.solver.pose_perm is None
+    assert wide.solver.plan.band == (31, 32) and wide.solver.pose_perm is None
+    assert len(_trace(wide)) == len(_trace(narrow)) == 5
+    np.testing.assert_allclose(_trace(wide), _trace(narrow), rtol=1e-8)
+    Pa = problem.num_active_poses
+    (wq, wt), (nq, nt) = wide.solver.result_poses(), narrow.solver.result_poses()
+
+    jopt = jax_optimizer(wide_problem)
+    jopt.optimize(5)
+    assert len(_trace(jopt)) == 5
+    np.testing.assert_allclose(_trace(wide), _trace(jopt), rtol=1e-9)
+    jq, jt = jopt.solver.result_poses()
+    for a, b in [(wq, jq), (wt, jt),
+                 (wide.solver.result_landmarks(), jopt.solver.result_landmarks())]:
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max())
+
+    np.testing.assert_allclose(wq[:Pa][rename], nq[:Pa], rtol=0, atol=1e-7)
+    np.testing.assert_allclose(wt[:Pa][rename], nt[:Pa], rtol=0, atol=1e-7)
+    np.testing.assert_allclose(
+        wide.solver.result_landmarks(), narrow.solver.result_landmarks(), rtol=0, atol=1e-7
+    )
+
+
 def test_repeat_runs_and_profile_mode_give_identical_traces():
     """Fixed-order reductions: two runs give the same trace bit for bit, and
     the per-stage profiled path runs the same arithmetic."""
     problem = make_ba_problem(num_poses=12, num_landmarks=90, seed=8)
     traces = []
     for profile in (False, False, True):
-        opt = optimizer_from_problem(problem)
+        opt = optimizer_from_problem(problem, device="cpu")
         opt.set_profile(profile)
         opt.optimize(6)
         traces.append(_trace(opt))
@@ -114,7 +180,8 @@ def test_port_imports_no_jax():
         "import cuda_bundle_adjustment_tpu_torch\n"
         "from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem\n"
         "from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem\n"
-        "opt = optimizer_from_problem(make_ba_problem(num_poses=6, num_landmarks=40, seed=1))\n"
+        "opt = optimizer_from_problem(\n"
+        "    make_ba_problem(num_poses=6, num_landmarks=40, seed=1), device='cpu')\n"
         "opt.optimize(3)\n"
         "trace = [s.chi2 for s in opt.batch_statistics().get()]\n"
         "assert len(trace) == 3 and trace[-1] < trace[0], trace\n"
@@ -135,3 +202,22 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         optimizer_from_problem(make_ba_problem(num_poses=4, num_landmarks=20), device="cuda")
+
+
+def test_default_device_is_the_card_and_never_the_cpu():
+    """The entry points default to the card; on a host without one they
+    raise before anything is packed, and never carry on on the CPU."""
+    import inspect
+
+    from cuda_bundle_adjustment_tpu_torch import TorchGraphOptimisation
+
+    for fn in (optimizer_from_problem, TorchGraphOptimisation.__init__,
+               TorchGraphOptimisation.create):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    problem = make_ba_problem(num_poses=4, num_landmarks=20)
+    for make in (lambda: optimizer_from_problem(problem), TorchGraphOptimisation,
+                 TorchGraphOptimisation.create):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -7,6 +7,7 @@ compared array (the two sum the same terms in different orders), except
 """
 
 import ast
+import functools
 import inspect
 
 import numpy as np
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from chip_smoke import reverse_pose_blocks
 from cuda_bundle_adjustment_tpu.io import synthetic as jsyn
 from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
 from cuda_bundle_adjustment_tpu.solver import block_solver as jbs
@@ -125,14 +127,14 @@ def test_symbolic_copy_gives_identical_structure(seed):
 # -- stages ---------------------------------------------------------------------
 
 
-def _both_systems(problem, jproblem=None):
+def _both_systems(problem, jproblem=None, **robust):
     """Both solvers on one problem, their first linearisation, and the JAX
     system in the port's order (``jproblem``: the JAX package's own problem
-    class, where it differs)."""
-    js = jax_optimizer(problem if jproblem is None else jproblem).solver
+    class, where it differs; ``robust``: ``rk`` and ``delta`` for both)."""
+    js = jax_optimizer(problem if jproblem is None else jproblem, **robust).solver
     js.build_structure()
     jchi, jsys = js.head()
-    ts = optimizer_from_problem(problem).solver
+    ts = optimizer_from_problem(problem, device="cpu", **robust).solver
     ts.build_structure()
     tchi, tsys = ts.head()
     lay = js.group_layout
@@ -176,6 +178,32 @@ def test_build_system_matches_jax_stereo_and_mixed(kind):
         assert s["ts"].packed.mask3 is not None
     else:
         s = _both_systems(jsyn.make_ba_problem(kind=kind, **kw))
+    _close(float(s["tchi"]), float(s["jchi"]), 1e-12)
+    for name in ("Hpp", "bp", "Hll", "bl", "Hpl"):
+        _close(getattr(s["tsys"], name).numpy(), getattr(s["psys"], name).numpy(), 1e-12)
+
+
+@pytest.mark.parametrize("rk", [1, 2, 3], ids=["tukey", "cauchy", "huber"])
+@pytest.mark.parametrize("kind", ["mono", "stereo", "mixed"])
+def test_robust_chi_and_system_match_jax(kind, rk):
+    """chi (rho on kernel B1's per-edge x) and the system (kernel B3 with the
+    weight rescaled by rho') under Tukey, Cauchy and Huber against the JAX
+    package, with edges on both sides of delta."""
+    kw = dict(num_poses=12, num_landmarks=90, mean_obs_per_landmark=4.0, seed=22)
+    robust = dict(rk=rk, delta=3.0)
+    if kind == "mixed":
+        s = _both_systems(
+            tsyn.make_mixed_ba_problem(**kw), jsyn.make_mixed_ba_problem(**kw), **robust
+        )
+    else:
+        s = _both_systems(jsyn.make_ba_problem(kind=kind, **kw), **robust)
+    ts = s["ts"]
+    assert ts.meta.rk == rk and ts.meta.delta == 3.0
+    from cuda_bundle_adjustment_tpu_torch.kernels import chi_edges
+    from cuda_bundle_adjustment_tpu_torch.models.ba import edge_state
+
+    x = chi_edges(*edge_state(ts.graph, ts.packed), ts.packed)
+    assert bool((x > 9.0).any()) and bool(((x > 0) & (x <= 9.0)).any())
     _close(float(s["tchi"]), float(s["jchi"]), 1e-12)
     for name in ("Hpp", "bp", "Hll", "bl", "Hpl"):
         _close(getattr(s["tsys"], name).numpy(), getattr(s["psys"], name).numpy(), 1e-12)
@@ -242,6 +270,66 @@ def test_refined_pose_step_matches_jax(systems):
     _close(xp.numpy(), jxp, 1e-9)
 
 
+def test_refined_pose_step_matches_jax_on_the_wide_band():
+    """The same step at band height 32 (the range of the JAX package's v1
+    factor): the renamed 80-pose graph's first trial through the port's band
+    twins against the JAX package's mixed solve of the same numpy problem."""
+    wide_problem, _ = reverse_pose_blocks(
+        jsyn.make_ba_problem(num_poses=80, num_landmarks=1500, seed=2)
+    )
+    s = _both_systems(wide_problem)
+    assert s["ts"].plan.band == (31, 32) and s["ts"].pose_perm is None
+    for name in ("Hpp", "bp", "Hll", "bl", "Hpl"):
+        _close(getattr(s["tsys"], name).numpy(), getattr(s["psys"], name).numpy(), 1e-12)
+    jb, jbsc, _, jxp, jok = _jax_step(s)
+    blocks, bsc, _ = tbs.schur_reduce(s["tsys"], s["lam"], s["ts"].plan)
+    _close(blocks.numpy(), jb, 1e-12)
+    xp, ok = tbs.solve_reduced_band(blocks, bsc, s["ts"].plan)
+    assert bool(ok) and bool(jok)
+    _close(xp.numpy(), jxp, 1e-9)
+
+
+def test_borderline_step_divides_band_twins_and_jax_band_kernels(monkeypatch):
+    """A known divergence, pinned (ROADMAP section C).  The tenth Cauchy
+    iteration of the 16-pose mono graph reaches a reduced system (scaled
+    condition ~3e6) on which two refinement rounds of an f32 band factor end
+    within a rounding of the 1e-8 residual limit: the port's band twins
+    refuse the step, the JAX package's band kernels (interpret mode, the
+    accelerator's route: v2 factor, two rounds) and its dense CPU route
+    (three rounds) take it.  The refused pose step equals theirs to 1e-5."""
+    from cuda_bundle_adjustment_tpu.pallas import bandchol as jband
+
+    problem = tsyn.make_ba_problem(
+        kind="mono", num_poses=16, num_landmarks=120, mean_obs_per_landmark=4.0, seed=13
+    )
+    opt = optimizer_from_problem(problem, device="cpu", rk=2, delta=3.0)
+    solves = []
+    solve = tbs.solve_reduced_band
+
+    def recording(blocks, bsc, plan):
+        xp, ok = solve(blocks, bsc, plan)
+        solves.append((blocks, bsc, xp, bool(ok)))
+        return xp, ok
+
+    monkeypatch.setattr(tbs, "solve_reduced_band", recording)
+    opt.optimize(10)
+    assert [ok for *_, ok in solves] == [True] * 9 + [False]
+    blocks, bsc, xp, _ = solves[-1]
+
+    for name in ("band_factor2", "band_solve"):
+        monkeypatch.setattr(jband, name, functools.partial(getattr(jband, name), interpret=True))
+    p = opt.solver.plan
+    args = (jnp.asarray(blocks.numpy()), jnp.asarray(p.blk_row.numpy()),
+            jnp.asarray(p.blk_col.numpy()), jnp.asarray(p.diag_pos.numpy()),
+            jnp.asarray(bsc.numpy()), opt.solver.Pa, True)
+    assert p.band.sb * 6 <= 128  # the v2 factor
+    jxp_band, jok_band = jbs._solve_reduced_blocks(*args, band=jbs.BandMeta(*p.band))
+    jxp_dense, jok_dense = jbs._solve_reduced_blocks(*args)
+    assert bool(jok_band) and bool(jok_dense)
+    _close(np.asarray(jxp_band), np.asarray(jxp_dense), 1e-6)
+    _close(xp.numpy(), np.asarray(jxp_dense), 1e-5)
+
+
 def test_back_substitute_matches_jax(systems):
     s = systems
     js = s["js"]
@@ -285,25 +373,37 @@ def _unmerged_mixed():
     """A mono and a stereo set whose robust kernels differ: they stay two
     edge sets."""
     mp = tsyn.make_mixed_ba_problem(num_poses=6, num_landmarks=30, seed=1)
-    TorchGraphOptimisation().solver.initialize_from_arrays(
+    TorchGraphOptimisation(device="cpu").solver.initialize_from_arrays(
         mp.pose_q, mp.pose_t, mp.num_active_poses, mp.landmarks,
         mp.num_active_landmarks, [dict(mp.specs[0], rk=0), dict(mp.specs[1], rk=2)],
     )
 
 
+def _cpu(problem, **kw):
+    return optimizer_from_problem(problem, device="cpu", **kw)
+
+
+def _per_edge_camera_stereo():
+    p = _mono(kind="stereo")
+    cam = np.tile(np.asarray(p.cam, dtype=np.float64).reshape(1, 5), (p.meas.shape[0], 1))
+    cam[1::2, 0] *= 1.01
+    _cpu(p._replace(cam=cam))
+
+
 @pytest.mark.parametrize(
     "make,item",
     [
-        (lambda: optimizer_from_problem(_mono(kind="stereo"), rk=3, delta=1.0), "A8"),
-        (lambda: optimizer_from_problem(_mono(kind="depth")), "A9"),
-        (lambda: optimizer_from_problem(_mono(), rk=2, delta=1.0), "A8"),
-        (lambda: optimizer_from_problem(
-            _mono(), options=GraphOptimisationOptions(dtype="float32")), "A8"),
-        (lambda: optimizer_from_problem(
+        (_per_edge_camera_stereo, "A9"),
+        (lambda: _cpu(_mono(kind="depth")), "A9"),
+        # a robust set in f32 mode (the JAX bench's kitti00_huber_f32)
+        (lambda: _cpu(_mono(), rk=3, delta=10.0,
+                      options=GraphOptimisationOptions(dtype="float32")), "A8"),
+        (lambda: _cpu(_mono(), options=GraphOptimisationOptions(dtype="float32")), "A8"),
+        (lambda: _cpu(
             _mono(), options=GraphOptimisationOptions(solver_precision="exact")), "A10"),
         (_unmerged_mixed, "A9"),
-        (lambda: optimizer_from_problem(_mono(), outlier_threshold=5.0), "A9"),
-        (lambda: TorchGraphOptimisation().initialize(), "A3"),
+        (lambda: _cpu(_mono(), outlier_threshold=5.0), "A9"),
+        (lambda: TorchGraphOptimisation(device="cpu").initialize(), "A3"),
     ],
     ids=["stereo", "depth", "robust", "float32", "exact", "mixed", "outliers", "object-api"],
 )
@@ -312,8 +412,13 @@ def test_outside_the_slice_raises(make, item):
         make()
 
 
+def test_unknown_robust_kernel_raises():
+    with pytest.raises(ValueError, match="unknown robust kernel"):
+        _cpu(_mono(), rk=7)
+
+
 def test_fused_loop_and_wide_band_raise():
-    opt = optimizer_from_problem(_mono())
+    opt = _cpu(_mono())
     opt.use_fused_loop = True
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         opt.optimize(1)
@@ -322,4 +427,4 @@ def test_fused_loop_and_wide_band_raise():
         num_poses=120, num_landmarks=1200, long_range_fraction=0.3, seed=2
     )
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        optimizer_from_problem(p).optimize(1)
+        _cpu(p).optimize(1)

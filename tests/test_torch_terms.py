@@ -137,6 +137,42 @@ def test_twins_match_jax_xla_models(kind, masked):
     _close(hpl.numpy(), want[2], 1e-12)
 
 
+@pytest.mark.parametrize("rk", [1, 2, 3], ids=["tukey", "cauchy", "huber"])
+@pytest.mark.parametrize(
+    "kind,masked", [("mono", False), ("stereo", False), ("stereo", True)],
+    ids=["mono", "stereo", "mixed"],
+)
+def test_robust_route_equals_robust_models(kind, masked, rk):
+    """The solver's robust route (rho on B1's per-edge x; B3 with the weight
+    rescaled by rho'(x)) against the port's own ``Model.chi`` / ``Model.terms``
+    at that ``rk, delta`` with the original weight, bit for bit, and against
+    the JAX XLA models at 1e-12 x max|value|.  Both sides of delta occur."""
+    from cuda_bundle_adjustment_tpu_torch.ops.robust import robust_derivative, robustify
+
+    delta = 150.0
+    d = _graph_problem(np.random.default_rng(10 * rk + len(kind) + masked), kind, masked)
+    jgraph, jdata = _jax_side(d)
+    graph, data = _port_side(d)
+    model = MODEL_REGISTRY[kind]
+    jmodel = JaxMono if kind == "mono" else JaxStereo
+
+    qt, xw = edge_state(graph, data)
+    x = terms.chi_edges(qt, xw, data)
+    live = x[x > 0]
+    assert bool((live > delta**2).any()) and bool((live <= delta**2).any())
+    chi = robustify(rk, delta, x)
+    assert torch.equal(chi, model.chi(graph, data, rk, delta))
+    _close(chi.numpy(), jmodel.chi(jgraph, jdata, rk, delta), 1e-12)
+
+    rescaled = data._replace(omega=data.omega * robust_derivative(rk, delta, x))
+    got = model.terms(graph, rescaled, 0, 1.0)
+    want = model.terms(graph, data, rk, delta)
+    jwant = jmodel.terms(jgraph, jdata, rk, delta)
+    for g, w, jw in zip(got, want, jwant):
+        assert torch.equal(g, w)
+        _close(g.numpy(), jw, 1e-12)
+
+
 def test_inert_and_degenerate_rows_give_exact_zeros():
     """Inert rows: exact zeros in chi, Hpl, Hpp|bp and Hll|bl.  Degenerate
     active rows (z = 0): an exact zero inv_z, so JL, Hll|bl and Hpl are exact
