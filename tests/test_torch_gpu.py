@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import reverse_pose_blocks
+from chip_smoke import random_banded_spd, reverse_pose_blocks
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_mixed_ba_problem
@@ -30,23 +30,6 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
-
-
-def _random_banded_spd(Pa, bw, SB, rng):
-    n = Pa * 6
-    A = np.zeros((n, n))
-    for c in range(Pa):
-        for d in range(min(bw + 1, Pa - c)):
-            if d > 0 and rng.random() < 0.3:
-                continue  # band holes
-            A[c * 6 : (c + 1) * 6, (c + d) * 6 : (c + d + 1) * 6] = rng.normal(size=(6, 6))
-    A = A + A.T
-    A += np.eye(n) * (np.abs(A).sum(axis=1).max() + 1.0)
-    band = np.zeros(((Pa + SB) * SB, 36), np.float32)
-    for c in range(Pa):
-        for d in range(min(bw + 1, Pa - c)):
-            band[c * SB + d] = A[c * 6 : (c + 1) * 6, (c + d) * 6 : (c + d + 1) * 6].reshape(-1)
-    return A, band
 
 
 CAM = (718.856, 718.856, 607.1928, 185.2157, 386.1448)
@@ -225,23 +208,32 @@ def test_pairprod_kernel_matches_twin():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bw,SB", [(5, 8), (11, 16), (20, 24), (47, 48)])
-def test_band_kernels_match_twins(bw, SB):
+@pytest.mark.parametrize(
+    "Pa,bw,SB",
+    [(60, 5, 8), (60, 11, 16), (60, 20, 24), (100, 31, 32), (60, 47, 48),
+     (7, 11, 16), (1, 3, 8), (40, 0, 1)],
+)
+def test_band_kernels_match_twins(Pa, bw, SB):
     """f32 factor within 1e-5 x max|L| and solve within 1e-5 relative of the
-    twins, 5e-5 of the f64 dense solve.  SB = 24..48 is the range of the TPU's
-    v1 factor (B11), which this one kernel also covers."""
+    twins, 5e-5 of the f64 dense solve, and a second launch of each bit for
+    bit.  SB = 24..48 is the range of the TPU's v1 factor (B11), which this
+    one kernel family also covers; SB <= 32 accumulates in an f64 window, 48
+    in f32; Pa = 60 and 100 exceed the window length, Pa = 7 and 1 stay
+    inside it."""
     dev = _cuda()
     rng = np.random.default_rng(SB)
-    Pa = 60
-    A, band = _random_banded_spd(Pa, bw, SB, rng)
+    A, band = random_banded_spd(Pa, bw, SB, rng)
     b = torch.as_tensor(rng.normal(size=(Pa, 6)).astype(np.float32), device=dev)
     band = torch.as_tensor(band, device=dev)
     L = bandchol.band_factor(band, Pa, SB)
     L_p = bandchol.band_factor_plain(band, Pa, SB)
+    assert bool(torch.isfinite(L).all())
     assert (L - L_p).abs().max() <= 1e-5 * L_p.abs().max()
+    assert torch.equal(L, bandchol.band_factor(band, Pa, SB))
     x = bandchol.band_solve(L, b, Pa, SB, bw)
     x_p = bandchol.band_solve_plain(L, b, Pa, SB, bw)
     assert (x - x_p).norm() <= 1e-5 * x_p.norm()
+    assert torch.equal(x, bandchol.band_solve(L, b, Pa, SB, bw))
     x_dense = np.linalg.solve(A, b.cpu().numpy().reshape(-1)).reshape(Pa, 6)
     assert np.linalg.norm(x.cpu().numpy() - x_dense) <= 5e-5 * np.linalg.norm(x_dense)
 
@@ -280,7 +272,7 @@ def test_band_kernel_nonspd_goes_nonfinite():
     dev = _cuda()
     rng = np.random.default_rng(1)
     Pa, bw, SB = 9, 2, 8
-    _, band = _random_banded_spd(Pa, bw, SB, rng)
+    _, band = random_banded_spd(Pa, bw, SB, rng)
     band[0] = -np.eye(6).reshape(-1)
     band = torch.as_tensor(band, device=dev)
     b = torch.as_tensor(rng.normal(size=(Pa, 6)).astype(np.float32), device=dev)

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from chip_smoke import random_banded_spd
 from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
 from cuda_bundle_adjustment_tpu.io.synthetic import make_ba_problem
 from cuda_bundle_adjustment_tpu.ops.components import flat_sym3x3_inv as jax_sym3x3_inv
@@ -130,23 +131,6 @@ def test_pairprod_twin_matches_pallas_kernel():
 # -- B7 / B8 ----------------------------------------------------------------
 
 
-def _random_banded_spd(Pa, bw, SB, rng):
-    n = Pa * 6
-    A = np.zeros((n, n))
-    for c in range(Pa):
-        for d in range(min(bw + 1, Pa - c)):
-            if d > 0 and rng.random() < 0.3:
-                continue  # band holes
-            A[c * 6 : (c + 1) * 6, (c + d) * 6 : (c + d + 1) * 6] = rng.normal(size=(6, 6))
-    A = A + A.T
-    A += np.eye(n) * (np.abs(A).sum(axis=1).max() + 1.0)
-    band = np.zeros(((Pa + SB) * SB, 36), np.float32)
-    for c in range(Pa):
-        for d in range(min(bw + 1, Pa - c)):
-            band[c * SB + d] = A[c * 6 : (c + 1) * 6, (c + d) * 6 : (c + d + 1) * 6].reshape(-1)
-    return A, band
-
-
 @pytest.mark.parametrize("Pa,bw,SB", [(23, 4, 8), (19, 11, 16)])
 def test_band_twins_match_pallas(Pa, bw, SB):
     """Factor against ``band_factor2`` and solve against ``band_solve``
@@ -156,7 +140,7 @@ def test_band_twins_match_pallas(Pa, bw, SB):
     from cuda_bundle_adjustment_tpu.pallas.bandchol import band_factor2, band_solve
 
     rng = np.random.default_rng(Pa)
-    A, band = _random_banded_spd(Pa, bw, SB, rng)
+    A, band = random_banded_spd(Pa, bw, SB, rng)
     b = rng.normal(size=(Pa, 6)).astype(np.float32)
 
     L_ref = np.asarray(band_factor2(jnp.asarray(band), Pa, SB, interpret=True))
@@ -183,7 +167,7 @@ def test_wide_band_twins_match_pallas_v1(Pa, bw, SB):
     from cuda_bundle_adjustment_tpu.pallas.bandchol import band_factor, band_solve
 
     rng = np.random.default_rng(SB)
-    A, band = _random_banded_spd(Pa, bw, SB, rng)
+    A, band = random_banded_spd(Pa, bw, SB, rng)
     b = rng.normal(size=(Pa, 6)).astype(np.float32)
 
     L_ref = np.asarray(band_factor(jnp.asarray(band), Pa, SB, bw, interpret=True))
@@ -205,7 +189,7 @@ def test_band_twin_nonspd_goes_nonfinite():
     signal), not as silently wrong numbers."""
     rng = np.random.default_rng(1)
     Pa, bw, SB = 9, 2, 8
-    _, band = _random_banded_spd(Pa, bw, SB, rng)
+    _, band = random_banded_spd(Pa, bw, SB, rng)
     band[0] = -np.eye(6).reshape(-1)
     b = rng.normal(size=(Pa, 6)).astype(np.float32)
     L = bandchol.band_factor(_t(band), Pa, SB)

@@ -94,8 +94,15 @@ def test_stereo_and_mixed_traces_match_jax_and_dense_oracle(kind):
 @pytest.mark.parametrize("kind", ["mono", "stereo", "mixed"])
 def test_robust_traces_match_jax_and_dense_oracle(kind, rk):
     """Tukey, Cauchy and Huber on a mono, a stereo and a merged mono+stereo
-    graph: the chi2 trace of optimize(5) against the JAX package on the CPU
-    at rtol 1e-9 and against DenseLM with the same kernel at 1e-6."""
+    graph: the chi2 trace of optimize(10) against the JAX package on the CPU
+    at rtol 1e-9 and against DenseLM with the same kernel at 1e-6.  The
+    stereo graph under Tukey is held over 7 iterations: from the eighth its
+    reduced systems are singular to working precision.  Steps that all meet
+    the residual limit then differ by 1e-4 (chi2 by 2e-7), the ninth system
+    leaves every route's residual, the JAX package's dense one included,
+    over 8 times the limit, and whether a solver stops there or steps round
+    it follows from a verdict within a rounding of the limit just before."""
+    niter = 7 if (kind, rk) == ("stereo", 1) else 10
     kw = dict(num_poses=10, num_landmarks=60, mean_obs_per_landmark=4.0, seed=6)
     robust = dict(rk=rk, delta=3.0)
     if kind == "mixed":
@@ -103,17 +110,17 @@ def test_robust_traces_match_jax_and_dense_oracle(kind, rk):
     else:
         problem = jproblem = make_ba_problem(kind=kind, **kw)
     opt = optimizer_from_problem(problem, device="cpu", **robust)
-    opt.optimize(5)
+    opt.optimize(niter)
     got = _trace(opt)
     plain = optimizer_from_problem(problem, device="cpu")
     plain.optimize(1)
     assert got[0] < _trace(plain)[0]  # the kernel bites at the start
 
     jopt = jax_optimizer(jproblem, **robust)
-    jopt.optimize(5)
-    assert len(got) == len(_trace(jopt)) == 5
+    jopt.optimize(niter)
+    assert len(got) == len(_trace(jopt)) == niter
     np.testing.assert_allclose(got, _trace(jopt), rtol=1e-9)
-    want = DenseLM(problem, **robust).optimize(5)
+    want = DenseLM(problem, **robust).optimize(niter)
     assert len(got) == len(want)
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
