@@ -16,13 +16,24 @@ caught):
    ``kitti00_huber`` (B3 with the weight rescaled by rho'), ``kitti00_mixed``,
    ``kitti07_mono`` and ``kitti07_mono_wide`` (band height asserted > 16);
    times the kernel, the twin and, where one PyTorch call computes the same
-   function, that call (median of CUDA-event-timed calls), and works out
-   each kernel's bound from the bytes and operations of these inputs; then
+   function, that call (``ms``: median of CUDA-event-timed calls, the call
+   as the path pays for it, the wrapper's host work included wherever the
+   device is done first), reads the kernel's own time on the device apart
+   from its wrapper (``device_ms``: calls captured into a CUDA graph and
+   replayed back to back between two events) and the wrapper's own time on
+   the host (``host_ms``: the Python body on the host clock), and works out
+   each kernel's bound from the bytes and operations of these inputs (the
+   other inputs read ``device_ms`` and ``host_ms`` for B3 and B6 only, and at
+   the wide band for B7 and B8); holds B3's per-vertex sums bit for bit, and
+   B6's within 1e-12, against the twins' values summed in the kernels'
+   order; then
    holds the band kernels B7 and B8 against their twins on a random banded
    SPD system of band height 48, which no generator reaches end to end;
 4. runs a small mono, stereo and mixed problem without a robust kernel and
    under Huber, Cauchy and Tukey on the card and on the CPU and holds both
-   chi2 traces against the numpy ``DenseLM`` oracle, then solves the
+   chi2 traces against the numpy ``DenseLM`` oracle (the mixed graph under
+   Tukey at a stated looser tolerance from its eighth iteration, with the
+   measurements that say why printed beside it), then solves the
    population of borderline reduced systems (16-pose mono graph, seeds
    0..15, Cauchy and Tukey) on the card and holds its verdicts against the
    CPU twins';
@@ -52,6 +63,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SRC = "cuda_bundle_adjustment_tpu_torch/csrc"
 PALLAS = "cuda_bundle_adjustment_tpu/pallas"
@@ -94,8 +106,11 @@ PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
 CHI_FLOPS = {2: 40, 3: 50}
 LINEARISE_FLOPS = {2: 400, 3: 560}
 ROBUST = {"none": 0, "tukey": 1, "cauchy": 2, "huber": 3}  # RobustKernelType values
-# small-graph cases whose traces are held over fewer than 10 iterations
+# small-graph case whose traces are held over fewer than 10 iterations
 HELD_SHORT = {("mono", "tukey"): 6}
+# small-graph case whose card-against-CPU tolerance widens after its first
+# iterations: (iterations held at 1e-9, tolerance of the later ones)
+HELD_LOOSER = {("mixed", "tukey"): (7, 1e-8)}
 
 
 def nvidia_smi_line() -> str:
@@ -113,10 +128,11 @@ def nvcc_version() -> str:
     return out.stdout.strip().splitlines()[-1]
 
 
-def ptxas_report(name: str) -> None:
+def ptxas_report(name: str) -> list[str]:
     """Registers, spills and static shared memory of every kernel of
-    ``csrc/<name>.cu``, as ``nvcc -Xptxas -v`` reports them (the band
-    kernels' shared memory is dynamic: its sizes are in the source's note)."""
+    ``csrc/<name>.cu``, as ``nvcc -Xptxas -v`` reports them, a line a kernel
+    (the band kernels' shared memory is dynamic: its sizes are in the
+    source's note)."""
     import re
     import tempfile
 
@@ -126,14 +142,17 @@ def ptxas_report(name: str) -> None:
         cmd = [_build._nvcc(), *_build._flags(name), "-Xptxas", "-v",
                "-o", f"{tmp}/lib.so", str(_build.CSRC_DIR / f"{name}.cu")]
         err = subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
+    lines = []
     for fn, stack, used in re.findall(
         r"Function properties for (\S+)\n\s*(.*)\nptxas info\s*: Used (.*)", err
     ):
         kernel = fn  # the mangled name where no demangler is installed
         if shutil.which("c++filt"):
             kernel = subprocess.run(["c++filt", fn], capture_output=True, text=True).stdout
-            kernel = kernel.strip().split("(anonymous namespace)::")[-1].split("(")[0]
-        print(f"ptxas {name}.cu {kernel}: {used}; {stack}")
+            # "void (anonymous namespace)::kernel<2>((anonymous namespace)::Args, ...)"
+            kernel = kernel.strip().split("(anonymous namespace)::", 1)[-1].split("(")[0]
+        lines.append(f"ptxas {name}.cu {kernel}: {used}; {stack}")
+    return lines
 
 
 def cuda_ms(fn, reps: int = TIMED_REPS) -> float:
@@ -154,6 +173,87 @@ def cuda_ms(fn, reps: int = TIMED_REPS) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = 10, replays: int = 3) -> float:
+    """The device's own time for one call of ``fn``: ``calls`` calls captured
+    into one CUDA graph (the wrapper's allocations and its kernel launches,
+    none of its host work), the graph replayed ``replays`` times between two
+    events, so that the device and not the host sets the pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (calls * replays)
+
+
+def device_ms_by_kernel(fn, reps: int = 10) -> dict:
+    """Mean device time of each device kernel that one call of ``fn``
+    launches, by kernel name, from a ``torch.profiler`` trace of ``reps``
+    calls (a trace that comes back empty is taken again, three times at
+    most)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    by_name = {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {e.key: e.device_time_total / 1e3 / reps for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+        if by_name:
+            break
+    check(bool(by_name), "device_ms_by_kernel: the profiler saw no device time")
+    return by_name
+
+
+def host_ms(fn, reps: int = 100) -> float:
+    """Median host time of one call of ``fn``: what the Python wrapper
+    costs whatever the device does meanwhile (no synchronise between the
+    calls; the device's queue takes them all)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def timed(kernel, plain, library=None, plain_reps: int = TIMED_REPS, full: bool = True) -> dict:
+    """``ms``, ``device_ms``, ``host_ms``, ``plain_ms`` and ``library_ms`` of
+    one kernel row.  ``full=False``, for a row that no table reports, times
+    the kernel over five calls and its twin once."""
+    if not full:
+        return dict(ms=cuda_ms(kernel, reps=5), plain_ms=cuda_ms(plain, reps=1),
+                    library_ms=None if library is None else cuda_ms(library, reps=5))
+    return dict(
+        ms=cuda_ms(kernel), device_ms=device_ms(kernel), host_ms=host_ms(kernel),
+        plain_ms=cuda_ms(plain, reps=plain_reps),
+        library_ms=None if library is None else cuda_ms(library),
+    )
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -161,8 +261,12 @@ def check(cond: bool, what: str) -> None:
 
 def report(label: str, name: str, r: dict) -> None:
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    own = ""
+    if "device_ms" in r:
+        own = f" (on the device {r['device_ms']:.4f} ms, the wrapper on the host {r['host_ms']:.4f} ms)"
     print(
-        f"{label} {name}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
+        f"{label} {name}: kernel {r['ms']:.4f} ms{own}, "
+        f"twin {r['plain_ms']:.4f} ms, "
         f"library call {lib}, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
     )
 
@@ -205,29 +309,17 @@ def borderline_population(rk: int, seeds, device="cpu") -> list[dict]:
     f32 factor end near the ``1e-8 ||b||`` residual limit.  Each entry holds
     the system (``blocks``, ``bsc``, ``plan``), the step ``xp`` and the
     verdict ``ok`` of ``solve_reduced_band`` on ``device``."""
-    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
     from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
-    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
 
     systems = []
-    solve = bs.solve_reduced_band
     for seed in seeds:
         problem = make_ba_problem(
             kind="mono", num_poses=16, num_landmarks=120, mean_obs_per_landmark=4.0, seed=seed
         )
-        opt = optimizer_from_problem(problem, device=device, rk=rk, delta=3.0)
-
-        def recording(blocks, bsc, plan, seed=seed):
-            xp, ok = solve(blocks, bsc, plan)
-            systems.append(dict(seed=seed, index=sum(s["seed"] == seed for s in systems),
-                                blocks=blocks, bsc=bsc, plan=plan, xp=xp, ok=bool(ok)))
-            return xp, ok
-
-        bs.solve_reduced_band = recording
-        try:
-            opt.optimize(10)
-        finally:
-            bs.solve_reduced_band = solve
+        met = []
+        small_trace(problem, device, systems=met, rk=rk, delta=3.0)
+        systems += [dict(seed=seed, index=i, blocks=b, bsc=v, plan=p, xp=x, ok=ok)
+                    for i, (b, v, p, x, ok) in enumerate(met)]
     return systems
 
 
@@ -247,6 +339,68 @@ def reduced_residual_ratio(blocks, bsc, plan, xp) -> float:
     y = segment_sum(C.flat_mv_6x6(bl_s, x[bcol]), plan.row_seg)
     y = y + segment_sum(C.flat_mtv_6x6(off, x[brow]), plan.col_seg)
     return (torch.linalg.vector_norm(bv - y) / (1e-8 * torch.linalg.vector_norm(bv))).item()
+
+
+def _chunks_in_plan_order(stack, half):
+    """Per-vertex sums of the rows of ``stack`` as kernel B3 takes them
+    through one ``ChunkPlan``: every chunk's edges in order, then a vertex's
+    chunks in order."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.kernels.terms import TILE
+
+    rows, chunks, tile_off, vertex_off = (t.long() for t in half)
+    dev = stack.device
+    tile_of_chunk = torch.repeat_interleave(
+        torch.arange(tile_off.shape[0] - 1, device=dev), tile_off[1:] - tile_off[:-1])
+    tile_of_row = torch.repeat_interleave(tile_of_chunk, chunks[:, 1] - chunks[:, 0])
+    ends = torch.cat([chunks[:, 0], torch.tensor([rows.shape[0]], device=dev)])
+    by_tile = torch.segment_reduce(stack[rows + TILE * tile_of_row], "sum", offsets=ends)
+    # a chunk's number among its vertex's: a lone chunk's target is the vertex
+    target = chunks[:, 2]
+    number = torch.where(target >= 0, vertex_off[target.clamp(min=0)], -1 - target)
+    by_vertex = torch.empty_like(by_tile)
+    by_vertex[number] = by_tile
+    return torch.segment_reduce(by_vertex, "sum", offsets=vertex_off)
+
+
+def linearise_in_plan_order(qt, xw, data, pose_seg, lm_seg, plan=None):
+    """B3's twin with the per-vertex sums associated as the kernel
+    associates them (``make_linearise_plan``), in plain tensor code on any
+    device: the kernel's result bit for bit."""
+    from cuda_bundle_adjustment_tpu_torch.kernels import terms
+
+    plan = plan or terms.make_linearise_plan(pose_seg, lm_seg, qt.shape[0])
+    pose_stack, lm_stack, hpl = terms._model(data).terms(None, data, 0, 1.0, state=(qt, xw))
+    return (_chunks_in_plan_order(pose_stack, plan.pose),
+            _chunks_in_plan_order(lm_stack, plan.lm), hpl)
+
+
+def pair_products_in_plan_order(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets, plan=None):
+    """B6's twin with the per-block sums associated as the kernel associates
+    them (``make_pair_plan``): an item's triples dealt round 16 slots, each
+    slot summed in order, the slots by a tree, a block's items in order."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.kernels import pairprod
+    from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mm_6x3_3x3
+
+    plan = plan or pairprod.make_pair_plan(lm_idx, tri_ei, tri_ej, offsets)
+    T = tri_ei.shape[0]
+    W = flat_mm_6x3_3x3(hpl, inv_hll[lm_idx.clamp(0, max(inv_hll.shape[0] - 1, 0))])
+    first, last = plan.items[:, 0].long(), plan.items[:, 1].long()
+    slot = torch.arange(16, device=hpl.device)
+    acc = torch.zeros((first.shape[0], 16, 36), dtype=hpl.dtype, device=hpl.device)
+    for step in range(pairprod.ITEM // 16):
+        t = first[:, None] + 16 * step + slot
+        live = t < last[:, None]
+        t = t.clamp(max=max(T - 1, 0))
+        prod = torch.einsum("nsik,nsjk->nsij", W[tri_ei[t]].view(-1, 16, 6, 3),
+                            hpl[tri_ej[t]].view(-1, 16, 6, 3)).reshape(-1, 16, 36)
+        acc = acc + prod * live[:, :, None]
+    for half in (8, 4, 2, 1):
+        acc = acc[:, :half] + acc[:, half : 2 * half]
+    return torch.segment_reduce(acc[:, 0], "sum", offsets=plan.block_off.long())
 
 
 def first_linearisation(problem, dev, **robust):
@@ -280,8 +434,10 @@ def _held(name, k_out, p_out, what, tol=F64_TOL) -> float:
     return max(errs)
 
 
-def path_kernel_checks(solver, sys_, lam, label) -> dict:
-    """B1, B3, B4, B5, B9 and B10 against their twins at one linearisation."""
+def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
+    """B1, B3, B4, B5, B9 and B10 against their twins at one linearisation.
+    ``reported``: the kernels whose times a table reports from this input
+    (all of them by default); the others are held alike and timed briefly."""
     import torch
 
     from cuda_bundle_adjustment_tpu_torch.kernels import lminv, schurvec, terms
@@ -303,8 +459,7 @@ def path_kernel_checks(solver, sys_, lam, label) -> dict:
             k_out, p_out = (k_out,), (p_out,)
         res[name] = dict(
             max_abs_err=_held(name, k_out, p_out, what, tol),
-            ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-            library_ms=None if library is None else cuda_ms(library),
+            **timed(kernel, plain, library, full=reported is None or name in reported),
             **bound((*ins, *k_out), flops, "f64"),
         )
 
@@ -320,11 +475,41 @@ def path_kernel_checks(solver, sys_, lam, label) -> dict:
         share = (lin.omega != data.omega).double().mean().item()
         check(share > 0, f"{label}: the robust kernel rescales no edge's weight")
         print(f"{label}: rho' rescales the weight of {100 * share:.2f}% of the edges")
-    held_timed("linearise", lambda: terms.linearise(qt, xw, lin, *segs),
-               lambda: terms.linearise_plain(qt, xw, lin, *segs),
+    lin_plan = plan.lin_plan
+
+    def linearise():
+        return terms.linearise(qt, xw, lin, *segs, lin_plan)
+
+    held_timed("linearise", linearise, lambda: terms.linearise_plain(qt, xw, lin, *segs),
                ["Hpp|bp", "Hll|bl", "Hpl"],
-               (*edge_in, data.both_free, *plan.pose_seg, *plan.lm_seg),
+               (*edge_in, data.both_free, *lin_plan.pose, *lin_plan.lm),
                LINEARISE_FLOPS[mdim] * E)
+    # B3 beyond 1e-12: Hpl bit for bit; Hll|bl bit for bit for every landmark
+    # the plan sums as one chunk (the others associate their chunks' sums
+    # differently from the twin's sequential sum); exact zeros on rows of
+    # fixed vertices; a second launch bit for bit
+    k_out, p_out = linearise(), terms.linearise_plain(qt, xw, lin, *segs)
+    check(torch.equal(k_out[2], p_out[2]), f"{label} linearise: Hpl not bit for bit the twin's")
+    lone = (lin_plan.lm.vertex_off[1:] - lin_plan.lm.vertex_off[:-1]) == 1
+    check(torch.equal(k_out[1][lone], p_out[1][lone]),
+          f"{label} linearise: Hll|bl of one-chunk landmarks not bit for bit the twin's")
+    check(bool((k_out[2][data.both_free == 0] == 0).all()),
+          f"{label} linearise: a row of a fixed vertex is not an exact zero")
+    check(all(torch.equal(a, b) for a, b in zip(k_out, linearise())),
+          f"{label} linearise: a second launch differs")
+    # the kernel's per-vertex sums are the twin's per-edge stacks summed in the
+    # plan's order, bit for bit: what differs from the twin is the association
+    # of the chunks' sums and nothing else
+    o_pose, o_lm, _ = linearise_in_plan_order(qt, xw, lin, *segs, lin_plan)
+    check(torch.equal(k_out[0], o_pose) and torch.equal(k_out[1], o_lm),
+          f"{label} linearise: Hpp|bp or Hll|bl is not the stacks' sum in the plan's order")
+    passes = {}
+    if reported is None:
+        passes = {k.split("(anonymous namespace)::", 1)[-1].split("(")[0]: round(v, 5)
+                  for k, v in device_ms_by_kernel(linearise).items()}
+    print(f"{label} B3 linearise: {int(lone.sum())} of {lone.numel()} landmarks are one chunk "
+          f"(bit for bit the twin's; every row bit for bit the sum in the plan's order), "
+          f"{lin_plan.pose.chunks.shape[0]} pose chunks; device ms by pass: {json.dumps(passes)}")
 
     # B4: bit for bit; one library yardstick is linalg.inv plus a batched
     # product on the damped [La, 3, 3] blocks
@@ -365,9 +550,10 @@ def path_kernel_checks(solver, sys_, lam, label) -> dict:
     return res
 
 
-def band_kernel_checks(solver, sys_, lam, label) -> dict:
+def band_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
     """B7 and B8 against their twins at the solver's band height, and the
-    refined f64 pose step against the CPU twin path."""
+    refined f64 pose step against the CPU twin path (``reported``: as in
+    ``path_kernel_checks``)."""
     import torch
 
     from cuda_bundle_adjustment_tpu_torch.kernels import bandchol
@@ -391,9 +577,10 @@ def band_kernel_checks(solver, sys_, lam, label) -> dict:
     flops = Pa * (300 + 432 * (bw + bw * (bw + 1) // 2))
     res["band_factor"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: bandchol.band_factor(band, Pa, SB)),
-        plain_ms=cuda_ms(lambda: bandchol.band_factor_plain(band, Pa, SB), reps=3),
-        library_ms=None, **bound((band, k_L), flops, "f32"),
+        **timed(lambda: bandchol.band_factor(band, Pa, SB),
+                lambda: bandchol.band_factor_plain(band, Pa, SB), plain_reps=3,
+                full=reported is None or "band_factor" in reported),
+        **bound((band, k_L), flops, "f32"),
     )
     print(f"{label} B7 band_factor SB={SB}: max_abs_err {err:.3e} "
           f"(max|L| {scale:.3e}, tol {F32_TOL} rel)")
@@ -409,9 +596,10 @@ def band_kernel_checks(solver, sys_, lam, label) -> dict:
     # forward and back: two 6x6 products and 2 bw 6x6 products a column
     res["band_solve"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: bandchol.band_solve(k_L, b32, Pa, SB, bw)),
-        plain_ms=cuda_ms(lambda: bandchol.band_solve_plain(k_L, b32, Pa, SB, bw), reps=3),
-        library_ms=None, **bound((k_L, b32, k_x), Pa * 72 * 2 * (1 + bw), "f32"),
+        **timed(lambda: bandchol.band_solve(k_L, b32, Pa, SB, bw),
+                lambda: bandchol.band_solve_plain(k_L, b32, Pa, SB, bw), plain_reps=3,
+                full=reported is None or "band_solve" in reported),
+        **bound((k_L, b32, k_x), Pa * 72 * 2 * (1 + bw), "f32"),
     )
     print(f"{label} B8 band_solve SB={SB}: max_abs_err {err:.3e} "
           f"(max|x| {scale:.3e}, tol {F32_TOL} rel)")
@@ -428,9 +616,11 @@ def band_kernel_checks(solver, sys_, lam, label) -> dict:
     return res
 
 
-def kernel_checks(problem, dev, label, **robust) -> dict:
+def kernel_checks(problem, dev, label, reported=None, **robust) -> dict:
     """Phase 3: each of the ten kernels against its twin at the shapes and
-    values of one configuration's first linearisation."""
+    values of one configuration's first linearisation.  ``reported``: the
+    kernels whose ``device_ms`` and ``host_ms`` are read at this input (all
+    by default)."""
     import torch
 
     from cuda_bundle_adjustment_tpu_torch.kernels import gather, lminv, pairprod
@@ -443,7 +633,7 @@ def kernel_checks(problem, dev, label, **robust) -> dict:
         f"{label} shapes: P={solver.P} Pa={solver.Pa} L={solver.L} La={solver.La} E={E} "
         f"nnz={plan.blk_row.shape[0]} T={T} bw={plan.band.bw} SB={plan.band.sb}"
     )
-    res = path_kernel_checks(solver, sys_, lam, label)
+    res = path_kernel_checks(solver, sys_, lam, label, reported)
 
     # B2: bit-exact against the masked gather
     table = _pose_state_table(graph)
@@ -461,9 +651,10 @@ def kernel_checks(problem, dev, label, **robust) -> dict:
     check(torch.equal(k_pose, table[data.pose_idx]), "gather_rows: differs from table[idx]")
     res["gather_rows"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: gather.gather_rows(table, data.pose_idx)),
-        plain_ms=cuda_ms(lambda: gather.gather_rows_plain(table, data.pose_idx)),
-        library_ms=cuda_ms(lambda: torch.index_select(table, 0, data.pose_idx)),
+        **timed(lambda: gather.gather_rows(table, data.pose_idx),
+                lambda: gather.gather_rows_plain(table, data.pose_idx),
+                lambda: torch.index_select(table, 0, data.pose_idx),
+                full=reported is None or "gather_rows" in reported),
         **bound((table, data.pose_idx, k_pose), 0, "f64"),
     )
     print(f"{label} B2 gather_rows [{table.shape[0]},12]->[{k_pose.shape[0]},12]: bit-exact")
@@ -472,20 +663,33 @@ def kernel_checks(problem, dev, label, **robust) -> dict:
     # edge (108) and W Hpl^T once a triple (216)
     invHll, _ = lminv.damped_inverse(sys_.Hll, sys_.bl, lam)
     args = (sys_.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets)
-    k_pp = pairprod.schur_pair_products(*args)
+    pair_plan = plan.pair_plan
+
+    def pair_products():
+        return pairprod.schur_pair_products(*args, pair_plan)
+
+    k_pp = pair_products()
     p_pp = pairprod.schur_pair_products_plain(*args)
     err = (k_pp - p_pp).abs().max().item()
     scale = p_pp.abs().max().item()
     check(err <= 1e-12 * scale, f"schur_pair_products: err {err} > 1e-12 x {scale}")
+    check(torch.equal(k_pp, pair_products()), f"{label} schur_pair_products: a second launch differs")
+    # the function's inputs as the kernel reads them: the plan's int32 indices
     res["schur_pair_products"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: pairprod.schur_pair_products(*args)),
-        plain_ms=cuda_ms(lambda: pairprod.schur_pair_products_plain(*args)),
-        library_ms=None, **bound((*args, k_pp), 108 * E + 216 * T, "f64"),
+        **timed(pair_products, lambda: pairprod.schur_pair_products_plain(*args),
+                full=reported is None or "schur_pair_products" in reported),
+        **bound((sys_.Hpl, invHll, *pair_plan[:5], k_pp), 108 * E + 216 * T, "f64"),
     )
-    print(f"{label} B6 schur_pair_products: max_abs_err {err:.3e} (max|block| {scale:.3e}, tol 1e-12 rel)")
+    # against the twin's products summed in the plan's order: what is left is
+    # the kernel's fused multiply-adds inside a product
+    o_pp = pair_products_in_plan_order(*args, pair_plan)
+    err_o = (k_pp - o_pp).abs().max().item()
+    check(err_o <= 1e-12 * scale, f"schur_pair_products: err {err_o} against the sum in the plan's order")
+    print(f"{label} B6 schur_pair_products: max_abs_err {err:.3e} (max|block| {scale:.3e}, tol 1e-12 "
+          f"rel); {err_o:.3e} against the twin's products summed in the plan's order")
 
-    res.update(band_kernel_checks(solver, sys_, lam, label))
+    res.update(band_kernel_checks(solver, sys_, lam, label, reported))
     for name in ("gather_rows", "schur_pair_products"):
         report(label, name, res[name])
     res["SB"] = plan.band.sb
@@ -590,20 +794,96 @@ def _to_device(x, dev):
     return x
 
 
+def dense_scaled_condition(blocks, bsc, plan) -> float:
+    """2-norm condition number of the Jacobi-scaled reduced system, from its
+    dense f64 form on the host (small graphs only)."""
+    import numpy as np
+
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    _, bl_s, _, _ = bs.scaled_band(blocks.cpu(), bsc.cpu(), _to_device(plan, "cpu"))
+    Pa = bsc.shape[0]
+    A = np.zeros((Pa, 6, Pa, 6))
+    brow, bcol = plan.blk_row.cpu().numpy(), plan.blk_col.cpu().numpy()
+    B = bl_s.numpy().reshape(-1, 6, 6)
+    A[bcol, :, brow, :] = B.transpose(0, 2, 1)
+    A[brow, :, bcol, :] = B
+    return float(np.linalg.cond(A.reshape(Pa * 6, Pa * 6)))
+
+
+def small_trace(problem, device, niter: int = 10, in_plan_order: bool = False,
+                systems: list | None = None, **robust):
+    """The chi2 trace of ``optimize(niter)`` on ``device`` and the solver.
+    ``in_plan_order``: B3's and B6's twins sum as the kernels do
+    (``linearise_in_plan_order``, ``pair_products_in_plan_order``).
+    ``systems``: a list that receives every reduced system and its step."""
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    kept = bs.linearise, bs.schur_pair_products, bs.solve_reduced_band
+    if in_plan_order:
+        bs.linearise, bs.schur_pair_products = linearise_in_plan_order, pair_products_in_plan_order
+    if systems is not None:
+        def recording(blocks, bsc, plan):
+            xp, ok = kept[2](blocks, bsc, plan)
+            systems.append((blocks, bsc, plan, xp, bool(ok)))
+            return xp, ok
+
+        bs.solve_reduced_band = recording
+    try:
+        opt = optimizer_from_problem(problem, device=device, **robust)
+        opt.optimize(niter)
+    finally:
+        bs.linearise, bs.schur_pair_products, bs.solve_reduced_band = kept
+    return [s.chi2 for s in opt.batch_statistics().get()], opt.solver
+
+
+def order_sensitivity(problem, dev, card_trace, cpu_trace, dense_trace, **robust) -> dict:
+    """Why a small graph's late iterations are held at a looser tolerance:
+    per iteration, how far the trace moves (relative to the CPU's) on the
+    card, on the CPU with B3's and B6's sums associated as the kernels
+    associate them and nothing else changed, and in the f64 oracle, beside
+    the condition number of the card's scaled reduced system and its
+    residual over the limit."""
+    import numpy as np
+
+    systems = []
+    small_trace(problem, dev, systems=systems, **robust)
+    ordered, _ = small_trace(problem, "cpu", in_plan_order=True, **robust)
+    cpu = np.array(cpu_trace)
+
+    def moved(trace):
+        return [float(f"{x:.3e}") for x in np.abs(np.array(trace) - cpu) / cpu]
+
+    return dict(
+        card=moved(card_trace), cpu_in_plan_order=moved(ordered), dense_oracle=moved(dense_trace),
+        condition=[float(f"{dense_scaled_condition(b, v, p):.3e}") for b, v, p, _, _ in systems],
+        residual_over_limit=[
+            round(reduced_residual_ratio(b.cpu(), v.cpu(), _to_device(p, "cpu"), x.cpu()), 4)
+            for b, v, p, x, _ in systems],
+    )
+
+
 def small_problem_checks(dev) -> None:
     """Phase 4: card vs CPU vs the numpy DenseLM oracle on a small mono,
     stereo and mixed graph, without a robust kernel and under each of them,
     over 10 iterations.  Card against CPU at rtol 1e-9 (``log`` and ``sqrt``
     may differ in the last place between host and card, so not bit for
-    bit).  One case is held over fewer iterations (``HELD_SHORT``): the mono
-    graph under Tukey reaches, from its seventh iteration, reduced systems
-    that are singular to working precision, on which steps that all meet the
-    residual limit differ by more than the traces' tolerance, and card and
-    CPU both stop at the eighth where the f64 oracle goes on; what each does
-    over 10 iterations is printed."""
+    bit), card against the oracle at 1e-6.  Two exceptions.  Under Tukey the
+    mono graph reaches, from its seventh iteration, reduced systems that are
+    singular to working precision, on which steps that all meet the residual
+    limit differ by more than the traces' tolerance, and card and CPU both
+    stop at the eighth where the f64 oracle goes on: it is held over 6
+    iterations (``HELD_SHORT``) and what each does over 10 is printed.  The
+    mixed graph under Tukey is held over all 10, card against CPU at 1e-9
+    over the first 7 and at 1e-8 after (``HELD_LOOSER``): its systems stay
+    well conditioned, but every iteration multiplies a rounding difference
+    by about ten (Tukey's weight is not convex), so that from the eighth
+    iteration any other association of the f64 sums, on the CPU alone,
+    moves the trace by 1e-9 of its value, and so does the oracle;
+    ``order_sensitivity`` prints that beside the card's own difference."""
     import numpy as np
 
-    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
     from cuda_bundle_adjustment_tpu_torch.io.synthetic import (
         make_ba_problem,
         make_mixed_ba_problem,
@@ -619,17 +899,20 @@ def small_problem_checks(dev) -> None:
         for rname, rk in ROBUST.items():
             robust = dict(rk=rk, delta=3.0)
             niter = HELD_SHORT.get((kind, rname), 10)
+            tight, late_tol = HELD_LOOSER.get((kind, rname), (niter, 1e-9))
             traces, solvers = {}, {}
             for d in (dev, "cpu"):
-                opt = optimizer_from_problem(problem, device=d, **robust)
-                opt.optimize(niter)
-                traces[d] = [s.chi2 for s in opt.batch_statistics().get()]
-                solvers[d] = opt.solver
-            np.testing.assert_allclose(traces[dev], traces["cpu"], rtol=1e-9)
+                traces[d], solvers[d] = small_trace(problem, d, niter, **robust)
             ref = DenseLM(problem, **robust)
             want = ref.optimize(niter)
-            check(len(want) == len(traces[dev]) == niter,
+            check(len(want) == len(traces[dev]) == len(traces["cpu"]) == niter,
                   f"small {kind} {rname}: trace length differs from DenseLM")
+            if tight < niter:
+                print(f"small {kind} {rname}, movement of the trace by iteration:",
+                      json.dumps(order_sensitivity(problem, dev, traces[dev], traces["cpu"], want,
+                                                   **robust)))
+            np.testing.assert_allclose(traces[dev][:tight], traces["cpu"][:tight], rtol=1e-9)
+            np.testing.assert_allclose(traces[dev][tight:], traces["cpu"][tight:], rtol=late_tol)
             np.testing.assert_allclose(traces[dev], want, rtol=1e-6)
             s = solvers[dev]
             q, t = s.result_poses()
@@ -637,17 +920,18 @@ def small_problem_checks(dev) -> None:
             np.testing.assert_allclose(q[:Pa], ref.q[:Pa], atol=1e-7)
             np.testing.assert_allclose(t[:Pa], ref.t[:Pa], atol=1e-6)
             np.testing.assert_allclose(s.result_landmarks()[:La], ref.Xw[:La], atol=1e-6)
+            held = f"{niter} iterations held" + (
+                f" ({tight} at 1e-9, {niter - tight} at {late_tol:g} against the CPU)"
+                if tight < niter else "")
             print(
                 f"small {kind} problem, robust kernel {rname} (16 poses, 120 landmarks, "
-                f"seed 13): {len(want)} iterations held, cuda/cpu/DenseLM agree; chi2 "
+                f"seed 13): {held}, cuda/cpu/DenseLM agree; chi2 "
                 f"{traces[dev][0]:.6f} -> {traces[dev][-1]:.6f}"
             )
             if niter < 10:
                 long = {"DenseLM": DenseLM(problem, **robust).optimize(10)}
                 for d in (dev, "cpu"):
-                    opt = optimizer_from_problem(problem, device=d, **robust)
-                    opt.optimize(10)
-                    long[str(d)] = [s.chi2 for s in opt.batch_statistics().get()]
+                    long[str(d)] = small_trace(problem, d, **robust)[0]
                 print(f"small {kind} {rname}, last of 10 iterations (not held):",
                       json.dumps({k: (len(v), v[-2], v[-1]) for k, v in long.items()}))
 
@@ -828,10 +1112,15 @@ def main() -> int:
     from cuda_bundle_adjustment_tpu_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
+    t0 = start = time.perf_counter()
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    ptxas_report("bandchol")
+    with ThreadPoolExecutor(3) as pool:  # three more compiles, side by side
+        for lines in pool.map(ptxas_report, ("terms", "pairprod", "bandchol")):
+            print("\n".join(lines))
+
+    def lap(what: str) -> None:
+        print(f"[{time.perf_counter() - start:.0f} s since the start] {what} done")
 
     mono = kitti00_scale_problem(kind="mono", seed=0)
     mixed = kitti00_scale_mixed_problem(seed=0)
@@ -839,13 +1128,18 @@ def main() -> int:
     kitti07_wide, rename = reverse_pose_blocks(kitti07)
     huber = dict(rk=ROBUST["huber"], delta=10.0)
     res = kernel_checks(mono, dev, "kitti00_mono")
+    lap("kernel checks at kitti00_mono")
     # every other input the full-size paths hand the kernels (kitti00_stereo
-    # has kitti00_mixed's shapes without the mask)
+    # has kitti00_mixed's shapes without the mask): all ten kernels held
+    # against their twins, device and host times read for the redesigned B3
+    # and B6 and, at the wide band, for B7 and B8
+    b3_b6 = {"linearise", "schur_pair_products"}
     also = {
-        "kitti00_huber": kernel_checks(mono, dev, "kitti00_huber", **huber),
-        "kitti00_mixed": kernel_checks(mixed, dev, "kitti00_mixed"),
-        "kitti07_mono": kernel_checks(kitti07, dev, "kitti07_mono"),
-        "kitti07_mono_wide": kernel_checks(kitti07_wide, dev, "kitti07_mono_wide"),
+        "kitti00_huber": kernel_checks(mono, dev, "kitti00_huber", b3_b6, **huber),
+        "kitti00_mixed": kernel_checks(mixed, dev, "kitti00_mixed", b3_b6),
+        "kitti07_mono": kernel_checks(kitti07, dev, "kitti07_mono", b3_b6),
+        "kitti07_mono_wide": kernel_checks(
+            kitti07_wide, dev, "kitti07_mono_wide", b3_b6 | {"band_factor", "band_solve"}),
     }
     for label, r in also.items():
         print(f"{label} kernel checks:", json.dumps(r))
@@ -854,9 +1148,15 @@ def main() -> int:
     check(wide_sb > 16, f"kitti07_mono_wide has band height {wide_sb}: not the wide-band path")
     check(also["kitti07_mono"]["SB"] <= 16, "kitti07_mono is not on the narrow-band path")
     tall = tall_band_checks(dev)
+    lap("kernel checks at the other inputs")
     small_problem_checks(dev)
+    lap("small graphs")
     population_on_card(dev)
+    lap("borderline population")
 
+    # hand the checks' memory back (the graphs of device_ms held a pool each),
+    # so that no main path pays for its release in the middle of a stage
+    torch.cuda.empty_cache()
     runs = {
         "kitti00_mono": main_path(mono, "kitti00_mono", warm_runs=3),
         "kitti00_huber": main_path(mono, "kitti00_huber", warm_runs=2, **huber),
@@ -866,9 +1166,11 @@ def main() -> int:
         "kitti07_mono": main_path(kitti07, "kitti07_mono", warm_runs=2),
         "kitti07_mono_wide": main_path(kitti07_wide, "kitti07_mono_wide", warm_runs=2),
     }
+    lap("six full-size paths")
     cpu_twin_agreement(kitti07, runs["kitti07_mono"], "kitti07_mono")
     wide_band_agreement(runs["kitti07_mono"], runs["kitti07_mono_wide"], rename)
     loop_device_profile(mono, "kitti00_mono")
+    lap("agreement and LM-loop profile")
 
     counts = runs["kitti00_mono"]["counts"]
     rows = []
@@ -877,8 +1179,8 @@ def main() -> int:
         row = dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=counts[name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            ms=r["ms"], device_ms=r["device_ms"], host_ms=r["host_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         )
         if name in ("band_factor", "band_solve"):
             # the same kernel at the wide-band path's height (the v1 range)
@@ -886,7 +1188,8 @@ def main() -> int:
             row["wide_band"] = dict(
                 config="kitti07_mono_wide", SB=wide_sb,
                 launches=runs["kitti07_mono_wide"]["counts"][name],
-                max_abs_err=w["max_abs_err"], ms=w["ms"], plain_ms=w["plain_ms"],
+                max_abs_err=w["max_abs_err"], ms=w["ms"], device_ms=w["device_ms"],
+                plain_ms=w["plain_ms"],
                 bound_ms=w["bound_ms"], bound_by=w["bound_by"],
             )
             # and at the tallest band it takes (a random system, no twin time)

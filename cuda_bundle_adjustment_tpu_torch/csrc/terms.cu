@@ -23,25 +23,50 @@
 // (kernels/_build.py): the residual proj - meas cancels terms as large as the
 // projected pixel coordinates, and a contracted a * b + c rounds differently
 // from the twin by up to an ulp of those terms.  So per-edge values (chi, the
-// Hpl blocks) agree with the twin bit for bit and the per-vertex sums differ
-// only by summation order.  The guard |z| > 1e-30 times active gives an
-// exact zero inv_z on inert and degenerate rows: inert rows (w = 0) give exact
-// zeros everywhere, degenerate rows give zero JL and so zero Hll|bl and Hpl.
+// Hpl blocks, the per-edge stack entries) agree with the twin bit for bit and
+// the per-vertex sums differ only by summation order.  The guard |z| > 1e-30
+// times active gives an exact zero inv_z on inert and degenerate rows: inert
+// rows (w = 0) give exact zeros everywhere, degenerate rows give zero JL and
+// so zero Hll|bl and Hpl.
 //
 // Bound on this card: device-memory bytes.  An edge reads its gathered pose
-// state (96 B), landmark (24 B), measurement (16-24 B) and masks (8-24 B);
-// the f64 math (~300 flops an edge) is far below the card's f64 rate.  At
-// KITTI-00 scale (E = 560k) B1 moves ~90 MB and B3 ~400 MB over its three
-// passes.
+// state (96 B), landmark (24 B), measurement (16-24 B) and masks (8-24 B)
+// and writes its Hpl block (144 B); the f64 math (~400-560 flops an edge) is
+// far below the card's f64 rate.  What holds a thread-per-edge kernel far
+// above that bound is the load/store unit: a warp's 8-byte access to rows 96
+// or 144 bytes apart touches 24 to 36 cache lines an instruction, and a
+// per-vertex pass that gathers its edges by index touches 32.
 //
-// Design: B1 and the Hpl pass run one thread per edge.  Hpp|bp runs one warp
-// per pose over the edges the pose segment plan sorts to it (about 420 at
-// KITTI-00 scale): lane l takes the pose's edges l, l + 32, ... in a fixed
-// order and a fixed shuffle tree sums the 32 partials.  Hll|bl runs one
-// thread per landmark (about 4 edges) in segment order.  Each pass re-derives
-// the edge's residual and Jacobian from the inputs instead of reading an
-// [E, 42] scratch written by another pass, which costs more bytes than the
-// arithmetic.  No atomics: two runs give the same result bit for bit.
+// Design of B3: one pass over the edges, one block a tile of kTile
+// consecutive edges.
+//   * The tile's [kTile, 12] pose rows and [kTile, 3] landmark rows are one
+//     contiguous stretch each: the block brings them to shared memory with
+//     coalesced loads, every thread then reads its own row from rows padded
+//     to an odd number of doubles (no bank conflict), and the [kTile, 18] Hpl
+//     tile goes back the same way, through 19-double rows.
+//   * Each thread leaves its edge's per-pose stack (21 + 6 values) and
+//     per-landmark stack (6 + 3) in shared memory.  A plan made once a
+//     structure (kernels/terms.py make_linearise_plan) cuts every vertex's
+//     run of edges, in segment order, into chunks that lie in one tile, and
+//     lists each tile's chunks as rows of the tile (one byte an edge, so a
+//     tile's list is one coalesced load and no index is chased).  The block
+//     sums each of its chunks in that order, one thread a (chunk, entry); a
+//     vertex whose run is a single chunk (nearly every landmark of a
+//     landmark-sorted edge set) gets its row written at once, bit for bit
+//     the twin's sequential sum; the other chunks go to a scratch row each.
+//   * A second, small kernel a vertex kind sums a vertex's scratch rows in
+//     chunk order (and writes zeros for a vertex without edges).
+// So the edges are read once, nothing is gathered by index from device
+// memory, and every sum has a fixed order that depends on the plan (the tile
+// length, a constant) and not on the launch: no atomics, two runs give the
+// same bits.  A vertex summed over several chunks associates as
+// (chunk) + (chunk) + ..., within 1e-12 x max|value| of the twin.
+// B1 stays one thread an edge.
+//
+// ptxas (sm_90a, nvcc 12.9, as chip_smoke.py prints it), mdim 2 / 3: the
+// tile kernel 64 / 80 registers, no spill, kTile * (19 + 27 + 9) * 8 = 56320
+// bytes of dynamic and 256 of static shared memory (four blocks an SM); the
+// finishing kernels 20 and 25 registers; B1 32 / 40.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -49,7 +74,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarpsPerBlock = 4;
+// B3's tile: edges a block, and the padded shared-memory rows (in doubles)
+// of the pose state and of the Hpl blocks.  kernels/terms.py TILE must agree.
+constexpr int kTile = 128;
+constexpr int kQtRow = 13;
+constexpr int kHplRow = 19;
 
 // What a per-edge evaluation reads.  A null mask reads as 1 (active,
 // both_free) or as no mask (m3).
@@ -75,11 +104,12 @@ struct Edge {
   double m3;  // third-row mask (1 without a mask)
 };
 
+// Edge i from its pose row s [12] and landmark row X [3] (in device or
+// shared memory) and the per-edge columns of ``in``.
 template <int MDIM>
 __device__ __forceinline__ void load_edge(const EdgeInputs& in, int64_t i,
+                                          const double* s, const double* X,
                                           Edge<MDIM>& g) {
-  const double* s = in.qt + i * 12;
-  const double* X = in.xw + i * 3;
   const double fx = in.cam[0], fy = in.cam[1], cx = in.cam[2],
                cy = in.cam[3], bf = in.cam[4];
 #pragma unroll
@@ -180,61 +210,148 @@ chi_edges_kernel(EdgeInputs in, double* __restrict__ out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= in.E) return;
   Edge<MDIM> g;
-  load_edge<MDIM>(in, i, g);
+  load_edge<MDIM>(in, i, in.qt + i * 12, in.xw + i * 3, g);
   double s = g.e[0] * g.e[0] + g.e[1] * g.e[1];
   if constexpr (MDIM == 3) s += g.e[2] * g.e[2];
   const double act = in.active ? in.active[i] : 1.0;
   out[i] = in.omega[in.omega_stride ? i : 0] * s * act;
 }
 
-template <int MDIM>
-__global__ void __launch_bounds__(kThreads)
-hpl_kernel(EdgeInputs in, double* __restrict__ hpl) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= in.E) return;
-  Edge<MDIM> g;
-  load_edge<MDIM>(in, i, g);
-  double JP[MDIM][6], JL[MDIM][3];
-  pose_jacobian<MDIM>(in.cam, g, JP);
-  landmark_jacobian<MDIM>(in.cam, g, JL);
-  const double wb = g.w * (in.both_free ? in.both_free[i] : 1.0);
-  double* o = hpl + i * 18;
-#pragma unroll
-  for (int a = 0; a < 6; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      double s = JP[0][a] * JL[0][b];
-#pragma unroll
-      for (int m = 1; m < MDIM; ++m) s += JP[m][a] * JL[m][b];
-      o[a * 3 + b] = s * wb;
-    }
-}
-
 // upper-triangle position of (a, b), a <= b, in an n x n symmetric block
 __host__ __device__ constexpr int tri6(int a, int b) { return a * (11 - a) / 2 + b; }
 __host__ __device__ constexpr int tri3(int a, int b) { return a * (5 - a) / 2 + b; }
 
+// A vertex kind's share of the linearisation plan (kernels/terms.py).
+struct ChunkPlan {
+  const uint8_t* rows;      // [n] by tile, chunk after chunk: edge id - tile's first
+  const int4* chunks;       // by tile: (first, last + 1 in rows, target, 0)
+  const int32_t* tile_off;  // [tiles + 1] a tile's stretch of chunks
+  double* out;              // [vertices, DIM] final rows
+  double* scratch;          // [chunks, NC] partial rows, by vertex
+};
+
+// Entry q of a compressed stack row (N (N + 1) / 2 upper-triangle entries,
+// then N of the vector) into the full row (N x N symmetric block, then the
+// vector).
+template <int N>
+__device__ __forceinline__ void write_expanded(double* row, int q, double v) {
+  constexpr int kTri = N * (N + 1) / 2;
+  if (q >= kTri) {
+    row[N * N + q - kTri] = v;
+    return;
+  }
+  int a = 0, r = q;
+  while (r >= N - a) {
+    r -= N - a;
+    ++a;
+  }
+  const int b = a + r;
+  row[a * N + b] = v;
+  if (a != b) row[b * N + a] = v;
+}
+
+// A tile's stretch of p.rows (at most kTile entries, one a thread), read
+// early so that its latency hides behind the arithmetic.
+struct TileRows {
+  int c0, c1;   // the tile's chunks
+  int base;     // position of its first row in p.rows
+  uint8_t row;  // this thread's entry
+};
+
+__device__ __forceinline__ TileRows load_tile_rows(const ChunkPlan& p, int tile) {
+  TileRows t;
+  t.c0 = p.tile_off[tile];
+  t.c1 = p.tile_off[tile + 1];
+  t.base = 0;
+  t.row = 0;
+  if (t.c1 > t.c0) {
+    t.base = p.chunks[t.c0].x;
+    const int n = p.chunks[t.c1 - 1].y - t.base;
+    if (static_cast<int>(threadIdx.x) < n) t.row = p.rows[t.base + threadIdx.x];
+  }
+  return t;
+}
+
+// Sums of this tile's chunks over the stack rows the threads left in shared
+// memory: one thread a (chunk, entry), the chunk's edges in segment order.
+template <int N>
+__device__ __forceinline__ void chunk_sums(const ChunkPlan& p, const TileRows& t,
+                                           const double* __restrict__ stack,
+                                           const uint8_t* __restrict__ rows) {
+  constexpr int NC = N * (N + 1) / 2 + N;
+  const int items = (t.c1 - t.c0) * NC;
+  for (int it = threadIdx.x; it < items; it += kTile) {
+    const int c = it / NC, q = it - c * NC;
+    const int4 ch = p.chunks[t.c0 + c];
+    double acc = 0.0;
+    for (int j = ch.x - t.base; j < ch.y - t.base; ++j) acc += stack[rows[j] * NC + q];
+    if (ch.z < 0)
+      p.scratch[static_cast<int64_t>(-1 - ch.z) * NC + q] = acc;
+    else
+      write_expanded<N>(p.out + static_cast<int64_t>(ch.z) * (N * N + N), q, acc);
+  }
+}
+
 template <int MDIM>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-pose_blocks_kernel(EdgeInputs in, const int64_t* __restrict__ order,
-                   const int64_t* __restrict__ offsets, int64_t Pa,
-                   double* __restrict__ out) {
-  const int64_t p =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (p >= Pa) return;  // uniform per warp: the whole warp leaves
+__global__ void __launch_bounds__(kTile)
+edge_tile_kernel(EdgeInputs in, ChunkPlan pose, ChunkPlan lm,
+                 double* __restrict__ hpl) {
+  extern __shared__ double smem[];
+  double* s_io = smem;                      // pose|landmark rows in, Hpl out
+  double* s_pose = smem + kTile * kHplRow;  // [kTile, 27]
+  double* s_lm = s_pose + kTile * 27;       // [kTile, 9]
+  double* s_xw = s_io + kTile * kQtRow;
+  __shared__ uint8_t s_rows[2][kTile];
 
-  double acc[27];  // 21 upper-triangle Hpp entries, then 6 bp
+  const int tile = blockIdx.x, tid = threadIdx.x;
+  const TileRows pose_rows = load_tile_rows(pose, tile);
+  const TileRows lm_rows = load_tile_rows(lm, tile);
+  const int64_t tile0 = static_cast<int64_t>(tile) * kTile;
+  const int n = in.E - tile0 < kTile ? static_cast<int>(in.E - tile0) : kTile;
+
+  // the tile's rows, coalesced: 16-byte loads of the pose rows (a row is six
+  // of them and starts on a 16-byte boundary), 8-byte loads of the landmarks
+  const double2* qt2 = reinterpret_cast<const double2*>(in.qt + tile0 * 12);
 #pragma unroll
-  for (int q = 0; q < 27; ++q) acc[q] = 0.0;
+  for (int m = 0; m < 6; ++m) {
+    const int c = tid + kTile * m;
+    if (c < n * 6) {
+      const double2 v = qt2[c];
+      const int r = c / 6, k = 2 * (c - 6 * r);
+      s_io[r * kQtRow + k] = v.x;
+      s_io[r * kQtRow + k + 1] = v.y;
+    }
+  }
+  const double* xw = in.xw + tile0 * 3;
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int c = tid + kTile * m;
+    if (c < n * 3) s_xw[c] = xw[c];
+  }
+  __syncthreads();
 
-  const int64_t end = offsets[p + 1];
-  for (int64_t j = offsets[p] + lane; j < end; j += 32) {
-    const int64_t i = order[j];
-    Edge<MDIM> g;
-    load_edge<MDIM>(in, i, g);
-    double JP[MDIM][6];
+  const int64_t i = tile0 + tid;
+  const bool live = tid < n;
+  Edge<MDIM> g;
+  if (live) load_edge<MDIM>(in, i, s_io + tid * kQtRow, s_xw + tid * 3, g);
+  __syncthreads();  // every row is in registers: s_io now takes the Hpl tile
+
+  if (live) {
+    double JP[MDIM][6], JL[MDIM][3];
     pose_jacobian<MDIM>(in.cam, g, JP);
+    landmark_jacobian<MDIM>(in.cam, g, JL);
+    const double wb = g.w * (in.both_free ? in.both_free[i] : 1.0);
+    double* o = s_io + tid * kHplRow;
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        double s = JP[0][a] * JL[0][b];
+#pragma unroll
+        for (int m = 1; m < MDIM; ++m) s += JP[m][a] * JL[m][b];
+        o[a * 3 + b] = s * wb;
+      }
+    double* sp = s_pose + tid * 27;
 #pragma unroll
     for (int a = 0; a < 6; ++a) {
 #pragma unroll
@@ -242,52 +359,14 @@ pose_blocks_kernel(EdgeInputs in, const int64_t* __restrict__ order,
         double s = JP[0][a] * JP[0][b];
 #pragma unroll
         for (int m = 1; m < MDIM; ++m) s += JP[m][a] * JP[m][b];
-        acc[tri6(a, b)] += g.w * s;
+        sp[tri6(a, b)] = g.w * s;
       }
       double s = JP[0][a] * g.e[0];
 #pragma unroll
       for (int m = 1; m < MDIM; ++m) s += JP[m][a] * g.e[m];
-      acc[21 + a] += g.w * s;
+      sp[21 + a] = g.w * s;
     }
-  }
-
-#pragma unroll
-  for (int sh = 16; sh >= 1; sh >>= 1)
-#pragma unroll
-    for (int q = 0; q < 27; ++q)
-      acc[q] += __shfl_down_sync(0xffffffffu, acc[q], sh);
-
-  if (lane == 0) {
-    double* o = out + p * 42;
-#pragma unroll
-    for (int a = 0; a < 6; ++a)
-#pragma unroll
-      for (int b = 0; b < 6; ++b)
-        o[a * 6 + b] = acc[a <= b ? tri6(a, b) : tri6(b, a)];
-#pragma unroll
-    for (int a = 0; a < 6; ++a) o[36 + a] = acc[21 + a];
-  }
-}
-
-template <int MDIM>
-__global__ void __launch_bounds__(kThreads)
-landmark_blocks_kernel(EdgeInputs in, const int64_t* __restrict__ order,
-                       const int64_t* __restrict__ offsets, int64_t La,
-                       double* __restrict__ out) {
-  const int64_t l = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (l >= La) return;
-
-  double acc[9];  // 6 upper-triangle Hll entries, then 3 bl
-#pragma unroll
-  for (int q = 0; q < 9; ++q) acc[q] = 0.0;
-
-  const int64_t end = offsets[l + 1];
-  for (int64_t j = offsets[l]; j < end; ++j) {
-    const int64_t i = order[j];
-    Edge<MDIM> g;
-    load_edge<MDIM>(in, i, g);
-    double JL[MDIM][3];
-    landmark_jacobian<MDIM>(in.cam, g, JL);
+    double* sl = s_lm + tid * 9;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
@@ -295,23 +374,46 @@ landmark_blocks_kernel(EdgeInputs in, const int64_t* __restrict__ order,
         double s = JL[0][a] * JL[0][b];
 #pragma unroll
         for (int m = 1; m < MDIM; ++m) s += JL[m][a] * JL[m][b];
-        acc[tri3(a, b)] += g.w * s;
+        sl[tri3(a, b)] = g.w * s;
       }
       double s = JL[0][a] * g.e[0];
 #pragma unroll
       for (int m = 1; m < MDIM; ++m) s += JL[m][a] * g.e[m];
-      acc[6 + a] += g.w * s;
+      sl[6 + a] = g.w * s;
     }
   }
+  s_rows[0][tid] = pose_rows.row;
+  s_rows[1][tid] = lm_rows.row;
+  __syncthreads();
 
-  double* o = out + l * 12;
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int b = 0; b < 3; ++b)
-      o[a * 3 + b] = acc[a <= b ? tri3(a, b) : tri3(b, a)];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) o[9 + a] = acc[6 + a];
+  // the Hpl tile, coalesced
+  double* ho = hpl + tile0 * 18;
+  for (int c = tid; c < n * 18; c += kTile) {
+    const int r = c / 18;
+    ho[c] = s_io[r * kHplRow + (c - 18 * r)];
+  }
+  chunk_sums<6>(pose, pose_rows, s_pose, s_rows[0]);
+  chunk_sums<3>(lm, lm_rows, s_lm, s_rows[1]);
+}
+
+// A vertex's row from its chunks' scratch rows, in chunk order; G threads a
+// vertex.  A single chunk was written by the tile kernel; none gives zeros.
+template <int N, int G>
+__global__ void __launch_bounds__(kThreads)
+finish_kernel(const int32_t* __restrict__ vertex_off, int64_t nv,
+              const double* __restrict__ scratch, double* __restrict__ out) {
+  constexpr int NC = N * (N + 1) / 2 + N;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t v = t / G;
+  if (v >= nv) return;
+  const int c0 = vertex_off[v], c1 = vertex_off[v + 1];
+  if (c1 - c0 == 1) return;
+  for (int q = static_cast<int>(t - v * G); q < NC; q += G) {
+    double acc = 0.0;
+#pragma unroll 4
+    for (int c = c0; c < c1; ++c) acc += scratch[static_cast<int64_t>(c) * NC + q];
+    write_expanded<N>(out + v * (N * N + N), q, acc);
+  }
 }
 
 unsigned blocks_for(int64_t n, int per_block) {
@@ -324,27 +426,33 @@ void launch_chi(const EdgeInputs& in, double* out, cudaStream_t st) {
 }
 
 template <int MDIM>
-cudaError_t launch_linearise(const EdgeInputs& in, const int64_t* pose_order,
-                             const int64_t* pose_offsets, int64_t Pa,
-                             const int64_t* lm_order,
-                             const int64_t* lm_offsets, int64_t La,
-                             double* pose_out, double* lm_out, double* hpl,
-                             cudaStream_t st) {
+cudaError_t launch_linearise(const EdgeInputs& in, const ChunkPlan& pose,
+                             const int32_t* pose_off, int64_t Pa,
+                             const ChunkPlan& lm, const int32_t* lm_off,
+                             int64_t La, double* hpl, cudaStream_t st) {
   if (in.E > 0) {
-    hpl_kernel<MDIM><<<blocks_for(in.E, kThreads), kThreads, 0, st>>>(in, hpl);
-    cudaError_t err = cudaGetLastError();
+    constexpr int kBytes = kTile * (kHplRow + 27 + 9) * sizeof(double);
+    static bool sized = false;  // once a process and model
+    if (!sized) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          edge_tile_kernel<MDIM>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      if (err != cudaSuccess) return err;
+      sized = true;
+    }
+    edge_tile_kernel<MDIM><<<blocks_for(in.E, kTile), kTile, kBytes, st>>>(
+        in, pose, lm, hpl);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (Pa > 0) {
-    pose_blocks_kernel<MDIM>
-        <<<blocks_for(Pa, kWarpsPerBlock), 32 * kWarpsPerBlock, 0, st>>>(
-            in, pose_order, pose_offsets, Pa, pose_out);
-    cudaError_t err = cudaGetLastError();
+    finish_kernel<6, 32><<<blocks_for(Pa * 32, kThreads), kThreads, 0, st>>>(
+        pose_off, Pa, pose.scratch, pose.out);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (La > 0)
-    landmark_blocks_kernel<MDIM><<<blocks_for(La, kThreads), kThreads, 0, st>>>(
-        in, lm_order, lm_offsets, La, lm_out);
+    finish_kernel<3, 9><<<blocks_for(La * 9, kThreads), kThreads, 0, st>>>(
+        lm_off, La, lm.scratch, lm.out);
   return cudaGetLastError();
 }
 
@@ -387,29 +495,41 @@ extern "C" int tba_chi_edges(const void* qt, const void* xw, const void* meas,
 }
 
 // Hpp|bp [Pa, 42], Hll|bl [La, 12] and Hpl [E, 18] (kernel B3).  active,
-// both_free and m3 may be null.
+// both_free and m3 may be null.  Per vertex kind the plan of
+// kernels/terms.py make_linearise_plan: rows [n] (uint8), chunks [chunks, 4]
+// and tile_off [tiles + 1] for the tile kernel, vertex_off [vertices + 1] for
+// the finishing kernel (int32), and a scratch [chunks, 27 or 9] f64.
 extern "C" int tba_linearise(const void* qt, const void* xw, const void* meas,
                              const void* omega, const void* active,
                              const void* both_free, const void* m3,
                              const void* cam, long long E, int omega_stride,
-                             int mdim, const void* pose_order,
-                             const void* pose_offsets, long long Pa,
-                             const void* lm_order, const void* lm_offsets,
+                             int mdim, const void* pose_rows,
+                             const void* pose_chunks, const void* pose_tile_off,
+                             const void* pose_vertex_off, void* pose_scratch,
+                             long long Pa, const void* lm_rows,
+                             const void* lm_chunks, const void* lm_tile_off,
+                             const void* lm_vertex_off, void* lm_scratch,
                              long long La, void* pose_out, void* lm_out,
                              void* hpl_out, void* stream) {
   if (mdim != 2 && mdim != 3) return static_cast<int>(cudaErrorInvalidValue);
   const EdgeInputs in = edge_inputs(qt, xw, meas, omega, active, both_free, m3,
                                     cam, E, omega_stride);
   auto st = static_cast<cudaStream_t>(stream);
-  auto po = static_cast<const int64_t*>(pose_order);
-  auto pf = static_cast<const int64_t*>(pose_offsets);
-  auto lo = static_cast<const int64_t*>(lm_order);
-  auto lf = static_cast<const int64_t*>(lm_offsets);
-  auto pose = static_cast<double*>(pose_out);
-  auto lm = static_cast<double*>(lm_out);
+  const ChunkPlan pose = {static_cast<const uint8_t*>(pose_rows),
+                          static_cast<const int4*>(pose_chunks),
+                          static_cast<const int32_t*>(pose_tile_off),
+                          static_cast<double*>(pose_out),
+                          static_cast<double*>(pose_scratch)};
+  const ChunkPlan lm = {static_cast<const uint8_t*>(lm_rows),
+                        static_cast<const int4*>(lm_chunks),
+                        static_cast<const int32_t*>(lm_tile_off),
+                        static_cast<double*>(lm_out),
+                        static_cast<double*>(lm_scratch)};
+  auto pf = static_cast<const int32_t*>(pose_vertex_off);
+  auto lf = static_cast<const int32_t*>(lm_vertex_off);
   auto hpl = static_cast<double*>(hpl_out);
   const cudaError_t err =
-      mdim == 2 ? launch_linearise<2>(in, po, pf, Pa, lo, lf, La, pose, lm, hpl, st)
-                : launch_linearise<3>(in, po, pf, Pa, lo, lf, La, pose, lm, hpl, st);
+      mdim == 2 ? launch_linearise<2>(in, pose, pf, Pa, lm, lf, La, hpl, st)
+                : launch_linearise<3>(in, pose, pf, Pa, lm, lf, La, hpl, st);
   return static_cast<int>(err);
 }

@@ -26,9 +26,9 @@ Every wrapper counts its kernel launches in a plain integer attribute,
 from .bandchol import band_factor, band_solve
 from .gather import gather_rows
 from .lminv import damped_inverse, sym3x3_mv
-from .pairprod import schur_pair_products
+from .pairprod import PairPlan, make_pair_plan, schur_pair_products
 from .schurvec import hpl_mtv_segment_sum, hpl_mv_segment_sum
-from .terms import chi_edges, linearise
+from .terms import LinearisePlan, chi_edges, linearise, make_linearise_plan
 
 KERNELS = (
     chi_edges, gather_rows, linearise, damped_inverse, hpl_mv_segment_sum,

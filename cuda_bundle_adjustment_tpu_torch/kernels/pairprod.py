@@ -7,12 +7,16 @@ Counterpart of ``pallas/pairprod.py`` (``_pairprod_call_v2``):
 as flat row-major ``[nnz, 36]`` f64 blocks, over triples sorted by target
 block with CSR ``offsets [nnz + 1]`` (``solver/symbolic.py sort_triples``).
 The wrapper dispatches on the tensor's device only: a CPU tensor runs the
-plain PyTorch twin, a CUDA tensor launches the kernel (or raises).
+plain PyTorch twin, a CUDA tensor launches the kernel (or raises).  The
+kernel walks a :class:`PairPlan` (int32 triples with their landmark, blocks
+cut into items of at most ``ITEM`` triples), made once a structure by
+:func:`make_pair_plan`; ``csrc/pairprod.cu`` has the design.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,18 +36,67 @@ def schur_pair_products_plain(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets):
     return torch.segment_reduce(prod, "sum", offsets=offsets)
 
 
+# most triples one warp sums into one row (an item)
+ITEM = 128
+
+
+class PairPlan(NamedTuple):
+    """B6's plan, int32 tensors.  An item is a stretch of at most ``ITEM``
+    triples of one block; its target is the block's output row where the
+    block has no other item, else ``-1 - number`` for scratch row
+    ``number``.  ``E``, ``T`` and ``nnz`` are the sizes of the structure it
+    was made for: the wrapper compares these three integers a call and
+    nothing else."""
+
+    tri_ei: torch.Tensor  # [T]
+    tri_ej: torch.Tensor  # [T]
+    tri_lm: torch.Tensor  # [T] lm_idx[tri_ei]
+    items: torch.Tensor  # [items, 4] first triple, last + 1, target, 0
+    block_off: torch.Tensor  # [nnz + 1] a block's stretch of item numbers
+    E: int
+    T: int
+    nnz: int
+
+
+def make_pair_plan(lm_idx, tri_ei, tri_ej, offsets) -> PairPlan:
+    """The plan of one structure's triples.  Made once a structure
+    (``build_structure``); :func:`schur_pair_products` makes it itself when
+    it is given none."""
+    dev = offsets.device
+    if lm_idx.shape[0] >= 2**31 or tri_ei.shape[0] >= 2**31:
+        raise ValueError("schur_pair_products: the kernel's indices are 32-bit")
+    nnz = offsets.shape[0] - 1
+    per_block = torch.div(offsets[1:] - offsets[:-1] + ITEM - 1, ITEM, rounding_mode="floor")
+    block_off = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), per_block.cumsum(0)])
+    block = torch.repeat_interleave(torch.arange(nnz, device=dev), per_block)
+    number = torch.arange(block.shape[0], device=dev)
+    first = offsets[block] + (number - block_off[block]) * ITEM
+    last = torch.minimum(first + ITEM, offsets[block + 1])
+    target = torch.where(per_block[block] == 1, block, -1 - number)
+    items = torch.stack([first, last, target, torch.zeros_like(first)], dim=1)
+    i32 = torch.int32
+    return PairPlan(tri_ei.to(i32), tri_ej.to(i32), lm_idx[tri_ei].to(i32),
+                    items.to(i32).contiguous(), block_off.to(i32),
+                    lm_idx.shape[0], tri_ei.shape[0], nnz)
+
+
 def _lib():
     fn = _build.load("pairprod").tba_schur_pair_products
     if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp] * 7 + [ctypes.c_longlong, vp]
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        # hpl inv_hll tri_ei tri_ej tri_lm items | nitems | block_off | nnz |
+        # scratch out stream
+        fn.argtypes = [vp] * 6 + [ll, vp, ll, vp, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def schur_pair_products(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets):
+def schur_pair_products(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets,
+                        plan: PairPlan | None = None):
     """``Hpl [E, 18], invHll [La, 9] f64; lm_idx [E], tri_ei/tri_ej [T],
-    offsets [nnz + 1] int64 -> [nnz, 36] f64`` (kernel B6 on CUDA)."""
+    offsets [nnz + 1] int64 -> [nnz, 36] f64`` (kernel B6 on CUDA).
+    ``plan``: the indices' :func:`make_pair_plan`, for a caller that launches
+    more than once."""
     if hpl.device.type == "cpu":
         return schur_pair_products_plain(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets)
     if hpl.device.type != "cuda":
@@ -60,15 +113,24 @@ def schur_pair_products(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets):
     if lm_idx.shape[0] != hpl.shape[0] or tri_ei.shape != tri_ej.shape:
         raise ValueError("schur_pair_products: index arrays do not match")
     hpl, inv_hll = hpl.contiguous(), inv_hll.contiguous()
-    lm_idx, tri_ei, tri_ej, offsets = (t.contiguous() for t in ints)
     nnz = offsets.shape[0] - 1
+    if plan is None:
+        plan = make_pair_plan(lm_idx, tri_ei, tri_ej, offsets)
+    if (plan.E, plan.T, plan.nnz) != (hpl.shape[0], tri_ei.shape[0], nnz) or (
+        plan.items.device != hpl.device
+    ):
+        raise ValueError("schur_pair_products: the plan belongs to another structure or device")
+    if hpl.data_ptr() % 16:  # the kernel copies the Hpl rows 16 bytes at a time
+        hpl = hpl.clone()
     out = torch.empty((nnz, 36), dtype=hpl.dtype, device=hpl.device)
     if nnz == 0:
         return out
+    nitems = plan.items.shape[0]
+    scratch = torch.empty((nitems, 36), dtype=hpl.dtype, device=hpl.device)
     status = _lib()(
-        hpl.data_ptr(), inv_hll.data_ptr(), lm_idx.data_ptr(), tri_ei.data_ptr(),
-        tri_ej.data_ptr(), offsets.data_ptr(), out.data_ptr(), nnz,
-        _build.stream_ptr(hpl),
+        hpl.data_ptr(), inv_hll.data_ptr(), plan.tri_ei.data_ptr(), plan.tri_ej.data_ptr(),
+        plan.tri_lm.data_ptr(), plan.items.data_ptr(), nitems, plan.block_off.data_ptr(),
+        nnz, scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(hpl),
     )
     _build.check(status, "schur_pair_products")
     schur_pair_products.launches += 1

@@ -13,11 +13,18 @@ chi and rho' for the ``[E]`` weight it hands B3 in ``omega``
 (``solver/block_solver.py build_system``).  The wrappers dispatch on
 the tensor's device only: a CPU tensor runs the plain PyTorch twin (the
 models of ``models/ba.py``), a CUDA tensor launches the kernel (or raises).
+
+B3 runs one pass over tiles of ``TILE`` consecutive edges and sums the
+per-vertex blocks through a :class:`LinearisePlan`, which cuts every vertex's
+run of edges (in segment order) into chunks that lie in one tile
+(:func:`make_linearise_plan`, once a structure; ``csrc/terms.cu`` has the
+design).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +51,77 @@ def linearise_plain(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segme
     then fixed-order segment sums per pose and per landmark."""
     pose_stack, lm_stack, hpl = _model(data).terms(None, data, 0, 1.0, state=(qt, xw))
     return segment_sum(pose_stack, pose_seg), segment_sum(lm_stack, lm_seg), hpl
+
+
+# edges a block of B3's tile kernel (kTile in csrc/terms.cu)
+TILE = 128
+
+
+class ChunkPlan(NamedTuple):
+    """One vertex kind's share of B3's plan.  A chunk is a maximal stretch
+    of a vertex's run in the segment plan's order whose edges lie in one
+    tile.  Chunks are numbered by vertex (``vertex_off``) and listed by tile
+    (``chunks``, ``tile_off``), and ``rows`` lists their edges in that order,
+    each as its row of the tile."""
+
+    rows: torch.Tensor  # [n] uint8: edge id - TILE x tile, by tile, chunk after chunk
+    chunks: torch.Tensor  # [chunks, 4] int32 by tile: first, last + 1 (in rows), target, 0
+    tile_off: torch.Tensor  # [tiles + 1] int32: a tile's stretch of ``chunks``
+    vertex_off: torch.Tensor  # [vertices + 1] int32: a vertex's stretch of chunk numbers
+
+
+class LinearisePlan(NamedTuple):
+    """B3's plan, with the sizes of the structure it was made for: the
+    wrapper compares these three integers a call and nothing else."""
+
+    pose: ChunkPlan
+    lm: ChunkPlan
+    E: int
+    Pa: int
+    La: int
+
+
+def _chunk_plan(seg: Segments, ntiles: int) -> ChunkPlan:
+    """Cut each segment's run into per-tile chunks.  A chunk's target is its
+    vertex's output row where the vertex has no other chunk, else ``-1 -
+    number`` for scratch row ``number``: the order of every sum is fixed by
+    the segment plan and ``TILE`` alone."""
+    order, offsets = seg
+    dev, n, nseg = order.device, order.shape[0], offsets.shape[0] - 1
+    pos = torch.arange(n, device=dev)
+    seg_of = torch.searchsorted(offsets[1:].contiguous(), pos, right=True)
+    tile_of = torch.div(order, TILE, rounding_mode="floor")
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = (seg_of[1:] != seg_of[:-1]) | (tile_of[1:] != tile_of[:-1])
+    start = torch.nonzero(first)[:, 0]
+    end = torch.cat([start[1:], torch.full((min(n, 1),), n, device=dev)])
+    cseg, ctile = seg_of[start], tile_of[start]
+    vertex_off = torch.searchsorted(cseg, torch.arange(nseg + 1, device=dev))
+    per_vertex = vertex_off[1:] - vertex_off[:-1]
+    number = torch.arange(start.shape[0], device=dev)
+    target = torch.where(per_vertex[cseg] == 1, cseg, -1 - number)
+    by_tile = torch.argsort(ctile, stable=True)
+    length = (end - start)[by_tile]
+    first = length.cumsum(0) - length
+    rows = (order - tile_of * TILE)[torch.repeat_interleave(start[by_tile] - first, length) + pos]
+    chunks = torch.stack([first, first + length, target[by_tile], torch.zeros_like(first)], dim=1)
+    tile_off = torch.searchsorted(ctile[by_tile], torch.arange(ntiles + 1, device=dev))
+    i32 = torch.int32
+    return ChunkPlan(rows.to(torch.uint8), chunks.to(i32).contiguous(), tile_off.to(i32),
+                     vertex_off.to(i32))
+
+
+def make_linearise_plan(pose_seg: Segments, lm_seg: Segments, E: int) -> LinearisePlan:
+    """B3's plan for ``E`` edges summed per pose and per landmark through
+    the two segment plans.  Made once a structure (``build_structure``);
+    :func:`linearise` makes it itself when it is given none."""
+    if E * 18 >= 2**31:
+        raise ValueError(f"linearise: {E} edges exceed the kernel's 32-bit indices")
+    ntiles = -(-E // TILE)
+    return LinearisePlan(
+        _chunk_plan(pose_seg, ntiles), _chunk_plan(lm_seg, ntiles), E,
+        pose_seg.offsets.shape[0] - 1, lm_seg.offsets.shape[0] - 1,
+    )
 
 
 def _ptr(t) -> int | None:
@@ -91,8 +169,9 @@ _ARGTYPES = {
     # qt xw meas omega active m3 cam | E omega_stride mdim | out stream
     "tba_chi_edges": [_VP] * 7 + [_LL, _INT, _INT, _VP, _VP],
     # qt xw meas omega active both_free m3 cam | E omega_stride mdim |
-    # pose order, offsets, Pa | lm order, offsets, La | 3 outputs, stream
-    "tba_linearise": [_VP] * 8 + [_LL, _INT, _INT, _VP, _VP, _LL, _VP, _VP, _LL]
+    # pose rows, chunks, tile_off, vertex_off, scratch, Pa | the same of the
+    # landmarks, La | 3 outputs, stream
+    "tba_linearise": [_VP] * 8 + [_LL, _INT, _INT] + ([_VP] * 5 + [_LL]) * 2
     + [_VP] * 4,
 }
 
@@ -127,28 +206,37 @@ def chi_edges(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Te
     return out
 
 
-def linearise(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments):
+def linearise(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments,
+              plan: LinearisePlan | None = None):
     """``(Hpp|bp [Pa, 42], Hll|bl [La, 12], Hpl [E, 18])`` f64, summed in
-    segment order (kernel B3 on CUDA)."""
+    segment order (kernel B3 on CUDA).  ``plan``: the segment plans'
+    :func:`make_linearise_plan`, for a caller that launches more than once."""
     if qt.device.type == "cpu":
         return linearise_plain(qt, xw, data, pose_seg, lm_seg)
     if qt.device.type != "cuda":
         raise NotImplementedError(f"linearise: no kernel for device {qt.device}")
     qt, xw, d = _check("linearise", qt, xw, data, (pose_seg, lm_seg))
-    pose_seg = Segments(*(t.contiguous() for t in pose_seg))
-    lm_seg = Segments(*(t.contiguous() for t in lm_seg))
     E = qt.shape[0]
     Pa, La = pose_seg.offsets.shape[0] - 1, lm_seg.offsets.shape[0] - 1
+    if plan is None:
+        plan = make_linearise_plan(pose_seg, lm_seg, E)
+    if (plan.E, plan.Pa, plan.La) != (E, Pa, La) or plan.pose.rows.device != qt.device:
+        raise ValueError("linearise: the plan belongs to another structure or device")
+    if qt.data_ptr() % 16:  # the tile kernel loads the pose rows 16 bytes at a time
+        qt = qt.clone()
     kw = dict(dtype=qt.dtype, device=qt.device)
     pose, lm, hpl = torch.empty((Pa, 42), **kw), torch.empty((La, 12), **kw), torch.empty((E, 18), **kw)
     if E + Pa + La == 0:
         return pose, lm, hpl
+    # the chunks' partial rows: [pose chunks, 27] then [landmark chunks, 9]
+    pose_rows = plan.pose.chunks.shape[0] * 27
+    scratch = torch.empty(pose_rows + plan.lm.chunks.shape[0] * 9, **kw)
     status = _fn("tba_linearise")(
         qt.data_ptr(), xw.data_ptr(), d.meas.data_ptr(), d.omega.data_ptr(),
         _ptr(d.active), _ptr(d.both_free), _ptr(d.mask3), d.cam.data_ptr(), E,
         int(d.omega.shape[0] != 1), d.meas.shape[0],
-        pose_seg.order.data_ptr(), pose_seg.offsets.data_ptr(), Pa,
-        lm_seg.order.data_ptr(), lm_seg.offsets.data_ptr(), La,
+        *(t.data_ptr() for t in plan.pose), scratch.data_ptr(), Pa,
+        *(t.data_ptr() for t in plan.lm), scratch.data_ptr() + 8 * pose_rows, La,
         pose.data_ptr(), lm.data_ptr(), hpl.data_ptr(), _build.stream_ptr(qt),
     )
     _build.check(status, "linearise")

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 
 from ..kernels import (
+    LinearisePlan,
+    PairPlan,
     band_factor,
     band_solve,
     chi_edges,
@@ -43,6 +45,8 @@ from ..kernels import (
     hpl_mtv_segment_sum,
     hpl_mv_segment_sum,
     linearise,
+    make_linearise_plan,
+    make_pair_plan,
     schur_pair_products,
     sym3x3_mv,
 )
@@ -90,6 +94,9 @@ class SchurPlan(NamedTuple):
     row_seg: Segments  # Hsc blocks -> block rows
     col_seg: Segments  # Hsc blocks -> block columns
     band: BandMeta
+    # what the CUDA kernels B3 and B6 walk; None on the CPU, where the twins run
+    lin_plan: Optional[LinearisePlan]  # tiles and chunks over pose_seg, lm_seg
+    pair_plan: Optional[PairPlan]  # int32 triples and items
 
 
 def outside_slice(what: str, item: str) -> NotImplementedError:
@@ -196,7 +203,7 @@ def build_system(
         x = chi_edges(*state, data)
         data = data._replace(omega=data.omega * robust_derivative(meta.rk, meta.delta, x))
     pose_acc, lm_acc, hpl = linearise(
-        *state, data, plan.pose_seg, plan.lm_seg
+        *state, data, plan.pose_seg, plan.lm_seg, plan.lin_plan
     )  # [Pa, 42], [La, 12], [E, 18]
     Pa = pose_acc.shape[0]
     return SystemBlocks(
@@ -229,7 +236,8 @@ def schur_reduce(
     invHll, y = damped_inverse(sys.Hll, sys.bl, lam)
     bsc = hpl_mv_segment_sum(sys.Hpl, y, plan.ba_lm_idx, sys.bp, plan.pose_seg)
     blocks = -schur_pair_products(
-        sys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets
+        sys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets,
+        plan.pair_plan,
     )
     blocks[plan.diag_pos] = blocks[plan.diag_pos] + Hpp_d.reshape(Pa, 36)
     return blocks, bsc, invHll
@@ -483,20 +491,28 @@ class BlockSolver:
         def up(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
 
+        pose_seg, lm_seg = make_segments(pose_idx, Pa, dev), make_segments(lm_idx, La, dev)
+        tri_ei, tri_ej, tri_off = up(tri_ei), up(tri_ej), up(tri_off)
+        lin_plan = pair_plan = None
+        if dev.type == "cuda":
+            lin_plan = make_linearise_plan(pose_seg, lm_seg, pose_idx.shape[0])
+            pair_plan = make_pair_plan(self.packed.lm_idx, tri_ei, tri_ej, tri_off)
         self.plan = SchurPlan(
             ba_pose_idx=self.packed.pose_idx,
             ba_lm_idx=self.packed.lm_idx,
             blk_row=up(s.blk_row),
             blk_col=up(s.blk_col),
             diag_pos=up(s.diag_pos),
-            tri_ei=up(tri_ei),
-            tri_ej=up(tri_ej),
-            tri_offsets=up(tri_off),
-            pose_seg=make_segments(pose_idx, Pa, dev),
-            lm_seg=make_segments(lm_idx, La, dev),
+            tri_ei=tri_ei,
+            tri_ej=tri_ej,
+            tri_offsets=tri_off,
+            pose_seg=pose_seg,
+            lm_seg=lm_seg,
             row_seg=make_segments(s.blk_row, Pa, dev),
             col_seg=make_segments(s.blk_col, Pa, dev),
             band=BandMeta(bw=bw, sb=sb),
+            lin_plan=lin_plan,
+            pair_plan=pair_plan,
         )
 
     # -- stage API used by the LM loop -----------------------------------------

@@ -13,6 +13,12 @@ import pytest
 import torch
 
 from chip_smoke import random_banded_spd, reverse_pose_blocks
+from torch_fragile import (
+    FRAGILE_EDGE_PATTERNS,
+    FRAGILE_PAIR_PROBLEMS,
+    fragile_edge_pattern,
+    fragile_pair_problem,
+)
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_mixed_ba_problem
@@ -35,11 +41,12 @@ def _cuda():
 CAM = (718.856, 718.856, 607.1928, 185.2157, 386.1448)
 
 
-def _random_edges(rng, E, P, L, mdim, masked, dev):
+def _random_edges(rng, E, P, L, mdim, masked, dev, pose_idx=None, lm_idx=None):
     """Seeded edge inputs around a plausible BA state: a tenth of the rows
     inert, a few degenerate (z = 0 exactly, half of them active), some
     vertices fixed (index past the free range).  Inert rows alone observe
-    pose P - 1, inert and degenerate rows alone landmark L - 1."""
+    pose P - 1, inert and degenerate rows alone landmark L - 1, unless the
+    caller gives the edges' vertices (``pose_idx``, ``lm_idx``; P and L free)."""
     q = rng.normal(0, 0.1, (E, 4)) + np.array([0, 0, 0, 1.0])
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     x, y, z, w = q.T
@@ -51,7 +58,7 @@ def _random_edges(rng, E, P, L, mdim, masked, dev):
     t = rng.normal(0, 1.0, (E, 3))
     xw = rng.normal(0, 2.0, (E, 3))
     xw[:, 2] += 10.0
-    bad = rng.choice(E, max(4, E // 50), replace=False)
+    bad = rng.choice(E, min(E, max(4, E // 50)), replace=False)
     R[bad] = np.eye(3).reshape(-1)
     t[bad] = 0.0
     t[bad, 2] = -xw[bad, 2]
@@ -59,6 +66,7 @@ def _random_edges(rng, E, P, L, mdim, masked, dev):
     active[bad[::2]] = 1.0
     active[bad[1::2]] = 0.0
     meas = rng.normal(0, 30.0, (mdim, E)) + np.array([600.0, 180.0, 560.0])[:mdim, None]
+    given_pose, given_lm = pose_idx, lm_idx
     pose_idx = rng.integers(0, P + 1, E)
     pose_idx[pose_idx == P - 1] = P + 1
     pose_idx[active == 0] = P - 1
@@ -66,6 +74,8 @@ def _random_edges(rng, E, P, L, mdim, masked, dev):
     lm_idx[lm_idx == L - 1] = L + 1
     lm_idx[active == 0] = L - 1
     lm_idx[bad] = L - 1
+    if given_pose is not None:
+        pose_idx, lm_idx = np.asarray(given_pose), np.asarray(given_lm)
 
     def T(a, dt=torch.float64):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
@@ -110,6 +120,62 @@ def test_terms_kernels_match_twins(mdim, masked):
     dead = data.lm_idx == L - 1  # inert and degenerate rows
     assert bool((got[2][dead] == 0).all())
     assert bool((got[0][P - 1] == 0).all()) and bool((got[1][L - 1] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FRAGILE_EDGE_PATTERNS)
+def test_linearise_kernel_at_fragile_shapes(case):
+    """B3 against its twin on the shapes of ``fragile_edge_pattern`` (masked
+    stereo rows): Hpl bit for bit; Hll|bl and Hpp|bp bit for bit where the
+    plan sums a vertex as one chunk, else within 1e-12 x max|value| (the
+    chunks associate the sum differently); zeros for vertices without an
+    edge and for rows of fixed vertices; a second launch, and a launch with
+    the plan handed in, bit for bit."""
+    dev = _cuda()
+    rng = np.random.default_rng(FRAGILE_EDGE_PATTERNS.index(case))
+    P, L, pi, li = fragile_edge_pattern(case, rng)
+    Pa, La = P - 2, L - 2
+    qt, xw, data, (ps, ls), _ = _random_edges(rng, len(pi), Pa, La, 3, True, dev, pi, li)
+    got = terms.linearise(qt, xw, data, ps, ls)
+    want = terms.linearise_plain(qt, xw, data, ps, ls)
+    plan = terms.make_linearise_plan(ps, ls, len(pi))
+    for g, w, half in zip(got, want, (plan.pose, plan.lm, None)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        if half is None:
+            assert torch.equal(g, w)
+            continue
+        assert _close_rel(g, w) or float(w.abs().max()) == 0.0
+        lone = (half.vertex_off[1:] - half.vertex_off[:-1]) == 1
+        assert torch.equal(g[lone], w[lone])
+        none = (half.vertex_off[1:] - half.vertex_off[:-1]) == 0
+        assert bool((g[none] == 0).all())
+    fixed = torch.as_tensor((np.asarray(pi) >= Pa) | (np.asarray(li) >= La), device=dev)
+    assert bool((got[2][fixed] == 0).all())
+    for again in (terms.linearise(qt, xw, data, ps, ls), terms.linearise(qt, xw, data, ps, ls, plan)):
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FRAGILE_PAIR_PROBLEMS)
+def test_pairprod_kernel_at_fragile_shapes(case):
+    """B6 against its twin within 1e-12 x max|block| on the shapes of
+    ``fragile_pair_problem`` (duplicate observations; a block of one triple
+    beside blocks of thousands, summed over 21 items), and a second launch
+    bit for bit."""
+    dev = _cuda()
+    s = optimizer_from_problem(fragile_pair_problem(case), device=dev).solver
+    s.build_structure()
+    _, sys_ = s.head()
+    lam = 1e-5 * s.max_diagonal(sys_)
+    diag9 = torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1], dtype=torch.float64, device=dev)
+    p = s.plan
+    args = (sys_.Hpl, flat_sym3x3_inv(sys_.Hll + lam * diag9), p.ba_lm_idx,
+            p.tri_ei, p.tri_ej, p.tri_offsets)
+    got = pairprod.schur_pair_products(*args, p.pair_plan)
+    want = pairprod.schur_pair_products_plain(*args)
+    assert got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+    assert torch.equal(got, pairprod.schur_pair_products(*args))
 
 
 @pytest.mark.gpu
@@ -205,6 +271,45 @@ def test_pairprod_kernel_matches_twin():
     got = pairprod.schur_pair_products(*args)
     want = pairprod.schur_pair_products_plain(*args)
     assert (got - want).abs().max() <= 1e-12 * want.abs().max()
+    assert torch.equal(got, pairprod.schur_pair_products(*args, p.pair_plan))
+
+
+@pytest.mark.gpu
+def test_b3_b6_take_unaligned_views_and_refuse_a_foreign_plan():
+    """B3 loads the pose rows and B6 copies the Hpl rows 16 bytes at a time:
+    a contiguous view that starts 8 bytes into its storage gives the same
+    bits as an aligned tensor.  A plan made for a structure of other sizes
+    is refused."""
+    dev = _cuda()
+    rng = np.random.default_rng(21)
+    P, L, E = 40, 700, 3000
+    qt, xw, data, (ps, ls), _ = _random_edges(rng, E, P, L, 3, True, dev)
+    want = terms.linearise(qt, xw, data, ps, ls)
+    off = torch.empty(E * 12 + 1, dtype=torch.float64, device=dev)[1:].view(E, 12)
+    off.copy_(qt)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 8
+    assert all(torch.equal(a, b) for a, b in zip(want, terms.linearise(off, xw, data, ps, ls)))
+    _, _, _, (ps2, ls2), _ = _random_edges(rng, E - 1, P, L, 3, True, dev)
+    with pytest.raises(ValueError):
+        terms.linearise(qt, xw, data, ps, ls, terms.make_linearise_plan(ps2, ls2, E - 1))
+
+    s = optimizer_from_problem(make_ba_problem(num_poses=12, num_landmarks=300, seed=4),
+                               device=dev).solver
+    s.build_structure()
+    _, sys_ = s.head()
+    p = s.plan
+    inv = flat_sym3x3_inv(sys_.Hll + 1e-5 * s.max_diagonal(sys_) * torch.tensor(
+        [1.0, 0, 0, 0, 1, 0, 0, 0, 1], dtype=torch.float64, device=dev))
+    idx = (p.ba_lm_idx, p.tri_ei, p.tri_ej, p.tri_offsets)
+    want = pairprod.schur_pair_products(sys_.Hpl, inv, *idx, p.pair_plan)
+    n = sys_.Hpl.shape[0]
+    off = torch.empty(n * 18 + 1, dtype=torch.float64, device=dev)[1:].view(n, 18)
+    off.copy_(sys_.Hpl)
+    assert off.data_ptr() % 16 == 8
+    assert torch.equal(want, pairprod.schur_pair_products(off, inv, *idx, p.pair_plan))
+    foreign = pairprod.make_pair_plan(p.ba_lm_idx, p.tri_ei[:-1], p.tri_ej[:-1], p.tri_offsets)
+    with pytest.raises(ValueError):
+        pairprod.schur_pair_products(sys_.Hpl, inv, *idx, foreign)
 
 
 @pytest.mark.gpu

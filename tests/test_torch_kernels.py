@@ -10,7 +10,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import random_banded_spd
+from chip_smoke import pair_products_in_plan_order, random_banded_spd
+from torch_fragile import FRAGILE_PAIR_PROBLEMS, fragile_pair_problem
 from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
 from cuda_bundle_adjustment_tpu.io.synthetic import make_ba_problem
 from cuda_bundle_adjustment_tpu.ops.components import flat_sym3x3_inv as jax_sym3x3_inv
@@ -126,6 +127,90 @@ def test_pairprod_twin_matches_pallas_kernel():
     np.testing.assert_allclose(blocks.numpy(), np.asarray(ref_blocks), atol=2e-5 * scale)
     bscale = float(np.abs(np.asarray(ref_bsc)).max())
     np.testing.assert_allclose(bsc.numpy(), np.asarray(ref_bsc), atol=1e-9 * bscale)
+
+
+def _walk_pair_plan(prod, plan, nnz):
+    """Block sums of per-triple products as kernel B6 forms them: an item's
+    triples dealt round 16 slots, each slot summed in order and the slots by
+    a tree, a lone item straight into its block's row, the others into
+    scratch rows that are then added in item order."""
+    items, block_off = plan.items.numpy(), plan.block_off.numpy()
+    out = np.full((nnz, 36), np.nan)
+    scratch = np.full((items.shape[0], 36), np.nan)
+    seen = np.zeros(prod.shape[0], dtype=int)
+    for first, last, target, _ in items:
+        assert 0 < last - first <= pairprod.ITEM
+        seen[first:last] += 1
+        slots = np.zeros((16, 36))
+        for k, t in enumerate(range(first, last)):
+            slots[k % 16] = slots[k % 16] + prod[t]
+        for half in (8, 4, 2, 1):
+            slots = slots[:half] + slots[half : 2 * half]
+        if target < 0:
+            scratch[-1 - target] = slots[0]
+        else:
+            out[target] = slots[0]
+    assert np.all(seen == 1)
+    for k in range(nnz):
+        c0, c1 = block_off[k], block_off[k + 1]
+        if c1 - c0 != 1:
+            acc = np.zeros(36)
+            for c in range(c0, c1):
+                acc = acc + scratch[c]
+            out[k] = acc
+    return out
+
+
+@pytest.mark.parametrize("case", FRAGILE_PAIR_PROBLEMS)
+def test_pairprod_twin_matches_xla_at_fragile_shapes(case):
+    """The B6 twin against the JAX package's XLA triple path at 1e-12 x
+    max|block| on the shapes of ``torch_fragile.fragile_pair_problem``, and kernel B6's plan
+    (``make_pair_plan``), walked in numpy as the kernel walks it, against
+    the twin at the same tolerance (the items associate the sum
+    differently)."""
+    problem = fragile_pair_problem(case, make_ba_problem)
+    js, jsys, ts, psys = _systems(problem)
+    lam = 1e-5 * float(np.asarray(jsys.Hll)[:, [0, 4, 8]].max())
+    ref_blocks, _, _ = jbs.schur_reduce(
+        jsys, jnp.asarray(lam), js.plan, js.Pa, js.La, js.schur.nnz_blocks
+    )
+    ref = -np.asarray(ref_blocks)
+    ref[np.asarray(js.schur.diag_pos)] += (np.asarray(jsys.Hpp) + lam * np.eye(6)).reshape(-1, 36)
+
+    invHll = _t(jax_sym3x3_inv(jnp.asarray(psys.Hll.numpy()) + lam * np.array(
+        [1.0, 0, 0, 0, 1, 0, 0, 0, 1])))
+    plan = ts.plan
+    args = (psys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets)
+    got = pairprod.schur_pair_products(*args).numpy()
+    np.testing.assert_array_equal(ts.schur.blk_row, js.schur.blk_row)
+    np.testing.assert_array_equal(ts.schur.blk_col, js.schur.blk_col)
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12 * scale)
+
+    counts = np.diff(plan.tri_offsets.numpy())
+    if case == "duplicate_observations":
+        dup = plan.tri_ei[plan.tri_ei != plan.tri_ej]
+        pose_of = plan.ba_pose_idx
+        assert bool((pose_of[plan.tri_ei] == pose_of[plan.tri_ej]).any()) and dup.numel() > 0
+    else:
+        assert counts.min() == 1 and counts.max() >= 2600
+
+    assert plan.pair_plan is None and plan.lin_plan is None  # made for the card only
+    pp = pairprod.make_pair_plan(plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets)
+    assert all(t.dtype == torch.int32 for t in pp[:5])
+    assert (pp.E, pp.T, pp.nnz) == (plan.ba_lm_idx.shape[0], plan.tri_ei.shape[0], got.shape[0])
+    np.testing.assert_array_equal(pp.tri_lm.numpy(), plan.ba_lm_idx[plan.tri_ei].numpy())
+    W = psys.Hpl.numpy().reshape(-1, 6, 3) @ invHll.numpy()[plan.ba_lm_idx.numpy()].reshape(-1, 3, 3)
+    prod = np.einsum("tik,tjk->tij", W[pp.tri_ei.numpy()],
+                     psys.Hpl.numpy().reshape(-1, 6, 3)[pp.tri_ej.numpy()]).reshape(-1, 36)
+    walked = _walk_pair_plan(prod, pp, got.shape[0])
+    np.testing.assert_allclose(walked, got, rtol=0, atol=1e-12 * scale)
+    # chip_smoke.py's tensor form of the same walk (its products come from
+    # another einsum, so not bit for bit)
+    ordered = pair_products_in_plan_order(*args, pp).numpy()
+    np.testing.assert_allclose(ordered, walked, rtol=0, atol=1e-14 * scale)
+    lone = np.diff(pp.block_off.numpy()) == 1
+    assert lone.any() and (case == "duplicate_observations" or not lone.all())
 
 
 # -- B7 / B8 ----------------------------------------------------------------

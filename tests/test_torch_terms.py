@@ -11,6 +11,11 @@ on the CPU, on the same seeded numpy inputs.
   interpret mode loses part of the kernels' double-float compensation.
   Each interpret call compiles for tens of seconds, so there are four.
 * Inert and degenerate rows give exact zeros.
+* The shapes a tiled kernel is fragile at (one edge, a ragged last tile, a
+  pose with over 1000 edges beside poses with none, landmarks without an
+  edge, sorted and unsorted edges, fixed vertices): the twins against the
+  JAX XLA models, and kernel B3's plan (``make_linearise_plan``), walked in
+  numpy as the kernel walks it, against the twins' segment sums.
 
 The CUDA kernels themselves are held against these twins on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
@@ -21,13 +26,15 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from chip_smoke import _chunks_in_plan_order, linearise_in_plan_order
+from torch_fragile import FRAGILE_EDGE_PATTERNS, fragile_edge_pattern
 from cuda_bundle_adjustment_tpu.models.ba import MonoModel as JaxMono
 from cuda_bundle_adjustment_tpu.models.ba import StereoModel as JaxStereo
 from cuda_bundle_adjustment_tpu.types import GraphArrays as JaxGraph
 from cuda_bundle_adjustment_tpu.types import PackedEdges as JaxEdges
 from cuda_bundle_adjustment_tpu_torch.kernels import schurvec, terms
 from cuda_bundle_adjustment_tpu_torch.models.ba import MODEL_REGISTRY, edge_state
-from cuda_bundle_adjustment_tpu_torch.solver.segments import make_segments
+from cuda_bundle_adjustment_tpu_torch.solver.segments import make_segments, segment_sum
 from cuda_bundle_adjustment_tpu_torch.types import GraphArrays, PackedEdges
 
 torch.set_num_threads(1)
@@ -55,20 +62,27 @@ def _rotmats(rng, n):
 # -- the twins against the JAX package's XLA models ----------------------------
 
 
-def _graph_problem(rng, kind, masked, P=12, L=150, E=900):
+def _graph_problem(rng, kind, masked, P=12, L=150, E=900, pose_idx=None, lm_idx=None):
     """A graph state and an edge set over it.  Pose 0 has the identity
     rotation and landmark 0 sits on its z = 0 plane, so the first six edges,
     the only ones between them, are degenerate; a tenth of the rows are
-    inert; vertices P - 2.. and L - 2.. are fixed."""
+    inert; vertices P - 2.. and L - 2.. are fixed.  A caller that gives the
+    edges' vertices (``pose_idx``, ``lm_idx``) gets exactly those, on a
+    state without the degenerate pair."""
+    given = pose_idx is not None
     q, _ = _rotmats(rng, P)
-    q[0] = [0, 0, 0, 1.0]
     t = rng.normal(0, 1.0, (P, 3))
     Xw = rng.normal(0, 2.0, (L, 3))
     Xw[:, 2] += 10.0
-    t[0] = [0.0, 0.0, -Xw[0, 2]]
-    pose_idx = rng.integers(0, P, E)
-    lm_idx = rng.integers(1, L, E)
-    pose_idx[:6], lm_idx[:6] = 0, 0
+    if given:
+        pose_idx, lm_idx = np.array(pose_idx), np.array(lm_idx)
+        assert pose_idx.shape == lm_idx.shape == (E,)
+    else:
+        q[0] = [0, 0, 0, 1.0]
+        t[0] = [0.0, 0.0, -Xw[0, 2]]
+        pose_idx = rng.integers(0, P, E)
+        lm_idx = rng.integers(1, L, E)
+        pose_idx[:6], lm_idx[:6] = 0, 0
     mdim = 2 if kind == "mono" else 3
     meas = rng.normal(0, 30.0, (mdim, E)) + np.array([600.0, 180.0, 560.0])[:mdim, None]
     active = (rng.uniform(size=E) > 0.1).astype(np.float64)
@@ -195,6 +209,116 @@ def test_inert_and_degenerate_rows_give_exact_zeros():
     stacks = MODEL_REGISTRY["stereo"].terms(graph, data, 0, 1.0)
     for s in stacks:
         assert np.all(s.numpy()[inert] == 0)
+
+
+# -- the shapes a tiled kernel is fragile at --------------------------------------
+
+
+def _walk_plan(stack, plan, nseg, width, free):
+    """Segment sums of ``stack`` rows as kernel B3 forms them: every tile's
+    chunks summed in order over the tile's rows, a lone chunk straight into
+    its vertex's row, the others into scratch rows that are then added in
+    chunk order; a vertex without a chunk gets zeros.  ``free [E]``: whether
+    the edge's vertex of this kind is free (it is then in exactly one chunk)."""
+    rows, chunks, tile_off, vertex_off = (t.numpy() for t in plan)
+    out = np.full((nseg, width), np.nan)
+    scratch = np.full((chunks.shape[0], width), np.nan)
+    seen = np.zeros(stack.shape[0], dtype=int)
+    for tile in range(tile_off.shape[0] - 1):
+        mine = chunks[tile_off[tile] : tile_off[tile + 1]]
+        # a tile's stretch of rows is contiguous and at most a tile long
+        assert np.all(mine[1:, 0] == mine[:-1, 1])
+        assert mine.shape[0] == 0 or mine[-1, 1] - mine[0, 0] <= terms.TILE
+        for first, last, target, _ in mine:
+            assert last > first and rows[first:last].max() < terms.TILE
+            edges = tile * terms.TILE + rows[first:last].astype(np.int64)
+            seen[edges] += 1
+            acc = np.zeros(width)
+            for r in edges:
+                acc = acc + stack[r]
+            if target < 0:
+                scratch[-1 - target] = acc
+            else:
+                out[target] = acc
+    assert np.all(seen == free)
+    for v in range(nseg):
+        c0, c1 = vertex_off[v], vertex_off[v + 1]
+        if c1 - c0 != 1:
+            out[v] = scratch[c0:c1].sum(axis=0) if c1 > c0 else 0.0
+    return out
+
+
+FRAGILE = list(FRAGILE_EDGE_PATTERNS)
+
+
+@pytest.mark.parametrize("case", FRAGILE)
+def test_twins_match_jax_at_fragile_shapes(case):
+    """B1/B3 twins against the JAX XLA models at 1e-12 x max|value| on the
+    shapes of ``torch_fragile.fragile_edge_pattern`` (masked stereo rows: the widest model)."""
+    rng = np.random.default_rng(FRAGILE.index(case))
+    P, L, pi, li = fragile_edge_pattern(case, rng)
+    d = _graph_problem(rng, "stereo", True, P=P, L=L, E=len(pi), pose_idx=pi, lm_idx=li)
+    np.testing.assert_array_equal(d["pose_idx"], pi)
+    np.testing.assert_array_equal(d["lm_idx"], li)
+    jgraph, jdata = _jax_side(d)
+    graph, data = _port_side(d)
+    qt, xw = edge_state(graph, data)
+    _close(terms.chi_edges(qt, xw, data).numpy(), JaxStereo.chi(jgraph, jdata, 0, 1.0), 1e-12)
+    want = [np.asarray(a) for a in JaxStereo.terms(jgraph, jdata, 0, 1.0)]
+    Pa, La = P - 2, L - 2
+    pi, li = d["pose_idx"], d["lm_idx"]
+    segs = make_segments(pi, Pa, "cpu"), make_segments(li, La, "cpu")
+    pose, lm, hpl = terms.linearise(qt, xw, data, *segs)
+    want_pose, want_lm = np.zeros((Pa, 42)), np.zeros((La, 12))
+    np.add.at(want_pose, pi[pi < Pa], want[0][pi < Pa])
+    np.add.at(want_lm, li[li < La], want[1][li < La])
+    assert pose.shape == want_pose.shape and lm.shape == want_lm.shape
+    for got, ref in ((pose, want_pose), (lm, want_lm), (hpl, want[2])):
+        _close(got.numpy(), ref, 1e-12)
+    # rows of fixed vertices and vertices without an edge
+    fixed = (pi >= Pa) | (li >= La)
+    assert np.all(hpl.numpy()[fixed] == 0)
+    assert np.all(pose.numpy()[np.setdiff1d(np.arange(Pa), pi)] == 0)
+    assert np.all(lm.numpy()[np.setdiff1d(np.arange(La), li)] == 0)
+
+
+@pytest.mark.parametrize("case", FRAGILE)
+def test_linearise_plan_walk_matches_segment_sums(case):
+    """Kernel B3's plan, walked in numpy, against the twins' segment sums:
+    bit for bit where a vertex is one chunk, else 1e-12 x max|value| (the
+    chunks associate the sum differently); every edge of a free vertex is in
+    exactly one chunk, and a chunk lies in one tile."""
+    rng = np.random.default_rng(FRAGILE.index(case))
+    P, L, pi, li = fragile_edge_pattern(case, rng)
+    pi, li = np.asarray(pi), np.asarray(li)
+    E = len(pi)
+    Pa, La = P - 2, L - 2
+    segs = make_segments(pi, Pa, "cpu"), make_segments(li, La, "cpu")
+    plan = terms.make_linearise_plan(*segs, E)
+    assert all(t.dtype == torch.int32 for half in plan[:2] for t in half[1:])
+    assert plan.pose.rows.dtype == plan.lm.rows.dtype == torch.uint8
+    for half, seg, nseg, width, ids in (
+        (plan.pose, segs[0], Pa, 27, pi), (plan.lm, segs[1], La, 9, li)
+    ):
+        stack = rng.normal(size=(E, width)) * 10.0 ** rng.integers(-3, 4, (E, 1))
+        want = segment_sum(torch.as_tensor(stack), seg).numpy().reshape(nseg, width)
+        got = _walk_plan(stack, half, nseg, width, ids < nseg)
+        _close(got, want, 1e-12)
+        off = half.vertex_off.numpy()
+        lone = off[1:] - off[:-1] == 1
+        np.testing.assert_array_equal(got[lone], want[lone])
+        assert half.tile_off.shape[0] == -(-E // terms.TILE) + 1
+        # chip_smoke.py's tensor form of the same walk, which the card holds
+        # the kernel against bit for bit
+        ordered = _chunks_in_plan_order(torch.as_tensor(stack), half).numpy()
+        np.testing.assert_array_equal(ordered.reshape(nseg, width), got)
+    assert (plan.E, plan.Pa, plan.La) == (E, Pa, La)
+
+
+def test_linearise_plan_refuses_too_many_edges():
+    empty = make_segments(np.zeros(0, dtype=np.int64), 1, "cpu")
+    with pytest.raises(ValueError):
+        terms.make_linearise_plan(empty, empty, 2**31 // 18 + 1)
 
 
 # -- the twins against the Pallas kernels in interpret mode ---------------------

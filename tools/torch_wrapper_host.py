@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Host time of the wrappers of kernels B3 ``linearise`` and B6
+``schur_pair_products`` of the PyTorch + CUDA port, apart from the device.
+
+    python3 tools/torch_wrapper_host.py [rounds]
+
+Run from the root of any tree of the port (it reads the package and
+``chip_smoke.py`` beside the working directory, so two trees unpacked side
+by side can be compared in one session on one card).  At the first
+linearisation of ``kitti00_mono`` and ``kitti07_mono`` it times each
+wrapper's Python body with the host clock, 100 calls back to back without a
+synchronise (median, ``host_ms``), and the call between two CUDA events
+(``ms``), ``rounds`` times (default 3), and prints one JSON line a round.
+Where the device finishes a call before the host has issued the next
+(kitti07 shapes), ``ms`` is the wrapper's host time too.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path.cwd()))
+
+
+def host_ms(fn, reps: int = 100) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def main() -> int:
+    import torch
+
+    import chip_smoke as cs
+    from cuda_bundle_adjustment_tpu_torch.io.synthetic import (
+        kitti00_scale_problem,
+        kitti07_scale_problem,
+    )
+    from cuda_bundle_adjustment_tpu_torch.kernels import lminv, pairprod, terms
+    from cuda_bundle_adjustment_tpu_torch.models.ba import edge_state
+
+    if not torch.cuda.is_available():
+        print("torch_wrapper_host: no CUDA device", file=sys.stderr)
+        return 1
+    rounds = int(sys.argv[1]) if len(sys.argv) > 1 else 3
+    dev = torch.device("cuda", 0)
+    calls = {}
+    for label, problem in (("kitti00_mono", kitti00_scale_problem(kind="mono", seed=0)),
+                           ("kitti07_mono", kitti07_scale_problem(kind="mono", seed=0))):
+        solver, sys_, lam = cs.first_linearisation(problem, dev)
+        plan, data = solver.plan, solver.packed
+        qt, xw = edge_state(solver.graph, data)
+        inv, _ = lminv.damped_inverse(sys_.Hll, sys_.bl, lam)
+        # a tree whose kernels walk a plan made once a structure hands it over
+        lin = (plan.lin_plan,) if hasattr(plan, "lin_plan") else ()
+        pair = (plan.pair_plan,) if hasattr(plan, "pair_plan") else ()
+        calls[label] = dict(
+            linearise=lambda a=(qt, xw, data, plan.pose_seg, plan.lm_seg, *lin): terms.linearise(*a),
+            schur_pair_products=lambda a=(sys_.Hpl, inv, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej,
+                                          plan.tri_offsets, *pair): pairprod.schur_pair_products(*a),
+        )
+    for r in range(rounds):
+        out = {label: {name: dict(host_ms=round(host_ms(fn), 4), ms=round(cs.cuda_ms(fn), 4))
+                       for name, fn in fns.items()} for label, fns in calls.items()}
+        print(json.dumps(dict(tree=str(Path.cwd().name), round=r, card=cs.nvidia_smi_line(), **out)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
