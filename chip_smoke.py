@@ -23,10 +23,12 @@ caught):
    replayed back to back between two events) and the wrapper's own time on
    the host (``host_ms``: the Python body on the host clock), and works out
    each kernel's bound from the bytes and operations of these inputs (the
-   other inputs read ``device_ms`` and ``host_ms`` for B3 and B6 only, and at
-   the wide band for B7 and B8); holds B3's per-vertex sums bit for bit, and
-   B6's within 1e-12, against the twins' values summed in the kernels'
-   order; then
+   other inputs read ``device_ms`` and ``host_ms`` for B3 and B6, for B5 and
+   B9 at ``kitti00_mixed`` and ``kitti07_mono``, and at the wide band for B7
+   and B8); holds B3's and B5's per-vertex sums bit for bit, and B6's within
+   1e-12, against the twins' values summed in the kernels' order, B9 bit
+   for bit against its twin, and B5, B9, B7 and B8 against their library
+   calls; then
    holds the band kernels B7 and B8 against their twins on a random banded
    SPD system of band height 48, which no generator reaches end to end;
 4. runs a small mono, stereo and mixed problem without a robust kernel and
@@ -376,6 +378,59 @@ def linearise_in_plan_order(qt, xw, data, pose_seg, lm_seg, plan=None):
             _chunks_in_plan_order(lm_stack, plan.lm), hpl)
 
 
+def hpl_mv_in_plan_order(hpl, y, lm_idx, bp, pose_seg, plan=None):
+    """B5's twin with the per-pose sums associated as the kernel associates
+    them (the pose half of ``make_linearise_plan``): every chunk's products
+    in order, then a pose's chunks in order; plain tensor code on any
+    device, the kernel's result bit for bit."""
+    from cuda_bundle_adjustment_tpu_torch.kernels import schurvec
+    from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mv_6x3
+
+    La = y.shape[0]
+    plan = plan or schurvec.mv_plan(pose_seg, hpl.shape[0], La)
+    rows = flat_mv_6x3(hpl, y[lm_idx.clamp(0, La - 1)])
+    return bp - _chunks_in_plan_order(rows, plan.pose)
+
+
+def hpl_mtv_in_plan_order(hpl, xp, pose_idx, bl, lm_seg, plan=None):
+    """B9's twin walked as the kernel walks the landmark half of the plan:
+    a landmark of one chunk summed over its chunk, the edges of the others
+    put into their scratch slots (``lm_slot``) and summed slot by slot, in
+    plain tensor code: the kernel's result and the plain twin's bit for
+    bit."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.kernels import schurvec
+    from cuda_bundle_adjustment_tpu_torch.kernels.terms import TILE
+    from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mtv_6x3
+
+    Pa, dev = xp.shape[0], hpl.device
+    plan = plan or schurvec.mtv_plan(lm_seg, hpl.shape[0], Pa)
+    contrib = flat_mtv_6x3(hpl, xp[pose_idx.clamp(0, Pa - 1)])
+    rows, chunks, tile_off, vertex_off = (t.long() for t in plan.lm)
+    slot = plan.lm_slot.long()
+    length = chunks[:, 1] - chunks[:, 0]
+    tile_of_chunk = torch.repeat_interleave(
+        torch.arange(tile_off.shape[0] - 1, device=dev), tile_off[1:] - tile_off[:-1])
+    chunk_of_row = torch.repeat_interleave(torch.arange(chunks.shape[0], device=dev), length)
+    edge = rows + TILE * tile_of_chunk[chunk_of_row]
+    target = chunks[:, 2]
+    sums = torch.zeros_like(bl)
+    lone = target >= 0
+    ends = torch.cat([chunks[:, 0], torch.tensor([rows.shape[0]], device=dev)])
+    sums[target[lone]] = torch.segment_reduce(contrib[edge], "sum", offsets=ends)[lone]
+    if int(slot[-1]) > 0:
+        shared = ~lone[chunk_of_row]
+        rank = torch.arange(rows.shape[0], device=dev) - chunks[chunk_of_row, 0]
+        at = slot[-1 - target[chunk_of_row[shared]]] + rank[shared]
+        scratch = torch.empty((int(slot[-1]), 3), dtype=bl.dtype, device=dev)
+        scratch[at] = contrib[edge[shared]]
+        several = (vertex_off[1:] - vertex_off[:-1]) > 1
+        by_slot = torch.segment_reduce(scratch, "sum", offsets=slot[vertex_off])
+        sums[several] = by_slot[several]
+    return bl - sums
+
+
 def pair_products_in_plan_order(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets, plan=None):
     """B6's twin with the per-block sums associated as the kernel associates
     them (``make_pair_plan``): an item's triples dealt round 16 slots, each
@@ -529,18 +584,36 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
     rel = ((lib_inv.reshape(La, 9) - invHll).abs().max() / invHll.abs().max()).item()
     check(rel <= 1e-9, f"damped_inverse: torch.linalg.inv differs by {rel} of max|inv|")
 
+    # B5 and B9: the bound from the operands of the twins' function (Hpl, the
+    # vectors, the index, the right-hand side, the segment plan); the library
+    # yardstick is cuSPARSE's SpMV on Hpl as a CSR matrix [6 Pa, 3 La] (its
+    # transpose for B9), built once
+    Pa = solver.Pa
+    A = hpl_csr(sys_.Hpl, plan.ba_pose_idx, plan.ba_lm_idx, Pa, La)
+    At = hpl_csr(sys_.Hpl, plan.ba_pose_idx, plan.ba_lm_idx, Pa, La, transpose=True)
     mv = (sys_.Hpl, y, plan.ba_lm_idx, sys_.bp, plan.pose_seg)
-    held_timed("hpl_mv_segment_sum", lambda: schurvec.hpl_mv_segment_sum(*mv),
+    bp_flat, y_flat = sys_.bp.reshape(-1), y.reshape(-1)
+
+    def library_mv():
+        return torch.addmv(bp_flat, A, y_flat, alpha=-1)
+
+    held_timed("hpl_mv_segment_sum", lambda: schurvec.hpl_mv_segment_sum(*mv, lin_plan),
                lambda: schurvec.hpl_mv_segment_sum_plain(*mv), ["bsc"],
-               (*mv[:4], *plan.pose_seg), 36 * E)
+               (*mv[:4], *plan.pose_seg), 36 * E, library=library_mv)
     blocks, bsc, _ = bs.schur_reduce(sys_, lam, plan)
     xp, ok = bs.solve_reduced_band(blocks, bsc, plan)
     check(bool(ok), f"{label}: the first trial's reduced solve was rejected")
     mtv = (sys_.Hpl, xp, plan.ba_pose_idx, sys_.bl, plan.lm_seg)
-    held_timed("hpl_mtv_segment_sum", lambda: schurvec.hpl_mtv_segment_sum(*mtv),
+    bl_flat, xp_flat = sys_.bl.reshape(-1), xp.reshape(-1)
+
+    def library_mtv():
+        return torch.addmv(bl_flat, At, xp_flat, alpha=-1)
+
+    held_timed("hpl_mtv_segment_sum", lambda: schurvec.hpl_mtv_segment_sum(*mtv, lin_plan),
                lambda: schurvec.hpl_mtv_segment_sum_plain(*mtv), ["cl"],
-               (*mtv[:4], *plan.lm_seg), 36 * E)
-    cl = schurvec.hpl_mtv_segment_sum(*mtv)
+               (*mtv[:4], *plan.lm_seg), 36 * E, tol=0.0, library=library_mtv)
+    cl = schurvec.hpl_mtv_segment_sum(*mtv, lin_plan)
+    schurvec_checks(label, mv, mtv, lin_plan, library_mv(), library_mtv(), E, res)
     inv3, cl3 = invHll.view(La, 3, 3), cl.view(La, 3, 1)
     held_timed("sym3x3_mv", lambda: lminv.sym3x3_mv(invHll, cl),
                lambda: lminv.sym3x3_mv_plain(invHll, cl), ["xl"],
@@ -548,6 +621,64 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
     for name, r in res.items():
         report(label, name, r)
     return res
+
+
+def hpl_csr(hpl, pose_idx, lm_idx, Pa: int, La: int, transpose: bool = False):
+    """The edges' Hpl blocks of free pairs as one sparse CSR matrix
+    ``[6 Pa, 3 La]`` (``transpose``: ``[3 La, 6 Pa]``), duplicates summed:
+    the library's operand for B5's and B9's function."""
+    import torch
+
+    free = (pose_idx < Pa) & (lm_idx < La)
+    p, l, h = pose_idx[free], lm_idx[free], hpl[free].view(-1, 6, 3)
+    i6 = torch.arange(6, device=hpl.device)
+    j3 = torch.arange(3, device=hpl.device)
+    rows = (6 * p[:, None, None] + i6[None, :, None]).expand_as(h).reshape(-1)
+    cols = (3 * l[:, None, None] + j3[None, None, :]).expand_as(h).reshape(-1)
+    idx, shape = torch.stack([rows, cols]), (6 * Pa, 3 * La)
+    if transpose:
+        idx, shape = idx.flip(0), shape[::-1]
+    return torch.sparse_coo_tensor(idx, h.reshape(-1), shape).coalesce().to_sparse_csr()
+
+
+def schurvec_checks(label, mv, mtv, lin_plan, lib_bsc, lib_cl, E, res) -> None:
+    """B5 and B9 beyond their twins: B5 bit for bit the twin's products
+    summed in the plan's order, B9 bit for bit the plan walked as the kernel
+    walks it; a second launch bit for bit and the counters back at zero;
+    the library's SpMV within 1e-12 x max|value|; the bound from the
+    operands the kernels read (the plan's, not the segment plan's)
+    printed beside the row's."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.kernels import schurvec
+
+    bsc = schurvec.hpl_mv_segment_sum(*mv, lin_plan)
+    cl = schurvec.hpl_mtv_segment_sum(*mtv, lin_plan)
+    check(torch.equal(bsc, hpl_mv_in_plan_order(*mv, lin_plan)),
+          f"{label} hpl_mv_segment_sum: bsc is not the products summed in the plan's order")
+    check(torch.equal(cl, hpl_mtv_in_plan_order(*mtv, lin_plan)),
+          f"{label} hpl_mtv_segment_sum: cl is not the plan walked as the kernel walks it")
+    check(torch.equal(bsc, schurvec.hpl_mv_segment_sum(*mv, lin_plan))
+          and torch.equal(cl, schurvec.hpl_mtv_segment_sum(*mtv, lin_plan)),
+          f"{label} B5/B9: a second launch differs")
+    check(not bool(lin_plan.count.any()), f"{label} B5/B9: a counter was left above zero")
+    lib = []
+    for name, k, want in (("hpl_mv_segment_sum", bsc, lib_bsc),
+                          ("hpl_mtv_segment_sum", cl, lib_cl)):
+        rel = ((k.reshape(-1) - want).abs().max() / k.abs().max()).item()
+        check(rel <= F64_TOL, f"{label} {name}: the library's SpMV differs by {rel} of max|value|")
+        lib.append(rel)
+    off = lin_plan.pose.vertex_off
+    lone = int(((off[1:] - off[:-1]) == 1).sum())
+    several = int(((lin_plan.lm.vertex_off[1:] - lin_plan.lm.vertex_off[:-1]) > 1).sum())
+    walked = [bound((*ops[:4], *half, lin_plan.count, out), 36 * E, "f64")["bound_ms"]
+              for ops, half, out in ((mv, lin_plan.pose, bsc), (mtv, lin_plan.lm, cl))]
+    print(f"{label} B5/B9: {lone} of {off.shape[0] - 1} poses one chunk, "
+          f"{lin_plan.pose.chunks.shape[0]} pose chunks; {several} landmarks of several chunks "
+          f"({int(lin_plan.lm_slot[-1])} scratch slots); library SpMV rel diff {lib[0]:.2e}, "
+          f"{lib[1]:.2e}; bound from the plan's operands {walked[0]:.5f}, {walked[1]:.5f} ms "
+          f"(rows: {res['hpl_mv_segment_sum']['bound_ms']:.5f}, "
+          f"{res['hpl_mtv_segment_sum']['bound_ms']:.5f})")
 
 
 def band_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
@@ -564,6 +695,12 @@ def band_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
     res = {}
     blocks, bsc, _ = bs.schur_reduce(sys_, lam, plan)
     band, _, bv, _ = bs.scaled_band(blocks, bsc, plan)
+    # the library yardsticks: cuSOLVER's dense f32 Cholesky of the same
+    # scaled system and the dense solve with that factor
+    dense = dense_from_band(band, Pa, SB)
+    b32 = bv.to(torch.float32)
+    lib_L = torch.linalg.cholesky(dense)
+    lib_x = torch.cholesky_solve(b32.reshape(-1, 1), lib_L).view(Pa, 6)
     k_L = bandchol.band_factor(band, Pa, SB)
     p_L = bandchol.band_factor_plain(band, Pa, SB)
     err = (k_L - p_L).abs().max().item()
@@ -579,13 +716,17 @@ def band_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
         max_abs_err=err,
         **timed(lambda: bandchol.band_factor(band, Pa, SB),
                 lambda: bandchol.band_factor_plain(band, Pa, SB), plain_reps=3,
+                library=lambda: torch.linalg.cholesky(dense),
                 full=reported is None or "band_factor" in reported),
         **bound((band, k_L), flops, "f32"),
     )
+    lib_err = (band_from_dense_factor(lib_L, Pa, SB, bw) - k_L).abs().max().item()
+    check(lib_err <= F32_TOL * scale, f"{label} band_factor: err {lib_err} against the "
+          f"library's dense factor > {F32_TOL} x {scale}")
     print(f"{label} B7 band_factor SB={SB}: max_abs_err {err:.3e} "
-          f"(max|L| {scale:.3e}, tol {F32_TOL} rel)")
+          f"(max|L| {scale:.3e}, tol {F32_TOL} rel); against the library's dense factor "
+          f"{lib_err:.3e}")
 
-    b32 = bv.to(torch.float32)
     k_x = bandchol.band_solve(k_L, b32, Pa, SB, bw)
     p_x = bandchol.band_solve_plain(k_L, b32, Pa, SB, bw)
     err = (k_x - p_x).abs().max().item()
@@ -598,11 +739,16 @@ def band_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
         max_abs_err=err,
         **timed(lambda: bandchol.band_solve(k_L, b32, Pa, SB, bw),
                 lambda: bandchol.band_solve_plain(k_L, b32, Pa, SB, bw), plain_reps=3,
+                library=lambda: torch.cholesky_solve(b32.reshape(-1, 1), lib_L),
                 full=reported is None or "band_solve" in reported),
         **bound((k_L, b32, k_x), Pa * 72 * 2 * (1 + bw), "f32"),
     )
+    lib_err = (lib_x - k_x).abs().max().item()
+    check(lib_err <= F32_TOL * scale, f"{label} band_solve: err {lib_err} against the "
+          f"library's dense solve > {F32_TOL} x {scale}")
     print(f"{label} B8 band_solve SB={SB}: max_abs_err {err:.3e} "
-          f"(max|x| {scale:.3e}, tol {F32_TOL} rel)")
+          f"(max|x| {scale:.3e}, tol {F32_TOL} rel); against the library's dense solve "
+          f"{lib_err:.3e}")
 
     xp_k, ok_k = bs.solve_reduced_band(blocks, bsc, plan)
     cpu_plan = _to_device(plan, "cpu")
@@ -614,6 +760,37 @@ def band_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
     for name, r in res.items():
         report(f"{label} SB={SB}", name, r)
     return res
+
+
+def dense_from_band(band, Pa: int, SB: int):
+    """The symmetric dense matrix ``[6 Pa, 6 Pa]`` of a block-row band (the
+    upper blocks ``(c, c + d)`` at row ``c SB + d``), in the band's dtype."""
+    import torch
+
+    c = torch.arange(Pa, device=band.device).repeat_interleave(SB)
+    d = torch.arange(SB, device=band.device).repeat(Pa)
+    inside = c + d < Pa
+    c, d = c[inside], d[inside]
+    blk = band.view(-1, 6, 6)[c * SB + d]
+    A = torch.zeros((Pa, Pa, 6, 6), dtype=band.dtype, device=band.device)
+    A[c + d, c] = blk.transpose(1, 2)
+    A[c, c + d] = blk
+    return A.permute(0, 2, 1, 3).reshape(6 * Pa, 6 * Pa)
+
+
+def band_from_dense_factor(L, Pa: int, SB: int, bw: int):
+    """A dense lower Cholesky factor in the band factor's storage:
+    ``inv(L_cc)`` at ``d = 0``, ``L_{(c+d), c}^T`` at ``1 <= d <= bw``."""
+    import torch
+
+    L4 = L.view(Pa, 6, Pa, 6).permute(0, 2, 1, 3)
+    out = torch.zeros(((Pa + SB) * SB, 36), dtype=L.dtype, device=L.device)
+    c = torch.arange(Pa, device=L.device)
+    out[c * SB] = torch.linalg.inv(L4[c, c].double()).to(L.dtype).reshape(Pa, 36)
+    for d in range(1, bw + 1):
+        cd = c[: Pa - d]
+        out[cd * SB + d] = L4[cd + d, cd].transpose(1, 2).reshape(-1, 36)
+    return out
 
 
 def kernel_checks(problem, dev, label, reported=None, **robust) -> dict:
@@ -814,18 +991,20 @@ def dense_scaled_condition(blocks, bsc, plan) -> float:
 def small_trace(problem, device, niter: int = 10, in_plan_order: bool = False,
                 systems: list | None = None, **robust):
     """The chi2 trace of ``optimize(niter)`` on ``device`` and the solver.
-    ``in_plan_order``: B3's and B6's twins sum as the kernels do
-    (``linearise_in_plan_order``, ``pair_products_in_plan_order``).
+    ``in_plan_order``: B3's, B5's and B6's twins sum as the kernels do
+    (``linearise_in_plan_order``, ``hpl_mv_in_plan_order``,
+    ``pair_products_in_plan_order``; B9's twin already does).
     ``systems``: a list that receives every reduced system and its step."""
     from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
     from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
 
-    kept = bs.linearise, bs.schur_pair_products, bs.solve_reduced_band
+    kept = bs.linearise, bs.hpl_mv_segment_sum, bs.schur_pair_products, bs.solve_reduced_band
     if in_plan_order:
-        bs.linearise, bs.schur_pair_products = linearise_in_plan_order, pair_products_in_plan_order
+        bs.linearise, bs.hpl_mv_segment_sum, bs.schur_pair_products = (
+            linearise_in_plan_order, hpl_mv_in_plan_order, pair_products_in_plan_order)
     if systems is not None:
         def recording(blocks, bsc, plan):
-            xp, ok = kept[2](blocks, bsc, plan)
+            xp, ok = kept[3](blocks, bsc, plan)
             systems.append((blocks, bsc, plan, xp, bool(ok)))
             return xp, ok
 
@@ -834,14 +1013,14 @@ def small_trace(problem, device, niter: int = 10, in_plan_order: bool = False,
         opt = optimizer_from_problem(problem, device=device, **robust)
         opt.optimize(niter)
     finally:
-        bs.linearise, bs.schur_pair_products, bs.solve_reduced_band = kept
+        bs.linearise, bs.hpl_mv_segment_sum, bs.schur_pair_products, bs.solve_reduced_band = kept
     return [s.chi2 for s in opt.batch_statistics().get()], opt.solver
 
 
 def order_sensitivity(problem, dev, card_trace, cpu_trace, dense_trace, **robust) -> dict:
     """Why a small graph's late iterations are held at a looser tolerance:
     per iteration, how far the trace moves (relative to the CPU's) on the
-    card, on the CPU with B3's and B6's sums associated as the kernels
+    card, on the CPU with B3's, B5's and B6's sums associated as the kernels
     associate them and nothing else changed, and in the f64 oracle, beside
     the condition number of the card's scaled reduced system and its
     residual over the limit."""
@@ -1115,8 +1294,8 @@ def main() -> int:
     t0 = start = time.perf_counter()
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    with ThreadPoolExecutor(3) as pool:  # three more compiles, side by side
-        for lines in pool.map(ptxas_report, ("terms", "pairprod", "bandchol")):
+    with ThreadPoolExecutor(4) as pool:  # four more compiles, side by side
+        for lines in pool.map(ptxas_report, ("terms", "schurvec", "pairprod", "bandchol")):
             print("\n".join(lines))
 
     def lap(what: str) -> None:
@@ -1131,13 +1310,15 @@ def main() -> int:
     lap("kernel checks at kitti00_mono")
     # every other input the full-size paths hand the kernels (kitti00_stereo
     # has kitti00_mixed's shapes without the mask): all ten kernels held
-    # against their twins, device and host times read for the redesigned B3
-    # and B6 and, at the wide band, for B7 and B8
+    # against their twins, device and host times read for the redesigned B3,
+    # B6 and, at kitti00_mixed and kitti07_mono, B5 and B9, and at the wide
+    # band for B7 and B8
     b3_b6 = {"linearise", "schur_pair_products"}
+    b5_b9 = b3_b6 | {"hpl_mv_segment_sum", "hpl_mtv_segment_sum"}
     also = {
         "kitti00_huber": kernel_checks(mono, dev, "kitti00_huber", b3_b6, **huber),
-        "kitti00_mixed": kernel_checks(mixed, dev, "kitti00_mixed", b3_b6),
-        "kitti07_mono": kernel_checks(kitti07, dev, "kitti07_mono", b3_b6),
+        "kitti00_mixed": kernel_checks(mixed, dev, "kitti00_mixed", b5_b9),
+        "kitti07_mono": kernel_checks(kitti07, dev, "kitti07_mono", b5_b9),
         "kitti07_mono_wide": kernel_checks(
             kitti07_wide, dev, "kitti07_mono_wide", b3_b6 | {"band_factor", "band_solve"}),
     }

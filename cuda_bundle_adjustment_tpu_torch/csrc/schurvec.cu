@@ -19,132 +19,308 @@
 // (ops/components.py flat_mv_6x3, flat_mtv_6x3), built with -fmad=false
 // (kernels/_build.py) so that they agree with the twin bit for bit: bsc and
 // cl cancel much of their right-hand sides, where a contracted a * b + c
-// would differ by an ulp of the terms.  The sums differ from the twin's only
-// in order (B5's lanes and shuffle tree; B9 sums in the twin's order).
+// would differ by an ulp of the terms.
 //
 // Bound on this card: device-memory bytes.  Each edge reads its Hpl block
-// (144 B), its index pair from the segment plan (16 B) and a row of y or xp
-// (24 or 48 B, L2-resident); 6 or 3 outputs per vertex.  At KITTI-00 scale
-// that is ~100 MB a call, against 2 x 18 f64 multiply-adds an edge.
+// (144 B) and the index of its other vertex (8 B), and gathers a row of y or
+// xp (24 or 48 B, L2-resident); 6 or 3 outputs a vertex.  At KITTI-00 scale
+// that is ~90 MB a call, against 2 x 18 f64 multiply-adds an edge.  What
+// held the kernels before (a warp a pose, a thread a landmark, each edge
+// found through the segment plan's order[] and fetched by its own thread)
+// was the load/store unit: a warp's 8-byte loads of rows 144 bytes apart
+// touch 32 cache lines an instruction, behind a chain of two dependent
+// index loads an edge.
 //
-// Design: B5 runs one warp per pose (about 420 edges at KITTI-00 scale):
-// lane l takes the pose's edges l, l + 32, ... in segment order and a fixed
-// shuffle tree sums the partials.  B9 runs one thread per landmark (about 4
-// edges) in segment order.  The fixed order is the only order: no atomics,
-// so two runs give the same result bit for bit.
+// Design: one pass over tiles of kTile consecutive edges, a block a tile,
+// over B3's plan (kernels/terms.py make_linearise_plan: every vertex's run
+// of edges, in segment order, cut into chunks that lie in one tile).
+//   * The tile's Hpl rows come to shared memory by 16-byte asynchronous
+//     copies (cp.async, no registers held), coalesced, and its slice of the
+//     index array with 8-byte loads; each thread gathers its edge's vector
+//     row and leaves the edge's product in shared memory, in the place of
+//     the tile's rows.  Nothing walks order[].
+//   * The block then sums each of the tile's chunks in segment order, one
+//     thread a (chunk, entry).  A vertex of one chunk gets its row, base -
+//     sum, at once: bit for bit the twin's sequential sum.
+//   * A vertex of several chunks is finished in the same launch by the
+//     block that completes its last chunk: every block adds one to the
+//     vertex's int32 counter for each of its chunks once the chunk's partial
+//     is in device memory (__threadfence), and the block that brings the
+//     counter to the vertex's number of chunks sums the partials in the
+//     plan's order, writes the row and sets the counter back to 0.  B5's
+//     partials are chunk sums, added in chunk order: the twin's terms
+//     associated as (chunk) + (chunk) + ..., within 1e-12 x max|value| of it
+//     and bit for bit the sum in the plan's order.  B9's partials are the
+//     edges' products in segment order, added one by one: bit for bit the
+//     twin's sum at every input.
+//   * Vertices without an edge get base - 0, spread over the grid.
+// Integer atomics only, and the order of every float sum is fixed by the
+// plan whichever block comes last: two runs give the same bits, and a call
+// is one launch.  The counters are zero between launches, so two launches
+// with one plan must not run at the same time (one stream).
+//
+// ptxas (sm_90a, nvcc 12.9, as chip_smoke.py prints it): 46 (B5) and 48
+// (B9) registers, no spill, 21120 bytes of static shared memory: ten blocks
+// an SM.  What holds it (tools/schurvec_clock.py --ablate): streaming the
+// tiles alone takes ~0.028 ms at KITTI-00 scale, the bound; the chunk sums
+// and the counters lengthen each block's life after its loads, and with ten
+// blocks an SM fewer tiles are in flight.  Two tiles a resident block, the
+// next one's copies in flight while the current one is summed, needed 83-96
+// registers and five blocks an SM, and was slower.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kThreads = 256;
+// edges a block (kernels/terms.py TILE must agree)
+constexpr int kTile = 128;
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-hpl_mv_segment_sum_kernel(const double* __restrict__ hpl,
-                          const double* __restrict__ y,
-                          const int64_t* __restrict__ lm_idx,
-                          const double* __restrict__ bp,
-                          const int64_t* __restrict__ order,
-                          const int64_t* __restrict__ offsets, int64_t Pa,
-                          int64_t La, double* __restrict__ out) {
-  const int64_t p =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (p >= Pa) return;  // uniform per warp: the whole warp leaves
+// A vertex kind's share of the plan (kernels/terms.py ChunkPlan), the
+// kernel's per-vertex counters and scratch.
+struct ChunkPlan {
+  const uint8_t* rows;        // [n] by tile, chunk after chunk: edge id - tile's first
+  const int4* chunks;         // by tile: first, last + 1 (in rows), target, vertex
+  const int32_t* tile_off;    // [tiles + 1] a tile's stretch of chunks
+  const int32_t* vertex_off;  // [vertices + 1] a vertex's stretch of chunk numbers
+  const int32_t* slot;        // B9: [chunks + 1] first scratch slot by chunk number
+  int32_t* count;             // [vertices] zero between launches
+  double* scratch;            // B5: [chunks, 6] by number; B9: [slots, 3]
+};
 
-  double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  const int64_t end = offsets[p + 1];
-  for (int64_t j = offsets[p] + lane; j < end; j += 32) {
-    const int64_t e = order[j];
-    int64_t l = lm_idx[e];
-    l = l < 0 ? 0 : (l < La ? l : La - 1);
-    const double* h = hpl + e * 18;
-    const double y0 = y[l * 3], y1 = y[l * 3 + 1], y2 = y[l * 3 + 2];
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-      acc[i] += h[i * 3] * y0 + h[i * 3 + 1] * y1 + h[i * 3 + 2] * y2;
-  }
+// N = 6: B5 (per pose, y rows of 3); N = 3: B9 (per landmark, xp rows of 6)
+template <int N>
+struct Args {
+  const double* hpl;   // [E, 18]
+  const double* vec;   // [nvec, 9 - N]
+  const int64_t* idx;  // [E] the other vertex of each edge
+  const double* base;  // [V, N], rows ldb apart
+  int64_t ldb;
+  double* out;         // [V, N]
+  ChunkPlan p;
+  int64_t E, V, nvec;
+  int ntiles;
+};
 
+// the edge's product: Hpl . y (N = 6) or Hpl^T . xp (N = 3), in the twin's
+// order (flat_mv_6x3, flat_mtv_6x3)
+template <int N>
+__device__ __forceinline__ void edge_product(const double* h, const double* v, double* r) {
+  if constexpr (N == 6) {
 #pragma unroll
-  for (int sh = 16; sh >= 1; sh >>= 1)
+    for (int i = 0; i < 6; ++i) r[i] = h[i * 3] * v[0] + h[i * 3 + 1] * v[1] + h[i * 3 + 2] * v[2];
+  } else {
 #pragma unroll
-    for (int i = 0; i < 6; ++i)
-      acc[i] += __shfl_down_sync(0xffffffffu, acc[i], sh);
-
-  if (lane == 0) {
+    for (int k = 0; k < 3; ++k) {
+      double s = h[k] * v[0];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) out[p * 6 + i] = bp[p * 6 + i] - acc[i];
+      for (int c = 1; c < 6; ++c) s += h[c * 3 + k] * v[c];
+      r[k] = s;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-hpl_mtv_segment_sum_kernel(const double* __restrict__ hpl,
-                           const double* __restrict__ xp,
-                           const int64_t* __restrict__ pose_idx,
-                           const double* __restrict__ bl,
-                           const int64_t* __restrict__ order,
-                           const int64_t* __restrict__ offsets, int64_t La,
-                           int64_t Pa, double* __restrict__ out) {
-  const int64_t l = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (l >= La) return;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
 
-  double acc[3] = {0.0, 0.0, 0.0};
-  const int64_t end = offsets[l + 1];
-  for (int64_t j = offsets[l]; j < end; ++j) {
-    const int64_t e = order[j];
-    int64_t p = pose_idx[e];
-    p = p < 0 ? 0 : (p < Pa ? p : Pa - 1);
-    const double* h = hpl + e * 18;
-    const double* x = xp + p * 6;
-    double xv[6];
+// One tile of edges: the products, the tile's chunk sums and the vertices
+// whose last chunk this block sums.
+template <int N>
+__device__ __forceinline__ void tile_pass(const Args<N>& a) {
+  constexpr int K = 9 - N;              // width of the gathered vector row
+  constexpr int kRow = N == 6 ? 7 : 3;  // odd row of the products: no bank conflict
+  // the tile's Hpl rows as they lie in device memory, then the products
+  __shared__ __align__(16) double s_tile[kTile * 18];
+  __shared__ int4 s_chunks[kTile];
+  __shared__ uint8_t s_rows[kTile];
+  __shared__ int s_finish[kTile];  // by chunk: the vertex this block finishes, or -1
+
+  const int tid = threadIdx.x, tile = blockIdx.x;
+  const int64_t tile0 = static_cast<int64_t>(tile) * kTile;
+  const int n = a.E - tile0 < kTile ? static_cast<int>(a.E - tile0) : kTile;
+  const bool live = tid < n;
+
+  // the tile's Hpl rows: nine 16-byte asynchronous copies a thread, straight
+  // to shared memory; meanwhile the chunk list, the rows, the other
+  // vertex's index and its vector row
+  const int c0 = a.p.tile_off[tile], c1 = a.p.tile_off[tile + 1];
+  const char* src = reinterpret_cast<const char*>(a.hpl + tile0 * 18);
+  char* dst = reinterpret_cast<char*>(s_tile);
 #pragma unroll
-    for (int c = 0; c < 6; ++c) xv[c] = x[c];
+  for (int m = 0; m < 9; ++m) {
+    const int c = tid + kTile * m;
+    if (c < n * 9) cp_async16(dst + 16 * c, src + 16 * c);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  int64_t other = live ? a.idx[tile0 + tid] : 0;
+  const int nch = c1 - c0;
+  if (nch == 0) {  // no edge of the tile has a free vertex of this kind
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+  if (tid < nch) s_chunks[tid] = a.p.chunks[c0 + tid];
+  const int base_row = a.p.chunks[c0].x;
+  const int nrows = a.p.chunks[c1 - 1].y - base_row;
+  if (tid < nrows) s_rows[tid] = a.p.rows[base_row + tid];
+  other = other < 0 ? 0 : (other < a.nvec ? other : a.nvec - 1);
+  double vec[K];
+  if (live) {
+    const double* vr = a.vec + other * K;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      double s = h[k] * xv[0];
+    for (int k = 0; k < K; ++k) vec[k] = vr[k];
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  double r[N];
+  if (live) edge_product<N>(s_tile + tid * 18, vec, r);
+  __syncthreads();  // every row is read: the products take the tile's place
+  double* s_prod = s_tile;
+  if (live) {
 #pragma unroll
-      for (int c = 1; c < 6; ++c) s += h[c * 3 + k] * xv[c];
-      acc[k] += s;
+    for (int q = 0; q < N; ++q) s_prod[tid * kRow + q] = r[q];
+  }
+  __syncthreads();
+
+  // the tile's chunks in segment order, a thread a (chunk, entry)
+  bool shared_chunk = false;
+  for (int it = tid; it < nch * N; it += kTile) {
+    const int c = it / N, q = it - c * N;
+    const int4 ch = s_chunks[c];
+    const int j0 = ch.x - base_row, j1 = ch.y - base_row;
+    if (ch.z >= 0) {
+      double acc = 0.0;
+      for (int j = j0; j < j1; ++j) acc += s_prod[s_rows[j] * kRow + q];
+      const int64_t v = ch.z;
+      a.out[v * N + q] = a.base[v * a.ldb + q] - acc;
+    } else if constexpr (N == 6) {
+      double acc = 0.0;
+      for (int j = j0; j < j1; ++j) acc += s_prod[s_rows[j] * kRow + q];
+      a.p.scratch[static_cast<int64_t>(-1 - ch.z) * N + q] = acc;
+      shared_chunk = true;
+    } else {
+      double* slot = a.p.scratch + static_cast<int64_t>(a.p.slot[-1 - ch.z]) * N + q;
+      for (int j = j0; j < j1; ++j) slot[(j - j0) * N] = s_prod[s_rows[j] * kRow + q];
+      shared_chunk = true;
     }
   }
+  // the counters, once every partial of the tile is in device memory
+  if (!__syncthreads_or(shared_chunk)) return;
+  __threadfence();
+  __syncthreads();
+  if (tid < nch) {
+    const int4 ch = s_chunks[tid];
+    int finish = -1;
+    if (ch.z < 0) {
+      const int total = a.p.vertex_off[ch.w + 1] - a.p.vertex_off[ch.w];
+      if (atomicAdd(a.p.count + ch.w, 1) == total - 1) {
+        a.p.count[ch.w] = 0;  // no other block touches it in this launch
+        finish = ch.w;
+      }
+    }
+    s_finish[tid] = finish;
+  }
+  if (!__syncthreads_or(tid < nch && s_finish[tid] >= 0)) return;
+  __threadfence();
+
+  // the vertices this block finishes: their partials in the plan's order,
+  // read past L1 (other blocks wrote them), eight loads in flight
+  for (int it = tid; it < nch * N; it += kTile) {
+    const int c = it / N, q = it - c * N;
+    const int v = s_finish[c];
+    if (v < 0) continue;
+    int k0, k1;
+    if constexpr (N == 6) {
+      k0 = a.p.vertex_off[v];
+      k1 = a.p.vertex_off[v + 1];
+    } else {
+      k0 = a.p.slot[a.p.vertex_off[v]];
+      k1 = a.p.slot[a.p.vertex_off[v + 1]];
+    }
+    const double* part_of = a.p.scratch + q;
+    double acc = 0.0;
+    for (int k = k0; k < k1; k += 8) {
+      double part[8];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) out[l * 3 + k] = bl[l * 3 + k] - acc[k];
+      for (int u = 0; u < 8; ++u)
+        part[u] = k + u < k1 ? __ldcg(part_of + static_cast<int64_t>(k + u) * N) : 0.0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k + u < k1) acc += part[u];
+    }
+    a.out[static_cast<int64_t>(v) * N + q] = a.base[v * a.ldb + q] - acc;
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kTile)
+schur_vector_kernel(Args<N> a) {
+  if (static_cast<int>(blockIdx.x) < a.ntiles) tile_pass<N>(a);
+  // vertices without an edge: base - 0, a thread a vertex over the grid
+  for (int64_t v = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x; v < a.V;
+       v += static_cast<int64_t>(gridDim.x) * kTile) {
+    if (a.p.vertex_off[v + 1] != a.p.vertex_off[v]) continue;
+#pragma unroll
+    for (int q = 0; q < N; ++q) a.out[v * N + q] = a.base[v * a.ldb + q] - 0.0;
+  }
+}
+
+template <int N>
+int launch(const void* hpl, const void* vec, const void* idx, const void* base,
+           long long ldb, const void* rows, const void* chunks, const void* tile_off,
+           const void* vertex_off, const void* slot, void* count, void* scratch,
+           long long E, long long V, long long nvec, void* out, void* stream) {
+  if (V == 0) return 0;
+  Args<N> a;
+  a.hpl = static_cast<const double*>(hpl);
+  a.vec = static_cast<const double*>(vec);
+  a.idx = static_cast<const int64_t*>(idx);
+  a.base = static_cast<const double*>(base);
+  a.ldb = ldb;
+  a.out = static_cast<double*>(out);
+  a.p = {static_cast<const uint8_t*>(rows), static_cast<const int4*>(chunks),
+         static_cast<const int32_t*>(tile_off), static_cast<const int32_t*>(vertex_off),
+         static_cast<const int32_t*>(slot), static_cast<int32_t*>(count),
+         static_cast<double*>(scratch)};
+  a.E = E;
+  a.V = V;
+  a.nvec = nvec;
+  a.ntiles = static_cast<int>((E + kTile - 1) / kTile);
+  const long long for_vertices = (V + kTile - 1) / kTile;
+  const long long blocks = a.ntiles > for_vertices ? a.ntiles : for_vertices;
+  schur_vector_kernel<N><<<static_cast<unsigned>(blocks), kTile, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bsc [Pa, 6] (kernel B5)
+// bsc [Pa, 6] (kernel B5) from bp [Pa, 6] with rows ldb apart, over the
+// plan's pose half (kernels/terms.py): rows, chunks, tile_off, vertex_off;
+// counters [Pa] and scratch [pose chunks, 6].
 extern "C" int tba_hpl_mv_segment_sum(const void* hpl, const void* y,
                                       const void* lm_idx, const void* bp,
-                                      const void* order, const void* offsets,
+                                      long long ldb, const void* rows, const void* chunks,
+                                      const void* tile_off, const void* vertex_off,
+                                      void* count, void* scratch, long long E,
                                       long long Pa, long long La, void* out,
                                       void* stream) {
-  if (Pa == 0) return 0;
-  const long long blocks = (Pa + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  hpl_mv_segment_sum_kernel<<<static_cast<unsigned>(blocks), 32 * kWarpsPerBlock,
-                              0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(hpl), static_cast<const double*>(y),
-      static_cast<const int64_t*>(lm_idx), static_cast<const double*>(bp),
-      static_cast<const int64_t*>(order), static_cast<const int64_t*>(offsets),
-      Pa, La, static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<6>(hpl, y, lm_idx, bp, ldb, rows, chunks, tile_off, vertex_off, nullptr,
+                   count, scratch, E, Pa, La, out, stream);
 }
 
-// cl [La, 3] (kernel B9)
+// cl [La, 3] (kernel B9) from bl [La, 3] with rows ldb apart, over the
+// plan's landmark half, its slots [lm chunks + 1], counters [La] and
+// scratch [slots, 3].
 extern "C" int tba_hpl_mtv_segment_sum(const void* hpl, const void* xp,
                                        const void* pose_idx, const void* bl,
-                                       const void* order, const void* offsets,
-                                       long long La, long long Pa, void* out,
-                                       void* stream) {
-  if (La == 0) return 0;
-  const long long blocks = (La + kThreads - 1) / kThreads;
-  hpl_mtv_segment_sum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(hpl), static_cast<const double*>(xp),
-      static_cast<const int64_t*>(pose_idx), static_cast<const double*>(bl),
-      static_cast<const int64_t*>(order), static_cast<const int64_t*>(offsets),
-      La, Pa, static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
+                                       long long ldb, const void* rows, const void* chunks,
+                                       const void* tile_off, const void* vertex_off,
+                                       const void* slot, void* count, void* scratch,
+                                       long long E, long long La, long long Pa,
+                                       void* out, void* stream) {
+  return launch<3>(hpl, xp, pose_idx, bl, ldb, rows, chunks, tile_off, vertex_off, slot,
+                   count, scratch, E, La, Pa, out, stream);
 }

@@ -18,7 +18,7 @@ B3 runs one pass over tiles of ``TILE`` consecutive edges and sums the
 per-vertex blocks through a :class:`LinearisePlan`, which cuts every vertex's
 run of edges (in segment order) into chunks that lie in one tile
 (:func:`make_linearise_plan`, once a structure; ``csrc/terms.cu`` has the
-design).
+design).  Kernels B5 and B9 (``kernels/schurvec.py``) walk the same plan.
 """
 
 from __future__ import annotations
@@ -65,20 +65,30 @@ class ChunkPlan(NamedTuple):
     each as its row of the tile."""
 
     rows: torch.Tensor  # [n] uint8: edge id - TILE x tile, by tile, chunk after chunk
-    chunks: torch.Tensor  # [chunks, 4] int32 by tile: first, last + 1 (in rows), target, 0
+    chunks: torch.Tensor  # [chunks, 4] int32 by tile: first, last + 1 (in rows), target, vertex
     tile_off: torch.Tensor  # [tiles + 1] int32: a tile's stretch of ``chunks``
     vertex_off: torch.Tensor  # [vertices + 1] int32: a vertex's stretch of chunk numbers
 
 
 class LinearisePlan(NamedTuple):
     """B3's plan, with the sizes of the structure it was made for: the
-    wrapper compares these three integers a call and nothing else."""
+    wrappers compare these three integers a call and nothing else.  B5 and
+    B9 finish a vertex of several chunks in the launch that sums its last
+    chunk: they hold per-vertex counters (zero between launches, so calls
+    with one plan must not overlap: one stream) and a scratch, B5's chunk
+    sums by chunk number, then B9's per-edge slots."""
 
     pose: ChunkPlan
     lm: ChunkPlan
     E: int
     Pa: int
     La: int
+    # [lm chunks + 1] int32 by chunk number: B9's first scratch slot of a
+    # chunk; a landmark of one chunk takes none, so landmark v's slots are
+    # lm_slot[vertex_off[v]] .. lm_slot[vertex_off[v + 1]]
+    lm_slot: torch.Tensor
+    count: torch.Tensor  # [Pa + La] int32: B5's counters, then B9's
+    scratch: torch.Tensor  # [pose chunks x 6 + lm_slot[-1] x 3] f64
 
 
 def _chunk_plan(seg: Segments, ntiles: int) -> ChunkPlan:
@@ -104,11 +114,22 @@ def _chunk_plan(seg: Segments, ntiles: int) -> ChunkPlan:
     length = (end - start)[by_tile]
     first = length.cumsum(0) - length
     rows = (order - tile_of * TILE)[torch.repeat_interleave(start[by_tile] - first, length) + pos]
-    chunks = torch.stack([first, first + length, target[by_tile], torch.zeros_like(first)], dim=1)
+    chunks = torch.stack([first, first + length, target[by_tile], cseg[by_tile]], dim=1)
     tile_off = torch.searchsorted(ctile[by_tile], torch.arange(ntiles + 1, device=dev))
     i32 = torch.int32
     return ChunkPlan(rows.to(torch.uint8), chunks.to(i32).contiguous(), tile_off.to(i32),
                      vertex_off.to(i32))
+
+
+def _edge_slots(half: ChunkPlan) -> torch.Tensor:
+    """B9's scratch slots (``LinearisePlan.lm_slot``): the edges of every
+    landmark of several chunks, in segment order, numbered from 0."""
+    chunks, vertex_off = half.chunks.long(), half.vertex_off.long()
+    target = chunks[:, 2]
+    number = torch.where(target >= 0, vertex_off[target.clamp(min=0)], -1 - target)
+    width = torch.zeros(chunks.shape[0] + 1, dtype=torch.int64, device=chunks.device)
+    width[number + 1] = torch.where(target >= 0, 0, chunks[:, 1] - chunks[:, 0])
+    return width.cumsum(0).to(torch.int32)
 
 
 def make_linearise_plan(pose_seg: Segments, lm_seg: Segments, E: int) -> LinearisePlan:
@@ -118,9 +139,14 @@ def make_linearise_plan(pose_seg: Segments, lm_seg: Segments, E: int) -> Lineari
     if E * 18 >= 2**31:
         raise ValueError(f"linearise: {E} edges exceed the kernel's 32-bit indices")
     ntiles = -(-E // TILE)
+    pose, lm = _chunk_plan(pose_seg, ntiles), _chunk_plan(lm_seg, ntiles)
+    Pa, La = pose_seg.offsets.shape[0] - 1, lm_seg.offsets.shape[0] - 1
+    lm_slot = _edge_slots(lm)
+    dev = lm_slot.device
+    work = pose.chunks.shape[0] * 6 + int(lm_slot[-1]) * 3
     return LinearisePlan(
-        _chunk_plan(pose_seg, ntiles), _chunk_plan(lm_seg, ntiles), E,
-        pose_seg.offsets.shape[0] - 1, lm_seg.offsets.shape[0] - 1,
+        pose, lm, E, Pa, La, lm_slot, torch.zeros(Pa + La, dtype=torch.int32, device=dev),
+        torch.empty(work, dtype=torch.float64, device=dev),
     )
 
 

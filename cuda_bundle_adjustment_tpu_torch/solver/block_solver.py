@@ -94,7 +94,8 @@ class SchurPlan(NamedTuple):
     row_seg: Segments  # Hsc blocks -> block rows
     col_seg: Segments  # Hsc blocks -> block columns
     band: BandMeta
-    # what the CUDA kernels B3 and B6 walk; None on the CPU, where the twins run
+    # what the CUDA kernels B3, B5, B9 and B6 walk; None on the CPU, where the
+    # twins run
     lin_plan: Optional[LinearisePlan]  # tiles and chunks over pose_seg, lm_seg
     pair_plan: Optional[PairPlan]  # int32 triples and items
 
@@ -234,7 +235,7 @@ def schur_reduce(
     # bsc re-associates as Hpl (inv(Hll) bl), as on the kernel path of the
     # JAX package, so no per-edge W is materialised for it either
     invHll, y = damped_inverse(sys.Hll, sys.bl, lam)
-    bsc = hpl_mv_segment_sum(sys.Hpl, y, plan.ba_lm_idx, sys.bp, plan.pose_seg)
+    bsc = hpl_mv_segment_sum(sys.Hpl, y, plan.ba_lm_idx, sys.bp, plan.pose_seg, plan.lin_plan)
     blocks = -schur_pair_products(
         sys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets,
         plan.pair_plan,
@@ -304,7 +305,7 @@ def schur_back_substitute(
 ) -> torch.Tensor:
     """Landmark back-substitution ``xl = inv(Hll)(bl - Hpl^T xp)``: the
     bracket through kernel B9, the product through kernel B10."""
-    cl = hpl_mtv_segment_sum(sys.Hpl, xp, plan.ba_pose_idx, sys.bl, plan.lm_seg)
+    cl = hpl_mtv_segment_sum(sys.Hpl, xp, plan.ba_pose_idx, sys.bl, plan.lm_seg, plan.lin_plan)
     return sym3x3_mv(invHll, cl)
 
 

@@ -12,7 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_banded_spd, reverse_pose_blocks
+from chip_smoke import (
+    hpl_mtv_in_plan_order,
+    hpl_mv_in_plan_order,
+    random_banded_spd,
+    reverse_pose_blocks,
+)
 from torch_fragile import (
     FRAGILE_EDGE_PATTERNS,
     FRAGILE_PAIR_PROBLEMS,
@@ -178,28 +183,90 @@ def test_pairprod_kernel_at_fragile_shapes(case):
     assert torch.equal(got, pairprod.schur_pair_products(*args))
 
 
+def _schurvec_inputs(case, dev):
+    """Hpl, y, xp, the segment plans and the index arrays of a fragile edge
+    pattern (random blocks, zero on rows of fixed vertices), or of a mixed
+    problem's first linearisation (``"mixed_problem"``)."""
+    if case == "mixed_problem":
+        s = optimizer_from_problem(
+            make_mixed_ba_problem(num_poses=40, num_landmarks=1500, seed=2), device=dev).solver
+        s.build_structure()
+        _, sys_ = s.head()
+        p = s.plan
+        lam = 1e-5 * s.max_diagonal(sys_)
+        diag9 = torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1], dtype=torch.float64, device=dev)
+        y = flat_mv_3x3(flat_sym3x3_inv(sys_.Hll + lam * diag9), sys_.bl)
+        xp = torch.as_tensor(np.random.default_rng(3).normal(size=(s.Pa, 6)), device=dev)
+        return (sys_.Hpl, y, xp, sys_.bp, sys_.bl, p.ba_pose_idx, p.ba_lm_idx,
+                p.pose_seg, p.lm_seg)
+    rng = np.random.default_rng(FRAGILE_EDGE_PATTERNS.index(case))
+    P, L, pi, li = fragile_edge_pattern(case, rng)
+    Pa, La, E = P - 2, L - 2, len(pi)
+    pi, li = np.asarray(pi), np.asarray(li)
+    hpl = rng.normal(size=(E, 18)) * 10.0 ** rng.integers(-3, 4, (E, 1))
+    hpl[(pi >= Pa) | (li >= La)] = 0.0
+
+    def T(a):
+        return torch.as_tensor(a, device=dev)
+
+    return (T(hpl), T(rng.normal(size=(La, 3))), T(rng.normal(size=(Pa, 6))),
+            T(rng.normal(size=(Pa, 6)) * 1e3), T(rng.normal(size=(La, 3)) * 1e3), T(pi), T(li),
+            make_segments(pi, Pa, dev), make_segments(li, La, dev))
+
+
 @pytest.mark.gpu
-def test_schurvec_kernels_match_twins():
-    """B5 and B9 against their twins within 1e-12 x max|value| on a mixed
-    problem's first linearisation, and bit for bit on a second launch."""
+@pytest.mark.parametrize("case", [*FRAGILE_EDGE_PATTERNS, "mixed_problem"])
+def test_schurvec_kernels_match_twins(case):
+    """B5 and B9 on the shapes of ``fragile_edge_pattern`` and at a mixed
+    problem's first linearisation: B9 bit for bit its twin, B5 bit for bit
+    its twin summed in the plan's order and within 1e-12 x max|value| of
+    the plain twin; a second launch, a launch with a plan made per call, and
+    ten launches captured in a CUDA graph and replayed twice bit for bit, the
+    counters back at zero; a plan of another structure is refused, and an
+    Hpl view off a 16-byte boundary gives the same bits."""
     dev = _cuda()
-    s = optimizer_from_problem(make_mixed_ba_problem(num_poses=40, num_landmarks=1500, seed=2),
-                               device=dev).solver
-    s.build_structure()
-    _, sys_ = s.head()
-    p = s.plan
-    lam = 1e-5 * s.max_diagonal(sys_)
-    diag9 = torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1], dtype=torch.float64, device=dev)
-    y = flat_mv_3x3(flat_sym3x3_inv(sys_.Hll + lam * diag9), sys_.bl)
-    args = (sys_.Hpl, y, p.ba_lm_idx, sys_.bp, p.pose_seg)
-    bsc = schurvec.hpl_mv_segment_sum(*args)
-    assert _close_rel(bsc, schurvec.hpl_mv_segment_sum_plain(*args))
-    assert torch.equal(bsc, schurvec.hpl_mv_segment_sum(*args))
-    xp = torch.as_tensor(np.random.default_rng(3).normal(size=(s.Pa, 6)), device=dev)
-    args = (sys_.Hpl, xp, p.ba_pose_idx, sys_.bl, p.lm_seg)
-    cl = schurvec.hpl_mtv_segment_sum(*args)
-    assert _close_rel(cl, schurvec.hpl_mtv_segment_sum_plain(*args))
-    assert torch.equal(cl, schurvec.hpl_mtv_segment_sum(*args))
+    hpl, y, xp, bp, bl, pi, li, ps, ls = _schurvec_inputs(case, dev)
+    plan = terms.make_linearise_plan(ps, ls, hpl.shape[0])
+    mv = (hpl, y, li, bp, ps)
+    mtv = (hpl, xp, pi, bl, ls)
+    bsc = schurvec.hpl_mv_segment_sum(*mv, plan)
+    assert torch.equal(bsc, hpl_mv_in_plan_order(*mv, plan))
+    assert _close_rel(bsc, schurvec.hpl_mv_segment_sum_plain(*mv))
+    cl = schurvec.hpl_mtv_segment_sum(*mtv, plan)
+    assert torch.equal(cl, schurvec.hpl_mtv_segment_sum_plain(*mtv))
+    assert torch.equal(cl, hpl_mtv_in_plan_order(*mtv, plan))
+    for _ in range(2):
+        assert torch.equal(bsc, schurvec.hpl_mv_segment_sum(*mv, plan))
+        assert torch.equal(cl, schurvec.hpl_mtv_segment_sum(*mtv, plan))
+    assert torch.equal(bsc, schurvec.hpl_mv_segment_sum(*mv))
+    assert torch.equal(cl, schurvec.hpl_mtv_segment_sum(*mtv))
+
+    outs = []
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(10):
+            outs.append((schurvec.hpl_mv_segment_sum(*mv, plan),
+                         schurvec.hpl_mtv_segment_sum(*mtv, plan)))
+    for _ in range(2):
+        for a, b in outs:
+            a.zero_(), b.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, bsc) and torch.equal(b, cl) for a, b in outs)
+    assert not plan.count.any()
+
+    n = hpl.shape[0]
+    off = torch.empty(n * 18 + 1, dtype=torch.float64, device=dev)[1:].view(n, 18)
+    off.copy_(hpl)
+    assert off.data_ptr() % 16 == 8
+    assert torch.equal(bsc, schurvec.hpl_mv_segment_sum(off, *mv[1:], plan))
+    assert torch.equal(cl, schurvec.hpl_mtv_segment_sum(off, *mtv[1:], plan))
+    foreign = terms.make_linearise_plan(ps, ls, n + 1)
+    with pytest.raises(ValueError):
+        schurvec.hpl_mv_segment_sum(*mv, foreign)
+    with pytest.raises(ValueError):
+        schurvec.hpl_mtv_segment_sum(*mtv, foreign)
 
 
 @pytest.mark.gpu

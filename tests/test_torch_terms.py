@@ -15,7 +15,7 @@ on the CPU, on the same seeded numpy inputs.
   pose with over 1000 edges beside poses with none, landmarks without an
   edge, sorted and unsorted edges, fixed vertices): the twins against the
   JAX XLA models, and kernel B3's plan (``make_linearise_plan``), walked in
-  numpy as the kernel walks it, against the twins' segment sums.
+  numpy as kernels B3, B5 and B9 walk it, against the twins' segment sums.
 
 The CUDA kernels themselves are held against these twins on the card by
 tests/test_torch_gpu.py and chip_smoke.py.
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from chip_smoke import _chunks_in_plan_order, linearise_in_plan_order
+from chip_smoke import _chunks_in_plan_order, hpl_mtv_in_plan_order, hpl_mv_in_plan_order
 from torch_fragile import FRAGILE_EDGE_PATTERNS, fragile_edge_pattern
 from cuda_bundle_adjustment_tpu.models.ba import MonoModel as JaxMono
 from cuda_bundle_adjustment_tpu.models.ba import StereoModel as JaxStereo
@@ -34,6 +34,7 @@ from cuda_bundle_adjustment_tpu.types import GraphArrays as JaxGraph
 from cuda_bundle_adjustment_tpu.types import PackedEdges as JaxEdges
 from cuda_bundle_adjustment_tpu_torch.kernels import schurvec, terms
 from cuda_bundle_adjustment_tpu_torch.models.ba import MODEL_REGISTRY, edge_state
+from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mtv_6x3, flat_mv_6x3
 from cuda_bundle_adjustment_tpu_torch.solver.segments import make_segments, segment_sum
 from cuda_bundle_adjustment_tpu_torch.types import GraphArrays, PackedEdges
 
@@ -315,6 +316,97 @@ def test_linearise_plan_walk_matches_segment_sums(case):
     assert (plan.E, plan.Pa, plan.La) == (E, Pa, La)
 
 
+def _walk_schurvec(prods, base, plan, half, per_chunk, rng):
+    """Kernel B5 (``per_chunk``) or B9 as it walks its half of B3's plan:
+    the tiles in a random order (the blocks run in no order), each tile's
+    chunks summed in segment order; a vertex of one chunk gets base - sum at
+    once, a chunk of any other leaves its partial (B5: the chunk's sum, by
+    chunk number; B9: its edges' products, in their slots) and adds one to
+    the vertex's counter, and the tile that completes the vertex sums its
+    partials in order; a vertex without a chunk gets base - 0."""
+    rows, chunks, tile_off, vertex_off = (t.numpy() for t in half)
+    slot = plan.lm_slot.numpy()
+    V, N = base.shape
+    out = np.full_like(base, np.nan)
+    scratch = np.full((chunks.shape[0] if per_chunk else slot[-1], N), np.nan)
+    count = np.zeros(V, dtype=int)
+    for tile in rng.permutation(tile_off.shape[0] - 1):
+        for first, last, target, v in chunks[tile_off[tile] : tile_off[tile + 1]]:
+            edges = tile * terms.TILE + rows[first:last].astype(np.int64)
+            acc = np.zeros(N)
+            for e in edges:
+                acc = acc + prods[e]
+            if target >= 0:
+                assert v == target and vertex_off[v + 1] - vertex_off[v] == 1
+                out[v] = base[v] - acc
+                continue
+            if per_chunk:
+                scratch[-1 - target] = acc
+            else:
+                scratch[slot[-1 - target] + np.arange(edges.size)] = prods[edges]
+            count[v] += 1
+            if count[v] == vertex_off[v + 1] - vertex_off[v]:
+                count[v] = 0
+                k0, k1 = vertex_off[v], vertex_off[v + 1]
+                if not per_chunk:
+                    k0, k1 = slot[k0], slot[k1]
+                acc = np.zeros(N)
+                for k in range(k0, k1):
+                    acc = acc + scratch[k]
+                out[v] = base[v] - acc
+    empty = vertex_off[1:] == vertex_off[:-1]
+    out[empty] = base[empty] - 0.0
+    assert not count.any()
+    return out
+
+
+@pytest.mark.parametrize("case", FRAGILE)
+def test_schurvec_plan_walk_matches_twins(case):
+    """Kernels B5 and B9 walked in numpy as they walk B3's plan against
+    their twins: B9 bit for bit; B5 bit for bit against the twin summed in
+    the plan's order (``hpl_mv_in_plan_order``), and against the plain twin
+    bit for bit at a pose of one chunk, else within 1e-12 x max|value|.
+    The plan-order twins agree with the kernels' walk and give the same with
+    the plan that a wrapper makes for itself."""
+    rng = np.random.default_rng(FRAGILE.index(case))
+    P, L, pi, li = fragile_edge_pattern(case, rng)
+    pi, li = np.asarray(pi), np.asarray(li)
+    E = len(pi)
+    Pa, La = P - 2, L - 2
+    segs = make_segments(pi, Pa, "cpu"), make_segments(li, La, "cpu")
+    plan = terms.make_linearise_plan(*segs, E)
+    hpl = rng.normal(size=(E, 18)) * 10.0 ** rng.integers(-3, 4, (E, 1))
+    hpl[(pi >= Pa) | (li >= La)] = 0.0  # as B3 leaves the rows of fixed vertices
+    y, xp = rng.normal(size=(La, 3)), rng.normal(size=(Pa, 6))
+    bp, bl = rng.normal(size=(Pa, 6)) * 1e3, rng.normal(size=(La, 3)) * 1e3
+    T = torch.as_tensor
+    pi_t, li_t = T(pi), T(li)
+
+    mv = (T(hpl), T(y), li_t, T(bp), segs[0])
+    plain = schurvec.hpl_mv_segment_sum(*mv).numpy()
+    ordered = hpl_mv_in_plan_order(*mv, plan).numpy()
+    prods = flat_mv_6x3(T(hpl), T(y)[li_t.clamp(0, La - 1)]).numpy()
+    walked = _walk_schurvec(prods, bp, plan, plan.pose, True, rng)
+    np.testing.assert_array_equal(walked, ordered)
+    np.testing.assert_array_equal(hpl_mv_in_plan_order(*mv).numpy(), ordered)
+    _close(walked, plain, 1e-12)
+    off = plan.pose.vertex_off.numpy()
+    np.testing.assert_array_equal(walked[off[1:] - off[:-1] <= 1], plain[off[1:] - off[:-1] <= 1])
+
+    mtv = (T(hpl), T(xp), pi_t, T(bl), segs[1])
+    plain = schurvec.hpl_mtv_segment_sum(*mtv).numpy()
+    prods = flat_mtv_6x3(T(hpl), T(xp)[pi_t.clamp(0, Pa - 1)]).numpy()
+    walked = _walk_schurvec(prods, bl, plan, plan.lm, False, rng)
+    np.testing.assert_array_equal(walked, plain)
+    np.testing.assert_array_equal(hpl_mtv_in_plan_order(*mtv, plan).numpy(), plain)
+    np.testing.assert_array_equal(hpl_mtv_in_plan_order(*mtv).numpy(), plain)
+    assert plan.count.shape == (Pa + La,) and not plan.count.any()
+    slots = plan.lm_slot.numpy()
+    several = np.diff(plan.lm.vertex_off.numpy()) > 1
+    assert slots[-1] == np.diff(segs[1].offsets.numpy())[several].sum()
+    assert plan.scratch.numel() == plan.pose.chunks.shape[0] * 6 + slots[-1] * 3
+
+
 def test_linearise_plan_refuses_too_many_edges():
     empty = make_segments(np.zeros(0, dtype=np.int64), 1, "cpu")
     with pytest.raises(ValueError):
@@ -408,4 +500,10 @@ def test_schurvec_twins_match_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
     got = schurvec.hpl_mtv_segment_sum(T(hpl), T(xp), idx, T(np.zeros((E, 3))), ident)
     want = -mtv.reshape(3, E).T
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+    # the twins as the CUDA kernels walk B3's plan
+    got = hpl_mtv_in_plan_order(T(hpl), T(xp), idx, T(np.zeros((E, 3))), ident)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+    got = hpl_mv_in_plan_order(T(hpl), T(y), idx, T(np.zeros((E, 6))), ident)
+    want = -mv.reshape(6, E).T
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9 * np.abs(want).max())

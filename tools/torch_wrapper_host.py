@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Host time of the wrappers of kernels B3 ``linearise`` and B6
-``schur_pair_products`` of the PyTorch + CUDA port, apart from the device.
+"""Host time of the wrappers of kernels B3 ``linearise``, B5
+``hpl_mv_segment_sum``, B6 ``schur_pair_products`` and B9
+``hpl_mtv_segment_sum`` of the PyTorch + CUDA port, apart from the device.
 
     python3 tools/torch_wrapper_host.py [rounds]
 
@@ -17,6 +18,7 @@ Where the device finishes a call before the host has issued the next
 
 from __future__ import annotations
 
+import inspect
 import json
 import statistics
 import sys
@@ -48,8 +50,9 @@ def main() -> int:
         kitti00_scale_problem,
         kitti07_scale_problem,
     )
-    from cuda_bundle_adjustment_tpu_torch.kernels import lminv, pairprod, terms
+    from cuda_bundle_adjustment_tpu_torch.kernels import lminv, pairprod, schurvec, terms
     from cuda_bundle_adjustment_tpu_torch.models.ba import edge_state
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
 
     if not torch.cuda.is_available():
         print("torch_wrapper_host: no CUDA device", file=sys.stderr)
@@ -62,14 +65,21 @@ def main() -> int:
         solver, sys_, lam = cs.first_linearisation(problem, dev)
         plan, data = solver.plan, solver.packed
         qt, xw = edge_state(solver.graph, data)
-        inv, _ = lminv.damped_inverse(sys_.Hll, sys_.bl, lam)
+        inv, y = lminv.damped_inverse(sys_.Hll, sys_.bl, lam)
+        blocks, bsc, _ = bs.schur_reduce(sys_, lam, plan)
+        xp, _ = bs.solve_reduced_band(blocks, bsc, plan)
         # a tree whose kernels walk a plan made once a structure hands it over
         lin = (plan.lin_plan,) if hasattr(plan, "lin_plan") else ()
         pair = (plan.pair_plan,) if hasattr(plan, "pair_plan") else ()
+        vec = lin if "plan" in inspect.signature(schurvec.hpl_mv_segment_sum).parameters else ()
         calls[label] = dict(
             linearise=lambda a=(qt, xw, data, plan.pose_seg, plan.lm_seg, *lin): terms.linearise(*a),
+            hpl_mv_segment_sum=lambda a=(sys_.Hpl, y, plan.ba_lm_idx, sys_.bp, plan.pose_seg, *vec):
+                schurvec.hpl_mv_segment_sum(*a),
             schur_pair_products=lambda a=(sys_.Hpl, inv, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej,
                                           plan.tri_offsets, *pair): pairprod.schur_pair_products(*a),
+            hpl_mtv_segment_sum=lambda a=(sys_.Hpl, xp, plan.ba_pose_idx, sys_.bl, plan.lm_seg,
+                                          *vec): schurvec.hpl_mtv_segment_sum(*a),
         )
     for r in range(rounds):
         out = {label: {name: dict(host_ms=round(host_ms(fn), 4), ms=round(cs.cuda_ms(fn), 4))
