@@ -27,8 +27,10 @@ caught):
    B9 at ``kitti00_mixed`` and ``kitti07_mono``, and at the wide band for B7
    and B8); holds B3's and B5's per-vertex sums bit for bit, and B6's within
    1e-12, against the twins' values summed in the kernels' order, B9 bit
-   for bit against its twin, and B5, B9, B7 and B8 against their library
-   calls; then
+   for bit against its twin, B4 bit for bit on the solver's ``Hll``/``bl``
+   views (read in place: one device kernel a call, checked by its trace at
+   ``kitti00_mono``), and B5, B9, B7 and B8 against their library calls;
+   then
    holds the band kernels B7 and B8 against their twins on a random banded
    SPD system of band height 48, which no generator reaches end to end;
 4. runs a small mono, stereo and mixed problem without a robust kernel and
@@ -49,7 +51,8 @@ caught):
    CPU, and ``kitti07_mono_wide`` (the same graph, poses renamed) with
    ``kitti07_mono``; prints cold and warm times and a per-stage profile;
 6. traces the LM loop of ``kitti00_mono`` with ``torch.profiler`` and prints
-   its device busy time, idle share and largest kernels.
+   its device busy time, its count of device kernels, idle share, largest
+   kernels and each hand kernel's time and calls in the loop.
 
 The last two lines are a JSON line describing the kernels and the JSON
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -202,9 +205,9 @@ def device_ms(fn, calls: int = 10, replays: int = 3) -> float:
 
 def device_ms_by_kernel(fn, reps: int = 10) -> dict:
     """Mean device time of each device kernel that one call of ``fn``
-    launches, by kernel name, from a ``torch.profiler`` trace of ``reps``
-    calls (a trace that comes back empty is taken again, three times at
-    most)."""
+    launches, by kernel name (a hand kernel's without its namespace and
+    arguments), from a ``torch.profiler`` trace of ``reps`` calls (a trace
+    that comes back empty is taken again, three times at most)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -217,7 +220,8 @@ def device_ms_by_kernel(fn, reps: int = 10) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_name = {e.key: e.device_time_total / 1e3 / reps for e in prof.key_averages()
+        by_name = {e.key.split("(anonymous namespace)::", 1)[-1].split("(")[0]:
+                   e.device_time_total / 1e3 / reps for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
         if by_name:
             break
@@ -560,8 +564,7 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
           f"{label} linearise: Hpp|bp or Hll|bl is not the stacks' sum in the plan's order")
     passes = {}
     if reported is None:
-        passes = {k.split("(anonymous namespace)::", 1)[-1].split("(")[0]: round(v, 5)
-                  for k, v in device_ms_by_kernel(linearise).items()}
+        passes = {k: round(v, 5) for k, v in device_ms_by_kernel(linearise).items()}
     print(f"{label} B3 linearise: {int(lone.sum())} of {lone.numel()} landmarks are one chunk "
           f"(bit for bit the twin's; every row bit for bit the sum in the plan's order), "
           f"{lin_plan.pose.chunks.shape[0]} pose chunks; device ms by pass: {json.dumps(passes)}")
@@ -576,10 +579,28 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
         inv = torch.linalg.inv(damped)
         return inv, torch.bmm(inv, bl3)
 
-    held_timed("damped_inverse", lambda: lminv.damped_inverse(sys_.Hll, sys_.bl, lam),
+    def damped_inverse():
+        return lminv.damped_inverse(sys_.Hll, sys_.bl, lam)
+
+    held_timed("damped_inverse", damped_inverse,
                lambda: lminv.damped_inverse_plain(sys_.Hll, sys_.bl, lam), ["inv(Hll)", "y"],
                (sys_.Hll, sys_.bl), 60 * La, tol=0.0, library=library_inverse)
-    invHll, y = lminv.damped_inverse(sys_.Hll, sys_.bl, lam)
+    # the solver's Hll and bl are column blocks of B3's [La, 12] rows: B4 reads
+    # them in place, one device kernel a call
+    hv, ldh, bv, ldb = lminv.damped_inverse_operands(sys_.Hll, sys_.bl)
+    check(hv.data_ptr() == sys_.Hll.data_ptr() and bv.data_ptr() == sys_.bl.data_ptr()
+          and (ldh, ldb) == (12, 12), f"{label} damped_inverse: the solver's views are copied")
+    check(all(torch.equal(a, b) for a, b in zip(damped_inverse(), damped_inverse())),
+          f"{label} damped_inverse: a second launch differs")
+    if reported is None:
+        split = {k: round(v, 5) for k, v in device_ms_by_kernel(damped_inverse).items()}
+        check(list(split) == ["damped_inverse_kernel"],
+              f"{label} damped_inverse: device kernels of one call {split}, not one")
+        copies = [device_ms(lambda t=t: t.contiguous()) for t in (sys_.Hll, sys_.bl)]
+        print(f"{label} B4 damped_inverse on the solver's views (row stride 12): device kernels "
+              f"of one call {json.dumps(split)}; the copies of Hll and bl that its wrapper made "
+              f"before, on the device: {copies[0]:.5f}, {copies[1]:.5f} ms")
+    invHll, y = damped_inverse()
     lib_inv, lib_y = library_inverse()
     rel = ((lib_inv.reshape(La, 9) - invHll).abs().max() / invHll.abs().max()).item()
     check(rel <= 1e-9, f"damped_inverse: torch.linalg.inv differs by {rel} of max|inv|")
@@ -1264,11 +1285,18 @@ def loop_device_profile(problem, label: str) -> None:
     busy = sum(r[1] for r in rows)
     check(busy > 0, f"{label}: the profiler saw no device time")
     top = sorted(rows, key=lambda r: -r[1])[:12]
+    # the hand kernels (each at the top of an anonymous namespace; PyTorch's
+    # own sit in namespaces of theirs) as the loop runs them, their inputs
+    # where the stages before left them, not resident in L2
+    hand = {k.split("(anonymous namespace)::", 1)[1].split("(")[0]: [round(ms, 4), n]
+            for k, ms, n in rows
+            if k.removeprefix("void ").startswith("(anonymous namespace)::")}
     print(f"{label} LM loop: {loop_ms:.1f} ms untraced ({traced_ms:.1f} ms traced), "
           f"device busy {busy:.1f} ms in {sum(r[2] for r in rows)} kernels, "
           f"idle {100 * (1 - busy / loop_ms):.1f}% [{nvidia_smi_line()}]")
     print(f"{label} largest device kernels (ms, calls):",
           json.dumps([[k[:60], round(ms, 3), n] for k, ms, n in top]))
+    print(f"{label} hand kernels in the loop (ms in all, calls):", json.dumps(hand))
 
 
 def main() -> int:
@@ -1294,8 +1322,8 @@ def main() -> int:
     t0 = start = time.perf_counter()
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    with ThreadPoolExecutor(4) as pool:  # four more compiles, side by side
-        for lines in pool.map(ptxas_report, ("terms", "schurvec", "pairprod", "bandchol")):
+    with ThreadPoolExecutor(5) as pool:  # five more compiles, side by side
+        for lines in pool.map(ptxas_report, ("terms", "lminv", "schurvec", "pairprod", "bandchol")):
             print("\n".join(lines))
 
     def lap(what: str) -> None:

@@ -23,52 +23,119 @@
 // plain twins bit for bit.
 //
 // Bound on this card: device-memory bytes.  B4 moves 24 doubles a landmark
-// (12 in, 12 out) against ~50 multiply-adds and one division, B10 moves 15
-// against 9 multiply-adds.
+// (12 in, 12 out: 25.6 MB a call at kitti00_mono, 0.0076 ms at 3.35 TB/s)
+// against ~50 multiply-adds and one division, B10 moves 15 against 9
+// multiply-adds.  So B4 is built to move its bytes coalesced and to do
+// nothing else.
 //
-// Design: one thread per landmark.  A warp's loads and stores of the [La, 9]
-// and [La, 3] rows are strided by 72 and 24 bytes, so sectors are shared
-// between neighbouring threads through L1 rather than in one coalesced
-// access; a staged, warp-cooperative copy is the known next step.
+// B4 design: a block a tile of kTile = 128 landmarks, one launch a call, no
+// atomics, the ragged last tile masked.
+//   In:  the block copies the tile's 9 n Hll and 3 n bl entries into shared
+//        memory, thread t taking entries t, t + kTile, ...; entry k of the
+//        tile is row k / w, column k % w, read at base + row * ld + column
+//        with the operand's own row stride ld (w = 9 or 3).  Neighbouring
+//        threads read neighbouring addresses wherever the rows are packed:
+//        the solver hands over Hll and bl as column blocks of B3's [La, 12]
+//        rows (ld = 12), so a tile is one 12 KB span read by coalesced
+//        8-byte loads at any offset, and no copy kernel runs before B4.
+//   Compute: thread t inverts landmark t of the tile from its shared row
+//        (13 doubles: Hll 0-8, bl 9-11, one pad; an odd stride, so a warp's
+//        row reads fall on distinct banks) and leaves inv and y in its place.
+//   Out: inv [La, 9] and y [La, 3] are contiguous, so the tile's outputs are
+//        two spans written entry t + j kTile by thread t, coalesced.
+// It replaces a thread-per-landmark kernel whose 8-byte loads and stores sat
+// 72 and 24 bytes apart within a warp, behind two .contiguous() copies of the
+// solver's views in its wrapper: three device kernels a call, 0.0333 ms on
+// the device at kitti00_mono on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+// section 6 has the split and the new kernel's times).  B10's operands are
+// contiguous outputs of B4 and B9 and it sits at its bound: it stays a thread
+// per landmark.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // B10
+constexpr int kTile = 128;     // B4: landmarks (and threads) a block
+constexpr int kRow = 13;       // B4: doubles a landmark's shared row
 
-__global__ void __launch_bounds__(kThreads)
-damped_inverse_kernel(const double* __restrict__ hll,
-                      const double* __restrict__ bl, double lam, int64_t La,
-                      double* __restrict__ inv, double* __restrict__ y) {
-  const int64_t l = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (l >= La) return;
-  const double* h = hll + l * 9;
-  // the twin adds lam * [1, 0, 0, 0, 1, 0, 0, 0, 1] to the whole block
-  const double off = lam * 0.0;
-  const double A00 = h[0] + lam, A01 = h[1] + off, A02 = h[2] + off;
-  const double A11 = h[4] + lam, A12 = h[5] + off, A22 = h[8] + lam;
+__global__ void __launch_bounds__(kTile)
+damped_inverse_kernel(const double* __restrict__ hll, int64_t ldh,
+                      const double* __restrict__ bl, int64_t ldb, double lam,
+                      int64_t La, double* __restrict__ inv,
+                      double* __restrict__ y) {
+  __shared__ double s[kTile * kRow];
+  const int t = threadIdx.x;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int n = static_cast<int>(La - base < kTile ? La - base : kTile);
 
-  const double det = A00 * A11 * A22 + A01 * A12 * A02 + A02 * A01 * A12 -
-                     A00 * A12 * A12 - A02 * A11 * A02 - A01 * A01 * A22;
-  const double inv_det = 1.0 / det;
-  const double B00 = inv_det * (A11 * A22 - A12 * A12);
-  const double B01 = inv_det * (A02 * A12 - A01 * A22);
-  const double B11 = inv_det * (A00 * A22 - A02 * A02);
-  const double B02 = inv_det * (A01 * A12 - A02 * A11);
-  const double B12 = inv_det * (A02 * A01 - A00 * A12);
-  const double B22 = inv_det * (A00 * A11 - A01 * A01);
+  // all twelve loads of a thread issued before the first store to shared
+  // memory, so that they are in flight together
+  const double* h0 = hll + base * ldh;
+  const double* b0 = bl + base * ldb;
+  double hv[9], bv[3];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const int k = t + j * kTile;
+    if (k < 9 * n) hv[j] = h0[(k / 9) * ldh + k % 9];
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int k = t + j * kTile;
+    if (k < 3 * n) bv[j] = b0[(k / 3) * ldb + k % 3];
+  }
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const int k = t + j * kTile;
+    if (k < 9 * n) s[(k / 9) * kRow + k % 9] = hv[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int k = t + j * kTile;
+    if (k < 3 * n) s[(k / 3) * kRow + 9 + k % 3] = bv[j];
+  }
+  __syncthreads();
 
-  double* o = inv + l * 9;
-  o[0] = B00; o[1] = B01; o[2] = B02;
-  o[3] = B01; o[4] = B11; o[5] = B12;
-  o[6] = B02; o[7] = B12; o[8] = B22;
+  if (t < n) {
+    double* r = s + t * kRow;
+    // the twin adds lam * [1, 0, 0, 0, 1, 0, 0, 0, 1] to the whole block
+    const double off = lam * 0.0;
+    const double A00 = r[0] + lam, A01 = r[1] + off, A02 = r[2] + off;
+    const double A11 = r[4] + lam, A12 = r[5] + off, A22 = r[8] + lam;
 
-  const double b0 = bl[l * 3], b1 = bl[l * 3 + 1], b2 = bl[l * 3 + 2];
-  y[l * 3] = B00 * b0 + B01 * b1 + B02 * b2;
-  y[l * 3 + 1] = B01 * b0 + B11 * b1 + B12 * b2;
-  y[l * 3 + 2] = B02 * b0 + B12 * b1 + B22 * b2;
+    const double det = A00 * A11 * A22 + A01 * A12 * A02 + A02 * A01 * A12 -
+                       A00 * A12 * A12 - A02 * A11 * A02 - A01 * A01 * A22;
+    const double inv_det = 1.0 / det;
+    const double B00 = inv_det * (A11 * A22 - A12 * A12);
+    const double B01 = inv_det * (A02 * A12 - A01 * A22);
+    const double B11 = inv_det * (A00 * A22 - A02 * A02);
+    const double B02 = inv_det * (A01 * A12 - A02 * A11);
+    const double B12 = inv_det * (A02 * A01 - A00 * A12);
+    const double B22 = inv_det * (A00 * A11 - A01 * A01);
+
+    const double c0 = r[9], c1 = r[10], c2 = r[11];
+    r[0] = B00; r[1] = B01; r[2] = B02;
+    r[3] = B01; r[4] = B11; r[5] = B12;
+    r[6] = B02; r[7] = B12; r[8] = B22;
+    r[9] = B00 * c0 + B01 * c1 + B02 * c2;
+    r[10] = B01 * c0 + B11 * c1 + B12 * c2;
+    r[11] = B02 * c0 + B12 * c1 + B22 * c2;
+  }
+  __syncthreads();
+
+  double* inv0 = inv + base * 9;
+  double* y0 = y + base * 3;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const int k = t + j * kTile;
+    if (k < 9 * n) inv0[k] = s[(k / 9) * kRow + k % 9];
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int k = t + j * kTile;
+    if (k < 3 * n) y0[k] = s[(k / 3) * kRow + 9 + k % 3];
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -85,16 +152,17 @@ sym3x3_mv_kernel(const double* __restrict__ inv, const double* __restrict__ c,
 
 }  // namespace
 
-// inv [La, 9], y [La, 3] (kernel B4)
-extern "C" int tba_damped_inverse(const void* hll, const void* bl, double lam,
-                                  long long La, void* inv, void* y,
-                                  void* stream) {
+// inv [La, 9], y [La, 3] (kernel B4); Hll [La, 9] and bl [La, 3] with row
+// strides ldh and ldb (in doubles), their entries adjacent within a row
+extern "C" int tba_damped_inverse(const void* hll, long long ldh, const void* bl,
+                                  long long ldb, double lam, long long La,
+                                  void* inv, void* y, void* stream) {
   if (La == 0) return 0;
-  const long long blocks = (La + kThreads - 1) / kThreads;
-  damped_inverse_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  const long long blocks = (La + kTile - 1) / kTile;
+  damped_inverse_kernel<<<static_cast<unsigned>(blocks), kTile, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(hll), static_cast<const double*>(bl), lam, La,
-      static_cast<double*>(inv), static_cast<double*>(y));
+      static_cast<const double*>(hll), ldh, static_cast<const double*>(bl), ldb,
+      lam, La, static_cast<double*>(inv), static_cast<double*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 

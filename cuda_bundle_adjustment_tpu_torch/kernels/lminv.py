@@ -9,7 +9,10 @@ Counterparts of ``pallas/lminv.py`` ``lminv_call`` and ``sym3x3_mv_call``:
 * B10 ``sym3x3_mv``: ``xl = inv cl`` per landmark.
 
 Blocks are row-major ``[La, 9]`` f64, vectors ``[La, 3]`` f64: the layouts
-kernels B5, B6 and B9 read and write.  The kernels evaluate the twins'
+kernels B5, B6 and B9 read and write.  B4 reads its operands at their own
+row stride: the solver hands over ``Hll`` and ``bl`` as column blocks of
+B3's ``[La, 12]`` rows, and they reach the kernel uncopied, in one launch
+(:func:`damped_inverse_operands`).  The kernels evaluate the twins'
 expressions (``ops/components.py flat_sym3x3_inv``, ``flat_mv_3x3``)
 operation for operation, so they agree with them bit for bit.  The damped
 block is inverted without a determinant guard: ``lam > 0`` on every LM
@@ -44,8 +47,8 @@ def sym3x3_mv_plain(invHll: torch.Tensor, cl: torch.Tensor) -> torch.Tensor:
 
 _VP, _LL = ctypes.c_void_p, ctypes.c_longlong
 _ARGTYPES = {
-    # Hll, bl, lam, La, inv, y, stream
-    "tba_damped_inverse": [_VP, _VP, ctypes.c_double, _LL, _VP, _VP, _VP],
+    # Hll, ldh, bl, ldb, lam, La, inv, y, stream
+    "tba_damped_inverse": [_VP, _LL, _VP, _LL, ctypes.c_double, _LL, _VP, _VP, _VP],
     # inv, cl, La, xl, stream
     "tba_sym3x3_mv": [_VP, _VP, _LL, _VP, _VP],
 }
@@ -59,10 +62,9 @@ def _fn(name: str):
     return fn
 
 
-def _check(name: str, blocks: torch.Tensor, vec: torch.Tensor):
-    """Validate the operands of a CUDA launch; returns them contiguous."""
-    if blocks.device.type != "cuda":
-        raise NotImplementedError(f"{name}: no kernel for device {blocks.device}")
+def _validate(name: str, blocks: torch.Tensor, vec: torch.Tensor) -> None:
+    """Raise unless ``blocks`` is ``[La, 9]`` and ``vec`` ``[La, 3]``, both
+    f64 on one device."""
     if blocks.dtype != torch.float64 or vec.dtype != torch.float64:
         raise TypeError(f"{name}: expects f64 blocks and vectors")
     if vec.device != blocks.device:
@@ -70,23 +72,49 @@ def _check(name: str, blocks: torch.Tensor, vec: torch.Tensor):
     La = blocks.shape[0]
     if blocks.shape != (La, 9) or vec.shape != (La, 3):
         raise ValueError(f"{name}: expects blocks [La, 9] and a vector [La, 3]")
+
+
+def _check(name: str, blocks: torch.Tensor, vec: torch.Tensor):
+    """Validate the operands of a CUDA launch; returns them contiguous."""
+    if blocks.device.type != "cuda":
+        raise NotImplementedError(f"{name}: no kernel for device {blocks.device}")
+    _validate(name, blocks, vec)
     return blocks.contiguous(), vec.contiguous()
+
+
+def damped_inverse_operands(Hll: torch.Tensor, bl: torch.Tensor):
+    """B4's operands as its kernel reads them: ``(Hll, ldh, bl, ldb)``, each
+    tensor with its row stride in doubles.  A tensor whose entries lie
+    adjacent within a row (inner stride 1) is passed as it is, at any row
+    stride and offset: the solver's column blocks of ``[La, 12]`` rows keep
+    their storage and stride 12.  Any other is copied to contiguous rows.
+    Raises for the wrong type, shape or a second device."""
+    _validate("damped_inverse", Hll, bl)
+    if Hll.stride(1) != 1:
+        Hll = Hll.contiguous()
+    if bl.stride(1) != 1:
+        bl = bl.contiguous()
+    return Hll, Hll.stride(0), bl, bl.stride(0)
 
 
 def damped_inverse(Hll: torch.Tensor, bl: torch.Tensor, lam: float):
     """``Hll [La, 9], bl [La, 3], lam -> (inv(Hll + lam I) [La, 9],
-    y = inv bl [La, 3])`` f64 (kernel B4 on CUDA).  ``lam`` is a host float
-    passed by value: no device read-back."""
+    y = inv bl [La, 3])`` f64, both contiguous (kernel B4 on CUDA, one
+    launch).  ``lam`` is a host float passed by value: no device
+    read-back."""
     if Hll.device.type == "cpu":
         return damped_inverse_plain(Hll, bl, lam)
-    Hll, bl = _check("damped_inverse", Hll, bl)
-    inv, y = torch.empty_like(Hll), torch.empty_like(bl)
+    if Hll.device.type != "cuda":
+        raise NotImplementedError(f"damped_inverse: no kernel for device {Hll.device}")
+    Hll, ldh, bl, ldb = damped_inverse_operands(Hll, bl)
     La = Hll.shape[0]
+    inv = torch.empty((La, 9), dtype=Hll.dtype, device=Hll.device)
+    y = torch.empty((La, 3), dtype=Hll.dtype, device=Hll.device)
     if La == 0:
         return inv, y
     status = _fn("tba_damped_inverse")(
-        Hll.data_ptr(), bl.data_ptr(), float(lam), La, inv.data_ptr(), y.data_ptr(),
-        _build.stream_ptr(Hll),
+        Hll.data_ptr(), ldh, bl.data_ptr(), ldb, float(lam), La, inv.data_ptr(),
+        y.data_ptr(), _build.stream_ptr(Hll),
     )
     _build.check(status, "damped_inverse")
     damped_inverse.launches += 1

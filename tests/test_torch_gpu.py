@@ -296,6 +296,46 @@ def test_lminv_kernels_match_twins_bit_for_bit(lam):
     after = lminv.damped_inverse.launches, lminv.sym3x3_mv.launches
     assert after == (before[0] + 1, before[1] + 1)
 
+    # B4 on the solver's views: column blocks of one [La, 12] buffer, read in
+    # place (at the buffer's start, and 8 and 40 bytes off a 16-byte
+    # boundary), ragged last tiles, one tile and less
+    for n, offset in ((La, 0), (La, 1), (129, 5), (128, 0), (1, 3)):
+        buf = torch.empty(offset + n * 12, dtype=torch.float64, device=dev)
+        lm_acc = buf[offset:].view(n, 12)
+        lm_acc.copy_(torch.cat([H9[:n], bl[:n]], dim=1))
+        Hv, bv = lm_acc[:, :9], lm_acc[:, 9:]
+        got = lminv.damped_inverse(Hv, bv, lam)
+        assert got[0].is_contiguous() and got[1].is_contiguous()
+        assert torch.equal(got[0], inv[:n]) and torch.equal(got[1], y[:n])
+        again = lminv.damped_inverse(Hv, bv, lam)
+        assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+    # a CUDA-graph replay gives the same bits
+    lm_acc = torch.cat([H9, bl], dim=1)
+    Hv, bv = lm_acc[:, :9], lm_acc[:, 9:]
+    lminv.damped_inverse(Hv, bv, lam)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_inv, g_y = lminv.damped_inverse(Hv, bv, lam)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g_inv, inv) and torch.equal(g_y, y)
+
+    # one device kernel a call on the solver's views: no copies
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a trace that comes back empty is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                lminv.damped_inverse(Hv, bv, lam)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == 3 and all("damped_inverse_kernel" in n for n in names), names
+
 
 @pytest.mark.gpu
 def test_lminv_kernels_refuse_what_they_do_not_take():

@@ -9,6 +9,10 @@ the JAX package on the CPU, on the same seeded numpy inputs.
   conditioning noise).
 * A zero Hll block with ``lam > 0`` inverts to ``I / lam`` with a finite y:
   the port has no determinant guard and needs none.
+* B4's operand preparation hands the solver's column blocks of ``[La, 12]``
+  rows to the kernel uncopied, at their stride 12, and the kernel's tile
+  walk (staging map in, shared rows, staging map out), replayed in numpy,
+  gives the twin's result bit for bit at ragged sizes and odd offsets.
 
 The CUDA kernels themselves are held against these twins, bit for bit, on
 the card by tests/test_torch_gpu.py and chip_smoke.py.
@@ -41,10 +45,33 @@ def _blocks(seed, La):
     return H9, bl
 
 
-@pytest.mark.parametrize("lam", [1e-6, 0.37, 1e4])
-def test_damped_inverse_twin_matches_jax(lam):
+def _solver_views(H9, bl, offset):
+    """``H9`` and ``bl`` as the solver hands them to B4: column blocks of one
+    ``[La, 12]`` buffer, here ``offset`` doubles into its storage."""
+    La = H9.shape[0]
+    buf = torch.zeros(offset + La * 12, dtype=torch.float64)
+    lm_acc = buf[offset:].view(La, 12)
+    lm_acc[:, :9] = torch.as_tensor(H9)
+    lm_acc[:, 9:] = torch.as_tensor(bl)
+    return lm_acc[:, :9], lm_acc[:, 9:]
+
+
+@pytest.mark.parametrize("lam,views", [
+    pytest.param(1e-6, False, id="1e-06"),
+    pytest.param(0.37, False, id="0.37"),
+    pytest.param(1e4, False, id="10000.0"),
+    pytest.param(1e-6, True, id="1e-06-solver-views"),
+    pytest.param(0.37, True, id="0.37-solver-views"),
+    pytest.param(1e4, True, id="10000.0-solver-views"),
+])
+def test_damped_inverse_twin_matches_jax(lam, views):
     H9, bl = _blocks(3, 512)
-    inv, y = lminv.damped_inverse(torch.as_tensor(H9), torch.as_tensor(bl), lam)
+    if views:
+        Hll_t, bl_t = _solver_views(H9, bl, offset=5)
+        assert Hll_t.stride() == (12, 1) and bl_t.stride() == (12, 1)
+    else:
+        Hll_t, bl_t = torch.as_tensor(H9), torch.as_tensor(bl)
+    inv, y = lminv.damped_inverse(Hll_t, bl_t, lam)
     inv, y = inv.numpy(), y.numpy()
     assert inv.shape == (512, 9) and y.shape == (512, 3)
 
@@ -101,3 +128,92 @@ def test_cuda_operands_never_reach_the_twin():
     with pytest.raises(NotImplementedError, match="no kernel for device"):
         lminv.sym3x3_mv(meta, vec)
     assert lminv.damped_inverse.launches == 0 and lminv.sym3x3_mv.launches == 0
+
+
+def test_damped_inverse_takes_the_solvers_views_without_a_copy():
+    """The solver's ``lm_acc[:, :9]`` and ``lm_acc[:, 9:]`` reach the launch
+    with their own storage and row stride 12; contiguous operands with
+    strides 9 and 3; an operand whose entries are not adjacent in a row
+    (inner stride other than 1) is copied to contiguous rows; the wrong type
+    or shape is refused."""
+    La = 389
+    lm_acc = torch.as_tensor(np.random.default_rng(1).normal(size=(La, 12)))
+    Hll, bl = lm_acc[:, :9], lm_acc[:, 9:]
+    h, ldh, b, ldb = lminv.damped_inverse_operands(Hll, bl)
+    assert (h.data_ptr(), b.data_ptr()) == (Hll.data_ptr(), bl.data_ptr())
+    assert b.data_ptr() == lm_acc.data_ptr() + 9 * 8
+    assert (ldh, ldb) == (12, 12) and h.stride(1) == b.stride(1) == 1
+
+    Hc, bc = Hll.contiguous(), bl.contiguous()
+    h, ldh, b, ldb = lminv.damped_inverse_operands(Hc, bc)
+    assert (h.data_ptr(), b.data_ptr()) == (Hc.data_ptr(), bc.data_ptr())
+    assert (ldh, ldb) == (9, 3)
+
+    cm = lm_acc.t().contiguous().t()  # component-major storage: inner stride La
+    assert cm[:, :9].stride() == (1, La)
+    h, ldh, b, ldb = lminv.damped_inverse_operands(cm[:, :9], cm[:, 9:])
+    assert h.is_contiguous() and b.is_contiguous() and (ldh, ldb) == (9, 3)
+    assert h.data_ptr() != cm.data_ptr()
+    assert torch.equal(h, Hll) and torch.equal(b, bl)
+
+    with pytest.raises(TypeError):
+        lminv.damped_inverse_operands(Hll.float(), bl)
+    with pytest.raises(ValueError):
+        lminv.damped_inverse_operands(Hll, bl[1:])
+    with pytest.raises(ValueError):
+        lminv.damped_inverse_operands(lm_acc[:, :8], bl)
+
+
+def _tile_walk(Hll, bl, lam, T=128, ROW=13):
+    """B4's kernel replayed in numpy: per block of ``T`` landmarks, entry
+    ``k = t + j T`` of the tile staged from ``base + (k // w) ld + k % w`` of
+    the operand's storage into shared row ``k // w`` (``ROW`` doubles, bl at
+    columns 9-11), each landmark computed from its shared row (the twin's
+    arithmetic), the rows written back to contiguous ``inv`` and ``y`` at
+    ``base w + k``."""
+    Hll, ldh, bl, ldb = lminv.damped_inverse_operands(Hll, bl)
+    mem_h = torch.empty(0, dtype=torch.float64).set_(Hll.untyped_storage()).numpy()
+    mem_b = torch.empty(0, dtype=torch.float64).set_(bl.untyped_storage()).numpy()
+    off_h, off_b = Hll.storage_offset(), bl.storage_offset()
+    La = Hll.shape[0]
+    inv, y = np.full(La * 9, np.nan), np.full(La * 3, np.nan)
+    for base in range(0, La, T):
+        n = min(T, La - base)
+        s = np.full((T, ROW), np.nan)
+        for j in range(9):
+            k = np.arange(T) + j * T
+            k = k[k < 9 * n]
+            s[k // 9, k % 9] = mem_h[off_h + (base + k // 9) * ldh + k % 9]
+        for j in range(3):
+            k = np.arange(T) + j * T
+            k = k[k < 3 * n]
+            s[k // 3, 9 + k % 3] = mem_b[off_b + (base + k // 3) * ldb + k % 3]
+        i, v = lminv.damped_inverse_plain(torch.as_tensor(s[:n, :9]),
+                                          torch.as_tensor(s[:n, 9:12]), lam)
+        s[:n, :9], s[:n, 9:12] = i.numpy(), v.numpy()
+        for j in range(9):
+            k = np.arange(T) + j * T
+            k = k[k < 9 * n]
+            inv[base * 9 + k] = s[k // 9, k % 9]
+        for j in range(3):
+            k = np.arange(T) + j * T
+            k = k[k < 3 * n]
+            y[base * 3 + k] = s[k // 3, 9 + k % 3]
+    return inv.reshape(La, 9), y.reshape(La, 3)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "solver-views"])
+@pytest.mark.parametrize("La", [1, 127, 128, 129, 389])
+def test_lminv_tile_walk_matches_twin(La, layout):
+    """Every entry staged in and written out exactly once, ragged last
+    tile included, at the solver's stride and an odd offset: the walk gives
+    ``damped_inverse_plain``'s result bit for bit."""
+    H9, bl = _blocks(7, La)
+    lam = 0.37
+    if layout == "contiguous":
+        Hll_t, bl_t = torch.as_tensor(H9), torch.as_tensor(bl)
+    else:
+        Hll_t, bl_t = _solver_views(H9, bl, offset=3)
+    inv, y = _tile_walk(Hll_t, bl_t, lam)
+    want_inv, want_y = lminv.damped_inverse_plain(torch.as_tensor(H9), torch.as_tensor(bl), lam)
+    assert np.array_equal(inv, want_inv.numpy()) and np.array_equal(y, want_y.numpy())
