@@ -7,9 +7,16 @@ Run from the repository root on a machine with a CUDA card.  It imports
 nothing of JAX.  In order, each phase failing the run (no phase's failure is
 caught):
 
-1. prints the card's name and power limit and the torch/CUDA/nvcc versions;
+1. prints the card's name and power limit, the torch/CUDA/nvcc versions and
+   the host's CPU model;
 2. builds the ten kernels from ``cuda_bundle_adjustment_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source) and the host symbolic analysis
+   (``native/symbolic.cpp``, ``g++``), all started together, and prints
+   the builds' times and the ``g++`` version; then times the native
+   symbolic analysis against its numpy copy on the host at
+   ``kitti00_mono`` and ``kitti00_mixed`` and holds the one against the
+   other (the same pattern, the same triples per block, the order moved
+   only in diagonal blocks of duplicate observations, counted);
 3. holds each kernel against its plain PyTorch twin on the card, at the
    shapes and values of the first linearisation of ``kitti00_mono`` and
    again of every other input the full-size paths give the kernels:
@@ -44,9 +51,12 @@ caught):
 5. runs ``kitti00_mono``, ``kitti00_huber``, ``kitti00_stereo``,
    ``kitti00_mixed``, ``kitti07_mono`` and ``kitti07_mono_wide``
    (``optimizer_from_problem(...).optimize(10)`` on the default device, the
-   card), each with the launch counters zeroed just before its first run
-   and read just after: every kernel must have been launched, the later
-   runs' traces must repeat the first bit for bit and the chi2 must fall;
+   card), each with the structure cache emptied and the launch counters
+   zeroed just before its first run and read just after: the first run
+   must miss the cache and every kernel must have been launched; the later
+   runs must hit the cache and repeat the first run's trace and final
+   state bit for bit, and the chi2 must fall; prints stages 1 and 5 of a
+   profiled run that hits the cache and of one that misses it;
    ``kitti07_mono``'s trace must agree with a run of the plain twins on the
    CPU, and ``kitti07_mono_wide`` (the same graph, poses renamed) with
    ``kitti07_mono``; prints cold and warm times and a per-stage profile;
@@ -63,6 +73,7 @@ result.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -460,6 +471,91 @@ def pair_products_in_plan_order(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets, p
     for half in (8, 4, 2, 1):
         acc = acc[:, :half] + acc[:, half : 2 * half]
     return torch.segment_reduce(acc[:, 0], "sum", offsets=plan.block_off.long())
+
+
+def structure_agreement(native, plain) -> int:
+    """The native symbolic structure against the numpy one
+    (``build_schur_structure(..., use_native=False)``) of the same edges:
+    the same pattern, the same triples per block as a multiset, and in the
+    same order except in blocks where two both-free edges share a pose and a
+    landmark, which must be diagonal blocks.  Returns the number of blocks
+    whose order differs."""
+    import numpy as np
+
+    from cuda_bundle_adjustment_tpu_torch.solver.symbolic import sort_triples
+
+    check(native.tri_sorted and not plain.tri_sorted, "structure_agreement: expects native, numpy")
+    for name in ("nnz_blocks", "blk_row", "blk_col", "diag_pos", "rowptr", "nmul_blocks"):
+        check(np.array_equal(getattr(native, name), getattr(plain, name)),
+              f"symbolic: {name} differs between the native and the numpy pass")
+    (ei, ej, off), (pei, pej, poff) = sort_triples(native), sort_triples(plain)
+    check(np.array_equal(off, poff), "symbolic: the blocks' triple counts differ")
+    k = np.repeat(np.arange(native.nnz_blocks), np.diff(off))
+    check(np.array_equal(native.tri_k, k), "symbolic: the native triples are not in block order")
+    a, b = np.lexsort((ej, ei, k)), np.lexsort((pej, pei, k))
+    check(np.array_equal(ei[a], pei[b]) and np.array_equal(ej[a], pej[b]),
+          "symbolic: a block's triples differ as a multiset")
+    differ = np.unique(k[(ei != pei) | (ej != pej)])
+    check(np.array_equal(native.blk_row[differ], native.blk_col[differ]),
+          "symbolic: the order differs in an off-diagonal block")
+    return int(differ.size)
+
+
+def cpu_model() -> str:
+    """The host CPU, where the host analysis runs: its model name from
+    ``/proc/cpuinfo``, or its vendor, family and model numbers where the
+    name reads "unknown" (as on the card's host), and the machine type."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's fields
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    model = fields.get("model name", "unknown")
+    if model == "unknown" and "cpu family" in fields:
+        model = (f"{fields.get('vendor_id', 'unknown vendor')} family {fields['cpu family']} "
+                 f"model {fields.get('model', '?')} (model name not reported)")
+    return f"{model}, {platform.machine()}"
+
+
+def structure_phase(problem, label: str) -> dict:
+    """The host symbolic analysis at one configuration's edges: the native
+    pass (``build_schur_structure``, triples already in block order) and the
+    numpy copy with its sort of the triples (the path before the native
+    one), each a median of three on the host clock, the second held against
+    the first (:func:`structure_agreement`)."""
+    import numpy as np
+
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.solver.symbolic import build_schur_structure, sort_triples
+
+    solver = optimizer_from_problem(problem).solver
+    args = (*solver._host_idx, solver.Pa, solver.La)
+    out, times = {}, {}
+    for native in (True, False):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            st = build_schur_structure(*args, use_native=native)
+            sort_triples(st)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        out[native], times[native] = st, statistics.median(runs)
+    differ = structure_agreement(out[True], out[False])
+    pi, li = args[0], args[1]
+    both = (pi < solver.Pa) & (li < solver.La)
+    dup = int(both.sum() - np.unique(pi[both] * solver.La + li[both]).size)
+    print(f"{label} symbolic analysis on the host ({cpu_model()}): native {times[True]:.1f} ms, "
+          f"numpy + sort {times[False]:.1f} ms (medians of 3); T={out[True].nmul_blocks} "
+          f"nnz={out[True].nnz_blocks}; {dup} duplicate observations, {differ} blocks whose "
+          f"triple order differs (same multisets)")
+    check(dup > 0 or differ == 0, f"{label}: triple order differs without a duplicate observation")
+    return dict(native_ms=times[True], numpy_ms=times[False], blocks_reordered=differ)
 
 
 def first_linearisation(problem, dev, **robust):
@@ -1138,13 +1234,23 @@ def small_problem_checks(dev) -> None:
 
 def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
     """Phase 5: one configuration's optimize(10) on the default device,
-    counted, repeated and timed.  Returns the launch counts and chi2 trace
-    of its first run and that run's solver."""
+    counted, repeated and timed.  The structure cache is emptied before the
+    cold run, which must miss it; every warm run must hit it and repeat the
+    cold run's trace and final state bit for bit.  Returns the launch counts
+    and chi2 trace of its first run and that run's solver."""
     import numpy as np
     import torch
 
     from cuda_bundle_adjustment_tpu_torch import kernels
     from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+    from cuda_bundle_adjustment_tpu_torch.utils import profiling as prof
+
+    def cache_delta(fn):
+        before = bs.structure_cache_info()
+        out = fn()
+        after = bs.structure_cache_info()
+        return out, (after["hits"] - before["hits"], after["misses"] - before["misses"])
 
     def run():
         torch.cuda.synchronize()
@@ -1154,36 +1260,55 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
         torch.cuda.synchronize()
         return opt, time.perf_counter() - t0
 
+    def state(o):
+        g = o.solver.graph
+        return g.q, g.t, g.Xw
+
+    # earlier phases built this structure: the cold run starts from nothing
+    bs.clear_structure_cache()
     kernels.reset_launch_counts()
-    opt, cold_s = run()
+    (opt, cold_s), hm = cache_delta(run)
     counts = kernels.launch_counts()
+    check(hm == (0, 1), f"{label}: the cold run did not miss the structure cache (hits, misses {hm})")
     check(opt.device.type == "cuda", f"{label}: the default device is {opt.device}, not the card")
     trace = [s.chi2 for s in opt.batch_statistics().get()]
     warm, traces = [], []
     for _ in range(warm_runs):
-        o, sec = run()
+        (o, sec), hm = cache_delta(run)
+        check(hm == (1, 0), f"{label}: a warm run did not hit the structure cache (hits, misses {hm})")
+        check(o.solver.symbolic_ms == 0.0, f"{label}: a warm run ran the symbolic analysis")
+        check(all(torch.equal(a, b) for a, b in zip(state(o), state(opt))),
+              f"{label}: a warm run's final state differs from the cold run's")
         warm.append(sec)
         traces.append([s.chi2 for s in o.batch_statistics().get()])
 
-    # a separate profiled run for the per-stage breakdown (each stage ends in
-    # a device synchronise, so the timed runs above stay untraced)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    po = optimizer_from_problem(problem, **robust)
-    torch.cuda.synchronize()
-    pack_ms = (time.perf_counter() - t0) * 1e3
-    po.set_profile(True)
-    po.optimize(10)
-    traces.append([s.chi2 for s in po.batch_statistics().get()])
+    # separate profiled runs for the per-stage breakdown (each stage ends in
+    # a device synchronise, so the timed runs above stay untraced): one that
+    # hits the cache, then one that misses it
+    stages = {}
+    for case in ("hit", "miss"):
+        if case == "miss":
+            bs.clear_structure_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        po = optimizer_from_problem(problem, **robust)
+        torch.cuda.synchronize()
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        po.set_profile(True)
+        _, hm = cache_delta(lambda: po.optimize(10))
+        check(hm == ((1, 0) if case == "hit" else (0, 1)),
+              f"{label}: the profiled {case} run read the cache as (hits, misses) {hm}")
+        traces.append([s.chi2 for s in po.batch_statistics().get()])
+        tp = po.time_profile()
+        stages[case] = {k: tp[k] for k in (prof.PROF_BUILD_STRUCTURE, prof.PROF_SYMBOLIC_DECOMP)}
+        print(f"{label} stage profile of one profiled {case} of the structure cache (ms; packing "
+              f"{pack_ms:.1f}):", json.dumps(tp))
 
     band = opt.solver.plan.band
     print(f"{label}: Pa={opt.solver.Pa} La={opt.solver.La} "
           f"E={opt.solver.packed.pose_idx.shape[0]} bw={band.bw} SB={band.sb}")
     print(f"{label} chi2 trace:", json.dumps(trace))
-    print(
-        f"{label} stage profile of one profiled run (ms; packing {pack_ms:.1f}):",
-        json.dumps(po.time_profile()),
-    )
+    print(f"{label} stages 1 and 5 (ms), structure cache miss and hit:", json.dumps(stages))
     check(all(tr == trace for tr in traces), f"{label}: traces differ between runs")
     check(np.all(np.isfinite(trace)), f"{label}: non-finite chi2")
     check(trace[-1] < trace[0], f"{label}: chi2 did not fall")
@@ -1202,7 +1327,7 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
         f"warm median {statistics.median(warm):.4f} s over {len(warm)} runs "
         f"{json.dumps([round(w, 4) for w in warm])} [{nvidia_smi_line()}]"
     )
-    return dict(counts=counts, trace=trace, solver=opt.solver)
+    return dict(counts=counts, trace=trace, solver=opt.solver, stages=stages)
 
 
 def cpu_twin_agreement(problem, run: dict, label: str) -> None:
@@ -1318,10 +1443,22 @@ def main() -> int:
     )
     from cuda_bundle_adjustment_tpu_torch.kernels import _build
 
+    from cuda_bundle_adjustment_tpu_torch.native import build as native
+
+    print(f"host CPU: {cpu_model()}, {os.cpu_count()} cores")
     dev = torch.device("cuda", 0)
-    t0 = start = time.perf_counter()
-    _build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    start = time.perf_counter()
+
+    def native_build() -> float:
+        native.load()
+        return time.perf_counter() - start
+
+    with ThreadPoolExecutor(1) as pool:  # g++ beside the six nvcc processes
+        native_s = pool.submit(native_build)
+        _build.build_all()
+        print(f"kernel build: {time.perf_counter() - start:.2f} s")
+        print(f"native symbolic library build ({native.compiler_version()}): "
+              f"{native_s.result():.2f} s, {native.library_path().name}")
     with ThreadPoolExecutor(5) as pool:  # five more compiles, side by side
         for lines in pool.map(ptxas_report, ("terms", "lminv", "schurvec", "pairprod", "bandchol")):
             print("\n".join(lines))
@@ -1334,6 +1471,9 @@ def main() -> int:
     kitti07 = kitti07_scale_problem(kind="mono", seed=0)
     kitti07_wide, rename = reverse_pose_blocks(kitti07)
     huber = dict(rk=ROBUST["huber"], delta=10.0)
+    structure_phase(mono, "kitti00_mono")
+    structure_phase(mixed, "kitti00_mixed")
+    lap("symbolic analysis, native against numpy")
     res = kernel_checks(mono, dev, "kitti00_mono")
     lap("kernel checks at kitti00_mono")
     # every other input the full-size paths hand the kernels (kitti00_stereo

@@ -1,7 +1,7 @@
 """Runtime options and camera intrinsics (counterpart of ``graph.py``).
 
 Only the two value types the array path reads are ported; the object API
-(vertices, edges, vertex and edge sets) waits for ROADMAP A3.
+(vertices, edges, vertex and edge sets) waits for ROADMAP A5.
 """
 
 from __future__ import annotations

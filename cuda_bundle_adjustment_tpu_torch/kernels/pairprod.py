@@ -5,7 +5,8 @@ Counterpart of ``pallas/pairprod.py`` (``_pairprod_call_v2``):
     out[k] = sum_{t: block k} Hpl[ei_t] @ invHll[lm(ei_t)] @ Hpl[ej_t]^T
 
 as flat row-major ``[nnz, 36]`` f64 blocks, over triples sorted by target
-block with CSR ``offsets [nnz + 1]`` (``solver/symbolic.py sort_triples``).
+block with CSR ``offsets [nnz + 1]`` (``solver/symbolic.py sort_triples``;
+the solver's triples are int32, and on the card they are its plan's).
 The wrapper dispatches on the tensor's device only: a CPU tensor runs the
 plain PyTorch twin, a CUDA tensor launches the kernel (or raises).  The
 kernel walks a :class:`PairPlan` (int32 triples with their landmark, blocks
@@ -93,19 +94,25 @@ def _lib():
 
 def schur_pair_products(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets,
                         plan: PairPlan | None = None):
-    """``Hpl [E, 18], invHll [La, 9] f64; lm_idx [E], tri_ei/tri_ej [T],
-    offsets [nnz + 1] int64 -> [nnz, 36] f64`` (kernel B6 on CUDA).
-    ``plan``: the indices' :func:`make_pair_plan`, for a caller that launches
-    more than once."""
+    """``Hpl [E, 18], invHll [La, 9] f64; lm_idx [E], offsets [nnz + 1]
+    int64; tri_ei/tri_ej [T] int32 or int64 -> [nnz, 36] f64`` (kernel B6
+    on CUDA, which reads its indices from the plan).  ``plan``: the
+    indices' :func:`make_pair_plan`, for a caller that launches more than
+    once."""
     if hpl.device.type == "cpu":
         return schur_pair_products_plain(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets)
     if hpl.device.type != "cuda":
         raise NotImplementedError(f"schur_pair_products: no kernel for device {hpl.device}")
     floats, ints = (hpl, inv_hll), (lm_idx, tri_ei, tri_ej, offsets)
-    if any(t.dtype != torch.float64 for t in floats) or any(
-        t.dtype != torch.int64 for t in ints
+    if (
+        any(t.dtype != torch.float64 for t in floats)
+        or lm_idx.dtype != torch.int64 or offsets.dtype != torch.int64
+        or tri_ei.dtype not in (torch.int32, torch.int64) or tri_ej.dtype != tri_ei.dtype
     ):
-        raise TypeError("schur_pair_products: expects f64 blocks and int64 indices")
+        raise TypeError(
+            "schur_pair_products: expects f64 blocks, int64 lm_idx and offsets, "
+            "and int32 or int64 triples"
+        )
     if any(t.device != hpl.device for t in floats + ints):
         raise ValueError("schur_pair_products: all operands must be on one device")
     if hpl.shape[1:] != (18,) or inv_hll.shape[1:] != (9,):

@@ -17,7 +17,7 @@ kernels B1 and B3 (``kernels/terms.py``).  A merged mono+stereo set
 Jacobian row masked per edge.  The kernels take the robust kernel from
 outside: the solver applies rho to B1's per-edge chi and hands B3 the weight
 rescaled by rho', which equals ``Model.chi`` / ``Model.terms`` at that
-``rk, delta`` with the original weight.  Depth waits for ROADMAP A9.
+``rk, delta`` with the original weight.  Depth waits for ROADMAP A7.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@
 Every per-edge quantity is a plain ``[E]`` vector and rank-2 per-edge blocks
 exist only as flat row-major ``[E, K]`` stacks, exactly as in the JAX
 package, so the two compute the same floats in the same order.  The depth
-comps wait for ROADMAP A9.
+comps wait for ROADMAP A7.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@
 ``maxq = 10`` inner trials, ``tau = 1e-5`` initial-lambda factor, the
 ``clamp(1 - (2 rho - 1)^3, 1/3, 2/3)`` attenuation, the ``+1e-3`` scale
 epsilon and the same termination tests.  The device-resident fused loop
-waits for ROADMAP A6.
+waits for ROADMAP A3.
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ class TorchGraphOptimisation:
         if solver.graph is None:
             raise RuntimeError("optimize() called before the graph was packed")
         if self.use_fused_loop:
-            raise outside_slice("use_fused_loop", "A6: the device-resident LM loop")
+            raise outside_slice("use_fused_loop", "A3: the device-resident LM loop")
 
         t0 = time.perf_counter()
         solver.build_structure()

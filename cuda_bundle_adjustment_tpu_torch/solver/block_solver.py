@@ -22,19 +22,27 @@ path, in plain PyTorch around ten hand-written kernels:
 Every per-pose, per-landmark and per-block-row sum is a
 fixed-order CSR segment sum over rows sorted by target once per structure
 (:class:`Segments`), never a float atomic, so two runs on one device give
-the same chi2 trace bit for bit.  Anything outside the slice raises
-``NotImplementedError`` naming its ROADMAP item.
+the same chi2 trace bit for bit.  Everything derived from the index arrays
+alone (the RCM order, the symbolic structure and the device plan) is cached
+across solvers by a content digest (:func:`_struct_digest`), so a
+re-optimisation of the same topology skips the host analysis and the plan
+uploads.  Anything outside the slice raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import time
+from collections import OrderedDict
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..kernels import pairprod as _pairprod
+from ..kernels import terms as _terms
 from ..kernels import (
     LinearisePlan,
     PairPlan,
@@ -60,8 +68,74 @@ from .segments import Segments, make_segments, segment_sum
 from .symbolic import SchurStructure, build_schur_structure, sort_triples
 
 # widest band the band kernels take (bw + 1 <= MAX_BAND); a wider Hsc needs
-# the PCG or dense solve of ROADMAP A10
+# the PCG or dense solve of ROADMAP A6
 MAX_BAND = 48
+
+# -- structure cache ----------------------------------------------------------
+#
+# Re-optimising the same graph structure (identical edge index arrays) is the
+# common production pattern: sliding-window SLAM re-packs the same topology
+# every frame, and the reference sample re-runs initialize + optimize on one
+# input.  The RCM order, the Schur pattern with its triples, the segment plans
+# and the B3/B6 plans depend only on the index arrays and a few knobs
+# (:meth:`BlockSolver._plan_knobs`), so they are kept here under a content
+# digest of the index arrays, after the JAX package's ``_STRUCT_CACHE``.
+# Cached values are never written: numpy arrays are read-only, and each
+# solver takes the cached plan with its own edge index tensors and its own
+# B5/B9 counters and scratch (:func:`_solver_plan`).
+_STRUCT_CACHE: "OrderedDict[str, dict]" = OrderedDict()
+_STRUCT_CACHE_MAX = 8
+# plans reused (hits) and built (misses) by build_structure
+_STRUCT_STATS = {"hits": 0, "misses": 0}
+
+
+def clear_structure_cache() -> None:
+    """Empty the structure cache and zero its hit and miss counts."""
+    _STRUCT_CACHE.clear()
+    _STRUCT_STATS.update(hits=0, misses=0)
+
+
+def structure_cache_info() -> dict:
+    """``{"hits", "misses", "size"}``: plans :meth:`BlockSolver.build_structure`
+    reused and built since the last :func:`clear_structure_cache`, and the
+    structures held."""
+    return dict(_STRUCT_STATS, size=len(_STRUCT_CACHE))
+
+
+def _struct_bundle(key: str) -> dict:
+    """The cache entry of one structure digest, made empty on first use; the
+    least recently used of more than ``_STRUCT_CACHE_MAX`` entries goes."""
+    b = _STRUCT_CACHE.get(key)
+    if b is None:
+        b = {}
+        _STRUCT_CACHE[key] = b
+        while len(_STRUCT_CACHE) > _STRUCT_CACHE_MAX:
+            _STRUCT_CACHE.popitem(last=False)
+    else:
+        _STRUCT_CACHE.move_to_end(key)
+    return b
+
+
+def _struct_digest(edge_specs, P, Pa, L, La) -> str:
+    """Content digest of everything the host symbolic pipeline reads: the
+    vertex counts and each edge set's kind and index arrays.  An array is
+    hashed as it comes, its dtype and shape with it (no int64 copy: half the
+    bytes for int32 indices), by SHA-256, which the host CPU accelerates."""
+    h = hashlib.sha256(np.array([P, Pa, L, La], dtype=np.int64).tobytes())
+    for sp in edge_specs:
+        h.update(f"|{sp['kind']}".encode())
+        for key in ("pose_idx", "lm_idx"):
+            a = np.ascontiguousarray(sp[key])
+            h.update(f"|{a.dtype.str}{a.shape}|".encode())
+            h.update(a)
+    return h.hexdigest()
+
+
+def _frozen(a):
+    """``a`` made read-only (a cached numpy array; None passes)."""
+    if a is not None:
+        a.setflags(write=False)
+    return a
 
 
 class EdgeSetMeta(NamedTuple):
@@ -79,16 +153,20 @@ class BandMeta(NamedTuple):
 
 
 class SchurPlan(NamedTuple):
-    """Device-side plan for the stages, constant per structure."""
+    """Device-side plan for the stages, constant per structure.  All but the
+    edge index tensors (the solver's own) and B5/B9's counters and scratch
+    come from the structure cache."""
 
     ba_pose_idx: torch.Tensor  # [E] int64
     ba_lm_idx: torch.Tensor  # [E] int64
     blk_row: torch.Tensor  # [nnz] int64 (sorted by row, then col)
     blk_col: torch.Tensor  # [nnz]
     diag_pos: torch.Tensor  # [Pa]
-    tri_ei: torch.Tensor  # [T] triples sorted by target block
-    tri_ej: torch.Tensor  # [T]
-    tri_offsets: torch.Tensor  # [nnz + 1] CSR offsets of the triples
+    # [T] int32 triples sorted by target block; on the card the very tensors
+    # of pair_plan (no int64 copy)
+    tri_ei: torch.Tensor
+    tri_ej: torch.Tensor  # [T] int32
+    tri_offsets: torch.Tensor  # [nnz + 1] int64 CSR offsets of the triples
     pose_seg: Segments  # edges -> poses
     lm_seg: Segments  # edges -> landmarks
     row_seg: Segments  # Hsc blocks -> block rows
@@ -100,9 +178,19 @@ class SchurPlan(NamedTuple):
     pair_plan: Optional[PairPlan]  # int32 triples and items
 
 
+def _solver_plan(cached: SchurPlan, packed: PackedEdges) -> SchurPlan:
+    """The cached plan of a structure for one solver: its own edge index
+    tensors and, on the card, its own B5/B9 counters and scratch, so that no
+    stage writes a cached tensor."""
+    lin = cached.lin_plan
+    if lin is not None:
+        lin = lin._replace(count=torch.zeros_like(lin.count), scratch=torch.empty_like(lin.scratch))
+    return cached._replace(ba_pose_idx=packed.pose_idx, ba_lm_idx=packed.lm_idx, lin_plan=lin)
+
+
 def outside_slice(what: str, item: str) -> NotImplementedError:
     """The refusal for an input the port does not run yet; ``item`` names
-    the open ROADMAP item, e.g. ``"A8: robust kernels"``."""
+    the open ROADMAP item, e.g. ``"A4: f32 mode"``."""
     return NotImplementedError(
         f"{what} is outside the PyTorch port's current slice (ROADMAP {item})"
     )
@@ -339,10 +427,10 @@ class BlockSolver:
 
     def __init__(self, options, device):
         if options.dtype != "float64":
-            raise outside_slice(f"dtype={options.dtype!r}", "A8: f32 mode")
+            raise outside_slice(f"dtype={options.dtype!r}", "A4: f32 mode")
         if options.solver_precision != "mixed":
             raise outside_slice(
-                f"solver_precision={options.solver_precision!r}", "A10: the exact dense solve"
+                f"solver_precision={options.solver_precision!r}", "A6: the exact dense solve"
             )
         self.options = options
         self.device = torch.device(device)
@@ -358,11 +446,12 @@ class BlockSolver:
         self.pose_perm = None  # RCM pose order; None = identity
         self.symbolic_ms = 0.0
         self._host_idx: Optional[tuple[np.ndarray, np.ndarray]] = None
+        self._struct_bundle: Optional[dict] = None  # this structure's cache entry
 
     # -- packing ------------------------------------------------------------
 
     def initialize(self, edge_sets, vertex_sets) -> None:
-        raise outside_slice("initialize()", "A3: the object-graph API")
+        raise outside_slice("initialize()", "A5: the object-graph API")
 
     def initialize_from_arrays(
         self,
@@ -386,27 +475,27 @@ class BlockSolver:
         if len(edge_specs) != 1:
             raise outside_slice(
                 f"{len(edge_specs)} edge sets that do not merge into one",
-                "A9: multiple edge sets",
+                "A7: multiple edge sets",
             )
         spec = edge_specs[0]
         kind = spec["kind"]
         if kind not in MODEL_REGISTRY:
-            raise outside_slice(f"{kind!r} edges", "A9: the depth and ICP models")
+            raise outside_slice(f"{kind!r} edges", "A7: the depth and ICP models")
         rk = int(spec.get("rk", 0))
         if rk not in tuple(RobustKernelType):
             raise ValueError(f"unknown robust kernel rk={rk}")
         if np.any(np.asarray(spec.get("outlier_threshold", 0.0)) > 0):
-            raise outside_slice("outlier thresholding", "A9: update_edges outliers")
+            raise outside_slice("outlier thresholding", "A7: update_edges outliers")
         cam = np.asarray(spec.get("cam", np.zeros(5)), dtype=np.float64).reshape(-1, 5)
         if not np.all(cam == cam[0]):
-            raise outside_slice("a per-edge camera", "A9: per-edge camera")
+            raise outside_slice("a per-edge camera", "A7: per-edge camera")
 
         self.P = pose_q.shape[0]
         self.Pa = int(num_active_poses)
         self.L = landmarks.shape[0]
         self.La = int(num_active_landmarks)
         if self.La == 0:
-            raise outside_slice("a graph without free landmarks", "A9: pose-only solve")
+            raise outside_slice("a graph without free landmarks", "A7: pose-only solve")
         pose_q = np.asarray(pose_q, dtype=np.float64)
         pose_t = np.asarray(pose_t, dtype=np.float64)
         landmarks = np.asarray(landmarks, dtype=np.float64).reshape(-1, 3)
@@ -415,14 +504,18 @@ class BlockSolver:
         pose_idx = np.asarray(spec["pose_idx"], dtype=np.int64)
         lm_idx = np.asarray(spec["lm_idx"], dtype=np.int64)
 
+        # the structure's cache entry, keyed on the index arrays as given
+        self._struct_bundle = bundle = _struct_bundle(
+            _struct_digest(edge_specs, self.P, self.Pa, self.L, self.La)
+        )
         # bandwidth-reducing pose ordering, applied as in the JAX package:
         # trajectory graphs keep the identity order
-        from .ordering import plan_pose_order
+        if "pose_perm" not in bundle:
+            from .ordering import plan_pose_order
 
-        self.pose_perm = None
-        perm, _, _ = plan_pose_order(pose_idx, lm_idx, self.Pa, self.La)
-        if perm is not None:
-            self.pose_perm = perm  # perm[i] = old pose at new position i
+            bundle["pose_perm"] = _frozen(plan_pose_order(pose_idx, lm_idx, self.Pa, self.La)[0])
+        self.pose_perm = perm = bundle["pose_perm"]
+        if perm is not None:  # perm[i] = old pose at new position i
             new_of_old = np.empty(self.Pa, dtype=np.int64)
             new_of_old[perm] = np.arange(self.Pa)
             pose_q = np.concatenate([pose_q[perm], pose_q[self.Pa :]])
@@ -472,35 +565,48 @@ class BlockSolver:
 
     def build_structure(self) -> None:
         """Host symbolic analysis and the device plan (stages "1: Build
-        Structure" + "5: Symbolic Decomposition")."""
+        Structure" + "5: Symbolic Decomposition").  A structure whose plan
+        the cache holds for this solver's knobs reuses it: no symbolic pass
+        (``symbolic_ms = 0``), no plan made and nothing uploaded."""
+        bundle, knobs = self._struct_bundle, self._plan_knobs()
+        if bundle.get("plan_knobs") == knobs:
+            _STRUCT_STATS["hits"] += 1
+            self.schur = bundle["schur"]
+            self.plan = _solver_plan(bundle["plan"], self.packed)
+            self.symbolic_ms = 0.0
+            return
+        _STRUCT_STATS["misses"] += 1
+
         pose_idx, lm_idx = self._host_idx
         Pa, La, dev = self.Pa, self.La, self.device
         t0 = time.perf_counter()
         s = build_schur_structure(pose_idx, lm_idx, Pa, La)
         tri_ei, tri_ej, tri_off = sort_triples(s)
         self.symbolic_ms = (time.perf_counter() - t0) * 1e3
-        self.schur = s
 
         # banded Hsc -> band kernels (B7/B8)
         bw = int(np.max(s.blk_col.astype(np.int64) - s.blk_row))
         if bw + 1 > MAX_BAND:
             raise outside_slice(
-                f"an Hsc band of width {bw + 1} (> {MAX_BAND})", "A10: PCG and the dense solve"
+                f"an Hsc band of width {bw + 1} (> {MAX_BAND})", "A6: PCG and the dense solve"
             )
         sb = -(-(bw + 1) // 8) * 8
 
-        def up(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+        def up(a, dtype=np.int64):
+            return torch.as_tensor(np.asarray(a, dtype=dtype), device=dev)
 
         pose_seg, lm_seg = make_segments(pose_idx, Pa, dev), make_segments(lm_idx, La, dev)
-        tri_ei, tri_ej, tri_off = up(tri_ei), up(tri_ej), up(tri_off)
+        # int32 triples: on the card make_pair_plan keeps these very tensors,
+        # so no int64 copy of the ~1.7M triples stays beside them
+        tri_ei, tri_ej = up(tri_ei, np.int32), up(tri_ej, np.int32)
+        tri_off = up(tri_off)
         lin_plan = pair_plan = None
         if dev.type == "cuda":
             lin_plan = make_linearise_plan(pose_seg, lm_seg, pose_idx.shape[0])
             pair_plan = make_pair_plan(self.packed.lm_idx, tri_ei, tri_ej, tri_off)
-        self.plan = SchurPlan(
-            ba_pose_idx=self.packed.pose_idx,
-            ba_lm_idx=self.packed.lm_idx,
+        plan = SchurPlan(
+            ba_pose_idx=None,
+            ba_lm_idx=None,
             blk_row=up(s.blk_row),
             blk_col=up(s.blk_col),
             diag_pos=up(s.diag_pos),
@@ -514,6 +620,27 @@ class BlockSolver:
             band=BandMeta(bw=bw, sb=sb),
             lin_plan=lin_plan,
             pair_plan=pair_plan,
+        )
+        for a in s:
+            if isinstance(a, np.ndarray):
+                _frozen(a)
+        bundle.update(plan_knobs=knobs, schur=s, plan=plan)
+        self.schur = s
+        self.plan = _solver_plan(plan, self.packed)
+
+    def _plan_knobs(self) -> tuple:
+        """What a cached plan depends on beyond the index digest: the torch
+        device (type and index), the dtype and solve precision, and the
+        module constants the plans capture when they are made (tests
+        monkeypatch such constants, and a stale cached plan would keep the
+        old values)."""
+        dev = self.device
+        index = dev.index
+        if dev.type == "cuda" and index is None:
+            index = torch.cuda.current_device()
+        return (
+            dev.type, index, str(self.dtype), self.options.solver_precision,
+            MAX_BAND, _pairprod.ITEM, _terms.TILE,
         )
 
     # -- stage API used by the LM loop -----------------------------------------

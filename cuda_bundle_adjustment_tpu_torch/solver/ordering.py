@@ -1,7 +1,9 @@
 """Bandwidth-reducing pose ordering (reverse Cuthill-McKee).
 
-A numpy copy of the JAX package's ``solver/ordering.py`` (its numpy paths
-only; the optional C++ band bound waits for ROADMAP A4).  The band solve
+A copy of the JAX package's ``solver/ordering.py``: numpy throughout, but
+for the O(E) band pre-check, which runs in C++ (``native/symbolic.cpp
+tba_pose_band_bound``) as the JAX package's does; its numpy body stays as
+the tests' oracle (``use_native=False``).  The band solve
 (kernels B7/B8) needs a small Hsc block bandwidth: trajectory graphs have it
 natively, and RCM recovers a banded order for graphs with loop closures
 whenever one exists.  ``tests/test_torch_stages.py`` pins this copy to the
@@ -88,8 +90,14 @@ def rcm_order(keys: np.ndarray, Pa: int) -> np.ndarray:
     return out[::-1].copy()  # the REVERSE ordering
 
 
-def _band_bound(pi, li, Pa, La):
-    """O(E) pose-bandwidth bound; ``None`` when no both-free edge exists."""
+def _band_bound(pi, li, Pa, La, use_native: bool = True):
+    """O(E) pose-bandwidth bound; ``None`` when no both-free edge exists.
+    ``use_native``: one pass in C++ (raises if its library cannot be
+    built), else the ``np.minimum.at`` scatter pair."""
+    if use_native:
+        from .native_symbolic import pose_band_bound
+
+        return pose_band_bound(pi, li, Pa, La)
     both = (pi < Pa) & (li < La)
     p, l = pi[both], li[both]
     if p.size == 0:

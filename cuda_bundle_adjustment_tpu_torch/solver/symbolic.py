@@ -1,8 +1,11 @@
 """Host-side symbolic analysis of the Schur-complement structure.
 
-A numpy copy of the JAX package's ``solver/symbolic.py`` numpy path
-(``use_native=False``); the C++ enumeration waits for ROADMAP A4.  One
-vectorised pass over the packed edge arrays gives:
+Counterpart of the JAX package's ``solver/symbolic.py``.  By default
+(``use_native=True``) the enumeration, the pattern indexing and the sort of
+the triples by target block run in C++ (``native/symbolic.cpp`` through
+:mod:`.native_symbolic`), as the JAX package's default does; there is no
+fallback.  ``use_native=False`` is a numpy copy of the JAX numpy path, the
+oracle of the tests.  One pass over the packed edge arrays gives:
 
 * ``(blk_row, blk_col)``: upper-triangular block coordinates of Hsc's nonzero
   6x6 blocks (diagonal blocks always present), sorted by ``row * Pa + col``;
@@ -11,14 +14,17 @@ vectorised pass over the packed edge arrays gives:
   its observing both-free edges, ``W[ei] @ Hpl[ej]^T`` goes into block
   ``tri_k``.
 
-:func:`sort_triples` then orders the triples by target block with CSR
-offsets, the layout kernel B6 walks.  ``tests/test_torch_stages.py`` pins
-this copy to the original.
+The two passes list the same triples per block, and in the same order
+except where two both-free edges share a pose and a landmark: the native
+pass emits such a pair's swapped copy right after it, the numpy pass
+appends all swapped copies at the end.  :func:`sort_triples` gives the
+triples in target-block order with CSR offsets, the layout kernel B6 walks
+(the native pass emits that order itself).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -33,9 +39,12 @@ class SchurStructure(NamedTuple):
     tri_ei: np.ndarray  # [T] int32 edge index of the W = Hpl inv(Hll) factor
     tri_ej: np.ndarray  # [T] int32 edge index of the Hpl^T factor
     tri_k: np.ndarray  # [T] int32 target block position
-    tri_sorted: bool  # True when triples are pre-sorted by tri_k
+    tri_sorted: bool  # True when triples are pre-sorted by tri_k (native pass)
     rowptr: np.ndarray  # [Pa+1] int64 CSR row pointers over the blocks
     nmul_blocks: int  # == T
+    # [nnz + 1] int64 per-block offsets of the sorted triples (native pass
+    # only; None when tri_sorted is False)
+    tri_offsets: Optional[np.ndarray] = None
 
 
 def _pairs_within_groups(group_sizes: np.ndarray):
@@ -63,12 +72,15 @@ def build_schur_structure(
     lm_idx: np.ndarray,
     num_poses: int,
     num_landmarks: int,
+    use_native: bool = True,
 ) -> SchurStructure:
     """Build the Schur block pattern and multiply plan.
 
     ``pose_idx``/``lm_idx`` are the dense indices of all packed BA edges;
     edges touching a fixed pose (``pose_idx >= num_poses``) or fixed
-    landmark (``lm_idx >= num_landmarks``) are excluded.
+    landmark (``lm_idx >= num_landmarks``) are excluded.  ``use_native``:
+    the C++ pass (raises if its library cannot be built), else the numpy
+    copy.
     """
     pose_idx = np.asarray(pose_idx, dtype=np.int64)
     lm_idx = np.asarray(lm_idx, dtype=np.int64)
@@ -79,6 +91,38 @@ def build_schur_structure(
     ep = pose_idx[eids]
     el = lm_idx[eids]
 
+    if use_native:
+        from .native_symbolic import native_build, native_structure
+
+        indexed = native_structure(*native_build(eids, ep, el, Pa), Pa)
+        tri_ei, tri_ej, tri_k, blk_row, blk_col, diag_pos, tri_offsets = indexed
+    else:
+        tri_ei, tri_ej, tri_k, blk_row, blk_col, diag_pos = _numpy_pass(eids, ep, el, Pa)
+        tri_offsets = None
+    rowptr = np.zeros(Pa + 1, dtype=np.int64)
+    np.add.at(rowptr, blk_row + 1, 1)
+    rowptr = np.cumsum(rowptr)
+
+    return SchurStructure(
+        num_poses=Pa,
+        num_landmarks=La,
+        nnz_blocks=int(blk_row.size),
+        blk_row=blk_row,
+        blk_col=blk_col,
+        diag_pos=diag_pos.astype(np.int32, copy=False),
+        tri_ei=tri_ei.astype(np.int32, copy=False),
+        tri_ej=tri_ej.astype(np.int32, copy=False),
+        tri_k=tri_k.astype(np.int32, copy=False),
+        tri_sorted=use_native,
+        rowptr=rowptr,
+        nmul_blocks=int(tri_k.size),
+        tri_offsets=tri_offsets,
+    )
+
+
+def _numpy_pass(eids, ep, el, Pa: int):
+    """The numpy enumeration and pattern indexing: ``(tri_ei, tri_ej,
+    tri_k, blk_row, blk_col, diag_pos)``, triples in enumeration order."""
     # deterministic order: sort by (landmark, pose, edge id)
     order = np.lexsort((eids, ep, el))
     ep_s, el_s, eid_s = ep[order], el[order], eids[order]
@@ -113,36 +157,19 @@ def build_schur_structure(
     diag_pos = np.searchsorted(unique_keys, diag_keys).astype(np.int32)
     blk_row = (unique_keys // Pa).astype(np.int32)
     blk_col = (unique_keys % Pa).astype(np.int32)
-    rowptr = np.zeros(Pa + 1, dtype=np.int64)
-    np.add.at(rowptr, blk_row + 1, 1)
-    rowptr = np.cumsum(rowptr)
-
-    return SchurStructure(
-        num_poses=Pa,
-        num_landmarks=La,
-        nnz_blocks=int(blk_row.size),
-        blk_row=blk_row,
-        blk_col=blk_col,
-        diag_pos=diag_pos.astype(np.int32),
-        tri_ei=tri_ei.astype(np.int32),
-        tri_ej=tri_ej.astype(np.int32),
-        tri_k=tri_k.astype(np.int32),
-        tri_sorted=False,
-        rowptr=rowptr,
-        nmul_blocks=int(tri_k.size),
-    )
+    return tri_ei, tri_ej, tri_k, blk_row, blk_col, diag_pos
 
 
 def sort_triples(s: SchurStructure) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Triples in target-block order: ``(tri_ei, tri_ej, offsets [nnz+1])``.
+    """Triples in target-block order: ``(tri_ei, tri_ej, offsets [nnz+1])``,
+    int32 triples and int64 offsets.
 
-    The sort is stable, so within one block the triples keep the
-    deterministic enumeration order above."""
+    The native pass emitted them so (``tri_sorted``); the numpy pass's are
+    sorted here, stably, so within one block the triples keep the
+    enumeration order above."""
+    if s.tri_sorted:
+        return s.tri_ei, s.tri_ej, s.tri_offsets
     order = np.argsort(s.tri_k, kind="stable")
     counts = np.bincount(s.tri_k, minlength=s.nnz_blocks)
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    return (
-        s.tri_ei[order].astype(np.int64),
-        s.tri_ej[order].astype(np.int64),
-        offsets,
-    )
+    return s.tri_ei[order], s.tri_ej[order], offsets

@@ -527,3 +527,43 @@ def test_robust_slice_on_gpu_matches_cpu_and_repeats(kind, rk):
         traces.append([s.chi2 for s in opt.batch_statistics().get()])
     assert traces[0] == traces[1]
     np.testing.assert_allclose(traces[0], traces[2], rtol=1e-9)
+
+
+@pytest.mark.gpu
+def test_structure_cache_hit_on_the_card():
+    """A second optimiser on the card hits the structure cache and gives the
+    miss's trace and final state bit for bit; the plan lives on the card,
+    its triples are B6's int32 ones (no int64 copy), each solver has its own
+    B5/B9 counters and scratch, and a CPU solver of the same structure
+    misses (another device)."""
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    dev = _cuda()
+    problem = make_ba_problem(num_poses=40, num_landmarks=1500, seed=2)
+    bs.clear_structure_cache()
+    runs = []
+    for expect in ((0, 1), (1, 1)):
+        opt = optimizer_from_problem(problem, device=dev)
+        opt.optimize(8)
+        info = bs.structure_cache_info()
+        assert (info["hits"], info["misses"]) == expect
+        runs.append(opt)
+    miss, hit = runs
+    assert hit.solver.symbolic_ms == 0.0
+    assert [s.chi2 for s in hit.batch_statistics().get()] == [
+        s.chi2 for s in miss.batch_statistics().get()]
+    gm, gh = miss.solver.graph, hit.solver.graph
+    assert torch.equal(gm.q, gh.q) and torch.equal(gm.t, gh.t) and torch.equal(gm.Xw, gh.Xw)
+    p = hit.solver.plan
+    assert p.tri_ei is p.pair_plan.tri_ei and p.tri_ej is p.pair_plan.tri_ej
+    assert p.tri_ei.dtype == p.tri_ej.dtype == torch.int32
+    assert p.pair_plan is miss.solver.plan.pair_plan
+    assert p.lin_plan.count is not miss.solver.plan.lin_plan.count
+    tensors = [t for f in p for t in (f if isinstance(f, tuple) else (f,))
+               if isinstance(t, torch.Tensor)]
+    tensors += [t for half in (p.lin_plan.pose, p.lin_plan.lm) for t in half]
+    assert tensors and all(t.device.type == "cuda" for t in tensors)
+    optimizer_from_problem(problem, device="cpu").solver.build_structure()
+    info = bs.structure_cache_info()
+    assert (info["hits"], info["misses"]) == (1, 2)
+    bs.clear_structure_cache()

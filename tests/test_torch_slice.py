@@ -15,6 +15,7 @@ from cuda_bundle_adjustment_tpu.io import synthetic as jsyn
 from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem, make_mixed_ba_problem
+from cuda_bundle_adjustment_tpu_torch.solver.block_solver import clear_structure_cache
 from cuda_bundle_adjustment_tpu_torch.utils import profiling as prof
 from cuda_bundle_adjustment_tpu_torch.utils.dense_reference import DenseLM
 
@@ -188,10 +189,14 @@ def test_wide_band_graph_matches_its_narrow_self():
 
 def test_repeat_runs_and_profile_mode_give_identical_traces():
     """Fixed-order reductions: two runs give the same trace bit for bit, and
-    the per-stage profiled path runs the same arithmetic."""
+    the per-stage profiled path runs the same arithmetic.  The profiled run
+    finds the structure cache empty, so its symbolic stage runs and is
+    timed."""
     problem = make_ba_problem(num_poses=12, num_landmarks=90, seed=8)
     traces = []
     for profile in (False, False, True):
+        if profile:
+            clear_structure_cache()
         opt = optimizer_from_problem(problem, device="cpu")
         opt.set_profile(profile)
         opt.optimize(6)
