@@ -36,7 +36,9 @@ caught):
    1e-12, against the twins' values summed in the kernels' order, B9 bit
    for bit against its twin, B4 bit for bit on the solver's ``Hll``/``bl``
    views (read in place: one device kernel a call, checked by its trace at
-   ``kitti00_mono``), and B5, B9, B7 and B8 against their library calls;
+   ``kitti00_mono``; ``lam`` a 0-d tensor the kernel reads on the card, a
+   captured launch replayed after ``lam`` changed bit for bit the twin at
+   the new value), and B5, B9, B7 and B8 against their library calls;
    then
    holds the band kernels B7 and B8 against their twins on a random banded
    SPD system of band height 48, which no generator reaches end to end;
@@ -51,18 +53,25 @@ caught):
 5. runs ``kitti00_mono``, ``kitti00_huber``, ``kitti00_stereo``,
    ``kitti00_mixed``, ``kitti07_mono`` and ``kitti07_mono_wide``
    (``optimizer_from_problem(...).optimize(10)`` on the default device, the
-   card), each with the structure cache emptied and the launch counters
-   zeroed just before its first run and read just after: the first run
-   must miss the cache and every kernel must have been launched; the later
-   runs must hit the cache and repeat the first run's trace and final
-   state bit for bit, and the chi2 must fall; prints stages 1 and 5 of a
-   profiled run that hits the cache and of one that misses it;
+   card, through the default loop: the fused loop's CUDA-graph replays),
+   each with the structure cache emptied and the launch counters zeroed
+   just before its first run and read just after: the first run must miss
+   the cache, replay captured graphs, read the host once a trial and once
+   more, and every kernel must have been launched as often as its
+   iterations and trials say (``expected_launches``); the later runs must
+   hit the cache and repeat the first run's trace and final state bit for
+   bit, and so must a run of the host loop (its own launch counts printed
+   beside), and the chi2 must fall; prints stages 1 and 5 of a profiled
+   run (the host loop) that hits the cache and of one that misses it;
    ``kitti07_mono``'s trace must agree with a run of the plain twins on the
    CPU, and ``kitti07_mono_wide`` (the same graph, poses renamed) with
    ``kitti07_mono``; prints cold and warm times and a per-stage profile;
-6. traces the LM loop of ``kitti00_mono`` with ``torch.profiler`` and prints
-   its device busy time, its count of device kernels, idle share, largest
-   kernels and each hand kernel's time and calls in the loop.
+6. times the LM loop of ``kitti00_mono`` through the fused loop (split into
+   its eager iteration 0, captures and replays, with the captured graphs'
+   node counts) and through the host loop, traces each with
+   ``torch.profiler`` and prints its device busy time, its count of device
+   kernels, idle share, host reads per run, largest kernels and each hand
+   kernel's time and calls in the loop.
 
 The last two lines are a JSON line describing the kernels and the JSON
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -561,14 +570,16 @@ def structure_phase(problem, label: str) -> dict:
 def first_linearisation(problem, dev, **robust):
     """The solver at the problem's first linearisation (``robust``: ``rk``
     and ``delta``), its system and the LM's first damping (TAU x max
-    diagonal)."""
+    diagonal) as the loops hand it to the stages: a 0-d f64 tensor on the
+    device, which B4 reads through its pointer."""
     from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
-    from cuda_bundle_adjustment_tpu_torch.optimizer import TAU
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+    from cuda_bundle_adjustment_tpu_torch.solver.fused import TAU
 
     solver = optimizer_from_problem(problem, device=dev, **robust).solver
     solver.build_structure()
     _, sys_ = solver.head()
-    return solver, sys_, TAU * solver.max_diagonal(sys_)
+    return solver, sys_, TAU * bs.max_diagonal(sys_)
 
 
 def _held(name, k_out, p_out, what, tol=F64_TOL) -> float:
@@ -688,6 +699,19 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
           and (ldh, ldb) == (12, 12), f"{label} damped_inverse: the solver's views are copied")
     check(all(torch.equal(a, b) for a, b in zip(damped_inverse(), damped_inverse())),
           f"{label} damped_inverse: a second launch differs")
+    # lam reaches the kernel as a device pointer: a captured launch replayed
+    # after lam changed gives the twin at the new value, bit for bit
+    lam_at = lam.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = lminv.damped_inverse(sys_.Hll, sys_.bl, lam_at)
+    for factor in (1.0, 7.0):
+        lam_at.copy_(lam * factor)
+        graph.replay()
+        want = lminv.damped_inverse_plain(sys_.Hll, sys_.bl, lam_at)
+        check(all(torch.equal(a, b) for a, b in zip(g_out, want)),
+              f"{label} damped_inverse: a replay at lam x {factor} differs from the twin")
+    del graph
     if reported is None:
         split = {k: round(v, 5) for k, v in device_ms_by_kernel(damped_inverse).items()}
         check(list(split) == ["damped_inverse_kernel"],
@@ -1111,7 +1135,10 @@ def small_trace(problem, device, niter: int = 10, in_plan_order: bool = False,
     ``in_plan_order``: B3's, B5's and B6's twins sum as the kernels do
     (``linearise_in_plan_order``, ``hpl_mv_in_plan_order``,
     ``pair_products_in_plan_order``; B9's twin already does).
-    ``systems``: a list that receives every reduced system and its step."""
+    ``systems``: a list that receives every reduced system and its step,
+    read on the host where it is made: such a run takes the host loop (the
+    fused loop's trace is the same bit for bit, but a captured trial cannot
+    read its verdict back)."""
     from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
     from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
 
@@ -1128,6 +1155,7 @@ def small_trace(problem, device, niter: int = 10, in_plan_order: bool = False,
         bs.solve_reduced_band = recording
     try:
         opt = optimizer_from_problem(problem, device=device, **robust)
+        opt.use_fused_loop = systems is None
         opt.optimize(niter)
     finally:
         bs.linearise, bs.hpl_mv_segment_sum, bs.schur_pair_products, bs.solve_reduced_band = kept
@@ -1232,12 +1260,31 @@ def small_problem_checks(dev) -> None:
                       json.dumps({k: (len(v), v[-2], v[-1]) for k, v in long.items()}))
 
 
+def expected_launches(counts: dict, iters: int, trials: int, robust: bool, fused: bool) -> dict:
+    """The launch counts a run of ``iters`` iterations and ``trials`` trials
+    must show: a trial launches B4-B7, B9, B10 once, B8 three times and B1
+    once (its chi) with two B2 gathers; an iteration's linearisation B3 once
+    with two B2 (and B1 under a robust kernel).  The host loop adds a chi
+    pass (B1 + 2 B2) at every iteration's head, the fused loop one before
+    the first and none after (F is carried)."""
+    head = 1 if fused else iters
+    want = {k: trials for k in counts}
+    want.update(chi_edges=head + trials + (iters if robust else 0),
+                gather_rows=2 * head + 2 * iters + 2 * trials, linearise=iters,
+                band_solve=3 * trials)
+    return want
+
+
 def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
-    """Phase 5: one configuration's optimize(10) on the default device,
-    counted, repeated and timed.  The structure cache is emptied before the
-    cold run, which must miss it; every warm run must hit it and repeat the
-    cold run's trace and final state bit for bit.  Returns the launch counts
-    and chi2 trace of its first run and that run's solver."""
+    """Phase 5: one configuration's optimize(10) on the default device (the
+    card) through the default loop (the fused loop), counted, repeated and
+    timed.  The structure cache is emptied before the cold run, which must
+    miss it; every warm run must hit it and repeat the cold run's trace and
+    final state bit for bit, and so must a run of the host loop.  Each loop's
+    launch counts must follow from its iterations and trials
+    (``expected_launches``), so the fused loop's replays were counted.
+    Returns the launch counts and chi2 trace of its first run and that run's
+    solver."""
     import numpy as np
     import torch
 
@@ -1252,10 +1299,11 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
         after = bs.structure_cache_info()
         return out, (after["hits"] - before["hits"], after["misses"] - before["misses"])
 
-    def run():
+    def run(fused_loop=True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt = optimizer_from_problem(problem, **robust)
+        opt.use_fused_loop = fused_loop
         opt.optimize(10)
         torch.cuda.synchronize()
         return opt, time.perf_counter() - t0
@@ -1272,7 +1320,17 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
     check(hm == (0, 1), f"{label}: the cold run did not miss the structure cache (hits, misses {hm})")
     check(opt.device.type == "cuda", f"{label}: the default device is {opt.device}, not the card")
     trace = [s.chi2 for s in opt.batch_statistics().get()]
-    warm, traces = [], []
+    iters, st = len(trace), opt.loop_stats
+    # iteration 0 runs eagerly (the captures' warm-up), every later trial is a
+    # replay
+    check(st is not None and st["captures"] >= 1 and st["replays"] >= iters - 1,
+          f"{label}: the default run did not replay captured graphs: {st}")
+    check(st["reads"] == st["trials"] + 1,
+          f"{label}: {st['reads']} host reads for {st['trials']} trials, not one a trial and one")
+    check(counts == expected_launches(counts, iters, st["trials"], bool(robust.get("rk")), True),
+          f"{label}: fused launch counts {counts} do not follow from {iters} iterations and "
+          f"{st['trials']} trials")
+    warm, traces, stats = [], [], [st]
     for _ in range(warm_runs):
         (o, sec), hm = cache_delta(run)
         check(hm == (1, 0), f"{label}: a warm run did not hit the structure cache (hits, misses {hm})")
@@ -1281,6 +1339,20 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
               f"{label}: a warm run's final state differs from the cold run's")
         warm.append(sec)
         traces.append([s.chi2 for s in o.batch_statistics().get()])
+        stats.append(o.loop_stats)
+    # the host loop, the fused loop's oracle: the same trace and final state
+    # bit for bit, its launches as its own loop makes them
+    kernels.reset_launch_counts()
+    ho, host_s = run(fused_loop=False)
+    host_counts = kernels.launch_counts()
+    check(ho.loop_stats is None, f"{label}: use_fused_loop=False ran the fused loop")
+    host_trace = [s.chi2 for s in ho.batch_statistics().get()]
+    check(host_trace == trace, f"{label}: the host loop's trace differs from the fused loop's")
+    check(all(torch.equal(a, b) for a, b in zip(state(ho), state(opt))),
+          f"{label}: the host loop's final state differs from the fused loop's")
+    check(host_counts == expected_launches(host_counts, iters, st["trials"],
+                                           bool(robust.get("rk")), False),
+          f"{label}: host launch counts {host_counts} do not follow from its iterations")
 
     # separate profiled runs for the per-stage breakdown (each stage ends in
     # a device synchronise, so the timed runs above stay untraced): one that
@@ -1321,11 +1393,21 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
     )
     for name, n in counts.items():
         check(n > 0, f"{label}: kernel {name} was not launched")
-    print(f"{label} launch counts (one optimize(10) run): {json.dumps(counts)}")
+    print(f"{label} launch counts (one optimize(10) run, fused loop, {iters} iterations, "
+          f"{st['trials']} trials): {json.dumps(counts)}")
+    print(f"{label} launch counts (host loop, same run): {json.dumps(host_counts)}")
+    print(f"{label} fused loop, cold then warm runs (trials, host reads, captures, replays, ms of "
+          f"the eager iteration 0, the captures, the replays):",
+          json.dumps([[s["trials"], s["reads"], s["captures"], s["replays"],
+                       round(s["eager_ms"], 2), round(s["capture_ms"], 2),
+                       round(s["replay_ms"], 2)] for s in stats]))
+    print(f"{label} host loop: its trace and final state equal the fused loop's bit for bit")
     print(
         f"{label} optimizer_from_problem+optimize(10): cold {cold_s:.4f} s, "
         f"warm median {statistics.median(warm):.4f} s over {len(warm)} runs "
-        f"{json.dumps([round(w, 4) for w in warm])} [{nvidia_smi_line()}]"
+        f"{json.dumps([round(w, 4) for w in warm])}, host loop (warm) {host_s:.4f} s; the "
+        f"allocator holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"[{nvidia_smi_line()}]"
     )
     return dict(counts=counts, trace=trace, solver=opt.solver, stages=stages)
 
@@ -1376,52 +1458,105 @@ def wide_band_agreement(narrow: dict, wide: dict, rename) -> None:
           f"trace max rel diff {rel:.3e} (tol 1e-8), poses and landmarks within 1e-7")
 
 
+def graph_nodes(graph) -> dict:
+    """A captured CUDA graph's node count, and its nodes by type (kernel,
+    memcpy, memset, other), read with ``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType`` of ``libcuda`` (the graph is captured with
+    ``keep_graph=True``)."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(g, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}
+    out = dict(nodes=n.value)
+    for h in nodes:
+        t = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(h), ctypes.byref(t)) == 0,
+              "cuGraphNodeGetType failed")
+        kind = names.get(t.value, f"type {t.value}")
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
 def loop_device_profile(problem, label: str) -> None:
-    """Phase 6: the LM loop (after the structure), timed on the host clock
-    without the profiler and then traced with torch.profiler; busy = the sum
-    of the device kernels' times on the one stream, idle = its complement in
-    the untraced loop time."""
+    """Phase 6: the LM loop after the structure, through the fused loop and
+    through the host loop: each timed on the host clock without the
+    profiler, then traced with torch.profiler; busy = the sum of the device
+    kernels' times, idle = its complement in the untraced loop time.  The
+    fused loop's time is split into the eager iteration 0, the captures and
+    the replays (each ending in its trial's flag read), its idle share
+    inside the replays estimated as busy a trial x replays over the replay
+    time; host reads per run: the fused loop's counted, the host loop's
+    from its code (chi an iteration, the first lambda, Fhat, scale and the
+    verdict a trial)."""
+    import contextlib
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from cuda_bundle_adjustment_tpu_torch import kernels
     from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.solver.fused import FusedLoop
 
-    def loop(traced: bool):
+    def loop(fused_loop: bool, traced: bool):
         opt = optimizer_from_problem(problem)
         opt.solver.build_structure()
         torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        fl = None
         t0 = time.perf_counter()
-        if traced:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with (profile(activities=[ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()) as prof:
+            if fused_loop:  # as _optimize_fused runs it, the loop kept
+                fl = FusedLoop(opt.solver, 10)
+                iters = len(fl.run())
+            else:
                 opt._optimize_host(10)
-                torch.cuda.synchronize()
-        else:
-            prof = None
-            opt._optimize_host(10)
+                iters = len(opt.batch_statistics().get())
             torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, prof
+        ms = (time.perf_counter() - t0) * 1e3
+        trials = kernels.launch_counts()["band_factor"]
+        return ms, prof, fl, iters, trials
 
-    loop(True)  # the first trace pays the profiler's start-up
-    loop_ms, _ = loop(False)
-    traced_ms, prof = loop(True)
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-    busy = sum(r[1] for r in rows)
-    check(busy > 0, f"{label}: the profiler saw no device time")
-    top = sorted(rows, key=lambda r: -r[1])[:12]
-    # the hand kernels (each at the top of an anonymous namespace; PyTorch's
-    # own sit in namespaces of theirs) as the loop runs them, their inputs
-    # where the stages before left them, not resident in L2
-    hand = {k.split("(anonymous namespace)::", 1)[1].split("(")[0]: [round(ms, 4), n]
-            for k, ms, n in rows
-            if k.removeprefix("void ").startswith("(anonymous namespace)::")}
-    print(f"{label} LM loop: {loop_ms:.1f} ms untraced ({traced_ms:.1f} ms traced), "
-          f"device busy {busy:.1f} ms in {sum(r[2] for r in rows)} kernels, "
-          f"idle {100 * (1 - busy / loop_ms):.1f}% [{nvidia_smi_line()}]")
-    print(f"{label} largest device kernels (ms, calls):",
-          json.dumps([[k[:60], round(ms, 3), n] for k, ms, n in top]))
-    print(f"{label} hand kernels in the loop (ms in all, calls):", json.dumps(hand))
+    for fused_loop, name in ((True, "fused"), (False, "host")):
+        loop(fused_loop, True)  # the first trace pays the profiler's start-up
+        loop_ms, _, fl, iters, trials = loop(fused_loop, False)
+        traced_ms, prof, _, _, _ = loop(fused_loop, True)
+        rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+        busy = sum(r[1] for r in rows)
+        check(busy > 0, f"{label}: the profiler saw no device time")
+        top = sorted(rows, key=lambda r: -r[1])[:12]
+        # the hand kernels (each at the top of an anonymous namespace;
+        # PyTorch's own sit in namespaces of theirs) as the loop runs them,
+        # their inputs where the stages before left them, not resident in L2
+        hand = {k.split("(anonymous namespace)::", 1)[1].split("(")[0]: [round(ms, 4), n]
+                for k, ms, n in rows
+                if k.removeprefix("void ").startswith("(anonymous namespace)::")}
+        if fused_loop:
+            st = fl.stats
+            check(st["reads"] == trials + 1, f"{label}: {st['reads']} host reads for {trials} trials")
+            reads = st["reads"]
+            split = (f", of it eager iteration 0 {st['eager_ms']:.1f} ms, captures "
+                     f"{st['capture_ms']:.1f} ms ({st['captures']}), replays {st['replay_ms']:.1f} ms "
+                     f"({st['replays']}, idle inside them ~"
+                     f"{100 * (1 - busy / trials * st['replays'] / st['replay_ms']):.1f}%)")
+            print(f"{label} fused loop graph nodes:",
+                  json.dumps({k: graph_nodes(g) for k, g in fl.graphs.items()}))
+        else:
+            reads, split = iters + 1 + 3 * trials, ""
+        print(f"{label} LM loop, {name}: {loop_ms:.1f} ms untraced ({traced_ms:.1f} ms traced)"
+              f"{split}; {iters} iterations, {trials} trials, {reads} host reads; device busy "
+              f"{busy:.1f} ms in {sum(r[2] for r in rows)} kernels, idle "
+              f"{100 * (1 - busy / loop_ms):.1f}% [{nvidia_smi_line()}]")
+        print(f"{label} {name} loop, largest device kernels (ms, calls):",
+              json.dumps([[k[:60], round(ms, 3), n] for k, ms, n in top]))
+        print(f"{label} {name} loop, hand kernels (ms in all, calls):", json.dumps(hand))
 
 
 def main() -> int:

@@ -1,6 +1,9 @@
 // Kernels B4 and B10: the per-landmark 3x3 algebra of the Schur stage.
 //
 //   B4:  A = Hll[l] + lam I;  inv[l] = adj(A) / det(A);  y[l] = inv[l] . bl[l]
+//        (lam read from device memory: one f64 the LM loop keeps on the card,
+//        so that a CUDA graph that captured the launch reads each trial's
+//        damping, and no host value is frozen into the graph)
 //   B10: xl[l] = inv[l] . cl[l]
 //
 // with Hll and inv [La, 9] row-major symmetric 3x3 blocks and bl, y, cl, xl
@@ -62,10 +65,11 @@ constexpr int kRow = 13;       // B4: doubles a landmark's shared row
 
 __global__ void __launch_bounds__(kTile)
 damped_inverse_kernel(const double* __restrict__ hll, int64_t ldh,
-                      const double* __restrict__ bl, int64_t ldb, double lam,
-                      int64_t La, double* __restrict__ inv,
-                      double* __restrict__ y) {
+                      const double* __restrict__ bl, int64_t ldb,
+                      const double* __restrict__ lam_p, int64_t La,
+                      double* __restrict__ inv, double* __restrict__ y) {
   __shared__ double s[kTile * kRow];
+  const double lam = __ldg(lam_p);
   const int t = threadIdx.x;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
   const int n = static_cast<int>(La - base < kTile ? La - base : kTile);
@@ -153,16 +157,18 @@ sym3x3_mv_kernel(const double* __restrict__ inv, const double* __restrict__ c,
 }  // namespace
 
 // inv [La, 9], y [La, 3] (kernel B4); Hll [La, 9] and bl [La, 3] with row
-// strides ldh and ldb (in doubles), their entries adjacent within a row
+// strides ldh and ldb (in doubles), their entries adjacent within a row; lam
+// one f64 on the device
 extern "C" int tba_damped_inverse(const void* hll, long long ldh, const void* bl,
-                                  long long ldb, double lam, long long La,
+                                  long long ldb, const void* lam, long long La,
                                   void* inv, void* y, void* stream) {
   if (La == 0) return 0;
   const long long blocks = (La + kTile - 1) / kTile;
   damped_inverse_kernel<<<static_cast<unsigned>(blocks), kTile, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(hll), ldh, static_cast<const double*>(bl), ldb,
-      lam, La, static_cast<double*>(inv), static_cast<double*>(y));
+      static_cast<const double*>(lam), La, static_cast<double*>(inv),
+      static_cast<double*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 

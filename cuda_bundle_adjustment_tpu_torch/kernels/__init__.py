@@ -43,3 +43,10 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (by wrapper name) to the counts: a CUDA graph's replay
+    launches what its capture counted (``solver/fused.py``)."""
+    for k in KERNELS:
+        k.launches += delta.get(k.__name__, 0)

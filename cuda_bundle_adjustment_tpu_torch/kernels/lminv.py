@@ -16,9 +16,13 @@ B3's ``[La, 12]`` rows, and they reach the kernel uncopied, in one launch
 expressions (``ops/components.py flat_sym3x3_inv``, ``flat_mv_3x3``)
 operation for operation, so they agree with them bit for bit.  The damped
 block is inverted without a determinant guard: ``lam > 0`` on every LM
-trial keeps a zero block invertible (``lam I``).  The wrappers dispatch on
-the tensor's device only: a CPU tensor runs the plain PyTorch twin, a CUDA
-tensor launches the kernel (or raises).
+trial keeps a zero block invertible (``lam I``).  ``lam`` is a 0-d f64
+tensor on the operands' device, which B4 reads through its pointer: the LM
+loop keeps it on the card, and a CUDA graph that captured the launch reads
+each trial's value (a caller with a Python float wraps it, as the solver's
+``schur_reduce`` does).  The wrappers dispatch on the tensor's device only:
+a CPU tensor runs the plain PyTorch twin, a CUDA tensor launches the kernel
+(or raises).
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from ..ops.components import flat_mv_3x3, flat_sym3x3_inv
 from . import _build
 
 
-def damped_inverse_plain(Hll: torch.Tensor, bl: torch.Tensor, lam: float):
-    """Plain PyTorch twin of B4."""
+def damped_inverse_plain(Hll: torch.Tensor, bl: torch.Tensor, lam: torch.Tensor):
+    """Plain PyTorch twin of B4 (``lam``: a 0-d f64 tensor, as B4 takes it;
+    a Python float gives the same bits)."""
     diag9 = torch.tensor(
         [1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=Hll.dtype, device=Hll.device
     )
@@ -47,8 +52,8 @@ def sym3x3_mv_plain(invHll: torch.Tensor, cl: torch.Tensor) -> torch.Tensor:
 
 _VP, _LL = ctypes.c_void_p, ctypes.c_longlong
 _ARGTYPES = {
-    # Hll, ldh, bl, ldb, lam, La, inv, y, stream
-    "tba_damped_inverse": [_VP, _LL, _VP, _LL, ctypes.c_double, _LL, _VP, _VP, _VP],
+    # Hll, ldh, bl, ldb, lam (a device pointer), La, inv, y, stream
+    "tba_damped_inverse": [_VP, _LL, _VP, _LL, _VP, _LL, _VP, _VP, _VP],
     # inv, cl, La, xl, stream
     "tba_sym3x3_mv": [_VP, _VP, _LL, _VP, _VP],
 }
@@ -97,15 +102,25 @@ def damped_inverse_operands(Hll: torch.Tensor, bl: torch.Tensor):
     return Hll, Hll.stride(0), bl, bl.stride(0)
 
 
-def damped_inverse(Hll: torch.Tensor, bl: torch.Tensor, lam: float):
-    """``Hll [La, 9], bl [La, 3], lam -> (inv(Hll + lam I) [La, 9],
+def _check_lam(lam, dev) -> None:
+    """Raise unless ``lam`` is a 0-d f64 tensor on ``dev``."""
+    if not isinstance(lam, torch.Tensor) or lam.dtype != torch.float64 or lam.dim() != 0:
+        raise TypeError("damped_inverse: expects lam as a 0-d f64 tensor")
+    if lam.device != dev:
+        raise ValueError("damped_inverse: lam must be on the operands' device")
+
+
+def damped_inverse(Hll: torch.Tensor, bl: torch.Tensor, lam: torch.Tensor):
+    """``Hll [La, 9], bl [La, 3], lam [] -> (inv(Hll + lam I) [La, 9],
     y = inv bl [La, 3])`` f64, both contiguous (kernel B4 on CUDA, one
-    launch).  ``lam`` is a host float passed by value: no device
-    read-back."""
+    launch).  ``lam`` is a 0-d f64 tensor on the operands' device; the
+    kernel reads it there, so nothing is read back or uploaded."""
     if Hll.device.type == "cpu":
+        _check_lam(lam, Hll.device)
         return damped_inverse_plain(Hll, bl, lam)
     if Hll.device.type != "cuda":
         raise NotImplementedError(f"damped_inverse: no kernel for device {Hll.device}")
+    _check_lam(lam, Hll.device)
     Hll, ldh, bl, ldb = damped_inverse_operands(Hll, bl)
     La = Hll.shape[0]
     inv = torch.empty((La, 9), dtype=Hll.dtype, device=Hll.device)
@@ -113,7 +128,7 @@ def damped_inverse(Hll: torch.Tensor, bl: torch.Tensor, lam: float):
     if La == 0:
         return inv, y
     status = _fn("tba_damped_inverse")(
-        Hll.data_ptr(), ldh, bl.data_ptr(), ldb, float(lam), La, inv.data_ptr(),
+        Hll.data_ptr(), ldh, bl.data_ptr(), ldb, lam.data_ptr(), La, inv.data_ptr(),
         y.data_ptr(), _build.stream_ptr(Hll),
     )
     _build.check(status, "damped_inverse")

@@ -127,7 +127,9 @@ def schur_pair_products(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets,
         plan.items.device != hpl.device
     ):
         raise ValueError("schur_pair_products: the plan belongs to another structure or device")
-    if hpl.data_ptr() % 16:  # the kernel copies the Hpl rows 16 bytes at a time
+    # the kernel copies the Hpl rows 16 bytes at a time (decided once under
+    # CUDA-graph capture: see kernels/schurvec.py _operands)
+    if hpl.data_ptr() % 16:
         hpl = hpl.clone()
     out = torch.empty((nnz, 36), dtype=hpl.dtype, device=hpl.device)
     if nnz == 0:

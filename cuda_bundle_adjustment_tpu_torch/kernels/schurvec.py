@@ -98,7 +98,11 @@ def _operands(name, hpl, vec, idx, base, k_vec, k_out):
     hpl, vec, idx = (t if t.is_contiguous() else t.contiguous() for t in (hpl, vec, idx))
     if base.stride(1) != 1 or base.stride(0) < k_out:
         base = base.contiguous()
-    if hpl.data_ptr() % 16:  # the kernel loads the Hpl rows 16 bytes at a time
+    # the kernel loads the Hpl rows 16 bytes at a time.  Under CUDA-graph
+    # capture (solver/fused.py) this branch is decided once, at capture, and
+    # the graph keeps the clone or not for every replay: right only because
+    # the loop's buffers keep their addresses from capture to replay
+    if hpl.data_ptr() % 16:
         hpl = hpl.clone()
     return hpl, vec, idx, base
 

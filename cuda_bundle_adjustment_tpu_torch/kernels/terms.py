@@ -248,7 +248,9 @@ def linearise(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments,
         plan = make_linearise_plan(pose_seg, lm_seg, E)
     if (plan.E, plan.Pa, plan.La) != (E, Pa, La) or plan.pose.rows.device != qt.device:
         raise ValueError("linearise: the plan belongs to another structure or device")
-    if qt.data_ptr() % 16:  # the tile kernel loads the pose rows 16 bytes at a time
+    # the tile kernel loads the pose rows 16 bytes at a time (decided once
+    # under CUDA-graph capture: see kernels/schurvec.py _operands)
+    if qt.data_ptr() % 16:
         qt = qt.clone()
     kw = dict(dtype=qt.dtype, device=qt.device)
     pose, lm, hpl = torch.empty((Pa, 42), **kw), torch.empty((La, 12), **kw), torch.empty((E, 18), **kw)

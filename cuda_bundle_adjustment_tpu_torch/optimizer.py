@@ -1,11 +1,15 @@
 """The Levenberg-Marquardt graph optimiser (counterpart of ``optimizer.py``).
 
 :class:`TorchGraphOptimisation` is the counterpart of the JAX package's
-``TpuGraphOptimisation`` and runs its host LM loop statement for statement:
-``maxq = 10`` inner trials, ``tau = 1e-5`` initial-lambda factor, the
-``clamp(1 - (2 rho - 1)^3, 1/3, 2/3)`` attenuation, the ``+1e-3`` scale
-epsilon and the same termination tests.  The device-resident fused loop
-waits for ROADMAP A3.
+``TpuGraphOptimisation`` and runs its two LM loops: ``maxq = 10`` inner
+trials, ``tau = 1e-5`` initial-lambda factor, the ``clamp(1 - (2 rho -
+1)^3, 1/3, 2/3)`` attenuation, the ``+1e-3`` scale epsilon and the same
+termination tests.  By default ``optimize`` runs the device-resident loop
+(``solver/fused.py``: CUDA-graph replays on the card, the same step
+functions run eagerly on the CPU), as the JAX package does; under
+``verbose`` or ``set_profile(True)``, or with ``use_fused_loop = False``,
+it runs the host loop, which reads every value on the host where it is
+made.  The two give the same trace and final state bit for bit.
 """
 
 from __future__ import annotations
@@ -17,19 +21,40 @@ from typing import Optional, Union
 import torch
 
 from .graph import GraphOptimisationOptions
-from .solver.block_solver import BlockSolver, outside_slice
+from .solver.block_solver import BlockSolver
+from .solver.fused import MAXQ, RHO_DONE, TAU, FusedLoop
 from .utils import profiling as prof
 from .utils.stats import BatchInfo, BatchStatistics
-
-MAX_INNER_ITERATIONS = 10  # maxq
-TAU = 1e-5  # initial lambda factor
-RHO_DONE = 1e-6  # outer-termination rho threshold
 
 
 def attenuation(rho: float) -> float:
     """Lambda attenuation on an accepted step."""
     x = 2.0 * rho - 1.0
     return 1.0 - x * x * x
+
+
+def lm_update(F: float, Fhat: float, scale: float, success: bool, lam: float, nu: float,
+              q: int):
+    """The host loop's verdict on one trial, in Python floats: returns
+    ``(accept, stop, rho, lam, nu, q)``.  ``stop``: no more trials this
+    iteration because the step was accepted or the damping bailed out
+    (``solver/fused.py lm_update`` is the same rule on device scalars)."""
+    scale = scale + 1e-3
+    Fdiff = Fhat - F
+    rho = (F - Fhat) / scale if success else -1.0
+    if rho > 0:
+        lam *= min(max(attenuation(rho), 1.0 / 3.0), 2.0 / 3.0)
+        return True, True, rho, lam, 2.0, q
+    lam *= nu
+    nu *= 2.0
+    if not math.isfinite(lam) or Fdiff < 1e-4:
+        return False, True, rho, lam, nu, q
+    return False, False, rho, lam, nu, q + 1
+
+
+def lm_done(q: int, rho: float, lam: float) -> bool:
+    """The host loop's outer termination test after an iteration."""
+    return q == MAXQ or rho < RHO_DONE or not math.isfinite(lam)
 
 
 class TorchGraphOptimisation:
@@ -48,7 +73,10 @@ class TorchGraphOptimisation:
         self.timer = prof.StageTimer()
         self.verbose = False
         self.should_profile = False
-        self.use_fused_loop = False
+        self.use_fused_loop = True
+        # the last fused run's FusedLoop.stats (trials, host reads, captures,
+        # replays, host-clock ms); None before one
+        self.loop_stats: Optional[dict] = None
 
     @classmethod
     def create(
@@ -71,15 +99,24 @@ class TorchGraphOptimisation:
         solver = self.solver
         if solver.graph is None:
             raise RuntimeError("optimize() called before the graph was packed")
-        if self.use_fused_loop:
-            raise outside_slice("use_fused_loop", "A3: the device-resident LM loop")
 
         t0 = time.perf_counter()
         solver.build_structure()
         total_ms = (time.perf_counter() - t0) * 1e3
         self.timer.add(prof.PROF_SYMBOLIC_DECOMP, solver.symbolic_ms)
         self.timer.add(prof.PROF_BUILD_STRUCTURE, total_ms - solver.symbolic_ms)
-        self._optimize_host(niterations)
+        # the device-resident loop unless the caller asks to see every
+        # iteration or stage (verbose, profile): the host loop, same trace
+        if self.use_fused_loop and not (self.verbose or self.should_profile):
+            self._optimize_fused(niterations)
+        else:
+            self._optimize_host(niterations)
+
+    def _optimize_fused(self, niterations: int) -> None:
+        loop = FusedLoop(self.solver, niterations)
+        for it, chi2 in enumerate(loop.run()):
+            self.stats.add_stat(BatchInfo(it, chi2))
+        self.loop_stats = loop.stats
 
     def _optimize_host(self, niterations: int) -> None:
         solver = self.solver
@@ -103,26 +140,16 @@ class TorchGraphOptimisation:
 
             q = 0
             rho = -1.0
-            while q < MAX_INNER_ITERATIONS and rho < 0:
+            while q < MAXQ and rho < 0:
                 new_graph, Fhat_dev, scale_dev, success_dev = solver.trial(sys, lam, timer)
                 Fhat = float(Fhat_dev)
-                scale = float(scale_dev) + 1e-3
-                success = bool(success_dev)
-                Fdiff = Fhat - F
-                rho = (F - Fhat) / scale if success else -1.0
-
-                if rho > 0:
-                    lam *= min(max(attenuation(rho), 1.0 / 3.0), 2.0 / 3.0)
-                    nu = 2.0
+                accept, stop, rho, lam, nu, q = lm_update(
+                    F, Fhat, float(scale_dev), bool(success_dev), lam, nu, q)
+                if accept:
                     F = Fhat
                     solver.accept(new_graph)
+                if stop:
                     break
-                else:
-                    lam *= nu
-                    nu *= 2.0
-                    if not math.isfinite(lam) or Fdiff < 1e-4:
-                        break
-                    q += 1
 
             time_taken = (time.perf_counter() - it_t0) * 1e3
             self.stats.add_stat(BatchInfo(iteration, F))
@@ -135,7 +162,7 @@ class TorchGraphOptimisation:
                     f"outliers = 0"
                 )
 
-            if q == MAX_INNER_ITERATIONS or rho < RHO_DONE or not math.isfinite(lam):
+            if lm_done(q, rho, lam):
                 break
 
     # -- introspection -------------------------------------------------------------

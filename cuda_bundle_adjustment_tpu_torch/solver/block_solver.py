@@ -305,20 +305,33 @@ def build_system(
 
 
 def max_diagonal(sys: SystemBlocks) -> torch.Tensor:
-    """Max Hessian diagonal entry for the initial lambda."""
+    """Max Hessian diagonal entry for the initial lambda (a 0-d tensor).
+    The diagonals are strided views: no index tensor is made, so nothing
+    is uploaded and a CUDA graph can capture it."""
     m = torch.diagonal(sys.Hpp, dim1=-2, dim2=-1).max()
-    return torch.maximum(m, sys.Hll[:, [0, 4, 8]].max())
+    return torch.maximum(m, sys.Hll[:, 0::4].max())  # Hll entries 0, 4, 8
+
+
+def as_lam(lam, ref: torch.Tensor) -> torch.Tensor:
+    """The damping as the stages take it: a 0-d tensor of ``ref``'s dtype
+    on its device.  A Python float (the host loop's) is filled in on the
+    device, not copied from the host."""
+    if isinstance(lam, torch.Tensor):
+        return lam
+    return torch.full((), lam, dtype=ref.dtype, device=ref.device)
 
 
 def schur_reduce(
-    sys: SystemBlocks, lam: float, plan: SchurPlan
+    sys: SystemBlocks, lam, plan: SchurPlan
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage "4: Schur Complement": damp, invert the Hll blocks (kernel
     B4), form ``bsc = bp - Hpl inv(Hll) bl`` and the Hsc blocks
     ``(Hpp + lam I) - Hpl inv(Hll) Hpl^T`` on the symbolic block pattern.
+    ``lam``: a 0-d tensor on the system's device or a Python float.
     Returns ``(blocks [nnz, 36], bsc [Pa, 6], invHll [La, 9])``."""
     Pa = sys.bp.shape[0]
     dtype, dev = sys.bp.dtype, sys.bp.device
+    lam = as_lam(lam, sys.bp)
     Hpp_d = sys.Hpp + lam * torch.eye(6, dtype=dtype, device=dev)
     # bsc re-associates as Hpl (inv(Hll) bl), as on the kernel path of the
     # JAX package, so no per-edge W is materialised for it either
@@ -341,7 +354,7 @@ def scaled_band(blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan):
     brow, bcol, SB = plan.blk_row, plan.blk_col, plan.band.sb
     # BA Hessian diagonals span many orders of magnitude (focal-length-
     # squared pixel terms vs unit-metric terms)
-    diag = blocks[plan.diag_pos][:, [0, 7, 14, 21, 28, 35]]  # [Pa, 6]
+    diag = blocks[plan.diag_pos][:, 0::7]  # [Pa, 6]: entries 0, 7, ..., 35
     s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-300))
     bl_s = blocks * (s[brow][:, :, None] * s[bcol][:, None, :]).reshape(nnz, 36)
     band = torch.zeros(((Pa + SB) * SB, 36), dtype=torch.float32, device=blocks.device)
@@ -410,10 +423,9 @@ def apply_update(graph: GraphArrays, xp: torch.Tensor, xl: torch.Tensor) -> Grap
     )
 
 
-def compute_scale(
-    xp: torch.Tensor, xl: torch.Tensor, sys: SystemBlocks, lam: float
-) -> torch.Tensor:
-    """LM gain-ratio denominator ``sum x (lam x + b)``."""
+def compute_scale(xp: torch.Tensor, xl: torch.Tensor, sys: SystemBlocks, lam) -> torch.Tensor:
+    """LM gain-ratio denominator ``sum x (lam x + b)`` (``lam``: a 0-d
+    tensor on the device or a Python float)."""
     return torch.sum(xp * (lam * xp + sys.bp)) + torch.sum(xl * (lam * xl + sys.bl))
 
 
@@ -663,9 +675,12 @@ class BlockSolver:
     def max_diagonal(self, sys: SystemBlocks) -> float:
         return float(max_diagonal(sys))
 
-    def trial(self, sys: SystemBlocks, lam: float, timer=None):
+    def trial(self, sys: SystemBlocks, lam, timer=None):
         """One damped trial: ``(new_graph, Fhat, scale, success)`` in the
-        order of the JAX package's trial stage."""
+        order of the JAX package's trial stage, all on the device.  ``lam``:
+        the host loop's Python float or the fused loop's 0-d device tensor
+        (the same value gives the same bits)."""
+        lam = as_lam(lam, sys.bp)
         with self._stage(timer, prof.PROF_SCHUR_COMPLEMENT):
             blocks, bsc, invHll = schur_reduce(sys, lam, self.plan)
         with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):

@@ -1,0 +1,264 @@
+"""The device-resident LM loop (counterpart of ``solver/fused.py``).
+
+The host loop (``optimizer.py _optimize_host``) reads chi2 at the head of
+every iteration and Fhat, the scale and the solve's verdict after every
+trial, and makes every one of a trial's ~800 launches from Python.  Here
+the LM state lives on the solver's device as 0-d tensors -- lambda, nu, F
+and the chi2 trace in f64, the trial count and the iteration counter in
+int32 -- and each step is a function of those tensors alone:
+
+* :meth:`FusedLoop.linearise_and_trial`: the linearisation
+  (``build_system`` only: F is carried from the accepted trial, as in the
+  JAX package, so the head runs no chi pass), lambda's first value
+  ``TAU * max_diagonal`` on iteration 0, one damped trial and the LM update;
+* :meth:`FusedLoop.retry`: one more damped trial on the same system and the
+  LM update.
+
+On the card each step is captured once an ``optimize()`` into a CUDA graph
+and replayed.  Iteration 0 runs the two steps eagerly: that is the warm-up
+every capture needs (kernel modules loaded, shared-memory attributes set,
+the library's lazy state made) and it is iteration 0's own work, so nothing
+runs twice and the trace cannot move.  From iteration 1 on each step is a
+graph captured at its first use.  Both capture into one memory pool, and
+the loop holds the system the first one made, so the second is never given
+its memory.  That pool is the process's for the device
+(:func:`_capture_pool`), shared by every loop: a loop's graphs are never
+replayed after its run, so the next loop may take their blocks, and a
+capture allocates no device memory once a loop of that size has run.  After
+every trial the host reads two flags (another trial of this iteration? is
+the loop done?) through pinned memory, and at the end the trace and the
+iteration count: one read a trial and one a run.  A capture or a replay
+that fails raises: nothing goes on eagerly or on the host loop.  On the CPU
+the same step functions run eagerly and nothing is captured.
+
+A rejected trial leaks nothing: its candidate is selected away by
+``torch.where`` into the loop's own ``q``/``t``/``Xw`` buffers, which the
+next linearisation reads.  Launch counters (``kernels.launch_counts``)
+count what the device runs: a capture's increments are taken back and added
+again on every replay.
+
+Control flow of the JAX package's ``optimize_fused``, operation for
+operation (its ``while_loop`` of trials inside a ``fori_loop`` of
+iterations): ``MAXQ`` trials at most, accept on ``rho > 0`` with
+``lam *= clamp(1 - (2 rho - 1)^3, 1/3, 2/3)`` and ``nu = 2``, reject with
+``lam *= nu`` and ``nu *= 2``, bail on a non-finite lambda or ``Fhat - F <
+1e-4``, stop on ``q == MAXQ``, ``rho < RHO_DONE`` or a non-finite lambda.
+The float rule of the host loop (``optimizer.py lm_update``) and
+:func:`lm_update` here agree bit for bit, so the two loops' traces do.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from .. import kernels
+from ..types import GraphArrays
+from . import block_solver as bs
+
+MAXQ = 10  # inner trials at most
+TAU = 1e-5  # initial lambda factor
+# outer-termination rho threshold; the host loop (optimizer.py) imports these
+# three constants from here, so the two loops cannot drift
+RHO_DONE = 1e-6
+
+# the capture memory pool and side stream of each CUDA device, made at the
+# first capture on it and kept for the process, as the caching allocator
+# keeps its own blocks
+_CAPTURE: dict = {}
+
+
+def _capture_pool(dev: torch.device):
+    """``(pool, stream)`` that every loop on ``dev`` captures with.  The
+    pool (a CUDA-graph memory pool id) takes a capture's allocations; it is
+    held alive by an anchor graph of one fill node that is never replayed,
+    so that blocks a finished loop's graphs and tensors gave back go to the
+    next capture instead of new device memory.  (A pool's life is counted
+    by the graphs captured into it, in the device and the pinned-host
+    allocator both; a ``torch.cuda.MemPool`` holds only the first.)"""
+    index = _index(dev)
+    entry = _CAPTURE.get(index)
+    if entry is None:
+        stream = torch.cuda.Stream(index)
+        anchor = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(index))
+        with torch.cuda.stream(stream):
+            anchor.capture_begin()
+            torch.zeros(1, device=torch.device("cuda", index))
+            anchor.capture_end()
+        entry = _CAPTURE[index] = (anchor.pool(), stream, anchor)
+    return entry[:2]
+
+
+def _index(dev: torch.device) -> int:
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def lm_update(F, Fhat, scale, success, lam, nu, q):
+    """One trial's verdict and the LM update on 0-d tensors, the host
+    loop's float rule operation for operation.  Returns ``(accept, F, lam,
+    nu, rho, q, more, done)``: ``more`` asks for another trial of this
+    iteration; ``done`` (read when ``more`` is False) ends the loop."""
+    scale = scale + 1e-3
+    rho = torch.where(success, (F - Fhat) / scale, -1.0)
+    accept = rho > 0
+    x = 2.0 * rho - 1.0
+    att = torch.clamp(1.0 - x * x * x, 1.0 / 3.0, 2.0 / 3.0)
+    lam = torch.where(accept, lam * att, lam * nu)
+    nu = torch.where(accept, 2.0, nu * 2.0)
+    stop = accept | ~torch.isfinite(lam) | (Fhat - F < 1e-4)
+    q = torch.where(stop, q, q + 1)
+    more = ~stop & (q < MAXQ) & (rho < 0)
+    done = (q == MAXQ) | (rho < RHO_DONE) | ~torch.isfinite(lam)
+    return accept, torch.where(accept, Fhat, F), lam, nu, rho, q, more, done
+
+
+class FusedLoop:
+    """One ``optimize(niterations)`` of the device-resident loop over a
+    solver whose structure is built.  :meth:`run` returns the chi2 trace and
+    leaves the final state in ``solver.graph``; ``stats`` then holds the
+    trials, host reads, captures and replays, and the host-clock ms of the
+    eager iteration, the captures and the replays (each ending in its
+    trial's flag read).  ``graphs`` holds the captured graphs by step name
+    (``keep_graph=True``: their nodes can be inspected) until the loop is
+    dropped."""
+
+    def __init__(self, solver, niterations: int):
+        self.solver = solver
+        self.n = int(niterations)
+        dev, dt, i32 = solver.device, solver.dtype, torch.int32
+        # the loop's own state buffers, written in place: a captured graph
+        # reads and writes them at the addresses it was captured with
+        solver.accept(GraphArrays(*(a.clone() for a in solver.graph)))
+        self.F = bs.compute_chi(solver.graph, solver.packed, solver.meta)
+        self.lam = torch.zeros((), dtype=dt, device=dev)
+        self.nu = torch.full((), 2.0, dtype=dt, device=dev)
+        self.q = torch.zeros((), dtype=i32, device=dev)
+        self.it = torch.zeros((), dtype=i32, device=dev)
+        self.trace = torch.zeros(self.n, dtype=dt, device=dev)
+        self.flags = torch.zeros(2, dtype=torch.bool, device=dev)  # more, done
+        self._iota = torch.arange(self.n, dtype=i32, device=dev)
+        self._q0 = torch.zeros((), dtype=i32, device=dev)
+        self.sys = None  # the current linearisation
+        self.card = dev.type == "cuda"
+        self._host_flags = (
+            torch.empty(2, dtype=torch.bool, pin_memory=True) if self.card else None
+        )
+        self.graphs: dict[str, torch.cuda.CUDAGraph] = {}
+        self._deltas: dict[str, dict[str, int]] = {}
+        self.stats = dict(trials=0, reads=0, captures=0, replays=0,
+                          eager_ms=0.0, capture_ms=0.0, replay_ms=0.0)
+
+    # -- the two steps ----------------------------------------------------------
+
+    def linearise_and_trial(self) -> None:
+        s = self.solver
+        self.sys = bs.build_system(s.graph, s.packed, s.meta, s.plan)
+        lam = torch.where(self.it == 0, TAU * bs.max_diagonal(self.sys), self.lam)
+        self._trial(lam, self._q0)
+
+    def retry(self) -> None:
+        self._trial(self.lam, self.q)
+
+    def _trial(self, lam, q) -> None:
+        s = self.solver
+        new, Fhat, scale, success = s.trial(self.sys, lam)
+        accept, F, lam, nu, _, q, more, done = lm_update(
+            self.F, Fhat, scale, success, lam, self.nu, q)
+        for dst, cand in zip(s.graph, new):
+            dst.copy_(torch.where(accept, cand, dst))
+        self.F.copy_(F)
+        self.lam.copy_(lam)
+        self.nu.copy_(nu)
+        self.q.copy_(q)
+        self.trace.copy_(torch.where(self._iota == self.it, F, self.trace))
+        self.it.add_((~more).to(torch.int32))
+        self.flags.copy_(torch.stack([more, done]))
+
+    # -- host side ----------------------------------------------------------------
+
+    def run(self) -> list[float]:
+        iterations = 0
+        for it in range(self.n):
+            iterations += 1
+            more, done = self._step("linearise_and_trial", eager=it == 0)
+            while more:
+                more, done = self._step("retry", eager=it == 0)
+            if done:
+                break
+        # one read for the trace and the device's iteration count
+        self.stats["reads"] += 1
+        *trace, n_done = torch.cat(
+            [self.trace[:iterations], self.it.view(1).to(self.trace.dtype)]).tolist()
+        if int(n_done) != iterations:
+            raise RuntimeError(
+                f"fused loop: {int(n_done)} iterations on the device, {iterations} on the host")
+        self.sys = None
+        return trace
+
+    def _step(self, name: str, eager: bool) -> list[bool]:
+        self.stats["trials"] += 1
+        t0 = time.perf_counter()
+        if eager or not self.card:
+            getattr(self, name)()
+            key = "eager_ms"
+        else:
+            graph = self.graphs.get(name)
+            if graph is None:
+                graph = self._capture(name)
+                t0 = time.perf_counter()
+            graph.replay()
+            kernels.add_launch_counts(self._deltas[name])
+            self.stats["replays"] += 1
+            key = "replay_ms"
+        flags = self._read()
+        self.stats[key] += (time.perf_counter() - t0) * 1e3
+        return flags
+
+    def _read(self) -> list[bool]:
+        """The two flags on the host: through pinned memory on the card."""
+        self.stats["reads"] += 1
+        if not self.card:
+            return self.flags.tolist()
+        self._host_flags.copy_(self.flags, non_blocking=True)
+        torch.cuda.current_stream(self.solver.device).synchronize()
+        return self._host_flags.tolist()
+
+    def _capture(self, name: str) -> torch.cuda.CUDAGraph:
+        """Capture one step on the device's capture stream into its pool.
+        Capture launches nothing, so the launch counts it moved are taken
+        back and kept as the step's delta for every replay.  A failure
+        raises (after the capture is ended, so the stream is usable)."""
+        t0 = time.perf_counter()
+        dev = self.solver.device
+        pool, stream = _capture_pool(dev)
+        if name == "linearise_and_trial":
+            self.sys = None  # the eager iteration's system is not the graph's
+        before = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool)
+            try:
+                getattr(self, name)()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture was invalidated by the error raised below
+                # a capture that failed may stay registered with the allocator
+                # as recording to its pool, which then refuses every later
+                # capture: the next loop takes a new pool and stream
+                _CAPTURE.pop(_index(dev), None)
+                raise
+            finally:
+                delta = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+                kernels.add_launch_counts({k: -d for k, d in delta.items()})
+            graph.capture_end()
+        graph.instantiate()
+        self._deltas[name] = delta
+        self.graphs[name] = graph
+        self.stats["captures"] += 1
+        self.stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
+        return graph

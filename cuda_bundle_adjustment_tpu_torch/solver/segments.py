@@ -35,7 +35,12 @@ def make_segments(ids: np.ndarray, nseg: int, device) -> Segments:
 
 
 def segment_sum(values: torch.Tensor, seg: Segments) -> torch.Tensor:
-    """Fixed-order sum of the rows of ``values`` per segment (no atomics)."""
+    """Fixed-order sum of the rows of ``values`` per segment (no atomics).
+    ``unsafe=True`` skips ``segment_reduce``'s validation of the offsets,
+    which reads them back to the host (a device synchronise on every call,
+    and a failure under CUDA-graph capture): :func:`make_segments` made them
+    once a structure, sorted, from 0 to the row count.  It changes no
+    arithmetic."""
     return torch.segment_reduce(
-        values.index_select(0, seg.order), "sum", offsets=seg.offsets
+        values.index_select(0, seg.order), "sum", offsets=seg.offsets, unsafe=True
     )

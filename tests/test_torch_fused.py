@@ -1,0 +1,205 @@
+"""The port's device-resident LM loop (``solver/fused.py``) on the CPU, where
+its step functions run eagerly and nothing is captured: its trace and final
+state against the port's host loop bit for bit, as ``tests/test_fused.py``
+requires of the JAX loops; iteration counts against the host loop and the
+JAX package under early termination and under forced rejections; the
+device-scalar LM update against the host loop's float rule bit for bit; and
+which loop ``optimize`` takes.  (``tests/test_torch_slice.py`` holds the
+default loop, this one, against the JAX package's fused loop.)"""
+
+import itertools
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
+from cuda_bundle_adjustment_tpu_torch import TorchGraphOptimisation
+from cuda_bundle_adjustment_tpu_torch import optimizer as topt
+from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem, make_mixed_ba_problem
+from cuda_bundle_adjustment_tpu_torch.solver import fused
+from cuda_bundle_adjustment_tpu_torch.solver.block_solver import BlockSolver
+
+torch.set_num_threads(1)
+
+
+def _trace(opt):
+    return [s.chi2 for s in opt.batch_statistics().get()]
+
+
+def _run(problem, fused_loop: bool, niter: int = 10, **kw):
+    opt = optimizer_from_problem(problem, device="cpu", **kw)
+    opt.use_fused_loop = fused_loop
+    opt.optimize(niter)
+    return _trace(opt), opt
+
+
+def _same_state(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.solver.graph, b.solver.graph))
+
+
+@pytest.mark.parametrize("kind,rk", [("mono", 0), ("stereo", 0), ("mixed", 0), ("mono", 2)],
+                         ids=["mono", "stereo", "mixed", "mono-cauchy"])
+def test_fused_trace_and_state_equal_the_host_loop_bit_for_bit(kind, rk):
+    """Both loops run the same stages on the same values, and the fused
+    loop's carried F is the chi of the state it accepted: the traces and the
+    final states are equal, not close.  One flag read a trial and one for
+    the trace; nothing is captured on the CPU."""
+    kw = dict(num_poses=10, num_landmarks=60, mean_obs_per_landmark=4.0, seed=6)
+    problem = make_mixed_ba_problem(**kw) if kind == "mixed" else make_ba_problem(kind=kind, **kw)
+    robust = dict(rk=rk, delta=3.0) if rk else {}
+    tf, of = _run(problem, True, **robust)
+    th, oh = _run(problem, False, **robust)
+    assert len(tf) >= 5 and tf == th
+    assert _same_state(of, oh)
+    st = of.loop_stats
+    assert st["reads"] == st["trials"] + 1 and st["captures"] == st["replays"] == 0
+    assert oh.loop_stats is None
+
+
+def test_fused_termination_parity():
+    """The noise-free 8-pose problem of ``tests/test_fused.py``: whether or
+    not early termination triggers, the port's two loops and the JAX
+    package's fused loop run the same number of iterations; the port's two
+    agree bit for bit, the JAX trace as that test holds it at the noise
+    floor."""
+    kw = dict(num_poses=8, num_landmarks=40, mean_obs_per_landmark=4.0, kind="mono", seed=53,
+              noise_px=0.0, landmark_noise=0.02, pose_noise=0.001, num_fixed_poses=2)
+    problem = make_ba_problem(**kw)
+    tf, _ = _run(problem, True, 25)
+    th, _ = _run(problem, False, 25)
+    jopt = jax_optimizer(problem)
+    jopt.optimize(25)
+    tj = _trace(jopt)
+    assert len(tf) == len(th) == len(tj)
+    assert tf == th
+    np.testing.assert_allclose(tf, tj, rtol=1e-6, atol=1e-12)
+
+
+def test_fused_carry_invariant_under_rejections(monkeypatch):
+    """A rejected trial's candidate never reaches the next linearisation:
+    with the rho termination off (``RHO_DONE -> -2`` in both loops) and the
+    solve's verdict forced to a failure whenever lambda is below 1000, the
+    run alternates bails (chi2 unchanged, the candidate far from the kept
+    state) and accepted steps; the fused loop equals the host loop bit for
+    bit."""
+    problem = make_ba_problem(num_poses=9, num_landmarks=55, mean_obs_per_landmark=4.0,
+                              kind="mono", seed=91, noise_px=1.0, landmark_noise=0.3,
+                              pose_noise=0.05, num_fixed_poses=2)
+    monkeypatch.setattr(fused, "RHO_DONE", -2.0)
+    monkeypatch.setattr(topt, "RHO_DONE", -2.0)
+    real_trial = BlockSolver.trial
+
+    def failing_trial(self, sys, lam, timer=None):
+        new_graph, Fhat, scale, success = real_trial(self, sys, lam, timer)
+        return new_graph, Fhat, scale, success & (lam > 1000.0)
+
+    monkeypatch.setattr(BlockSolver, "trial", failing_trial)
+    th, oh = _run(problem, False, 20)
+    tf, of = _run(problem, True, 20)
+    # witness: a bail (chi2 unchanged) followed by an accepted iteration
+    rejects = [i for i in range(1, len(th)) if th[i] == th[i - 1]]
+    assert rejects and any(th[j] != th[j - 1] for j in range(rejects[0] + 1, len(th))), th
+    assert len(th) == 20 and tf == th
+    assert _same_state(of, oh)
+
+
+def test_retry_trials_equal_the_host_loop():
+    """Iterations of several trials (the ``retry`` step): a large initial
+    lambda factor makes the first iterations reject before they accept.
+    Trace and state bit for bit, and more trials than iterations."""
+    problem = make_ba_problem(num_poses=10, num_landmarks=60, mean_obs_per_landmark=4.0,
+                              seed=7, pose_noise=0.05, landmark_noise=0.3)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(fused, "TAU", 1e-12)
+        mp.setattr(topt, "TAU", 1e-12)
+        tf, of = _run(problem, True)
+        th, oh = _run(problem, False)
+    assert tf == th and _same_state(of, oh)
+    assert of.loop_stats["trials"] > len(tf), of.loop_stats
+
+
+def _lm_grid():
+    """(F, Fhat, scale, success, lam, nu, q) over rho near 0, 0.5 and 1,
+    negative and large rho, a step that bails (Fhat - F < 1e-4), a worse
+    step that does not, NaN Fhat, a zero-sized scale, and lambda that
+    overflows to inf on a reject."""
+    rows = []
+    for F, scale in itertools.product((100.0, 3.5e-7), (2.0, 1e-9)):
+        s = scale + 1e-3
+        fhats = [F - r * s for r in (-0.3, 1e-12, 1e-7, 0.4999999, 0.5, 0.5000001, 0.9999999,
+                                     1.0, 1.5, 1e6)]
+        fhats += [F, F + 1e-5, F + 1.0, math.nan]
+        for Fhat, success, (lam, nu), q in itertools.product(
+                fhats, (True, False), ((1e-4, 2.0), (0.37, 16.0), (1e300, 1e20)), (0, 8, 9)):
+            rows.append((F, Fhat, scale, success, lam, nu, q))
+    return rows
+
+
+def test_device_lm_update_equals_the_host_float_rule():
+    """``solver/fused.py lm_update`` on f64 device scalars against
+    ``optimizer.py lm_update`` / ``lm_done`` in Python floats, bit for bit
+    at every point of the grid (NaN where the host has NaN)."""
+    rows = _lm_grid()
+    cols = list(zip(*rows))
+    f64 = dict(dtype=torch.float64)
+    accept, F, lam, nu, rho, q, more, done = fused.lm_update(
+        torch.tensor(cols[0], **f64), torch.tensor(cols[1], **f64), torch.tensor(cols[2], **f64),
+        torch.tensor(cols[3]), torch.tensor(cols[4], **f64), torch.tensor(cols[5], **f64),
+        torch.tensor(cols[6], dtype=torch.int32))
+
+    def same(a, b):
+        return a == b or (math.isnan(a) and math.isnan(b))
+
+    moved = set()
+    for i, (F0, Fhat, scale, success, lam0, nu0, q0) in enumerate(rows):
+        h_acc, h_stop, h_rho, h_lam, h_nu, h_q = topt.lm_update(
+            F0, Fhat, scale, success, lam0, nu0, q0)
+        h_more = not h_stop and h_q < fused.MAXQ and h_rho < 0
+        h_done = topt.lm_done(h_q, h_rho, h_lam)
+        got = (bool(accept[i]), F[i].item(), lam[i].item(), nu[i].item(), rho[i].item(),
+               int(q[i]), bool(more[i]), bool(done[i]))
+        want = (h_acc, Fhat if h_acc else F0, h_lam, h_nu, h_rho, h_q, h_more, h_done)
+        assert all(same(g, w) for g, w in zip(got, want)), (rows[i], got, want)
+        moved.add((h_acc, h_stop, h_more, h_done, math.isfinite(h_lam)))
+    # the grid reaches every branch: accept, bail, retry, stop at MAXQ, overflow
+    assert {m[:2] for m in moved} == {(True, True), (False, True), (False, False)}
+    assert any(m[2] for m in moved) and any(not m[4] for m in moved)
+    assert any(not m[0] and not m[1] and not m[2] for m in moved)
+
+
+def test_fused_is_the_default_and_verbose_or_profile_take_the_host_loop(monkeypatch, capsys):
+    """``use_fused_loop`` defaults to True; ``verbose`` and
+    ``set_profile(True)`` take the host loop (its per-iteration lines and
+    stage times), as in the JAX package; on the CPU the fused loop captures
+    nothing: with CUDA graphs made to raise it still runs."""
+    assert TorchGraphOptimisation(device="cpu").use_fused_loop is True
+    problem = make_ba_problem(num_poses=6, num_landmarks=40, seed=1)
+
+    def no_graphs(*a, **k):
+        raise AssertionError("a CUDA graph was made on the CPU")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graphs)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", no_graphs)
+    opt = optimizer_from_problem(problem, device="cpu")
+    opt.optimize(3)
+    assert opt.loop_stats["captures"] == 0 and opt.loop_stats["trials"] >= 3
+    fused_trace = _trace(opt)
+
+    class NoFusedLoop:
+        def __init__(self, *a, **k):
+            raise AssertionError("the fused loop ran under verbose or profile")
+
+    monkeypatch.setattr(topt, "FusedLoop", NoFusedLoop)
+    for flag in ("verbose", "profile"):
+        opt = optimizer_from_problem(problem, device="cpu")
+        getattr(opt, f"set_{flag}")(True)
+        opt.optimize(3)
+        assert opt.loop_stats is None and _trace(opt) == fused_trace
+    assert "levenberg iterations" in capsys.readouterr().out
+    opt = optimizer_from_problem(problem, device="cpu")
+    opt.use_fused_loop = False
+    opt.optimize(3)
+    assert opt.loop_stats is None and _trace(opt) == fused_trace

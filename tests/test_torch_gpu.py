@@ -284,13 +284,16 @@ def test_lminv_kernels_match_twins_bit_for_bit(lam):
     bl = rng.normal(size=(La, 3))
     H9[::17] = 0.0
     H9, bl = torch.as_tensor(H9, device=dev), torch.as_tensor(bl, device=dev)
+    lam_f, lam = lam, torch.tensor(lam, dtype=torch.float64, device=dev)  # B4 reads it on the card
     before = lminv.damped_inverse.launches, lminv.sym3x3_mv.launches
     inv, y = lminv.damped_inverse(H9, bl, lam)
     inv_p, y_p = lminv.damped_inverse_plain(H9, bl, lam)
+    assert all(torch.equal(a, b) for a, b in zip((inv_p, y_p),
+                                                 lminv.damped_inverse_plain(H9, bl, lam_f)))
     assert torch.equal(inv, inv_p) and torch.equal(y, y_p)
     assert bool(torch.isfinite(inv).all()) and bool(torch.isfinite(y).all())
     eye = torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1], dtype=torch.float64, device=dev)
-    assert torch.allclose(inv[::17], (eye / lam).expand(inv[::17].shape), rtol=1e-15, atol=0)
+    assert torch.allclose(inv[::17], (eye / lam_f).expand(inv[::17].shape), rtol=1e-15, atol=0)
     cl = torch.as_tensor(rng.normal(size=(La, 3)), device=dev)
     assert torch.equal(lminv.sym3x3_mv(inv, cl), lminv.sym3x3_mv_plain(inv, cl))
     after = lminv.damped_inverse.launches, lminv.sym3x3_mv.launches
@@ -310,7 +313,8 @@ def test_lminv_kernels_match_twins_bit_for_bit(lam):
         again = lminv.damped_inverse(Hv, bv, lam)
         assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
-    # a CUDA-graph replay gives the same bits
+    # a CUDA-graph replay gives the same bits, and reads lam where it lies:
+    # a replay after lam changed gives the twin at the new value
     lm_acc = torch.cat([H9, bl], dim=1)
     Hv, bv = lm_acc[:, :9], lm_acc[:, 9:]
     lminv.damped_inverse(Hv, bv, lam)
@@ -321,6 +325,12 @@ def test_lminv_kernels_match_twins_bit_for_bit(lam):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(g_inv, inv) and torch.equal(g_y, y)
+    lam.mul_(3.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = lminv.damped_inverse_plain(H9, bl, lam)
+    assert torch.equal(g_inv, want[0]) and torch.equal(g_y, want[1])
+    lam.fill_(lam_f)
 
     # one device kernel a call on the solver's views: no copies
     from torch.autograd import DeviceType
@@ -341,10 +351,15 @@ def test_lminv_kernels_match_twins_bit_for_bit(lam):
 def test_lminv_kernels_refuse_what_they_do_not_take():
     dev = _cuda()
     H9 = torch.zeros((4, 9), dtype=torch.float64, device=dev)
+    one = torch.ones((), dtype=torch.float64, device=dev)
     with pytest.raises(TypeError):
-        lminv.damped_inverse(H9.float(), torch.zeros((4, 3), device=dev), 1.0)
+        lminv.damped_inverse(H9.float(), torch.zeros((4, 3), device=dev), one)
     with pytest.raises(ValueError):
-        lminv.damped_inverse(H9, torch.zeros((5, 3), dtype=torch.float64, device=dev), 1.0)
+        lminv.damped_inverse(H9, torch.zeros((5, 3), dtype=torch.float64, device=dev), one)
+    with pytest.raises(TypeError, match="0-d f64 tensor"):
+        lminv.damped_inverse(H9, torch.zeros((4, 3), dtype=torch.float64, device=dev), 1.0)
+    with pytest.raises(ValueError, match="device"):
+        lminv.damped_inverse(H9, torch.zeros((4, 3), dtype=torch.float64, device=dev), one.cpu())
     with pytest.raises(ValueError):
         lminv.sym3x3_mv(H9, torch.zeros((4, 3), dtype=torch.float64))
 
@@ -567,3 +582,115 @@ def test_structure_cache_hit_on_the_card():
     info = bs.structure_cache_info()
     assert (info["hits"], info["misses"]) == (1, 2)
     bs.clear_structure_cache()
+
+
+def _fused_and_host(problem, niter, **robust):
+    """The same problem on the card through the fused loop and the host
+    loop, with the launch counts of each run."""
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    runs = []
+    for fused_loop in (True, False):
+        opt = optimizer_from_problem(problem, **robust)
+        opt.use_fused_loop = fused_loop
+        kernels.reset_launch_counts()
+        opt.optimize(niter)
+        torch.cuda.synchronize()
+        runs.append((opt, kernels.launch_counts()))
+    return runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rk", [0, 1], ids=["mono", "mono-tukey"])
+def test_fused_loop_on_the_card_equals_the_host_loop(rk):
+    """The fused loop on the card (iteration 0 eager, then CUDA-graph
+    replays) against the host loop on the card: trace and final state bit
+    for bit; one flag read a trial and one for the trace."""
+    _cuda()
+    problem = make_ba_problem(num_poses=16, num_landmarks=120, seed=13)
+    robust = dict(rk=rk, delta=3.0) if rk else {}
+    (f, _), (h, _) = _fused_and_host(problem, 6, **robust)
+    tf = [s.chi2 for s in f.batch_statistics().get()]
+    assert tf == [s.chi2 for s in h.batch_statistics().get()] and len(tf) == 6
+    assert all(torch.equal(a, b) for a, b in zip(f.solver.graph, h.solver.graph))
+    st = f.loop_stats
+    assert st["captures"] >= 1 and st["replays"] >= 5 and st["reads"] == st["trials"] + 1
+
+
+@pytest.mark.gpu
+def test_launch_counters_count_replays():
+    """A captured launch counts once for every replay and not at capture:
+    the fused run's counts follow from its iterations and trials (F once
+    before the loop, no chi pass at the head) and its trial kernels' counts
+    equal the host loop's."""
+    _cuda()
+    problem = make_ba_problem(num_poses=16, num_landmarks=120, seed=13)
+    (f, cf), (h, ch) = _fused_and_host(problem, 8)
+    iters, trials = len(f.batch_statistics().get()), f.loop_stats["trials"]
+    assert f.loop_stats["replays"] == trials - 1 >= 7  # iteration 0 of one trial runs eagerly
+    assert cf["chi_edges"] == 1 + trials and cf["gather_rows"] == 2 + 2 * iters + 2 * trials
+    assert ch["chi_edges"] == iters + trials and ch["gather_rows"] == 4 * iters + 2 * trials
+    assert cf["linearise"] == ch["linearise"] == iters
+    for name in ("damped_inverse", "hpl_mv_segment_sum", "schur_pair_products", "band_factor",
+                 "hpl_mtv_segment_sum", "sym3x3_mv"):
+        assert cf[name] == ch[name] == trials, name
+    assert cf["band_solve"] == ch["band_solve"] == 3 * trials
+
+
+@pytest.mark.gpu
+def test_a_host_read_under_capture_raises_and_runs_nothing_else(monkeypatch):
+    """A stage that reads a device value on the host (``.item()``) cannot be
+    captured: ``optimize()`` raises, and it does not finish on the host
+    loop or eagerly.  The card works afterwards."""
+    from cuda_bundle_adjustment_tpu_torch import optimizer as topt
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    _cuda()
+    problem = make_ba_problem(num_poses=16, num_landmarks=120, seed=13)
+    real = bs.compute_scale
+
+    def reads_back(xp, xl, sys, lam):
+        scale = real(xp, xl, sys, lam)
+        scale.item()
+        return scale
+
+    def no_host_loop(self, niterations):
+        raise AssertionError("the host loop ran")
+
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    with monkeypatch.context() as mp:
+        mp.setattr(bs, "compute_scale", reads_back)
+        mp.setattr(topt.TorchGraphOptimisation, "_optimize_host", no_host_loop)
+        opt = optimizer_from_problem(problem)
+        kernels.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="capturing|capture"):
+            opt.optimize(4)
+        assert opt.loop_stats is None and not opt.batch_statistics().get()
+        # the eager iteration 0 launched; the failed capture counted nothing
+        assert kernels.launch_counts()["linearise"] == 1
+    # later loops capture and replay (into a new pool: the failed capture may
+    # stay registered with the allocator as recording to the old one)
+    for _ in range(2):
+        opt = optimizer_from_problem(problem)
+        opt.optimize(4)
+        assert opt.loop_stats["replays"] >= 3 and len(opt.batch_statistics().get()) == 4
+
+
+@pytest.mark.gpu
+def test_repeated_optimize_reuses_the_capture_pool():
+    """Every loop on a device captures into the device's one pool: once a
+    loop of a size has run, the next one's graphs take the blocks the last
+    one gave back, so repeated ``optimize()`` calls hold the allocator's
+    reservation where it was, and each later run replays again."""
+    dev = _cuda()
+    problem = make_ba_problem(num_poses=40, num_landmarks=1500, seed=2)
+    reserved = []
+    for _ in range(4):
+        opt = optimizer_from_problem(problem, device=dev)
+        opt.optimize(5)
+        torch.cuda.synchronize()
+        assert opt.loop_stats["captures"] >= 1 and opt.loop_stats["replays"] >= 4
+        del opt
+        reserved.append(torch.cuda.memory_reserved(dev))
+    assert reserved[3] == reserved[2], reserved

@@ -9,6 +9,9 @@ the JAX package on the CPU, on the same seeded numpy inputs.
   conditioning noise).
 * A zero Hll block with ``lam > 0`` inverts to ``I / lam`` with a finite y:
   the port has no determinant guard and needs none.
+* ``lam`` reaches B4 as a 0-d f64 tensor (the kernel reads it on the
+  device): the twin gives the same bits with the tensor as with the float,
+  and the wrapper refuses a Python float.
 * B4's operand preparation hands the solver's column blocks of ``[La, 12]``
   rows to the kernel uncopied, at their stride 12, and the kernel's tile
   walk (staging map in, shared rows, staging map out), replayed in numpy,
@@ -32,6 +35,30 @@ torch.set_num_threads(1)
 
 DIAG9 = np.zeros(9)
 DIAG9[[0, 4, 8]] = 1.0
+
+
+def _lam(lam: float) -> torch.Tensor:
+    """``lam`` as B4 takes it: a 0-d f64 tensor."""
+    return torch.tensor(lam, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("lam", [1e-6, 0.37, 1e4, 1e12])
+def test_damped_inverse_twin_takes_lam_as_a_tensor(lam):
+    """The twin with ``lam`` as a 0-d f64 tensor gives the bits it gives
+    with the Python float; the wrapper takes the tensor and refuses the
+    float, a 0-d tensor of another dtype or shape, and one on another
+    device."""
+    H9, bl = _blocks(11, 300)
+    H, b = torch.as_tensor(H9), torch.as_tensor(bl)
+    by_tensor = lminv.damped_inverse_plain(H, b, _lam(lam))
+    by_float = lminv.damped_inverse_plain(H, b, lam)
+    assert all(torch.equal(x, y) for x, y in zip(by_tensor, by_float))
+    assert all(torch.equal(x, y) for x, y in zip(lminv.damped_inverse(H, b, _lam(lam)), by_float))
+    for bad in (lam, torch.tensor(lam, dtype=torch.float32), torch.tensor([lam], dtype=torch.float64)):
+        with pytest.raises(TypeError, match="0-d f64 tensor"):
+            lminv.damped_inverse(H, b, bad)
+    with pytest.raises(ValueError, match="device"):
+        lminv.damped_inverse(H, b, torch.tensor(lam, dtype=torch.float64, device="meta"))
 
 
 def _blocks(seed, La):
@@ -71,7 +98,7 @@ def test_damped_inverse_twin_matches_jax(lam, views):
         assert Hll_t.stride() == (12, 1) and bl_t.stride() == (12, 1)
     else:
         Hll_t, bl_t = torch.as_tensor(H9), torch.as_tensor(bl)
-    inv, y = lminv.damped_inverse(Hll_t, bl_t, lam)
+    inv, y = lminv.damped_inverse(Hll_t, bl_t, _lam(lam))
     inv, y = inv.numpy(), y.numpy()
     assert inv.shape == (512, 9) and y.shape == (512, 3)
 
@@ -113,7 +140,7 @@ def test_zero_block_inverts_to_identity_over_lambda(lam):
     """An all-outlier landmark under Tukey has Hll = 0: the damping alone
     keeps it invertible."""
     H9, bl = np.zeros((4, 9)), np.arange(12.0).reshape(4, 3)
-    inv, y = lminv.damped_inverse(torch.as_tensor(H9), torch.as_tensor(bl), lam)
+    inv, y = lminv.damped_inverse(torch.as_tensor(H9), torch.as_tensor(bl), _lam(lam))
     np.testing.assert_allclose(inv.numpy(), np.tile(DIAG9 / lam, (4, 1)), rtol=1e-15)
     np.testing.assert_allclose(y.numpy(), bl / lam, rtol=1e-15)
     assert bool(torch.isfinite(y).all())
@@ -124,7 +151,7 @@ def test_cuda_operands_never_reach_the_twin():
     meta = torch.empty((3, 9), dtype=torch.float64, device="meta")
     vec = torch.empty((3, 3), dtype=torch.float64, device="meta")
     with pytest.raises(NotImplementedError, match="no kernel for device"):
-        lminv.damped_inverse(meta, vec, 1.0)
+        lminv.damped_inverse(meta, vec, torch.ones((), dtype=torch.float64, device="meta"))
     with pytest.raises(NotImplementedError, match="no kernel for device"):
         lminv.sym3x3_mv(meta, vec)
     assert lminv.damped_inverse.launches == 0 and lminv.sym3x3_mv.launches == 0
