@@ -42,6 +42,10 @@ caught):
    then
    holds the band kernels B7 and B8 against their twins on a random banded
    SPD system of band height 48, which no generator reaches end to end;
+   then holds the eight kernels retyped for f32 mode (all but B7 and B8)
+   against their twins in f32 at the first linearisation of
+   ``kitti00_huber_f32`` (each the f64 computation rounded once: within one
+   f32 rounding, bit for bit where the f64 kernel is), every time read;
 4. runs a small mono, stereo and mixed problem without a robust kernel and
    under Huber, Cauchy and Tukey on the card and on the CPU and holds both
    chi2 traces against the numpy ``DenseLM`` oracle (the mixed graph under
@@ -66,7 +70,15 @@ caught):
    ``kitti07_mono``'s trace must agree with a run of the plain twins on the
    CPU, and ``kitti07_mono_wide`` (the same graph, poses renamed) with
    ``kitti07_mono``; prints cold and warm times and a per-stage profile;
-6. times the LM loop of ``kitti00_mono`` through the fused loop (split into
+   then runs ``kitti00_huber_f32`` alike (one B8 a trial; its trace within
+   rtol 1e-3 of ``kitti00_huber``'s; the host loop's printed, not held) and
+   the dense route: ``kitti00_mono`` under ``"exact"`` (against
+   ``kitti00_mono`` at 1e-8) and an 800-pose loop-closure graph whose band is
+   over 48 after RCM under ``"mixed"`` and ``"exact"`` (against each other),
+   each dense cell's factor, build and solve ms at one trial and its
+   allocator peak printed (``dense_cells``);
+6. times the LM loop of ``kitti00_mono``, ``kitti00_huber_f32`` and
+   ``kitti00_mono`` under ``"exact"`` through the fused loop (split into
    its eager iteration 0, captures and replays, with the captured graphs'
    node counts) and through the host loop, traces each with
    ``torch.profiler`` and prints its device busy time, its count of device
@@ -116,6 +128,14 @@ F64_TOL = 1e-12
 # implementations of the same recurrence, different rounding order), as a
 # fraction of the largest magnitude
 F32_TOL = 1e-3
+# f32 mode: a retyped kernel and its twin are each the f64 computation
+# rounded to f32 once, so where their f64 values agree within F64_TOL their
+# f32 outputs agree within one rounding: 2^-23 of the largest magnitude
+F32_ROUND = 2.0**-23
+# an f32-mode yardstick (a library call in f32 arithmetic, or the f32 trace)
+# against the port's: f32 rounding of the sums, as a fraction of the largest
+# magnitude (the JAX package's own f32 check, tests/test_terms_integration.py)
+F32_STAGE_TOL = 1e-4
 TIMED_REPS = 20
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
@@ -396,10 +416,13 @@ def linearise_in_plan_order(qt, xw, data, pose_seg, lm_seg, plan=None):
     device: the kernel's result bit for bit."""
     from cuda_bundle_adjustment_tpu_torch.kernels import terms
 
+    from cuda_bundle_adjustment_tpu_torch.kernels._types import narrow, wide, wide_edges
+
     plan = plan or terms.make_linearise_plan(pose_seg, lm_seg, qt.shape[0])
-    pose_stack, lm_stack, hpl = terms._model(data).terms(None, data, 0, 1.0, state=(qt, xw))
-    return (_chunks_in_plan_order(pose_stack, plan.pose),
-            _chunks_in_plan_order(lm_stack, plan.lm), hpl)
+    pose_stack, lm_stack, hpl = terms._model(data).terms(
+        None, wide_edges(data), 0, 1.0, state=(wide(qt), wide(xw)))
+    return narrow(qt.dtype, _chunks_in_plan_order(pose_stack, plan.pose),
+                  _chunks_in_plan_order(lm_stack, plan.lm), hpl)
 
 
 def hpl_mv_in_plan_order(hpl, y, lm_idx, bp, pose_seg, plan=None):
@@ -408,12 +431,13 @@ def hpl_mv_in_plan_order(hpl, y, lm_idx, bp, pose_seg, plan=None):
     in order, then a pose's chunks in order; plain tensor code on any
     device, the kernel's result bit for bit."""
     from cuda_bundle_adjustment_tpu_torch.kernels import schurvec
+    from cuda_bundle_adjustment_tpu_torch.kernels._types import narrow, wide
     from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mv_6x3
 
     La = y.shape[0]
     plan = plan or schurvec.mv_plan(pose_seg, hpl.shape[0], La)
-    rows = flat_mv_6x3(hpl, y[lm_idx.clamp(0, La - 1)])
-    return bp - _chunks_in_plan_order(rows, plan.pose)
+    rows = flat_mv_6x3(wide(hpl), wide(y)[lm_idx.clamp(0, La - 1)])
+    return narrow(bp.dtype, wide(bp) - _chunks_in_plan_order(rows, plan.pose))
 
 
 def hpl_mtv_in_plan_order(hpl, xp, pose_idx, bl, lm_seg, plan=None):
@@ -425,12 +449,14 @@ def hpl_mtv_in_plan_order(hpl, xp, pose_idx, bl, lm_seg, plan=None):
     import torch
 
     from cuda_bundle_adjustment_tpu_torch.kernels import schurvec
+    from cuda_bundle_adjustment_tpu_torch.kernels._types import narrow, wide
     from cuda_bundle_adjustment_tpu_torch.kernels.terms import TILE
     from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mtv_6x3
 
     Pa, dev = xp.shape[0], hpl.device
+    dtype, bl = bl.dtype, wide(bl)
     plan = plan or schurvec.mtv_plan(lm_seg, hpl.shape[0], Pa)
-    contrib = flat_mtv_6x3(hpl, xp[pose_idx.clamp(0, Pa - 1)])
+    contrib = flat_mtv_6x3(wide(hpl), wide(xp)[pose_idx.clamp(0, Pa - 1)])
     rows, chunks, tile_off, vertex_off = (t.long() for t in plan.lm)
     slot = plan.lm_slot.long()
     length = chunks[:, 1] - chunks[:, 0]
@@ -452,7 +478,7 @@ def hpl_mtv_in_plan_order(hpl, xp, pose_idx, bl, lm_seg, plan=None):
         several = (vertex_off[1:] - vertex_off[:-1]) > 1
         by_slot = torch.segment_reduce(scratch, "sum", offsets=slot[vertex_off])
         sums[several] = by_slot[several]
-    return bl - sums
+    return narrow(dtype, bl - sums)
 
 
 def pair_products_in_plan_order(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets, plan=None):
@@ -462,9 +488,11 @@ def pair_products_in_plan_order(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets, p
     import torch
 
     from cuda_bundle_adjustment_tpu_torch.kernels import pairprod
+    from cuda_bundle_adjustment_tpu_torch.kernels._types import narrow, wide
     from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mm_6x3_3x3
 
     plan = plan or pairprod.make_pair_plan(lm_idx, tri_ei, tri_ej, offsets)
+    dtype, hpl, inv_hll = hpl.dtype, wide(hpl), wide(inv_hll)
     T = tri_ei.shape[0]
     W = flat_mm_6x3_3x3(hpl, inv_hll[lm_idx.clamp(0, max(inv_hll.shape[0] - 1, 0))])
     first, last = plan.items[:, 0].long(), plan.items[:, 1].long()
@@ -479,7 +507,7 @@ def pair_products_in_plan_order(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets, p
         acc = acc + prod * live[:, :, None]
     for half in (8, 4, 2, 1):
         acc = acc[:, :half] + acc[:, half : 2 * half]
-    return torch.segment_reduce(acc[:, 0], "sum", offsets=plan.block_off.long())
+    return narrow(dtype, torch.segment_reduce(acc[:, 0], "sum", offsets=plan.block_off.long()))
 
 
 def structure_agreement(native, plain) -> int:
@@ -567,16 +595,17 @@ def structure_phase(problem, label: str) -> dict:
     return dict(native_ms=times[True], numpy_ms=times[False], blocks_reordered=differ)
 
 
-def first_linearisation(problem, dev, **robust):
-    """The solver at the problem's first linearisation (``robust``: ``rk``
-    and ``delta``), its system and the LM's first damping (TAU x max
-    diagonal) as the loops hand it to the stages: a 0-d f64 tensor on the
-    device, which B4 reads through its pointer."""
+def first_linearisation(problem, dev, options=None, **robust):
+    """The solver at the problem's first linearisation (``options``: the
+    solver's; ``robust``: ``rk`` and ``delta``), its system and the LM's
+    first damping (TAU x max diagonal) as the loops hand it to the stages: a
+    0-d tensor of the working type on the device, which B4 reads through its
+    pointer."""
     from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
     from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
     from cuda_bundle_adjustment_tpu_torch.solver.fused import TAU
 
-    solver = optimizer_from_problem(problem, device=dev, **robust).solver
+    solver = optimizer_from_problem(problem, options=options, device=dev, **robust).solver
     solver.build_structure()
     _, sys_ = solver.head()
     return solver, sys_, TAU * bs.max_diagonal(sys_)
@@ -601,7 +630,9 @@ def _held(name, k_out, p_out, what, tol=F64_TOL) -> float:
 
 
 def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
-    """B1, B3, B4, B5, B9 and B10 against their twins at one linearisation.
+    """B1, B3, B4, B5, B9 and B10 against their twins at one linearisation,
+    in the solver's working type (f64, or f32 in f32 mode: the twins'
+    tolerances then ``F32_ROUND``, the bit-for-bit checks unchanged).
     ``reported``: the kernels whose times a table reports from this input
     (all of them by default); the others are held alike and timed briefly."""
     import torch
@@ -614,12 +645,18 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
     plan, data, graph, meta = solver.plan, solver.packed, solver.graph, solver.meta
     mdim, E = data.meas.shape
     La = solver.La
+    dtype = sys_.bp.dtype
+    near = F64_TOL if dtype == torch.float64 else F32_ROUND
     m3 = 0 if data.mask3 is None else int(data.mask3.sum().item())
-    print(f"{label}: mdim={mdim}, {m3} stereo rows of {E} (mask3), robust kernel {meta.rk}")
+    print(f"{label}: mdim={mdim}, {m3} stereo rows of {E} (mask3), robust kernel {meta.rk}, "
+          f"{dtype}")
     res = {}
     qt, xw = edge_state(graph, data)
 
-    def held_timed(name, kernel, plain, what, ins, flops, tol=F64_TOL, library=None):
+    # the kernels compute in f64 in either working type: their operations
+    # are bounded by the f64 rate, their bytes by the operands' type
+    def held_timed(name, kernel, plain, what, ins, flops, tol=None, library=None):
+        tol = near if tol is None else tol
         k_out, p_out = kernel(), plain()
         if not isinstance(k_out, tuple):
             k_out, p_out = (k_out,), (p_out,)
@@ -678,7 +715,7 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
 
     # B4: bit for bit; one library yardstick is linalg.inv plus a batched
     # product on the damped [La, 3, 3] blocks
-    diag9 = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=torch.float64, device=qt.device)
+    diag9 = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=dtype, device=qt.device)
     damped = (sys_.Hll + lam * diag9).view(La, 3, 3)
     bl3 = sys_.bl.view(La, 3, 1)
 
@@ -714,16 +751,19 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
     del graph
     if reported is None:
         split = {k: round(v, 5) for k, v in device_ms_by_kernel(damped_inverse).items()}
-        check(list(split) == ["damped_inverse_kernel"],
+        check(len(split) == 1 and next(iter(split)).startswith("damped_inverse_kernel"),
               f"{label} damped_inverse: device kernels of one call {split}, not one")
         copies = [device_ms(lambda t=t: t.contiguous()) for t in (sys_.Hll, sys_.bl)]
         print(f"{label} B4 damped_inverse on the solver's views (row stride 12): device kernels "
               f"of one call {json.dumps(split)}; the copies of Hll and bl that its wrapper made "
               f"before, on the device: {copies[0]:.5f}, {copies[1]:.5f} ms")
     invHll, y = damped_inverse()
-    lib_inv, lib_y = library_inverse()
-    rel = ((lib_inv.reshape(La, 9) - invHll).abs().max() / invHll.abs().max()).item()
-    check(rel <= 1e-9, f"damped_inverse: torch.linalg.inv differs by {rel} of max|inv|")
+    # the library's inverse in f64 (in f32 mode of the upcast blocks: the
+    # kernel's is the f64 inverse rounded once)
+    lib_inv = torch.linalg.inv(damped.double()).reshape(La, 9)
+    rel = ((lib_inv - invHll.double()).abs().max() / invHll.abs().max()).item()
+    lib_tol = 1e-9 if dtype == torch.float64 else 1e-6
+    check(rel <= lib_tol, f"damped_inverse: torch.linalg.inv differs by {rel} of max|inv|")
 
     # B5 and B9: the bound from the operands of the twins' function (Hpl, the
     # vectors, the index, the right-hand side, the segment plan); the library
@@ -804,10 +844,13 @@ def schurvec_checks(label, mv, mtv, lin_plan, lib_bsc, lib_cl, E, res) -> None:
           f"{label} B5/B9: a second launch differs")
     check(not bool(lin_plan.count.any()), f"{label} B5/B9: a counter was left above zero")
     lib = []
+    # the library's SpMV runs in the operands' type: in f32 mode its f32 sums
+    # against the kernel's f64 ones rounded once
+    lib_tol = F64_TOL if bsc.dtype == torch.float64 else F32_STAGE_TOL
     for name, k, want in (("hpl_mv_segment_sum", bsc, lib_bsc),
                           ("hpl_mtv_segment_sum", cl, lib_cl)):
         rel = ((k.reshape(-1) - want).abs().max() / k.abs().max()).item()
-        check(rel <= F64_TOL, f"{label} {name}: the library's SpMV differs by {rel} of max|value|")
+        check(rel <= lib_tol, f"{label} {name}: the library's SpMV differs by {rel} of max|value|")
         lib.append(rel)
     off = lin_plan.pose.vertex_off
     lone = int(((off[1:] - off[:-1]) == 1).sum())
@@ -934,17 +977,21 @@ def band_from_dense_factor(L, Pa: int, SB: int, bw: int):
     return out
 
 
-def kernel_checks(problem, dev, label, reported=None, **robust) -> dict:
+def kernel_checks(problem, dev, label, reported=None, options=None, **robust) -> dict:
     """Phase 3: each of the ten kernels against its twin at the shapes and
     values of one configuration's first linearisation.  ``reported``: the
     kernels whose ``device_ms`` and ``host_ms`` are read at this input (all
-    by default)."""
+    by default).  ``options``: the solver's; in f32 mode the eight retyped
+    kernels are held (B7 and B8 take f32 in either mode and are held at the
+    f64 inputs)."""
     import torch
 
     from cuda_bundle_adjustment_tpu_torch.kernels import gather, lminv, pairprod
     from cuda_bundle_adjustment_tpu_torch.models.ba import _pose_state_table
 
-    solver, sys_, lam = first_linearisation(problem, dev, **robust)
+    solver, sys_, lam = first_linearisation(problem, dev, options, **robust)
+    f32 = solver.dtype == torch.float32
+    near = F32_ROUND if f32 else F64_TOL
     plan, data, graph = solver.plan, solver.packed, solver.graph
     E, T = data.pose_idx.shape[0], plan.tri_ei.shape[0]
     print(
@@ -990,7 +1037,7 @@ def kernel_checks(problem, dev, label, reported=None, **robust) -> dict:
     p_pp = pairprod.schur_pair_products_plain(*args)
     err = (k_pp - p_pp).abs().max().item()
     scale = p_pp.abs().max().item()
-    check(err <= 1e-12 * scale, f"schur_pair_products: err {err} > 1e-12 x {scale}")
+    check(err <= near * scale, f"schur_pair_products: err {err} > {near} x {scale}")
     check(torch.equal(k_pp, pair_products()), f"{label} schur_pair_products: a second launch differs")
     # the function's inputs as the kernel reads them: the plan's int32 indices
     res["schur_pair_products"] = dict(
@@ -1003,11 +1050,12 @@ def kernel_checks(problem, dev, label, reported=None, **robust) -> dict:
     # the kernel's fused multiply-adds inside a product
     o_pp = pair_products_in_plan_order(*args, pair_plan)
     err_o = (k_pp - o_pp).abs().max().item()
-    check(err_o <= 1e-12 * scale, f"schur_pair_products: err {err_o} against the sum in the plan's order")
-    print(f"{label} B6 schur_pair_products: max_abs_err {err:.3e} (max|block| {scale:.3e}, tol 1e-12 "
+    check(err_o <= near * scale, f"schur_pair_products: err {err_o} against the sum in the plan's order")
+    print(f"{label} B6 schur_pair_products: max_abs_err {err:.3e} (max|block| {scale:.3e}, tol {near:.3g} "
           f"rel); {err_o:.3e} against the twin's products summed in the plan's order")
 
-    res.update(band_kernel_checks(solver, sys_, lam, label, reported))
+    if not f32:
+        res.update(band_kernel_checks(solver, sys_, lam, label, reported))
     for name in ("gather_rows", "schur_pair_products"):
         report(label, name, res[name])
     res["SB"] = plan.band.sb
@@ -1260,31 +1308,41 @@ def small_problem_checks(dev) -> None:
                       json.dumps({k: (len(v), v[-2], v[-1]) for k, v in long.items()}))
 
 
-def expected_launches(counts: dict, iters: int, trials: int, robust: bool, fused: bool) -> dict:
+def expected_launches(counts: dict, iters: int, trials: int, robust: bool, fused: bool,
+                      solver=None) -> dict:
     """The launch counts a run of ``iters`` iterations and ``trials`` trials
-    must show: a trial launches B4-B7, B9, B10 once, B8 three times and B1
-    once (its chi) with two B2 gathers; an iteration's linearisation B3 once
-    with two B2 (and B1 under a robust kernel).  The host loop adds a chi
-    pass (B1 + 2 B2) at every iteration's head, the fused loop one before
-    the first and none after (F is carried)."""
+    must show: a trial launches B4-B7, B9, B10 once, B8 three times (once in
+    f32 mode: no refinement round) and B1 once (its chi) with two B2
+    gathers; on the dense route no B7 or B8; an iteration's linearisation B3
+    once with two B2 (and B1 under a robust kernel).  The host loop adds a
+    chi pass (B1 + 2 B2) at every iteration's head, the fused loop one
+    before the first and none after (F is carried).  ``solver``: the run's,
+    for its route and type (the f64 band route by default)."""
     head = 1 if fused else iters
+    band = solver is None or solver.plan.route == "band"
+    solves = 3 if solver is None or solver.mixed else 1
     want = {k: trials for k in counts}
     want.update(chi_edges=head + trials + (iters if robust else 0),
                 gather_rows=2 * head + 2 * iters + 2 * trials, linearise=iters,
-                band_solve=3 * trials)
+                band_factor=trials if band else 0, band_solve=solves * trials if band else 0)
     return want
 
 
-def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
+def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool = True,
+              **robust) -> dict:
     """Phase 5: one configuration's optimize(10) on the default device (the
     card) through the default loop (the fused loop), counted, repeated and
     timed.  The structure cache is emptied before the cold run, which must
     miss it; every warm run must hit it and repeat the cold run's trace and
-    final state bit for bit, and so must a run of the host loop.  Each loop's
-    launch counts must follow from its iterations and trials
-    (``expected_launches``), so the fused loop's replays were counted.
-    Returns the launch counts and chi2 trace of its first run and that run's
-    solver."""
+    final state bit for bit, and so must a run of the host loop (in f32
+    mode the host loop keeps lambda as a Python float, as the JAX package's
+    does, while the fused loop keeps it in f32: the two may take different
+    steps where a verdict lies within f32 rounding, so the host loop's
+    trace is printed beside the fused loop's and not held).  Each loop's launch counts must follow from its iterations
+    and trials (``expected_launches``), so the fused loop's replays were
+    counted.  ``options``: the solver's; ``profiled=False`` leaves out the
+    two profiled runs.  Returns the launch counts and chi2 trace of its
+    first run, that run's solver and the allocator's peak over it."""
     import numpy as np
     import torch
 
@@ -1302,7 +1360,7 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
     def run(fused_loop=True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        opt = optimizer_from_problem(problem, **robust)
+        opt = optimizer_from_problem(problem, options=options, **robust)
         opt.use_fused_loop = fused_loop
         opt.optimize(10)
         torch.cuda.synchronize()
@@ -1314,9 +1372,13 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
 
     # earlier phases built this structure: the cold run starts from nothing
     bs.clear_structure_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     (opt, cold_s), hm = cache_delta(run)
     counts = kernels.launch_counts()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     check(hm == (0, 1), f"{label}: the cold run did not miss the structure cache (hits, misses {hm})")
     check(opt.device.type == "cuda", f"{label}: the default device is {opt.device}, not the card")
     trace = [s.chi2 for s in opt.batch_statistics().get()]
@@ -1327,7 +1389,8 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
           f"{label}: the default run did not replay captured graphs: {st}")
     check(st["reads"] == st["trials"] + 1,
           f"{label}: {st['reads']} host reads for {st['trials']} trials, not one a trial and one")
-    check(counts == expected_launches(counts, iters, st["trials"], bool(robust.get("rk")), True),
+    check(counts == expected_launches(counts, iters, st["trials"], bool(robust.get("rk")), True,
+                                      opt.solver),
           f"{label}: fused launch counts {counts} do not follow from {iters} iterations and "
           f"{st['trials']} trials")
     warm, traces, stats = [], [], [st]
@@ -1347,30 +1410,36 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
     host_counts = kernels.launch_counts()
     check(ho.loop_stats is None, f"{label}: use_fused_loop=False ran the fused loop")
     host_trace = [s.chi2 for s in ho.batch_statistics().get()]
-    check(host_trace == trace, f"{label}: the host loop's trace differs from the fused loop's")
-    check(all(torch.equal(a, b) for a, b in zip(state(ho), state(opt))),
-          f"{label}: the host loop's final state differs from the fused loop's")
-    check(host_counts == expected_launches(host_counts, iters, st["trials"],
-                                           bool(robust.get("rk")), False),
+    f32 = opt.solver.dtype == torch.float32
+    if f32:
+        host_trials = host_counts["sym3x3_mv"]  # one B10 a trial
+    else:
+        check(host_trace == trace, f"{label}: the host loop's trace differs from the fused loop's")
+        check(all(torch.equal(a, b) for a, b in zip(state(ho), state(opt))),
+              f"{label}: the host loop's final state differs from the fused loop's")
+        host_trials = st["trials"]
+    check(host_counts == expected_launches(host_counts, len(host_trace), host_trials,
+                                           bool(robust.get("rk")), False, ho.solver),
           f"{label}: host launch counts {host_counts} do not follow from its iterations")
 
     # separate profiled runs for the per-stage breakdown (each stage ends in
     # a device synchronise, so the timed runs above stay untraced): one that
     # hits the cache, then one that misses it
     stages = {}
-    for case in ("hit", "miss"):
+    for case in ("hit", "miss") if profiled else ():
         if case == "miss":
             bs.clear_structure_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        po = optimizer_from_problem(problem, **robust)
+        po = optimizer_from_problem(problem, options=options, **robust)
         torch.cuda.synchronize()
         pack_ms = (time.perf_counter() - t0) * 1e3
         po.set_profile(True)
         _, hm = cache_delta(lambda: po.optimize(10))
         check(hm == ((1, 0) if case == "hit" else (0, 1)),
               f"{label}: the profiled {case} run read the cache as (hits, misses) {hm}")
-        traces.append([s.chi2 for s in po.batch_statistics().get()])
+        if not f32:  # the host loop's trace: in f32 held above
+            traces.append([s.chi2 for s in po.batch_statistics().get()])
         tp = po.time_profile()
         stages[case] = {k: tp[k] for k in (prof.PROF_BUILD_STRUCTURE, prof.PROF_SYMBOLIC_DECOMP)}
         print(f"{label} stage profile of one profiled {case} of the structure cache (ms; packing "
@@ -1378,7 +1447,10 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
 
     band = opt.solver.plan.band
     print(f"{label}: Pa={opt.solver.Pa} La={opt.solver.La} "
-          f"E={opt.solver.packed.pose_idx.shape[0]} bw={band.bw} SB={band.sb}")
+          f"E={opt.solver.packed.pose_idx.shape[0]} bw={band.bw} SB={band.sb}, "
+          f"{opt.solver.dtype}, reduced route {opt.solver.plan.route} "
+          f"(factor {opt.solver.plan.target}); allocator peak over the cold run "
+          f"{peak_gib:.3f} GiB above what was allocated before it")
     print(f"{label} chi2 trace:", json.dumps(trace))
     print(f"{label} stages 1 and 5 (ms), structure cache miss and hit:", json.dumps(stages))
     check(all(tr == trace for tr in traces), f"{label}: traces differ between runs")
@@ -1392,7 +1464,8 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
         f"{label}: final state has the wrong shape or non-finite values",
     )
     for name, n in counts.items():
-        check(n > 0, f"{label}: kernel {name} was not launched")
+        check(n > 0 or opt.solver.plan.route == "dense" and name.startswith("band_"),
+              f"{label}: kernel {name} was not launched")
     print(f"{label} launch counts (one optimize(10) run, fused loop, {iters} iterations, "
           f"{st['trials']} trials): {json.dumps(counts)}")
     print(f"{label} launch counts (host loop, same run): {json.dumps(host_counts)}")
@@ -1401,7 +1474,11 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
           json.dumps([[s["trials"], s["reads"], s["captures"], s["replays"],
                        round(s["eager_ms"], 2), round(s["capture_ms"], 2),
                        round(s["replay_ms"], 2)] for s in stats]))
-    print(f"{label} host loop: its trace and final state equal the fused loop's bit for bit")
+    if f32:
+        print(f"{label} host loop (lambda a Python float, not held in f32): its trace",
+              json.dumps(host_trace), "; the warm fused runs bit for bit the cold one")
+    else:
+        print(f"{label} host loop: its trace and final state equal the fused loop's bit for bit")
     print(
         f"{label} optimizer_from_problem+optimize(10): cold {cold_s:.4f} s, "
         f"warm median {statistics.median(warm):.4f} s over {len(warm)} runs "
@@ -1409,7 +1486,9 @@ def main_path(problem, label: str, warm_runs: int, **robust) -> dict:
         f"allocator holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
         f"[{nvidia_smi_line()}]"
     )
-    return dict(counts=counts, trace=trace, solver=opt.solver, stages=stages)
+    return dict(counts=counts, trace=trace, solver=opt.solver, stages=stages, peak_gib=peak_gib,
+                warm_s=statistics.median(warm) if warm else None, cold_s=cold_s,
+                loop_stats=st)
 
 
 def cpu_twin_agreement(problem, run: dict, label: str) -> None:
@@ -1458,6 +1537,51 @@ def wide_band_agreement(narrow: dict, wide: dict, rename) -> None:
           f"trace max rel diff {rel:.3e} (tol 1e-8), poses and landmarks within 1e-7")
 
 
+def dense_cells(runs: dict) -> dict:
+    """The dense route at full size: ``kitti00_mono`` under ``"exact"`` (an
+    f64 factor of the 7926-row scaled matrix, one solve a trial) against
+    ``kitti00_mono`` under ``"mixed"`` (the band route: f32 factor, two f64
+    refinement rounds), and the 800-pose loop-closure graph (band over 48
+    after RCM) under ``"mixed"`` (dense f32 factor, two rounds) against
+    ``"exact"``, each pair's traces within rtol 1e-8 (a refined step is
+    within ~1e-11 of the f64 one, and both runs take the same steps).
+    Prints each dense cell's factor, matrix build and whole solve times at
+    one trial, and its allocator peak."""
+    import numpy as np
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+    from cuda_bundle_adjustment_tpu_torch.solver.fused import TAU
+
+    out = {}
+    for dense, other in (("kitti00_mono_exact", "kitti00_mono"),
+                         ("loop800_mixed", "loop800_exact")):
+        a, b = runs[dense], runs[other]
+        s = a["solver"]
+        check(s.plan.route == "dense", f"{dense}: the reduced route is {s.plan.route}, not dense")
+        check(len(a["trace"]) == len(b["trace"]), f"{dense}: another number of iterations "
+              f"than {other}")
+        np.testing.assert_allclose(a["trace"], b["trace"], rtol=1e-8)
+        rel = max(abs(x - y) / y for x, y in zip(a["trace"], b["trace"]))
+        # one trial's reduced system at the final state, as the loop forms it
+        _, sys_ = s.head()
+        blocks, bsc, _ = bs.schur_reduce(sys_, TAU * bs.max_diagonal(sys_), s.plan)
+        bl_s, _, _ = bs.scaled_blocks(blocks, bsc, s.plan)
+        A = bs.dense_scaled(bl_s, s.plan, s.plan.target)
+        r = dict(
+            n=A.shape[0], factor=str(s.plan.target), band_height=s.plan.band.bw + 1,
+            factor_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(A), reps=5),
+            build_ms=cuda_ms(lambda: bs.dense_scaled(bl_s, s.plan, s.plan.target), reps=5),
+            solve_ms=cuda_ms(lambda: bs.solve_reduced_dense(blocks, bsc, s.plan), reps=5),
+            peak_gib=a["peak_gib"], trace_rel_diff=rel,
+        )
+        del A
+        print(f"{dense} against {other}: trace max rel diff {rel:.3e} (tol 1e-8); one trial's "
+              f"dense solve [{nvidia_smi_line()}]:", json.dumps(r))
+        out[dense] = r
+    return out
+
+
 def graph_nodes(graph) -> dict:
     """A captured CUDA graph's node count, and its nodes by type (kernel,
     memcpy, memset, other), read with ``cuGraphGetNodes`` and
@@ -1482,7 +1606,7 @@ def graph_nodes(graph) -> dict:
     return out
 
 
-def loop_device_profile(problem, label: str) -> None:
+def loop_device_profile(problem, label: str, options=None, **robust) -> None:
     """Phase 6: the LM loop after the structure, through the fused loop and
     through the host loop: each timed on the host clock without the
     profiler, then traced with torch.profiler; busy = the sum of the device
@@ -1492,7 +1616,7 @@ def loop_device_profile(problem, label: str) -> None:
     inside the replays estimated as busy a trial x replays over the replay
     time; host reads per run: the fused loop's counted, the host loop's
     from its code (chi an iteration, the first lambda, Fhat, scale and the
-    verdict a trial)."""
+    verdict a trial).  ``options`` and ``robust``: the configuration's."""
     import contextlib
 
     import torch
@@ -1504,7 +1628,7 @@ def loop_device_profile(problem, label: str) -> None:
     from cuda_bundle_adjustment_tpu_torch.solver.fused import FusedLoop
 
     def loop(fused_loop: bool, traced: bool):
-        opt = optimizer_from_problem(problem)
+        opt = optimizer_from_problem(problem, options=options, **robust)
         opt.solver.build_structure()
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -1520,7 +1644,7 @@ def loop_device_profile(problem, label: str) -> None:
                 iters = len(opt.batch_statistics().get())
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        trials = kernels.launch_counts()["band_factor"]
+        trials = kernels.launch_counts()["sym3x3_mv"]  # B10: once a trial, on every route
         return ms, prof, fl, iters, trials
 
     for fused_loop, name in ((True, "fused"), (False, "host")):
@@ -1560,6 +1684,7 @@ def loop_device_profile(problem, label: str) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1571,10 +1696,12 @@ def main() -> int:
         f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {nvcc_version()}"
     )
+    from cuda_bundle_adjustment_tpu_torch import GraphOptimisationOptions
     from cuda_bundle_adjustment_tpu_torch.io.synthetic import (
         kitti00_scale_mixed_problem,
         kitti00_scale_problem,
         kitti07_scale_problem,
+        make_loop_closure_problem,
     )
     from cuda_bundle_adjustment_tpu_torch.kernels import _build
 
@@ -1606,6 +1733,11 @@ def main() -> int:
     kitti07 = kitti07_scale_problem(kind="mono", seed=0)
     kitti07_wide, rename = reverse_pose_blocks(kitti07)
     huber = dict(rk=ROBUST["huber"], delta=10.0)
+    # bench.py's kitti00_huber_f32, and the dense route's two cells
+    f32 = GraphOptimisationOptions(dtype="float32")
+    exact = GraphOptimisationOptions(solver_precision="exact")
+    loop800 = make_loop_closure_problem(num_poses=800, num_landmarks=80_000,
+                                        long_range_fraction=0.05, seed=0)
     structure_phase(mono, "kitti00_mono")
     structure_phase(mixed, "kitti00_mixed")
     lap("symbolic analysis, native against numpy")
@@ -1633,6 +1765,11 @@ def main() -> int:
     check(also["kitti07_mono"]["SB"] <= 16, "kitti07_mono is not on the narrow-band path")
     tall = tall_band_checks(dev)
     lap("kernel checks at the other inputs")
+    # f32 mode: the eight retyped kernels at kitti00_huber_f32's first
+    # linearisation, every time read
+    res32 = kernel_checks(mono, dev, "kitti00_huber_f32", options=f32, **huber)
+    print("kitti00_huber_f32 kernel checks:", json.dumps(res32))
+    lap("f32 kernel checks at kitti00_huber_f32")
     small_problem_checks(dev)
     lap("small graphs")
     population_on_card(dev)
@@ -1651,10 +1788,29 @@ def main() -> int:
         "kitti07_mono_wide": main_path(kitti07_wide, "kitti07_mono_wide", warm_runs=2),
     }
     lap("six full-size paths")
+    runs["kitti00_huber_f32"] = main_path(mono, "kitti00_huber_f32", warm_runs=2, options=f32,
+                                          profiled=False, **huber)
+    f32_trace, f64_trace = runs["kitti00_huber_f32"]["trace"], runs["kitti00_huber"]["trace"]
+    check(len(f32_trace) == len(f64_trace) == 10, "kitti00_huber_f32: not 10 iterations as f64")
+    np.testing.assert_allclose(f32_trace, f64_trace, rtol=1e-3)
+    print(f"kitti00_huber_f32 against kitti00_huber (f64): trace max rel diff "
+          f"{max(abs(a - b) / b for a, b in zip(f32_trace, f64_trace)):.3e} (tol 1e-3)")
+    lap("kitti00_huber_f32")
+    runs["kitti00_mono_exact"] = main_path(mono, "kitti00_mono_exact", warm_runs=1,
+                                           options=exact, profiled=False)
+    runs["loop800_mixed"] = main_path(loop800, "loop800_mixed", warm_runs=1, profiled=False)
+    runs["loop800_exact"] = main_path(loop800, "loop800_exact", warm_runs=1, options=exact,
+                                      profiled=False)
+    check(runs["loop800_mixed"]["solver"].plan.band.bw + 1 > 48,
+          "loop800: the band after RCM is not over 48")
+    dense = dense_cells(runs)
+    lap("the dense cells")
     cpu_twin_agreement(kitti07, runs["kitti07_mono"], "kitti07_mono")
     wide_band_agreement(runs["kitti07_mono"], runs["kitti07_mono_wide"], rename)
     loop_device_profile(mono, "kitti00_mono")
-    lap("agreement and LM-loop profile")
+    loop_device_profile(mono, "kitti00_huber_f32", options=f32, **huber)
+    loop_device_profile(mono, "kitti00_mono_exact", options=exact)
+    lap("agreement and LM-loop profiles")
 
     counts = runs["kitti00_mono"]["counts"]
     rows = []
@@ -1666,6 +1822,15 @@ def main() -> int:
             ms=r["ms"], device_ms=r["device_ms"], host_ms=r["host_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         )
+        if name in res32:
+            # the same kernel in f32 mode (kitti00_huber_f32)
+            r32 = res32[name]
+            row["f32"] = dict(
+                config="kitti00_huber_f32", launches=runs["kitti00_huber_f32"]["counts"][name],
+                max_abs_err=r32["max_abs_err"], ms=r32["ms"], device_ms=r32["device_ms"],
+                host_ms=r32["host_ms"], plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
+                bound_by=r32["bound_by"], library_ms=r32["library_ms"],
+            )
         if name in ("band_factor", "band_solve"):
             # the same kernel at the wide-band path's height (the v1 range)
             w = wide_res[name]
@@ -1683,6 +1848,7 @@ def main() -> int:
                 ms=tall[name.removeprefix("band_") + "_ms"],
             )
         rows.append(row)
+    print("dense route:", json.dumps(dense))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,15 @@ The JAX package ``cuda_bundle_adjustment_tpu`` is the reference; this
 package mirrors its module and function names so each counterpart is easy to
 find, but imports ``torch`` and never ``jax``.
 
-The port runs the ``kitti00_mono``, ``kitti00_stereo`` and ``kitti00_mixed``
-configurations end to end: one mono or stereo edge set, or a mono and a
-stereo set merged into one masked stereo set, with one global camera, f64
-state, no robust kernel, ``solver_precision="mixed"`` and the host LM loop.
-Eight kernels on that path are hand-written CUDA C++ for ``sm_90a``
-(``csrc/``, listed in ``kernels``); every other stage is plain PyTorch.
+The port runs the ``bench.py`` configurations end to end: one mono or
+stereo edge set, or a mono and a stereo set merged into one masked stereo
+set, with one global camera, a robust kernel or none, f64 or f32 state
+(``GraphOptimisationOptions(dtype=...)``), ``solver_precision="mixed"`` or
+``"exact"``, through the device-resident LM loop.  The reduced system is
+solved on a band (Hsc band up to 48 blocks) or densely (``"exact"`` at f64,
+and wider bands below 1024 poses).  Ten kernels on that path are
+hand-written CUDA C++ for ``sm_90a`` (``csrc/``, listed in ``kernels``);
+every other stage is plain PyTorch.
 Everything outside the slice raises ``NotImplementedError`` naming its open
 ROADMAP item.
 

@@ -7,8 +7,12 @@
 //   B10: xl[l] = inv[l] . cl[l]
 //
 // with Hll and inv [La, 9] row-major symmetric 3x3 blocks and bl, y, cl, xl
-// [La, 3], all f64.  inv is the array the pair-product kernel (B6) and B10
-// read, y the vector kernel B5 reads.
+// [La, 3], all in the working type T (double, or float in f32 mode; lam too).
+// inv is the array the pair-product kernel (B6) and B10 read, y the vector
+// kernel B5 reads.  In f32 the operands are converted to double as they are
+// read, the arithmetic below is the f64 kernels' (B4's tile in shared memory
+// stays in doubles), and each output is rounded to float once, at its store:
+// y is formed from the unrounded inverse, as the twins do (kernels/_types.py).
 //
 // Replaces: cuda_bundle_adjustment_tpu/pallas/lminv.py, lminv_call
 // (pallas_call at :169) and sym3x3_mv_call (pallas_call at :206), the
@@ -63,21 +67,22 @@ constexpr int kThreads = 256;  // B10
 constexpr int kTile = 128;     // B4: landmarks (and threads) a block
 constexpr int kRow = 13;       // B4: doubles a landmark's shared row
 
+template <typename T>
 __global__ void __launch_bounds__(kTile)
-damped_inverse_kernel(const double* __restrict__ hll, int64_t ldh,
-                      const double* __restrict__ bl, int64_t ldb,
-                      const double* __restrict__ lam_p, int64_t La,
-                      double* __restrict__ inv, double* __restrict__ y) {
+damped_inverse_kernel(const T* __restrict__ hll, int64_t ldh,
+                      const T* __restrict__ bl, int64_t ldb,
+                      const T* __restrict__ lam_p, int64_t La,
+                      T* __restrict__ inv, T* __restrict__ y) {
   __shared__ double s[kTile * kRow];
-  const double lam = __ldg(lam_p);
+  const double lam = static_cast<double>(__ldg(lam_p));
   const int t = threadIdx.x;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
   const int n = static_cast<int>(La - base < kTile ? La - base : kTile);
 
   // all twelve loads of a thread issued before the first store to shared
   // memory, so that they are in flight together
-  const double* h0 = hll + base * ldh;
-  const double* b0 = bl + base * ldb;
+  const T* h0 = hll + base * ldh;
+  const T* b0 = bl + base * ldb;
   double hv[9], bv[3];
 #pragma unroll
   for (int j = 0; j < 9; ++j) {
@@ -128,58 +133,72 @@ damped_inverse_kernel(const double* __restrict__ hll, int64_t ldh,
   }
   __syncthreads();
 
-  double* inv0 = inv + base * 9;
-  double* y0 = y + base * 3;
+  T* inv0 = inv + base * 9;
+  T* y0 = y + base * 3;
 #pragma unroll
   for (int j = 0; j < 9; ++j) {
     const int k = t + j * kTile;
-    if (k < 9 * n) inv0[k] = s[(k / 9) * kRow + k % 9];
+    if (k < 9 * n) inv0[k] = static_cast<T>(s[(k / 9) * kRow + k % 9]);
   }
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const int k = t + j * kTile;
-    if (k < 3 * n) y0[k] = s[(k / 3) * kRow + 9 + k % 3];
+    if (k < 3 * n) y0[k] = static_cast<T>(s[(k / 3) * kRow + 9 + k % 3]);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-sym3x3_mv_kernel(const double* __restrict__ inv, const double* __restrict__ c,
-                 int64_t La, double* __restrict__ x) {
+sym3x3_mv_kernel(const T* __restrict__ inv, const T* __restrict__ c,
+                 int64_t La, T* __restrict__ x) {
   const int64_t l = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (l >= La) return;
-  const double* b = inv + l * 9;
+  const T* b = inv + l * 9;
   const double c0 = c[l * 3], c1 = c[l * 3 + 1], c2 = c[l * 3 + 2];
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
-    x[l * 3 + i] = b[i * 3] * c0 + b[i * 3 + 1] * c1 + b[i * 3 + 2] * c2;
+  for (int i = 0; i < 3; ++i) {
+    const double b0 = b[i * 3], b1 = b[i * 3 + 1], b2 = b[i * 3 + 2];
+    x[l * 3 + i] = static_cast<T>(b0 * c0 + b1 * c1 + b2 * c2);
+  }
+}
+
+template <typename T>
+int damped_inverse(const void* hll, long long ldh, const void* bl, long long ldb,
+                   const void* lam, long long La, void* inv, void* y, void* stream) {
+  const long long blocks = (La + kTile - 1) / kTile;
+  damped_inverse_kernel<T><<<static_cast<unsigned>(blocks), kTile, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(hll), ldh, static_cast<const T*>(bl), ldb,
+      static_cast<const T*>(lam), La, static_cast<T*>(inv), static_cast<T*>(y));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int sym3x3_mv(const void* inv, const void* c, long long La, void* x, void* stream) {
+  const long long blocks = (La + kThreads - 1) / kThreads;
+  sym3x3_mv_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(inv), static_cast<const T*>(c), La, static_cast<T*>(x));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // inv [La, 9], y [La, 3] (kernel B4); Hll [La, 9] and bl [La, 3] with row
-// strides ldh and ldb (in doubles), their entries adjacent within a row; lam
-// one f64 on the device
+// strides ldh and ldb (in entries), their entries adjacent within a row; lam
+// one value on the device.  f32: 1 where every operand is f32, 0 for f64.
 extern "C" int tba_damped_inverse(const void* hll, long long ldh, const void* bl,
                                   long long ldb, const void* lam, long long La,
-                                  void* inv, void* y, void* stream) {
+                                  int f32, void* inv, void* y, void* stream) {
   if (La == 0) return 0;
-  const long long blocks = (La + kTile - 1) / kTile;
-  damped_inverse_kernel<<<static_cast<unsigned>(blocks), kTile, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(hll), ldh, static_cast<const double*>(bl), ldb,
-      static_cast<const double*>(lam), La, static_cast<double*>(inv),
-      static_cast<double*>(y));
-  return static_cast<int>(cudaGetLastError());
+  return f32 ? damped_inverse<float>(hll, ldh, bl, ldb, lam, La, inv, y, stream)
+             : damped_inverse<double>(hll, ldh, bl, ldb, lam, La, inv, y, stream);
 }
 
-// xl [La, 3] (kernel B10)
-extern "C" int tba_sym3x3_mv(const void* inv, const void* c, long long La,
+// xl [La, 3] (kernel B10); f32 as above
+extern "C" int tba_sym3x3_mv(const void* inv, const void* c, long long La, int f32,
                              void* x, void* stream) {
   if (La == 0) return 0;
-  const long long blocks = (La + kThreads - 1) / kThreads;
-  sym3x3_mv_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(inv), static_cast<const double*>(c), La,
-      static_cast<double*>(x));
-  return static_cast<int>(cudaGetLastError());
+  return f32 ? sym3x3_mv<float>(inv, c, La, x, stream)
+             : sym3x3_mv<double>(inv, c, La, x, stream);
 }

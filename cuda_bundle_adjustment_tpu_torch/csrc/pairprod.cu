@@ -14,6 +14,14 @@
 // walks the symbolic triple list directly.  As on the TPU, W = Hpl inv(Hll)
 // is formed inside the kernel and never written to device memory.
 //
+// Working type: T = double, or float in f32 mode, for Hpl, the inverses and
+// the blocks.  The stages hold the rows as they lie in device memory (T, the
+// same row strides in entries, so an f32 stage is half the bytes); each lane
+// converts what it reads to double, and the products, the lanes' sums and
+// the items' scratch rows are double in either type; a block's row is
+// rounded to T once, at its store (kernels/_types.py: the twin does the
+// same).  The f64 instantiation is the kernel as it was.
+//
 // Bound on this card: bytes, by the count of inputs read once (the triples'
 // indices, Hpl, the inverses) and the blocks written.  What the kernel really
 // moves is the gathered rows: a triple reads two 144-byte Hpl rows and a
@@ -65,32 +73,40 @@ constexpr int kMinBlocks = 3;     // thread blocks an SM is to hold (caps the re
 constexpr int kSplit = 2;         // lanes a triple: each forms 6 / kSplit rows of the product
 constexpr int kStep = 32 / kSplit;  // triples a warp takes in one step
 constexpr int kRows = 6 / kSplit;   // rows of the 6x6 product a lane sums
-// Shared-memory row of an Hpl block, in doubles: 16-byte aligned for the
-// copies, and 22 keeps the 8-byte reads of a half warp (its kStep / 2 rows,
-// two lanes a row 9 doubles apart where kSplit is 2) on different banks.
+// Shared-memory row of an Hpl block, in entries: aligned for the copies
+// (16 bytes in f64, 8 in f32), and 22 keeps the reads of a half warp (its
+// kStep / 2 rows, two lanes a row 9 entries apart where kSplit is 2) on
+// different banks, in either type.
 constexpr int kHplRow = 22;
-// doubles of one stage: the step's Hpl[ei] rows, Hpl[ej] rows and inverses
+// entries of one stage: the step's Hpl[ei] rows, Hpl[ej] rows and inverses
+// (a multiple of 8 bytes in either type: the lanes' sums pass through it as
+// doubles)
 constexpr int kStage = 2 * kStep * kHplRow + kStep * 9;
 constexpr unsigned kFull = 0xffffffffu;
 
-// V doubles (8 or 16 bytes) from device to shared memory, asynchronously.
-template <int V>
-__device__ __forceinline__ void cp_async(double* dst, const double* src) {
+// V entries of type T (4, 8 or 16 bytes) from device to shared memory,
+// asynchronously.
+template <int V, typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (V == 2)
+  if constexpr (kBytes == 16)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
                  : "memory");
-  else
+  else if constexpr (kBytes == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(d), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
                  : "memory");
 }
 
-// Rows src[idx of triple r] (W doubles each) of the step's kStep triples
+// Rows src[idx of triple r] (W entries each) of the step's kStep triples
 // into dst[r * S ..], the 32 lanes striding over the rows' pieces of V
-// doubles.  Triple r's index is held by lane r * kSplit.
-template <int W, int S, int V>
-__device__ __forceinline__ void stage_rows(double* dst,
-                                           const double* __restrict__ src,
+// entries.  Triple r's index is held by lane r * kSplit.
+template <int W, int S, int V, typename T>
+__device__ __forceinline__ void stage_rows(T* dst,
+                                           const T* __restrict__ src,
                                            int idx, int lane) {
   constexpr int kPieces = W / V;  // a row
   constexpr int kAll = kStep * kPieces;
@@ -158,24 +174,26 @@ __device__ __forceinline__ Step next_step(Cursor& c, const int32_t* __restrict__
   return s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
-pair_items_kernel(const double* __restrict__ hpl,
-                  const double* __restrict__ inv_hll,
+pair_items_kernel(const T* __restrict__ hpl,
+                  const T* __restrict__ inv_hll,
                   const int32_t* __restrict__ tri_ei,
                   const int32_t* __restrict__ tri_ej,
                   const int32_t* __restrict__ tri_lm,
                   const int4* __restrict__ items, int nitems,
-                  double* __restrict__ out, double* __restrict__ scratch) {
-  extern __shared__ __align__(16) double smem[];
+                  T* __restrict__ out, double* __restrict__ scratch) {
+  extern __shared__ __align__(16) double smem_[];
+  T* const smem = reinterpret_cast<T*>(smem_);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  double* const buf = smem + warp * 2 * kStage;  // two stages
+  T* const buf = smem + warp * 2 * kStage;  // two stages
   const int slot = lane / kSplit;          // the lane's triple of the step
   const int i0 = (lane % kSplit) * kRows;  // the first product row it sums
 
   auto fetch = [&](Cursor& c) {
     return next_step(c, tri_ei, tri_ej, tri_lm, items, nitems, slot);
   };
-  auto issue = [&](double* st, Step& s) {
+  auto issue = [&](T* st, Step& s) {
     s.same = __all_sync(kFull, s.ei == s.ej);
     stage_rows<18, kHplRow, 2>(st, hpl, s.ei, lane);
     if (!s.same) stage_rows<18, kHplRow, 2>(st + kStep * kHplRow, hpl, s.ej, lane);
@@ -199,16 +217,16 @@ pair_items_kernel(const double* __restrict__ hpl,
   for (int q = 0; q < kRows * 6; ++q) acc[q] = 0.0;
 
   while (cur.valid) {
-    double* st = buf + b * kStage;
+    T* st = buf + b * kStage;
     if (nxt.valid) issue(buf + (b ^ 1) * kStage, nxt);
     asm volatile("cp.async.commit_group;" ::: "memory");
     const Step after = fetch(c);
     asm volatile("cp.async.wait_group 1;" ::: "memory");
     __syncwarp();
     if (slot < cur.n) {
-      const double* a = st + slot * kHplRow + i0 * 3;
-      const double* bb = st + (cur.same ? 0 : kStep * kHplRow) + slot * kHplRow;
-      const double* m = st + 2 * kStep * kHplRow + slot * 9;
+      const T* a = st + slot * kHplRow + i0 * 3;
+      const T* bb = st + (cur.same ? 0 : kStep * kHplRow) + slot * kHplRow;
+      const T* m = st + 2 * kStep * kHplRow + slot * 9;
       double mm[9];
 #pragma unroll
       for (int q = 0; q < 9; ++q) mm[q] = m[q];
@@ -223,8 +241,9 @@ pair_items_kernel(const double* __restrict__ hpl,
           w[k] = a0 * mm[k] + a1 * mm[3 + k] + a2 * mm[6 + k];
 #pragma unroll
         for (int j = 0; j < 6; ++j)
-          acc[i * 6 + j] +=
-              w[0] * bb[j * 3] + w[1] * bb[j * 3 + 1] + w[2] * bb[j * 3 + 2];
+          acc[i * 6 + j] += w[0] * static_cast<double>(bb[j * 3]) +
+                            w[1] * static_cast<double>(bb[j * 3 + 1]) +
+                            w[2] * static_cast<double>(bb[j * 3 + 2]);
       }
     }
     if (cur.last) {
@@ -235,18 +254,23 @@ pair_items_kernel(const double* __restrict__ hpl,
         for (int q = 0; q < kRows * 6; ++q)
           acc[q] += __shfl_down_sync(kFull, acc[q], sh);
       // lanes 0..kSplit-1 hold the item's sums: through the stage (every
-      // lane is past its rows) to a coalesced row
+      // lane is past its rows), as doubles, to a coalesced row
+      double* const sums = reinterpret_cast<double*>(st);
       __syncwarp();
       if (lane < kSplit) {
 #pragma unroll
-        for (int q = 0; q < kRows * 6; ++q) st[i0 * 6 + q] = acc[q];
+        for (int q = 0; q < kRows * 6; ++q) sums[i0 * 6 + q] = acc[q];
       }
       __syncwarp();
-      double* row = cur.target < 0
-                        ? scratch + static_cast<int64_t>(-1 - cur.target) * 36
-                        : out + static_cast<int64_t>(cur.target) * 36;
-      row[lane] = st[lane];
-      if (lane < 4) row[32 + lane] = st[32 + lane];
+      if (cur.target < 0) {
+        double* row = scratch + static_cast<int64_t>(-1 - cur.target) * 36;
+        row[lane] = sums[lane];
+        if (lane < 4) row[32 + lane] = sums[32 + lane];
+      } else {
+        T* row = out + static_cast<int64_t>(cur.target) * 36;
+        row[lane] = static_cast<T>(sums[lane]);
+        if (lane < 4) row[32 + lane] = static_cast<T>(sums[32 + lane]);
+      }
 #pragma unroll
       for (int q = 0; q < kRows * 6; ++q) acc[q] = 0.0;
     }
@@ -259,10 +283,11 @@ pair_items_kernel(const double* __restrict__ hpl,
 
 // A block's row from its items' scratch rows, in item order; one thread an
 // entry.  A single item was written by the item kernel; none gives zeros.
+template <typename T>
 __global__ void __launch_bounds__(256)
 pair_finish_kernel(const int32_t* __restrict__ block_off, int64_t nnz,
                    const double* __restrict__ scratch,
-                   double* __restrict__ out) {
+                   T* __restrict__ out) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t blk = t / 36;
   if (blk >= nnz) return;
@@ -271,28 +296,22 @@ pair_finish_kernel(const int32_t* __restrict__ block_off, int64_t nnz,
   if (c1 - c0 == 1) return;
   double acc = 0.0;
   for (int c = c0; c < c1; ++c) acc += scratch[static_cast<int64_t>(c) * 36 + q];
-  out[t] = acc;
+  out[t] = static_cast<T>(acc);
 }
 
-}  // namespace
-
-// tri_ei, tri_ej, tri_lm [T], items [nitems, 4] and block_off [nnz + 1] are
-// the int32 plan of kernels/pairprod.py make_pair_plan; scratch [nitems, 36].
-extern "C" int tba_schur_pair_products(const void* hpl, const void* inv_hll,
-                                       const void* tri_ei, const void* tri_ej,
-                                       const void* tri_lm, const void* items,
-                                       long long nitems, const void* block_off,
-                                       long long nnz, void* scratch, void* out,
-                                       void* stream) {
-  if (nnz == 0) return 0;
-  auto st = static_cast<cudaStream_t>(stream);
+template <typename T>
+int pair_products(const void* hpl, const void* inv_hll, const void* tri_ei,
+                  const void* tri_ej, const void* tri_lm, const void* items,
+                  long long nitems, const void* block_off, long long nnz,
+                  void* scratch, void* out, cudaStream_t st) {
   if (nitems > 0) {
-    constexpr int kBytes = kWarps * 2 * kStage * sizeof(double);
-    // once a process: the kernel's shared memory and the card's SM count
+    constexpr int kBytes = kWarps * 2 * kStage * sizeof(T);
+    // once a process and type: the kernel's shared memory and the card's SM
+    // count
     static int resident = 0;  // thread blocks the card holds at a time
     if (resident == 0) {
       cudaError_t err = cudaFuncSetAttribute(
-          pair_items_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+          pair_items_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
       if (err != cudaSuccess) return static_cast<int>(err);
       int device = 0, sms = 0;
       err = cudaGetDevice(&device);
@@ -305,18 +324,38 @@ extern "C" int tba_schur_pair_products(const void* hpl, const void* inv_hll,
     // and short items even out over a warp's share
     const long long blocks = std::min<long long>((nitems + kWarps - 1) / kWarps, resident);
     cudaError_t err;
-    pair_items_kernel<<<static_cast<unsigned>(blocks), 32 * kWarps, kBytes, st>>>(
-        static_cast<const double*>(hpl), static_cast<const double*>(inv_hll),
+    pair_items_kernel<T><<<static_cast<unsigned>(blocks), 32 * kWarps, kBytes, st>>>(
+        static_cast<const T*>(hpl), static_cast<const T*>(inv_hll),
         static_cast<const int32_t*>(tri_ei), static_cast<const int32_t*>(tri_ej),
         static_cast<const int32_t*>(tri_lm), static_cast<const int4*>(items),
-        static_cast<int>(nitems), static_cast<double*>(out),
+        static_cast<int>(nitems), static_cast<T*>(out),
         static_cast<double*>(scratch));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long threads = nnz * 36;
-  pair_finish_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
+  pair_finish_kernel<T><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, st>>>(
       static_cast<const int32_t*>(block_off), nnz,
-      static_cast<const double*>(scratch), static_cast<double*>(out));
+      static_cast<const double*>(scratch), static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// tri_ei, tri_ej, tri_lm [T], items [nitems, 4] and block_off [nnz + 1] are
+// the int32 plan of kernels/pairprod.py make_pair_plan; scratch [nitems, 36]
+// f64 in either working type.  f32: 1 where Hpl, the inverses and the output
+// are f32, 0 for f64.
+extern "C" int tba_schur_pair_products(const void* hpl, const void* inv_hll,
+                                       const void* tri_ei, const void* tri_ej,
+                                       const void* tri_lm, const void* items,
+                                       long long nitems, const void* block_off,
+                                       long long nnz, int f32, void* scratch, void* out,
+                                       void* stream) {
+  if (nnz == 0) return 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  return f32 ? pair_products<float>(hpl, inv_hll, tri_ei, tri_ej, tri_lm, items, nitems,
+                                    block_off, nnz, scratch, out, st)
+             : pair_products<double>(hpl, inv_hll, tri_ei, tri_ej, tri_lm, items, nitems,
+                                     block_off, nnz, scratch, out, st);
 }

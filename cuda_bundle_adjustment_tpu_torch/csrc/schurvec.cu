@@ -21,6 +21,13 @@
 // cl cancel much of their right-hand sides, where a contracted a * b + c
 // would differ by an ulp of the terms.
 //
+// Working type: T = double, or float in f32 mode, for Hpl, the vectors, the
+// right-hand side and the output; the products and sums are double in either
+// (the tile's raw Hpl rows sit in shared memory as T and are converted as
+// they are read; the products, partials and scratch are double), and each
+// output is rounded to T once, at its store (kernels/_types.py: the twins do
+// the same).  The f64 instantiation is the kernel as it was.
+//
 // Bound on this card: device-memory bytes.  Each edge reads its Hpl block
 // (144 B) and the index of its other vertex (8 B), and gathers a row of y or
 // xp (24 or 48 B, L2-resident); 6 or 3 outputs a vertex.  At KITTI-00 scale
@@ -89,14 +96,14 @@ struct ChunkPlan {
 };
 
 // N = 6: B5 (per pose, y rows of 3); N = 3: B9 (per landmark, xp rows of 6)
-template <int N>
+template <int N, typename T>
 struct Args {
-  const double* hpl;   // [E, 18]
-  const double* vec;   // [nvec, 9 - N]
+  const T* hpl;        // [E, 18]
+  const T* vec;        // [nvec, 9 - N]
   const int64_t* idx;  // [E] the other vertex of each edge
-  const double* base;  // [V, N], rows ldb apart
+  const T* base;       // [V, N], rows ldb apart
   int64_t ldb;
-  double* out;         // [V, N]
+  T* out;              // [V, N]
   ChunkPlan p;
   int64_t E, V, nvec;
   int ntiles;
@@ -104,17 +111,20 @@ struct Args {
 
 // the edge's product: Hpl . y (N = 6) or Hpl^T . xp (N = 3), in the twin's
 // order (flat_mv_6x3, flat_mtv_6x3)
-template <int N>
-__device__ __forceinline__ void edge_product(const double* h, const double* v, double* r) {
+// (h in the working type: an f32 entry is promoted to double exactly)
+template <int N, typename T>
+__device__ __forceinline__ void edge_product(const T* h, const double* v, double* r) {
   if constexpr (N == 6) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) r[i] = h[i * 3] * v[0] + h[i * 3 + 1] * v[1] + h[i * 3 + 2] * v[2];
+    for (int i = 0; i < 6; ++i)
+      r[i] = static_cast<double>(h[i * 3]) * v[0] + static_cast<double>(h[i * 3 + 1]) * v[1] +
+             static_cast<double>(h[i * 3 + 2]) * v[2];
   } else {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      double s = h[k] * v[0];
+      double s = static_cast<double>(h[k]) * v[0];
 #pragma unroll
-      for (int c = 1; c < 6; ++c) s += h[c * 3 + k] * v[c];
+      for (int c = 1; c < 6; ++c) s += static_cast<double>(h[c * 3 + k]) * v[c];
       r[k] = s;
     }
   }
@@ -127,11 +137,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 // One tile of edges: the products, the tile's chunk sums and the vertices
 // whose last chunk this block sums.
-template <int N>
-__device__ __forceinline__ void tile_pass(const Args<N>& a) {
+template <int N, typename T>
+__device__ __forceinline__ void tile_pass(const Args<N, T>& a) {
   constexpr int K = 9 - N;              // width of the gathered vector row
   constexpr int kRow = N == 6 ? 7 : 3;  // odd row of the products: no bank conflict
-  // the tile's Hpl rows as they lie in device memory, then the products
+  // the tile's Hpl rows as they lie in device memory (T), then the products
+  // (double)
   __shared__ __align__(16) double s_tile[kTile * 18];
   __shared__ int4 s_chunks[kTile];
   __shared__ uint8_t s_rows[kTile];
@@ -142,16 +153,22 @@ __device__ __forceinline__ void tile_pass(const Args<N>& a) {
   const int n = a.E - tile0 < kTile ? static_cast<int>(a.E - tile0) : kTile;
   const bool live = tid < n;
 
-  // the tile's Hpl rows: nine 16-byte asynchronous copies a thread, straight
-  // to shared memory; meanwhile the chunk list, the rows, the other
-  // vertex's index and its vector row
+  // the tile's Hpl rows: 16-byte asynchronous copies (nine a thread in f64,
+  // four or five in f32), straight to shared memory; an f32 tile of an odd
+  // number of edges ends in 8 bytes, copied by one thread; meanwhile the
+  // chunk list, the rows, the other vertex's index and its vector row
   const int c0 = a.p.tile_off[tile], c1 = a.p.tile_off[tile + 1];
   const char* src = reinterpret_cast<const char*>(a.hpl + tile0 * 18);
   char* dst = reinterpret_cast<char*>(s_tile);
+  constexpr int kCopies = kTile * 18 * static_cast<int>(sizeof(T)) / 16;  // a full tile
+  const int bytes = n * 18 * static_cast<int>(sizeof(T));
 #pragma unroll
-  for (int m = 0; m < 9; ++m) {
+  for (int m = 0; m < (kCopies + kTile - 1) / kTile; ++m) {
     const int c = tid + kTile * m;
-    if (c < n * 9) cp_async16(dst + 16 * c, src + 16 * c);
+    if (16 * c + 16 <= bytes)
+      cp_async16(dst + 16 * c, src + 16 * c);
+    else if (16 * c < bytes)
+      *reinterpret_cast<uint2*>(dst + 16 * c) = *reinterpret_cast<const uint2*>(src + 16 * c);
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
   int64_t other = live ? a.idx[tile0 + tid] : 0;
@@ -167,7 +184,7 @@ __device__ __forceinline__ void tile_pass(const Args<N>& a) {
   other = other < 0 ? 0 : (other < a.nvec ? other : a.nvec - 1);
   double vec[K];
   if (live) {
-    const double* vr = a.vec + other * K;
+    const T* vr = a.vec + other * K;
 #pragma unroll
     for (int k = 0; k < K; ++k) vec[k] = vr[k];
   }
@@ -175,7 +192,7 @@ __device__ __forceinline__ void tile_pass(const Args<N>& a) {
   __syncthreads();
 
   double r[N];
-  if (live) edge_product<N>(s_tile + tid * 18, vec, r);
+  if (live) edge_product<N>(reinterpret_cast<const T*>(s_tile) + tid * 18, vec, r);
   __syncthreads();  // every row is read: the products take the tile's place
   double* s_prod = s_tile;
   if (live) {
@@ -194,7 +211,7 @@ __device__ __forceinline__ void tile_pass(const Args<N>& a) {
       double acc = 0.0;
       for (int j = j0; j < j1; ++j) acc += s_prod[s_rows[j] * kRow + q];
       const int64_t v = ch.z;
-      a.out[v * N + q] = a.base[v * a.ldb + q] - acc;
+      a.out[v * N + q] = static_cast<T>(static_cast<double>(a.base[v * a.ldb + q]) - acc);
     } else if constexpr (N == 6) {
       double acc = 0.0;
       for (int j = j0; j < j1; ++j) acc += s_prod[s_rows[j] * kRow + q];
@@ -250,36 +267,38 @@ __device__ __forceinline__ void tile_pass(const Args<N>& a) {
       for (int u = 0; u < 8; ++u)
         if (k + u < k1) acc += part[u];
     }
-    a.out[static_cast<int64_t>(v) * N + q] = a.base[v * a.ldb + q] - acc;
+    a.out[static_cast<int64_t>(v) * N + q] =
+        static_cast<T>(static_cast<double>(a.base[v * a.ldb + q]) - acc);
   }
 }
 
-template <int N>
+template <int N, typename T>
 __global__ void __launch_bounds__(kTile)
-schur_vector_kernel(Args<N> a) {
+schur_vector_kernel(Args<N, T> a) {
   if (static_cast<int>(blockIdx.x) < a.ntiles) tile_pass<N>(a);
   // vertices without an edge: base - 0, a thread a vertex over the grid
   for (int64_t v = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x; v < a.V;
        v += static_cast<int64_t>(gridDim.x) * kTile) {
     if (a.p.vertex_off[v + 1] != a.p.vertex_off[v]) continue;
 #pragma unroll
-    for (int q = 0; q < N; ++q) a.out[v * N + q] = a.base[v * a.ldb + q] - 0.0;
+    for (int q = 0; q < N; ++q)
+      a.out[v * N + q] = static_cast<T>(static_cast<double>(a.base[v * a.ldb + q]) - 0.0);
   }
 }
 
-template <int N>
+template <int N, typename T>
 int launch(const void* hpl, const void* vec, const void* idx, const void* base,
            long long ldb, const void* rows, const void* chunks, const void* tile_off,
            const void* vertex_off, const void* slot, void* count, void* scratch,
            long long E, long long V, long long nvec, void* out, void* stream) {
   if (V == 0) return 0;
-  Args<N> a;
-  a.hpl = static_cast<const double*>(hpl);
-  a.vec = static_cast<const double*>(vec);
+  Args<N, T> a;
+  a.hpl = static_cast<const T*>(hpl);
+  a.vec = static_cast<const T*>(vec);
   a.idx = static_cast<const int64_t*>(idx);
-  a.base = static_cast<const double*>(base);
+  a.base = static_cast<const T*>(base);
   a.ldb = ldb;
-  a.out = static_cast<double*>(out);
+  a.out = static_cast<T*>(out);
   a.p = {static_cast<const uint8_t*>(rows), static_cast<const int4*>(chunks),
          static_cast<const int32_t*>(tile_off), static_cast<const int32_t*>(vertex_off),
          static_cast<const int32_t*>(slot), static_cast<int32_t*>(count),
@@ -290,8 +309,8 @@ int launch(const void* hpl, const void* vec, const void* idx, const void* base,
   a.ntiles = static_cast<int>((E + kTile - 1) / kTile);
   const long long for_vertices = (V + kTile - 1) / kTile;
   const long long blocks = a.ntiles > for_vertices ? a.ntiles : for_vertices;
-  schur_vector_kernel<N><<<static_cast<unsigned>(blocks), kTile, 0,
-                           static_cast<cudaStream_t>(stream)>>>(a);
+  schur_vector_kernel<N, T><<<static_cast<unsigned>(blocks), kTile, 0,
+                              static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,28 +318,33 @@ int launch(const void* hpl, const void* vec, const void* idx, const void* base,
 
 // bsc [Pa, 6] (kernel B5) from bp [Pa, 6] with rows ldb apart, over the
 // plan's pose half (kernels/terms.py): rows, chunks, tile_off, vertex_off;
-// counters [Pa] and scratch [pose chunks, 6].
+// counters [Pa] and scratch [pose chunks, 6] (f64).  f32: 1 where Hpl, y, bp
+// and bsc are f32, 0 for f64.
 extern "C" int tba_hpl_mv_segment_sum(const void* hpl, const void* y,
                                       const void* lm_idx, const void* bp,
                                       long long ldb, const void* rows, const void* chunks,
                                       const void* tile_off, const void* vertex_off,
                                       void* count, void* scratch, long long E,
-                                      long long Pa, long long La, void* out,
+                                      long long Pa, long long La, int f32, void* out,
                                       void* stream) {
-  return launch<6>(hpl, y, lm_idx, bp, ldb, rows, chunks, tile_off, vertex_off, nullptr,
-                   count, scratch, E, Pa, La, out, stream);
+  return f32 ? launch<6, float>(hpl, y, lm_idx, bp, ldb, rows, chunks, tile_off, vertex_off,
+                                nullptr, count, scratch, E, Pa, La, out, stream)
+             : launch<6, double>(hpl, y, lm_idx, bp, ldb, rows, chunks, tile_off, vertex_off,
+                                 nullptr, count, scratch, E, Pa, La, out, stream);
 }
 
 // cl [La, 3] (kernel B9) from bl [La, 3] with rows ldb apart, over the
 // plan's landmark half, its slots [lm chunks + 1], counters [La] and
-// scratch [slots, 3].
+// scratch [slots, 3] (f64).  f32 as above.
 extern "C" int tba_hpl_mtv_segment_sum(const void* hpl, const void* xp,
                                        const void* pose_idx, const void* bl,
                                        long long ldb, const void* rows, const void* chunks,
                                        const void* tile_off, const void* vertex_off,
                                        const void* slot, void* count, void* scratch,
-                                       long long E, long long La, long long Pa,
+                                       long long E, long long La, long long Pa, int f32,
                                        void* out, void* stream) {
-  return launch<3>(hpl, xp, pose_idx, bl, ldb, rows, chunks, tile_off, vertex_off, slot,
-                   count, scratch, E, La, Pa, out, stream);
+  return f32 ? launch<3, float>(hpl, xp, pose_idx, bl, ldb, rows, chunks, tile_off,
+                                vertex_off, slot, count, scratch, E, La, Pa, out, stream)
+             : launch<3, double>(hpl, xp, pose_idx, bl, ldb, rows, chunks, tile_off,
+                                 vertex_off, slot, count, scratch, E, La, Pa, out, stream);
 }

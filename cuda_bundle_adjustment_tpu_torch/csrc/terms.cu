@@ -29,6 +29,16 @@
 // rows (w = 0) give exact zeros everywhere, degenerate rows give zero JL and
 // so zero Hll|bl and Hpl.
 //
+// Working type: T = double, or float in f32 mode (the solver's dtype).  Global
+// memory holds T; every input is converted to double as it is read and the
+// arithmetic is the f64 kernel's, in registers and in the shared-memory tiles
+// (laid out in doubles either way); each output is rounded to T once, at its
+// store, and the chunks' partial sums in the scratch stay double.  So the f32
+// kernel's every value is the f64 kernel's on the upcast inputs, rounded once
+// (kernels/_types.py: the twins do the same), the TPU kernels' f32 mode, where
+// f32 inputs enter their double-float pairs as (x, 0) and the stage rounds
+// hi + lo to f32.  The f64 instantiation is the kernel as it was.
+//
 // Bound on this card: device-memory bytes.  An edge reads its gathered pose
 // state (96 B), landmark (24 B), measurement (16-24 B) and masks (8-24 B)
 // and writes its Hpl block (144 B); the f64 math (~400-560 flops an edge) is
@@ -80,17 +90,18 @@ constexpr int kTile = 128;
 constexpr int kQtRow = 13;
 constexpr int kHplRow = 19;
 
-// What a per-edge evaluation reads.  A null mask reads as 1 (active,
-// both_free) or as no mask (m3).
+// What a per-edge evaluation reads, in the working type T.  A null mask
+// reads as 1 (active, both_free) or as no mask (m3).
+template <typename T>
 struct EdgeInputs {
-  const double* qt;         // [E, 12] per-edge pose state t | R (row-major)
-  const double* xw;         // [E, 3] per-edge landmark
-  const double* meas;       // [MDIM, E]
-  const double* omega;      // [1] or [E]
-  const double* active;     // [E] or null
-  const double* both_free;  // [E] or null
-  const double* m3;         // [E] or null
-  const double* cam;        // [5]: fx fy cx cy bf
+  const T* qt;         // [E, 12] per-edge pose state t | R (row-major)
+  const T* xw;         // [E, 3] per-edge landmark
+  const T* meas;       // [MDIM, E]
+  const T* omega;      // [1] or [E]
+  const T* active;     // [E] or null
+  const T* both_free;  // [E] or null
+  const T* m3;         // [E] or null
+  const T* cam;        // [5]: fx fy cx cy bf
   int64_t E;
   int omega_stride;  // 0: one weight for every edge, 1: one per edge
 };
@@ -104,11 +115,11 @@ struct Edge {
   double m3;  // third-row mask (1 without a mask)
 };
 
-// Edge i from its pose row s [12] and landmark row X [3] (in device or
-// shared memory) and the per-edge columns of ``in``.
-template <int MDIM>
-__device__ __forceinline__ void load_edge(const EdgeInputs& in, int64_t i,
-                                          const double* s, const double* X,
+// Edge i from its pose row s [12] and landmark row X [3] (T in device
+// memory, or double in shared memory) and the per-edge columns of ``in``.
+template <int MDIM, typename T, typename S>
+__device__ __forceinline__ void load_edge(const EdgeInputs<T>& in, int64_t i,
+                                          const S* s, const S* X,
                                           Edge<MDIM>& g) {
   const double fx = in.cam[0], fy = in.cam[1], cx = in.cam[2],
                cy = in.cam[3], bf = in.cam[4];
@@ -119,23 +130,23 @@ __device__ __forceinline__ void load_edge(const EdgeInputs& in, int64_t i,
   g.Xx = R[0] * X0 + R[1] * X1 + R[2] * X2 + s[0];
   g.Xy = R[3] * X0 + R[4] * X1 + R[5] * X2 + s[1];
   const double z = R[6] * X0 + R[7] * X1 + R[8] * X2 + s[2];
-  const double act = in.active ? in.active[i] : 1.0;
+  const double act = in.active ? static_cast<double>(in.active[i]) : 1.0;
   g.inv_z = act * (fabs(z) > 1e-30 ? 1.0 / z : 0.0);
-  g.w = in.omega[in.omega_stride ? i : 0] * act;
-  g.m3 = in.m3 ? in.m3[i] : 1.0;
+  g.w = static_cast<double>(in.omega[in.omega_stride ? i : 0]) * act;
+  g.m3 = in.m3 ? static_cast<double>(in.m3[i]) : 1.0;
   const double u = fx * g.inv_z * g.Xx + cx;
-  g.e[0] = u - in.meas[i];
-  g.e[1] = fy * g.inv_z * g.Xy + cy - in.meas[in.E + i];
+  g.e[0] = u - static_cast<double>(in.meas[i]);
+  g.e[1] = fy * g.inv_z * g.Xy + cy - static_cast<double>(in.meas[in.E + i]);
   if constexpr (MDIM == 3)
-    g.e[2] = (u - bf * g.inv_z - in.meas[2 * in.E + i]) * g.m3;
+    g.e[2] = (u - bf * g.inv_z - static_cast<double>(in.meas[2 * in.E + i])) * g.m3;
 }
 
 // JP [MDIM][6] (ops/components.py mono_ / stereo_jacobian_comps)
-template <int MDIM>
-__device__ __forceinline__ void pose_jacobian(const double* cam,
+template <int MDIM, typename T>
+__device__ __forceinline__ void pose_jacobian(const T* cam,
                                               const Edge<MDIM>& g,
                                               double JP[MDIM][6]) {
-  const double fx = cam[0], fy = cam[1];
+  const double fx = static_cast<double>(cam[0]), fy = static_cast<double>(cam[1]);
   const double Xx = g.Xx, Xy = g.Xy, inv_z = g.inv_z;
   if constexpr (MDIM == 2) {
     const double x = inv_z * Xx, y = inv_z * Xy;
@@ -153,7 +164,7 @@ __device__ __forceinline__ void pose_jacobian(const double* cam,
     JP[1][4] = -fy_iz;
     JP[1][5] = fy_iz * y;
   } else {
-    const double bf = cam[4];
+    const double bf = static_cast<double>(cam[4]);
     const double inv_zz = inv_z * inv_z;
     JP[0][0] = Xx * Xy * inv_zz * fx;
     JP[0][1] = -(1 + Xx * Xx * inv_zz) * fx;
@@ -177,11 +188,11 @@ __device__ __forceinline__ void pose_jacobian(const double* cam,
 }
 
 // JL [MDIM][3]
-template <int MDIM>
-__device__ __forceinline__ void landmark_jacobian(const double* cam,
+template <int MDIM, typename T>
+__device__ __forceinline__ void landmark_jacobian(const T* cam,
                                                   const Edge<MDIM>& g,
                                                   double JL[MDIM][3]) {
-  const double fx = cam[0], fy = cam[1];
+  const double fx = static_cast<double>(cam[0]), fy = static_cast<double>(cam[1]);
   const double* R = g.R;
   const double inv_z = g.inv_z;
   if constexpr (MDIM == 2) {
@@ -193,7 +204,7 @@ __device__ __forceinline__ void landmark_jacobian(const double* cam,
       JL[1][j] = -fy_iz * (R[3 + j] - y * R[6 + j]);
     }
   } else {
-    const double bf = cam[4];
+    const double bf = static_cast<double>(cam[4]);
     const double inv_zz = inv_z * inv_z;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -204,17 +215,17 @@ __device__ __forceinline__ void landmark_jacobian(const double* cam,
   }
 }
 
-template <int MDIM>
+template <int MDIM, typename T>
 __global__ void __launch_bounds__(kThreads)
-chi_edges_kernel(EdgeInputs in, double* __restrict__ out) {
+chi_edges_kernel(EdgeInputs<T> in, T* __restrict__ out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= in.E) return;
   Edge<MDIM> g;
   load_edge<MDIM>(in, i, in.qt + i * 12, in.xw + i * 3, g);
   double s = g.e[0] * g.e[0] + g.e[1] * g.e[1];
   if constexpr (MDIM == 3) s += g.e[2] * g.e[2];
-  const double act = in.active ? in.active[i] : 1.0;
-  out[i] = in.omega[in.omega_stride ? i : 0] * s * act;
+  const double act = in.active ? static_cast<double>(in.active[i]) : 1.0;
+  out[i] = static_cast<T>(static_cast<double>(in.omega[in.omega_stride ? i : 0]) * s * act);
 }
 
 // upper-triangle position of (a, b), a <= b, in an n x n symmetric block
@@ -222,19 +233,21 @@ __host__ __device__ constexpr int tri6(int a, int b) { return a * (11 - a) / 2 +
 __host__ __device__ constexpr int tri3(int a, int b) { return a * (5 - a) / 2 + b; }
 
 // A vertex kind's share of the linearisation plan (kernels/terms.py).
+template <typename T>
 struct ChunkPlan {
   const uint8_t* rows;      // [n] by tile, chunk after chunk: edge id - tile's first
   const int4* chunks;       // by tile: (first, last + 1 in rows, target, 0)
   const int32_t* tile_off;  // [tiles + 1] a tile's stretch of chunks
-  double* out;              // [vertices, DIM] final rows
+  T* out;                   // [vertices, DIM] final rows
   double* scratch;          // [chunks, NC] partial rows, by vertex
 };
 
 // Entry q of a compressed stack row (N (N + 1) / 2 upper-triangle entries,
 // then N of the vector) into the full row (N x N symmetric block, then the
-// vector).
-template <int N>
-__device__ __forceinline__ void write_expanded(double* row, int q, double v) {
+// vector), rounded to the row's type.
+template <int N, typename T>
+__device__ __forceinline__ void write_expanded(T* row, int q, double v_) {
+  const T v = static_cast<T>(v_);
   constexpr int kTri = N * (N + 1) / 2;
   if (q >= kTri) {
     row[N * N + q - kTri] = v;
@@ -258,7 +271,8 @@ struct TileRows {
   uint8_t row;  // this thread's entry
 };
 
-__device__ __forceinline__ TileRows load_tile_rows(const ChunkPlan& p, int tile) {
+template <typename T>
+__device__ __forceinline__ TileRows load_tile_rows(const ChunkPlan<T>& p, int tile) {
   TileRows t;
   t.c0 = p.tile_off[tile];
   t.c1 = p.tile_off[tile + 1];
@@ -274,8 +288,8 @@ __device__ __forceinline__ TileRows load_tile_rows(const ChunkPlan& p, int tile)
 
 // Sums of this tile's chunks over the stack rows the threads left in shared
 // memory: one thread a (chunk, entry), the chunk's edges in segment order.
-template <int N>
-__device__ __forceinline__ void chunk_sums(const ChunkPlan& p, const TileRows& t,
+template <int N, typename T>
+__device__ __forceinline__ void chunk_sums(const ChunkPlan<T>& p, const TileRows& t,
                                            const double* __restrict__ stack,
                                            const uint8_t* __restrict__ rows) {
   constexpr int NC = N * (N + 1) / 2 + N;
@@ -292,10 +306,10 @@ __device__ __forceinline__ void chunk_sums(const ChunkPlan& p, const TileRows& t
   }
 }
 
-template <int MDIM>
+template <int MDIM, typename T>
 __global__ void __launch_bounds__(kTile)
-edge_tile_kernel(EdgeInputs in, ChunkPlan pose, ChunkPlan lm,
-                 double* __restrict__ hpl) {
+edge_tile_kernel(EdgeInputs<T> in, ChunkPlan<T> pose, ChunkPlan<T> lm,
+                 T* __restrict__ hpl) {
   extern __shared__ double smem[];
   double* s_io = smem;                      // pose|landmark rows in, Hpl out
   double* s_pose = smem + kTile * kHplRow;  // [kTile, 27]
@@ -310,23 +324,40 @@ edge_tile_kernel(EdgeInputs in, ChunkPlan pose, ChunkPlan lm,
   const int n = in.E - tile0 < kTile ? static_cast<int>(in.E - tile0) : kTile;
 
   // the tile's rows, coalesced: 16-byte loads of the pose rows (a row is six
-  // of them and starts on a 16-byte boundary), 8-byte loads of the landmarks
-  const double2* qt2 = reinterpret_cast<const double2*>(in.qt + tile0 * 12);
+  // of them in f64, three in f32, and starts on a 16-byte boundary), loads of
+  // one entry for the landmarks
+  if constexpr (sizeof(T) == 8) {
+    const double2* qt2 = reinterpret_cast<const double2*>(in.qt + tile0 * 12);
 #pragma unroll
-  for (int m = 0; m < 6; ++m) {
-    const int c = tid + kTile * m;
-    if (c < n * 6) {
-      const double2 v = qt2[c];
-      const int r = c / 6, k = 2 * (c - 6 * r);
-      s_io[r * kQtRow + k] = v.x;
-      s_io[r * kQtRow + k + 1] = v.y;
+    for (int m = 0; m < 6; ++m) {
+      const int c = tid + kTile * m;
+      if (c < n * 6) {
+        const double2 v = qt2[c];
+        const int r = c / 6, k = 2 * (c - 6 * r);
+        s_io[r * kQtRow + k] = v.x;
+        s_io[r * kQtRow + k + 1] = v.y;
+      }
+    }
+  } else {
+    const float4* qt4 = reinterpret_cast<const float4*>(in.qt + tile0 * 12);
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int c = tid + kTile * m;
+      if (c < n * 3) {
+        const float4 v = qt4[c];
+        const int r = c / 3, k = 4 * (c - 3 * r);
+        s_io[r * kQtRow + k] = v.x;
+        s_io[r * kQtRow + k + 1] = v.y;
+        s_io[r * kQtRow + k + 2] = v.z;
+        s_io[r * kQtRow + k + 3] = v.w;
+      }
     }
   }
-  const double* xw = in.xw + tile0 * 3;
+  const T* xw = in.xw + tile0 * 3;
 #pragma unroll
   for (int m = 0; m < 3; ++m) {
     const int c = tid + kTile * m;
-    if (c < n * 3) s_xw[c] = xw[c];
+    if (c < n * 3) s_xw[c] = static_cast<double>(xw[c]);
   }
   __syncthreads();
 
@@ -340,7 +371,7 @@ edge_tile_kernel(EdgeInputs in, ChunkPlan pose, ChunkPlan lm,
     double JP[MDIM][6], JL[MDIM][3];
     pose_jacobian<MDIM>(in.cam, g, JP);
     landmark_jacobian<MDIM>(in.cam, g, JL);
-    const double wb = g.w * (in.both_free ? in.both_free[i] : 1.0);
+    const double wb = g.w * (in.both_free ? static_cast<double>(in.both_free[i]) : 1.0);
     double* o = s_io + tid * kHplRow;
 #pragma unroll
     for (int a = 0; a < 6; ++a)
@@ -387,10 +418,10 @@ edge_tile_kernel(EdgeInputs in, ChunkPlan pose, ChunkPlan lm,
   __syncthreads();
 
   // the Hpl tile, coalesced
-  double* ho = hpl + tile0 * 18;
+  T* ho = hpl + tile0 * 18;
   for (int c = tid; c < n * 18; c += kTile) {
     const int r = c / 18;
-    ho[c] = s_io[r * kHplRow + (c - 18 * r)];
+    ho[c] = static_cast<T>(s_io[r * kHplRow + (c - 18 * r)]);
   }
   chunk_sums<6>(pose, pose_rows, s_pose, s_rows[0]);
   chunk_sums<3>(lm, lm_rows, s_lm, s_rows[1]);
@@ -398,10 +429,10 @@ edge_tile_kernel(EdgeInputs in, ChunkPlan pose, ChunkPlan lm,
 
 // A vertex's row from its chunks' scratch rows, in chunk order; G threads a
 // vertex.  A single chunk was written by the tile kernel; none gives zeros.
-template <int N, int G>
+template <int N, int G, typename T>
 __global__ void __launch_bounds__(kThreads)
 finish_kernel(const int32_t* __restrict__ vertex_off, int64_t nv,
-              const double* __restrict__ scratch, double* __restrict__ out) {
+              const double* __restrict__ scratch, T* __restrict__ out) {
   constexpr int NC = N * (N + 1) / 2 + N;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t v = t / G;
@@ -420,26 +451,27 @@ unsigned blocks_for(int64_t n, int per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
-template <int MDIM>
-void launch_chi(const EdgeInputs& in, double* out, cudaStream_t st) {
-  chi_edges_kernel<MDIM><<<blocks_for(in.E, kThreads), kThreads, 0, st>>>(in, out);
+template <int MDIM, typename T>
+void launch_chi(const EdgeInputs<T>& in, T* out, cudaStream_t st) {
+  chi_edges_kernel<MDIM, T><<<blocks_for(in.E, kThreads), kThreads, 0, st>>>(in, out);
 }
 
-template <int MDIM>
-cudaError_t launch_linearise(const EdgeInputs& in, const ChunkPlan& pose,
+template <int MDIM, typename T>
+cudaError_t launch_linearise(const EdgeInputs<T>& in, const ChunkPlan<T>& pose,
                              const int32_t* pose_off, int64_t Pa,
-                             const ChunkPlan& lm, const int32_t* lm_off,
-                             int64_t La, double* hpl, cudaStream_t st) {
+                             const ChunkPlan<T>& lm, const int32_t* lm_off,
+                             int64_t La, T* hpl, cudaStream_t st) {
   if (in.E > 0) {
+    // the tiles are doubles in either working type: one size
     constexpr int kBytes = kTile * (kHplRow + 27 + 9) * sizeof(double);
-    static bool sized = false;  // once a process and model
+    static bool sized = false;  // once a process, model and type
     if (!sized) {
       const cudaError_t err = cudaFuncSetAttribute(
-          edge_tile_kernel<MDIM>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+          edge_tile_kernel<MDIM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
       if (err != cudaSuccess) return err;
       sized = true;
     }
-    edge_tile_kernel<MDIM><<<blocks_for(in.E, kTile), kTile, kBytes, st>>>(
+    edge_tile_kernel<MDIM, T><<<blocks_for(in.E, kTile), kTile, kBytes, st>>>(
         in, pose, lm, hpl);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -456,54 +488,99 @@ cudaError_t launch_linearise(const EdgeInputs& in, const ChunkPlan& pose,
   return cudaGetLastError();
 }
 
-EdgeInputs edge_inputs(const void* qt, const void* xw, const void* meas,
-                       const void* omega, const void* active,
-                       const void* both_free, const void* m3, const void* cam,
-                       long long E, int omega_stride) {
-  EdgeInputs in;
-  in.qt = static_cast<const double*>(qt);
-  in.xw = static_cast<const double*>(xw);
-  in.meas = static_cast<const double*>(meas);
-  in.omega = static_cast<const double*>(omega);
-  in.active = static_cast<const double*>(active);
-  in.both_free = static_cast<const double*>(both_free);
-  in.m3 = static_cast<const double*>(m3);
-  in.cam = static_cast<const double*>(cam);
+template <typename T>
+EdgeInputs<T> edge_inputs(const void* qt, const void* xw, const void* meas,
+                          const void* omega, const void* active,
+                          const void* both_free, const void* m3, const void* cam,
+                          long long E, int omega_stride) {
+  EdgeInputs<T> in;
+  in.qt = static_cast<const T*>(qt);
+  in.xw = static_cast<const T*>(xw);
+  in.meas = static_cast<const T*>(meas);
+  in.omega = static_cast<const T*>(omega);
+  in.active = static_cast<const T*>(active);
+  in.both_free = static_cast<const T*>(both_free);
+  in.m3 = static_cast<const T*>(m3);
+  in.cam = static_cast<const T*>(cam);
   in.E = E;
   in.omega_stride = omega_stride;
   return in;
 }
 
+template <typename T>
+int chi_edges(const void* qt, const void* xw, const void* meas, const void* omega,
+              const void* active, const void* m3, const void* cam, long long E,
+              int omega_stride, int mdim, void* out, void* stream) {
+  const EdgeInputs<T> in = edge_inputs<T>(qt, xw, meas, omega, active, nullptr, m3,
+                                          cam, E, omega_stride);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (mdim == 2)
+    launch_chi<2>(in, static_cast<T*>(out), st);
+  else
+    launch_chi<3>(in, static_cast<T*>(out), st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int linearise(const void* qt, const void* xw, const void* meas, const void* omega,
+              const void* active, const void* both_free, const void* m3,
+              const void* cam, long long E, int omega_stride, int mdim,
+              const void* pose_rows, const void* pose_chunks,
+              const void* pose_tile_off, const void* pose_vertex_off,
+              void* pose_scratch, long long Pa, const void* lm_rows,
+              const void* lm_chunks, const void* lm_tile_off,
+              const void* lm_vertex_off, void* lm_scratch, long long La,
+              void* pose_out, void* lm_out, void* hpl_out, void* stream) {
+  const EdgeInputs<T> in = edge_inputs<T>(qt, xw, meas, omega, active, both_free, m3,
+                                          cam, E, omega_stride);
+  auto st = static_cast<cudaStream_t>(stream);
+  const ChunkPlan<T> pose = {static_cast<const uint8_t*>(pose_rows),
+                             static_cast<const int4*>(pose_chunks),
+                             static_cast<const int32_t*>(pose_tile_off),
+                             static_cast<T*>(pose_out),
+                             static_cast<double*>(pose_scratch)};
+  const ChunkPlan<T> lm = {static_cast<const uint8_t*>(lm_rows),
+                           static_cast<const int4*>(lm_chunks),
+                           static_cast<const int32_t*>(lm_tile_off),
+                           static_cast<T*>(lm_out),
+                           static_cast<double*>(lm_scratch)};
+  auto pf = static_cast<const int32_t*>(pose_vertex_off);
+  auto lf = static_cast<const int32_t*>(lm_vertex_off);
+  auto hpl = static_cast<T*>(hpl_out);
+  const cudaError_t err =
+      mdim == 2 ? launch_linearise<2>(in, pose, pf, Pa, lm, lf, La, hpl, st)
+                : launch_linearise<3>(in, pose, pf, Pa, lm, lf, La, hpl, st);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
-// Per-edge chi [E] (kernel B1).  active and m3 may be null.
+// Per-edge chi [E] (kernel B1).  active and m3 may be null.  f32: 1 where
+// every float operand and the output are f32, 0 where they are f64.
 extern "C" int tba_chi_edges(const void* qt, const void* xw, const void* meas,
                              const void* omega, const void* active,
                              const void* m3, const void* cam, long long E,
-                             int omega_stride, int mdim, void* out,
+                             int omega_stride, int mdim, int f32, void* out,
                              void* stream) {
   if (mdim != 2 && mdim != 3) return static_cast<int>(cudaErrorInvalidValue);
   if (E == 0) return 0;
-  const EdgeInputs in = edge_inputs(qt, xw, meas, omega, active, nullptr, m3,
-                                    cam, E, omega_stride);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (mdim == 2)
-    launch_chi<2>(in, static_cast<double*>(out), st);
-  else
-    launch_chi<3>(in, static_cast<double*>(out), st);
-  return static_cast<int>(cudaGetLastError());
+  return f32 ? chi_edges<float>(qt, xw, meas, omega, active, m3, cam, E, omega_stride,
+                                mdim, out, stream)
+             : chi_edges<double>(qt, xw, meas, omega, active, m3, cam, E, omega_stride,
+                                 mdim, out, stream);
 }
 
 // Hpp|bp [Pa, 42], Hll|bl [La, 12] and Hpl [E, 18] (kernel B3).  active,
 // both_free and m3 may be null.  Per vertex kind the plan of
 // kernels/terms.py make_linearise_plan: rows [n] (uint8), chunks [chunks, 4]
 // and tile_off [tiles + 1] for the tile kernel, vertex_off [vertices + 1] for
-// the finishing kernel (int32), and a scratch [chunks, 27 or 9] f64.
+// the finishing kernel (int32), and a scratch [chunks, 27 or 9] f64 in either
+// working type.  f32: as for tba_chi_edges.
 extern "C" int tba_linearise(const void* qt, const void* xw, const void* meas,
                              const void* omega, const void* active,
                              const void* both_free, const void* m3,
                              const void* cam, long long E, int omega_stride,
-                             int mdim, const void* pose_rows,
+                             int mdim, int f32, const void* pose_rows,
                              const void* pose_chunks, const void* pose_tile_off,
                              const void* pose_vertex_off, void* pose_scratch,
                              long long Pa, const void* lm_rows,
@@ -512,24 +589,14 @@ extern "C" int tba_linearise(const void* qt, const void* xw, const void* meas,
                              long long La, void* pose_out, void* lm_out,
                              void* hpl_out, void* stream) {
   if (mdim != 2 && mdim != 3) return static_cast<int>(cudaErrorInvalidValue);
-  const EdgeInputs in = edge_inputs(qt, xw, meas, omega, active, both_free, m3,
-                                    cam, E, omega_stride);
-  auto st = static_cast<cudaStream_t>(stream);
-  const ChunkPlan pose = {static_cast<const uint8_t*>(pose_rows),
-                          static_cast<const int4*>(pose_chunks),
-                          static_cast<const int32_t*>(pose_tile_off),
-                          static_cast<double*>(pose_out),
-                          static_cast<double*>(pose_scratch)};
-  const ChunkPlan lm = {static_cast<const uint8_t*>(lm_rows),
-                        static_cast<const int4*>(lm_chunks),
-                        static_cast<const int32_t*>(lm_tile_off),
-                        static_cast<double*>(lm_out),
-                        static_cast<double*>(lm_scratch)};
-  auto pf = static_cast<const int32_t*>(pose_vertex_off);
-  auto lf = static_cast<const int32_t*>(lm_vertex_off);
-  auto hpl = static_cast<double*>(hpl_out);
-  const cudaError_t err =
-      mdim == 2 ? launch_linearise<2>(in, pose, pf, Pa, lm, lf, La, hpl, st)
-                : launch_linearise<3>(in, pose, pf, Pa, lm, lf, La, hpl, st);
-  return static_cast<int>(err);
+  return f32 ? linearise<float>(qt, xw, meas, omega, active, both_free, m3, cam, E,
+                                omega_stride, mdim, pose_rows, pose_chunks, pose_tile_off,
+                                pose_vertex_off, pose_scratch, Pa, lm_rows, lm_chunks,
+                                lm_tile_off, lm_vertex_off, lm_scratch, La, pose_out,
+                                lm_out, hpl_out, stream)
+             : linearise<double>(qt, xw, meas, omega, active, both_free, m3, cam, E,
+                                 omega_stride, mdim, pose_rows, pose_chunks, pose_tile_off,
+                                 pose_vertex_off, pose_scratch, Pa, lm_rows, lm_chunks,
+                                 lm_tile_off, lm_vertex_off, lm_scratch, La, pose_out,
+                                 lm_out, hpl_out, stream);
 }

@@ -29,9 +29,14 @@ class Camera:
 class GraphOptimisationOptions:
     """Runtime options (same fields and defaults as the JAX package).
 
-    The slice accepts ``dtype="float64"`` with ``solver_precision="mixed"``
-    (f32 band factor + f64 iterative refinement) and global information and
-    camera per edge set; other values raise ``NotImplementedError``.
+    ``dtype``: ``"float64"`` or ``"float32"`` (f32 mode: state, edge data
+    and every stage in f32; the kernels compute in f64 and round once).
+    ``solver_precision``: ``"mixed"`` (at f64, an f32 factor of the reduced
+    system and two f64 refinement rounds; in f32 the f32 factor and one
+    solve) or ``"exact"`` (a factor in the working type, one solve: at f64
+    the dense route).  An unknown string raises ``ValueError``.  The slice
+    takes global information and camera per edge set; per-edge values raise
+    ``NotImplementedError``.
     """
 
     per_edge_information: bool = False

@@ -1,7 +1,8 @@
 """Kernel B2: per-edge state gather (``csrc/gather.cu``) and its plain twin.
 
 Counterpart of ``pallas/onehot.py expand``: ``out[e, :] = table[idx[e], :]``
-in f64, with an index outside ``[0, M)`` giving a zero row.  The wrapper
+in the table's type (f64 or f32), with an index outside ``[0, M)`` giving a
+zero row.  The wrapper
 dispatches on the tensor's device only: a CPU tensor runs the plain PyTorch
 twin, a CUDA tensor launches the kernel (or raises).
 """
@@ -13,6 +14,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._types import check_floats, f32_flag
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -30,19 +32,22 @@ def _lib():
     fn = lib.tba_gather_rows
     if fn.argtypes is None:
         vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, vp]
+        fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``[M, K] f64, [E] int64 -> [E, K] f64`` (kernel B2 on CUDA)."""
+    """``[M, K] f64 or f32, [E] int64 -> [E, K]`` in the table's type
+    (kernel B2 on CUDA)."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
     if table.device.type != "cuda":
         raise NotImplementedError(f"gather_rows: no kernel for device {table.device}")
-    if table.dtype != torch.float64 or idx.dtype != torch.int64:
-        raise TypeError("gather_rows: expects an f64 table and int64 indices")
+    dtype = check_floats("gather_rows", table)
+    if idx.dtype != torch.int64:
+        raise TypeError("gather_rows: expects int64 indices")
     if table.dim() != 2 or idx.dim() != 1 or idx.device != table.device:
         raise ValueError("gather_rows: expects table [M, K] and idx [E] on one device")
     table = table.contiguous()
@@ -53,7 +58,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     status = _lib()(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), M, E, K,
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), M, E, K, f32_flag(dtype),
         _build.stream_ptr(table),
     )
     _build.check(status, "gather_rows")

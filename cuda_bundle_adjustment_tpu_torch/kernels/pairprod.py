@@ -4,7 +4,9 @@ Counterpart of ``pallas/pairprod.py`` (``_pairprod_call_v2``):
 
     out[k] = sum_{t: block k} Hpl[ei_t] @ invHll[lm(ei_t)] @ Hpl[ej_t]^T
 
-as flat row-major ``[nnz, 36]`` f64 blocks, over triples sorted by target
+as flat row-major ``[nnz, 36]`` blocks in the working type (f64, or f32 in
+f32 mode, where kernel and twin compute in f64 and round each block once:
+``kernels/_types.py``), over triples sorted by target
 block with CSR ``offsets [nnz + 1]`` (``solver/symbolic.py sort_triples``;
 the solver's triples are int32, and on the card they are its plan's).
 The wrapper dispatches on the tensor's device only: a CPU tensor runs the
@@ -23,18 +25,22 @@ import torch
 
 from ..ops.components import flat_mm_6x3_3x3
 from . import _build
+from ._types import check_floats, f32_flag, narrow, wide
 
 
 def schur_pair_products_plain(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets):
     """Plain PyTorch twin: per-edge ``W = Hpl inv(Hll)``, a gathered einsum
-    over the triples, then a fixed-order segment sum per block."""
+    over the triples, then a fixed-order segment sum per block, in f64,
+    rounded to the operands' type."""
+    dtype = hpl.dtype
+    hpl, inv_hll = wide(hpl), wide(inv_hll)
     La = inv_hll.shape[0]
     W = flat_mm_6x3_3x3(hpl, inv_hll[lm_idx.clamp(0, max(La - 1, 0))])
     T = tri_ei.shape[0]
     prod = torch.einsum(
         "tik,tjk->tij", W[tri_ei].view(T, 6, 3), hpl[tri_ej].view(T, 6, 3)
     ).reshape(T, 36)
-    return torch.segment_reduce(prod, "sum", offsets=offsets)
+    return narrow(dtype, torch.segment_reduce(prod, "sum", offsets=offsets))
 
 
 # most triples one warp sums into one row (an item)
@@ -86,17 +92,17 @@ def _lib():
     if fn.argtypes is None:
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         # hpl inv_hll tri_ei tri_ej tri_lm items | nitems | block_off | nnz |
-        # scratch out stream
-        fn.argtypes = [vp] * 6 + [ll, vp, ll, vp, vp, vp]
+        # f32 | scratch out stream
+        fn.argtypes = [vp] * 6 + [ll, vp, ll, ctypes.c_int, vp, vp, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def schur_pair_products(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets,
                         plan: PairPlan | None = None):
-    """``Hpl [E, 18], invHll [La, 9] f64; lm_idx [E], offsets [nnz + 1]
-    int64; tri_ei/tri_ej [T] int32 or int64 -> [nnz, 36] f64`` (kernel B6
-    on CUDA, which reads its indices from the plan).  ``plan``: the
+    """``Hpl [E, 18], invHll [La, 9] f64 or f32; lm_idx [E], offsets
+    [nnz + 1] int64; tri_ei/tri_ej [T] int32 or int64 -> [nnz, 36]`` in the
+    blocks' type (kernel B6 on CUDA, which reads its indices from the plan).  ``plan``: the
     indices' :func:`make_pair_plan`, for a caller that launches more than
     once."""
     if hpl.device.type == "cpu":
@@ -104,14 +110,13 @@ def schur_pair_products(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets,
     if hpl.device.type != "cuda":
         raise NotImplementedError(f"schur_pair_products: no kernel for device {hpl.device}")
     floats, ints = (hpl, inv_hll), (lm_idx, tri_ei, tri_ej, offsets)
+    check_floats("schur_pair_products", *floats)
     if (
-        any(t.dtype != torch.float64 for t in floats)
-        or lm_idx.dtype != torch.int64 or offsets.dtype != torch.int64
+        lm_idx.dtype != torch.int64 or offsets.dtype != torch.int64
         or tri_ei.dtype not in (torch.int32, torch.int64) or tri_ej.dtype != tri_ei.dtype
     ):
         raise TypeError(
-            "schur_pair_products: expects f64 blocks, int64 lm_idx and offsets, "
-            "and int32 or int64 triples"
+            "schur_pair_products: expects int64 lm_idx and offsets, and int32 or int64 triples"
         )
     if any(t.device != hpl.device for t in floats + ints):
         raise ValueError("schur_pair_products: all operands must be on one device")
@@ -135,11 +140,12 @@ def schur_pair_products(hpl, inv_hll, lm_idx, tri_ei, tri_ej, offsets,
     if nnz == 0:
         return out
     nitems = plan.items.shape[0]
-    scratch = torch.empty((nitems, 36), dtype=hpl.dtype, device=hpl.device)
+    # the items' partial rows, f64 in either working type
+    scratch = torch.empty((nitems, 36), dtype=torch.float64, device=hpl.device)
     status = _lib()(
         hpl.data_ptr(), inv_hll.data_ptr(), plan.tri_ei.data_ptr(), plan.tri_ej.data_ptr(),
         plan.tri_lm.data_ptr(), plan.items.data_ptr(), nitems, plan.block_off.data_ptr(),
-        nnz, scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(hpl),
+        nnz, f32_flag(hpl.dtype), scratch.data_ptr(), out.data_ptr(), _build.stream_ptr(hpl),
     )
     _build.check(status, "schur_pair_products")
     schur_pair_products.launches += 1

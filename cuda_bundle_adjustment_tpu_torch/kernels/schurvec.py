@@ -7,8 +7,10 @@ Counterparts of ``pallas/schurvec.py`` ``hpl_mv_class_call`` and
 * B5 ``hpl_mv_segment_sum``:  ``bsc = bp - sum_{e in pose} Hpl[e] y[lm(e)]``
 * B9 ``hpl_mtv_segment_sum``: ``cl = bl - sum_{e in landmark} Hpl[e]^T xp[pose(e)]``
 
-summed in the order of the segment plans of ``solver/segments.py``.  The
-wrappers dispatch on the tensor's device only: a CPU tensor runs the plain
+summed in the order of the segment plans of ``solver/segments.py``, in the
+working type (f64, or f32 in f32 mode: kernels and twins compute in f64 and
+round each output once, ``kernels/_types.py``).  The wrappers dispatch on
+the tensor's device only: a CPU tensor runs the plain
 PyTorch twin, a CUDA tensor launches the kernel (or raises).  The kernels
 walk B3's :class:`LinearisePlan` (B5 its pose half, B9 its landmark half) in
 one pass over tiles of edges; ``csrc/schurvec.cu`` has the design.  B9 sums
@@ -24,31 +26,34 @@ import torch
 from ..ops.components import flat_mtv_6x3, flat_mv_6x3
 from ..solver.segments import Segments, segment_sum
 from . import _build
+from ._types import check_floats, f32_flag, narrow, wide
 from .terms import LinearisePlan, make_linearise_plan
 
 
 def hpl_mv_segment_sum_plain(hpl, y, lm_idx, bp, pose_seg: Segments):
-    """Plain PyTorch twin of B5."""
+    """Plain PyTorch twin of B5 (in f64, rounded to the operands' type)."""
     La = y.shape[0]
-    rows = flat_mv_6x3(hpl, y[lm_idx.clamp(max=La - 1)])
-    return bp - segment_sum(rows, pose_seg)
+    rows = flat_mv_6x3(wide(hpl), wide(y)[lm_idx.clamp(max=La - 1)])
+    return narrow(bp.dtype, wide(bp) - segment_sum(rows, pose_seg))
 
 
 def hpl_mtv_segment_sum_plain(hpl, xp, pose_idx, bl, lm_seg: Segments):
-    """Plain PyTorch twin of B9."""
+    """Plain PyTorch twin of B9 (in f64, rounded to the operands' type)."""
     Pa = xp.shape[0]
-    contrib = flat_mtv_6x3(hpl, xp[pose_idx.clamp(max=Pa - 1)])
-    return bl - segment_sum(contrib, lm_seg)
+    contrib = flat_mtv_6x3(wide(hpl), wide(xp)[pose_idx.clamp(max=Pa - 1)])
+    return narrow(bl.dtype, wide(bl) - segment_sum(contrib, lm_seg))
 
 
 _VP, _LL = ctypes.c_void_p, ctypes.c_longlong
 _ARGTYPES = {
     # hpl y lm_idx bp ldb | rows chunks tile_off vertex_off count scratch | E Pa La |
-    # out stream
-    "tba_hpl_mv_segment_sum": [_VP] * 4 + [_LL] + [_VP] * 6 + [_LL] * 3 + [_VP] * 2,
+    # f32 | out stream
+    "tba_hpl_mv_segment_sum": [_VP] * 4 + [_LL] + [_VP] * 6 + [_LL] * 3 + [ctypes.c_int]
+    + [_VP] * 2,
     # hpl xp pose_idx bl ldb | rows chunks tile_off vertex_off slot count scratch |
-    # E La Pa | out stream
-    "tba_hpl_mtv_segment_sum": [_VP] * 4 + [_LL] + [_VP] * 7 + [_LL] * 3 + [_VP] * 2,
+    # E La Pa | f32 | out stream
+    "tba_hpl_mtv_segment_sum": [_VP] * 4 + [_LL] + [_VP] * 7 + [_LL] * 3 + [ctypes.c_int]
+    + [_VP] * 2,
 }
 
 
@@ -82,9 +87,9 @@ def _operands(name, hpl, vec, idx, base, k_vec, k_out):
     (the solver hands over a column block of a wider row)."""
     if hpl.device.type != "cuda":
         raise NotImplementedError(f"{name}: no kernel for device {hpl.device}")
-    f64 = torch.float64
-    if not (hpl.dtype == vec.dtype == base.dtype == f64 and idx.dtype == torch.int64):
-        raise TypeError(f"{name}: expects f64 blocks and vectors and int64 indices")
+    check_floats(name, hpl, vec, base)
+    if idx.dtype != torch.int64:
+        raise TypeError(f"{name}: expects int64 indices")
     if not (hpl.device == vec.device == idx.device == base.device):
         raise ValueError(f"{name}: all operands must be on one device")
     E = hpl.shape[0]
@@ -110,7 +115,7 @@ def _operands(name, hpl, vec, idx, base, k_vec, k_out):
 def hpl_mv_segment_sum(hpl, y, lm_idx, bp, pose_seg: Segments,
                        plan: LinearisePlan | None = None):
     """``Hpl [E, 18], y [La, 3], lm_idx [E], bp [Pa, 6] -> bsc [Pa, 6]``
-    f64 (kernel B5 on CUDA).  ``plan``: B3's :func:`make_linearise_plan` of
+    in the operands' type (kernel B5 on CUDA).  ``plan``: B3's :func:`make_linearise_plan` of
     the structure, for a caller that launches more than once; B5 walks its
     pose half."""
     if hpl.device.type == "cpu":
@@ -128,8 +133,8 @@ def hpl_mv_segment_sum(hpl, y, lm_idx, bp, pose_seg: Segments,
     status = _fn("tba_hpl_mv_segment_sum")(
         hpl.data_ptr(), y.data_ptr(), lm_idx.data_ptr(), bp.data_ptr(), bp.stride(0),
         p.rows.data_ptr(), p.chunks.data_ptr(), p.tile_off.data_ptr(), p.vertex_off.data_ptr(),
-        plan.count.data_ptr(), plan.scratch.data_ptr(), E, Pa, La, out.data_ptr(),
-        _build.stream_ptr(hpl),
+        plan.count.data_ptr(), plan.scratch.data_ptr(), E, Pa, La, f32_flag(hpl.dtype),
+        out.data_ptr(), _build.stream_ptr(hpl),
     )
     _build.check(status, "hpl_mv_segment_sum")
     hpl_mv_segment_sum.launches += 1
@@ -139,7 +144,7 @@ def hpl_mv_segment_sum(hpl, y, lm_idx, bp, pose_seg: Segments,
 def hpl_mtv_segment_sum(hpl, xp, pose_idx, bl, lm_seg: Segments,
                         plan: LinearisePlan | None = None):
     """``Hpl [E, 18], xp [Pa, 6], pose_idx [E], bl [La, 3] -> cl [La, 3]``
-    f64 (kernel B9 on CUDA).  ``plan``: as for :func:`hpl_mv_segment_sum`;
+    in the operands' type (kernel B9 on CUDA).  ``plan``: as for :func:`hpl_mv_segment_sum`;
     B9 walks its landmark half."""
     if hpl.device.type == "cpu":
         return hpl_mtv_segment_sum_plain(hpl, xp, pose_idx, bl, lm_seg)
@@ -158,7 +163,7 @@ def hpl_mtv_segment_sum(hpl, xp, pose_idx, bl, lm_seg: Segments,
         p.rows.data_ptr(), p.chunks.data_ptr(), p.tile_off.data_ptr(), p.vertex_off.data_ptr(),
         plan.lm_slot.data_ptr(), plan.count.data_ptr() + 4 * Pa,
         plan.scratch.data_ptr() + 8 * 6 * plan.pose.chunks.shape[0], E, La, Pa,
-        out.data_ptr(), _build.stream_ptr(hpl),
+        f32_flag(hpl.dtype), out.data_ptr(), _build.stream_ptr(hpl),
     )
     _build.check(status, "hpl_mtv_segment_sum")
     hpl_mtv_segment_sum.launches += 1

@@ -13,6 +13,9 @@ chi and rho' for the ``[E]`` weight it hands B3 in ``omega``
 (``solver/block_solver.py build_system``).  The wrappers dispatch on
 the tensor's device only: a CPU tensor runs the plain PyTorch twin (the
 models of ``models/ba.py``), a CUDA tensor launches the kernel (or raises).
+Both take f64 or f32 (f32 mode) edge data and state and return that type;
+in f32 they compute in f64 and round each output once
+(``kernels/_types.py``).
 
 B3 runs one pass over tiles of ``TILE`` consecutive edges and sums the
 per-vertex blocks through a :class:`LinearisePlan`, which cuts every vertex's
@@ -31,6 +34,7 @@ import torch
 from ..solver.segments import Segments, segment_sum
 from ..types import PackedEdges
 from . import _build
+from ._types import check_floats, f32_flag, narrow, wide, wide_edges
 
 
 def _model(data: PackedEdges):
@@ -41,16 +45,20 @@ def _model(data: PackedEdges):
 
 def chi_edges_plain(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Tensor:
     """Plain PyTorch twin of B1: the model's per-edge chi without a robust
-    kernel (``rk = 0``)."""
-    return _model(data).chi(None, data, 0, 1.0, state=(qt, xw))
+    kernel (``rk = 0``), in f64, rounded to the state's type."""
+    chi = _model(data).chi(None, wide_edges(data), 0, 1.0, state=(wide(qt), wide(xw)))
+    return narrow(qt.dtype, chi)
 
 
 def linearise_plain(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments):
     """Plain PyTorch twin of B3: the model's per-edge stacks with the
     weight as given (``rk = 0``; a robust set's ``omega`` comes in rescaled),
-    then fixed-order segment sums per pose and per landmark."""
-    pose_stack, lm_stack, hpl = _model(data).terms(None, data, 0, 1.0, state=(qt, xw))
-    return segment_sum(pose_stack, pose_seg), segment_sum(lm_stack, lm_seg), hpl
+    then fixed-order segment sums per pose and per landmark, in f64, each
+    output rounded to the state's type."""
+    pose_stack, lm_stack, hpl = _model(data).terms(
+        None, wide_edges(data), 0, 1.0, state=(wide(qt), wide(xw)))
+    return narrow(qt.dtype, segment_sum(pose_stack, pose_seg),
+                  segment_sum(lm_stack, lm_seg), hpl)
 
 
 # edges a block of B3's tile kernel (kTile in csrc/terms.cu)
@@ -88,7 +96,9 @@ class LinearisePlan(NamedTuple):
     # lm_slot[vertex_off[v]] .. lm_slot[vertex_off[v + 1]]
     lm_slot: torch.Tensor
     count: torch.Tensor  # [Pa + La] int32: B5's counters, then B9's
-    scratch: torch.Tensor  # [pose chunks x 6 + lm_slot[-1] x 3] f64
+    # [pose chunks x 6 + lm_slot[-1] x 3] f64 in either working type (the
+    # kernels' partial sums), so a plan serves f64 and f32 solvers alike
+    scratch: torch.Tensor
 
 
 def _chunk_plan(seg: Segments, ntiles: int) -> ChunkPlan:
@@ -161,8 +171,9 @@ def _check(name, qt, xw, data: PackedEdges, segs=()):
     floats = [qt, xw, data.meas, data.omega, data.cam, data.active, data.both_free, data.mask3]
     floats = [t for t in floats if t is not None]
     ints = [t for s in segs for t in s]
-    if any(t.dtype != torch.float64 for t in floats) or any(t.dtype != torch.int64 for t in ints):
-        raise TypeError(f"{name}: expects f64 edge data and int64 segment plans")
+    check_floats(name, *floats)
+    if any(t.dtype != torch.int64 for t in ints):
+        raise TypeError(f"{name}: expects int64 segment plans")
     if any(t.device != qt.device for t in floats + ints):
         raise ValueError(f"{name}: all operands must be on one device")
     if mdim not in (2, 3) or data.meas.shape != (mdim, E):
@@ -192,12 +203,12 @@ def _contiguous(t):
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    # qt xw meas omega active m3 cam | E omega_stride mdim | out stream
-    "tba_chi_edges": [_VP] * 7 + [_LL, _INT, _INT, _VP, _VP],
-    # qt xw meas omega active both_free m3 cam | E omega_stride mdim |
+    # qt xw meas omega active m3 cam | E omega_stride mdim f32 | out stream
+    "tba_chi_edges": [_VP] * 7 + [_LL, _INT, _INT, _INT, _VP, _VP],
+    # qt xw meas omega active both_free m3 cam | E omega_stride mdim f32 |
     # pose rows, chunks, tile_off, vertex_off, scratch, Pa | the same of the
     # landmarks, La | 3 outputs, stream
-    "tba_linearise": [_VP] * 8 + [_LL, _INT, _INT] + ([_VP] * 5 + [_LL]) * 2
+    "tba_linearise": [_VP] * 8 + [_LL, _INT, _INT, _INT] + ([_VP] * 5 + [_LL]) * 2
     + [_VP] * 4,
 }
 
@@ -211,7 +222,8 @@ def _fn(name: str):
 
 
 def chi_edges(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Tensor:
-    """Per-edge ``omega * active * |e|^2`` ``[E]`` f64 (kernel B1 on CUDA)."""
+    """Per-edge ``omega * active * |e|^2`` ``[E]`` in the state's type
+    (kernel B1 on CUDA)."""
     if qt.device.type == "cpu":
         return chi_edges_plain(qt, xw, data)
     if qt.device.type != "cuda":
@@ -224,7 +236,7 @@ def chi_edges(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Te
     status = _fn("tba_chi_edges")(
         qt.data_ptr(), xw.data_ptr(), d.meas.data_ptr(), d.omega.data_ptr(),
         _ptr(d.active), _ptr(d.mask3), d.cam.data_ptr(), E,
-        int(d.omega.shape[0] != 1), d.meas.shape[0], out.data_ptr(),
+        int(d.omega.shape[0] != 1), d.meas.shape[0], f32_flag(qt.dtype), out.data_ptr(),
         _build.stream_ptr(qt),
     )
     _build.check(status, "chi_edges")
@@ -234,8 +246,8 @@ def chi_edges(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Te
 
 def linearise(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments,
               plan: LinearisePlan | None = None):
-    """``(Hpp|bp [Pa, 42], Hll|bl [La, 12], Hpl [E, 18])`` f64, summed in
-    segment order (kernel B3 on CUDA).  ``plan``: the segment plans'
+    """``(Hpp|bp [Pa, 42], Hll|bl [La, 12], Hpl [E, 18])`` in the state's
+    type, summed in segment order (kernel B3 on CUDA).  ``plan``: the segment plans'
     :func:`make_linearise_plan`, for a caller that launches more than once."""
     if qt.device.type == "cpu":
         return linearise_plain(qt, xw, data, pose_seg, lm_seg)
@@ -256,13 +268,15 @@ def linearise(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments,
     pose, lm, hpl = torch.empty((Pa, 42), **kw), torch.empty((La, 12), **kw), torch.empty((E, 18), **kw)
     if E + Pa + La == 0:
         return pose, lm, hpl
-    # the chunks' partial rows: [pose chunks, 27] then [landmark chunks, 9]
+    # the chunks' partial rows, f64 in either working type: [pose chunks, 27]
+    # then [landmark chunks, 9]
     pose_rows = plan.pose.chunks.shape[0] * 27
-    scratch = torch.empty(pose_rows + plan.lm.chunks.shape[0] * 9, **kw)
+    scratch = torch.empty(pose_rows + plan.lm.chunks.shape[0] * 9, dtype=torch.float64,
+                          device=qt.device)
     status = _fn("tba_linearise")(
         qt.data_ptr(), xw.data_ptr(), d.meas.data_ptr(), d.omega.data_ptr(),
         _ptr(d.active), _ptr(d.both_free), _ptr(d.mask3), d.cam.data_ptr(), E,
-        int(d.omega.shape[0] != 1), d.meas.shape[0],
+        int(d.omega.shape[0] != 1), d.meas.shape[0], f32_flag(qt.dtype),
         *(t.data_ptr() for t in plan.pose), scratch.data_ptr(), Pa,
         *(t.data_ptr() for t in plan.lm), scratch.data_ptr() + 8 * pose_rows, La,
         pose.data_ptr(), lm.data_ptr(), hpl.data_ptr(), _build.stream_ptr(qt),

@@ -12,10 +12,15 @@ path, in plain PyTorch around ten hand-written kernels:
 * the damped landmark inverse and ``y = inv(Hll) bl`` through kernel B4, the
   bsc product through kernel B5 and the Schur pair products through kernel
   B6 (:func:`schur_reduce`);
-* the f32 band factor and solves through kernels B7 and B8
-  (:func:`solve_reduced_band`) for any band height up to ``MAX_BAND``,
-  followed by exactly two f64 refinement rounds and the ``1e-8 ||b||``
-  residual check;
+* the reduced solve (:func:`solve_reduced`) by the route the structure
+  fixes (:func:`reduced_route`): the band factor and solves through kernels
+  B7 and B8 (:func:`solve_reduced_band`) for a band height up to
+  ``MAX_BAND`` where the factor's type is f32, or a dense Cholesky in plain
+  torch (:func:`solve_reduced_dense`) under ``solver_precision="exact"`` at
+  f64 and for wider bands on fewer than ``PCG_MIN_POSES`` poses; under
+  ``"mixed"`` at f64 the f32 factor is followed by exactly two f64
+  refinement rounds and the ``1e-8 ||b||`` residual check, elsewhere the
+  one solve is returned as it is;
 * the back-substitution products through kernels B9 and B10
   (:func:`schur_back_substitute`).
 
@@ -28,6 +33,10 @@ across solvers by a content digest (:func:`_struct_digest`), so a
 re-optimisation of the same topology skips the host analysis and the plan
 uploads.  Anything outside the slice raises ``NotImplementedError`` naming
 its ROADMAP item.
+
+The working type is ``options.dtype``: f64, or f32 (f32 mode), in which the
+state, the edge data and every stage's output are f32 and the kernels
+compute in f64 registers and round at their stores, as the plain twins do.
 """
 
 from __future__ import annotations
@@ -67,9 +76,16 @@ from ..utils import profiling as prof
 from .segments import Segments, make_segments, segment_sum
 from .symbolic import SchurStructure, build_schur_structure, sort_triples
 
-# widest band the band kernels take (bw + 1 <= MAX_BAND); a wider Hsc needs
-# the PCG or dense solve of ROADMAP A6
+# widest band the band kernels take (bw + 1 <= MAX_BAND); a wider Hsc takes
+# the dense solve below PCG_MIN_POSES poses and needs the PCG of ROADMAP A6
+# from there
 MAX_BAND = 48
+# pose count from which a wide Hsc pattern needs PCG instead of the dense
+# solve (the JAX package's constant of the same name)
+PCG_MIN_POSES = 1024
+# the options the solver takes, and the torch type of each working dtype
+DTYPES = {"float64": torch.float64, "float32": torch.float32}
+PRECISIONS = ("mixed", "exact")
 
 # -- structure cache ----------------------------------------------------------
 #
@@ -152,6 +168,22 @@ class BandMeta(NamedTuple):
     sb: int  # band height: bw + 1 rounded up to a multiple of 8
 
 
+def reduced_route(bw: int, Pa: int, target: torch.dtype) -> str:
+    """How the reduced system of a structure is solved, decided once a
+    structure as the JAX package decides it (without its VMEM test, ROADMAP
+    A6): ``"band"`` (kernels B7/B8) where the band fits ``MAX_BAND`` and
+    the factor's type ``target`` is f32, else ``"dense"`` on fewer than
+    ``PCG_MIN_POSES`` poses; a wider pattern on more poses raises."""
+    if bw + 1 <= MAX_BAND and target == torch.float32:
+        return "band"
+    if bw + 1 <= MAX_BAND or Pa < PCG_MIN_POSES:
+        return "dense"
+    raise outside_slice(
+        f"an Hsc band of width {bw + 1} (> {MAX_BAND}) on {Pa} poses (>= {PCG_MIN_POSES})",
+        "A6: PCG",
+    )
+
+
 class SchurPlan(NamedTuple):
     """Device-side plan for the stages, constant per structure.  All but the
     edge index tensors (the solver's own) and B5/B9's counters and scratch
@@ -172,6 +204,8 @@ class SchurPlan(NamedTuple):
     row_seg: Segments  # Hsc blocks -> block rows
     col_seg: Segments  # Hsc blocks -> block columns
     band: BandMeta
+    route: str  # "band" or "dense" (:func:`reduced_route`)
+    target: torch.dtype  # the reduced factor's type
     # what the CUDA kernels B3, B5, B9 and B6 walk; None on the CPU, where the
     # twins run
     lin_plan: Optional[LinearisePlan]  # tiles and chunks over pose_seg, lm_seg
@@ -345,44 +379,41 @@ def schur_reduce(
     return blocks, bsc, invHll
 
 
-def scaled_band(blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan):
-    """Symmetric Jacobi scaling of the reduced system and its f32 block-row
-    band.  Returns ``(band, bl_s, bv, s)``: the band, the scaled f64 blocks
-    and right-hand side, and the scale vector."""
-    Pa = bsc.shape[0]
+def scaled_blocks(blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan):
+    """Symmetric Jacobi scaling of the reduced system in block form.
+    Returns ``(bl_s, bv, s)``: the scaled blocks and right-hand side in the
+    working type, and the scale vector.  In f32 the ``1e-300`` floor
+    rounds to 0, as the JAX package's weak-typed constant does."""
     nnz = blocks.shape[0]
-    brow, bcol, SB = plan.blk_row, plan.blk_col, plan.band.sb
+    brow, bcol = plan.blk_row, plan.blk_col
     # BA Hessian diagonals span many orders of magnitude (focal-length-
     # squared pixel terms vs unit-metric terms)
     diag = blocks[plan.diag_pos][:, 0::7]  # [Pa, 6]: entries 0, 7, ..., 35
     s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-300))
     bl_s = blocks * (s[brow][:, :, None] * s[bcol][:, None, :]).reshape(nnz, 36)
+    return bl_s, bsc * s, s
+
+
+def scaled_band(blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan):
+    """The scaled reduced system (:func:`scaled_blocks`) and its f32
+    block-row band.  Returns ``(band, bl_s, bv, s)``: the band, the scaled
+    blocks and right-hand side in the working type, and the scale vector."""
+    Pa, SB = bsc.shape[0], plan.band.sb
+    bl_s, bv, s = scaled_blocks(blocks, bsc, plan)
     band = torch.zeros(((Pa + SB) * SB, 36), dtype=torch.float32, device=blocks.device)
-    band[brow * SB + (bcol - brow)] = bl_s.to(torch.float32)
-    return band, bl_s, bsc * s, s
+    band[plan.blk_row * SB + (plan.blk_col - plan.blk_row)] = bl_s.to(torch.float32)
+    return band, bl_s, bv, s
 
 
-def solve_reduced_band(
-    blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Solve ``Hsc xp = bsc`` (stage "6: Numerical Decomposition") under
-    ``solver_precision="mixed"``: symmetric Jacobi scaling, the f32 band
-    factor and solves (kernels B7/B8), then exactly two f64 refinement
-    rounds against the f64 blocks.  Success requires the refined residual
-    below ``1e-8 ||b||`` and a finite result, as in the JAX package: an f64
-    factor here would accept steps the reference rejects."""
-    Pa = bsc.shape[0]
-    dtype = blocks.dtype
+def _refined(tri_solve, bl_s, bv, s, plan: SchurPlan, factored=None):
+    """``solver_precision="mixed"`` at f64 behind an f32 factor: exactly two
+    f64 refinement rounds against the scaled f64 blocks, then success only
+    for a refined residual below ``1e-8 ||b||`` and a finite result (and a
+    factor that completed: ``factored``, a 0-d bool, where the factor
+    reports it), as in the JAX package: an f64 factor here would accept
+    steps the reference rejects."""
     brow, bcol = plan.blk_row, plan.blk_col
-    SB, bw = plan.band.sb, plan.band.bw
-
-    band, bl_s, bv, s = scaled_band(blocks, bsc, plan)
-    Lb = band_factor(band, Pa, SB)
-
-    def tri_solve(r):
-        return band_solve(Lb, r.to(torch.float32), Pa, SB, bw).to(dtype)
-
-    offm = (brow != bcol).to(dtype)[:, None]
+    offm = (brow != bcol).to(bl_s.dtype)[:, None]
     bl_s_off = bl_s * offm
 
     def matvec(xv):  # symmetric block SpMV in the scaled space, f64
@@ -398,7 +429,91 @@ def solve_reduced_band(
     res = torch.linalg.vector_norm(bv - matvec(x))
     ok = torch.isfinite(res) & (res <= 1e-8 * (torch.linalg.vector_norm(bv) + 1e-300))
     xp = x * s
-    return xp, ok & torch.all(torch.isfinite(xp))
+    ok = ok & torch.all(torch.isfinite(xp))
+    return xp, ok if factored is None else ok & factored
+
+
+def solve_reduced_band(
+    blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve ``Hsc xp = bsc`` (stage "6: Numerical Decomposition") on the
+    band route: symmetric Jacobi scaling, the f32 band factor and solves
+    (kernels B7/B8).  Under ``"mixed"`` at f64, two f64 refinement rounds
+    and the residual test follow (:func:`_refined`); in f32 the one solve
+    is the step, taken where it is finite (the JAX package's direct solve
+    in the working type)."""
+    Pa = bsc.shape[0]
+    dtype = blocks.dtype
+    SB, bw = plan.band.sb, plan.band.bw
+
+    band, bl_s, bv, s = scaled_band(blocks, bsc, plan)
+    Lb = band_factor(band, Pa, SB)
+
+    def tri_solve(r):
+        return band_solve(Lb, r.to(torch.float32), Pa, SB, bw).to(dtype)
+
+    if dtype == torch.float32:
+        x = tri_solve(bv)
+        return x * s, torch.all(torch.isfinite(x))
+    return _refined(tri_solve, bl_s, bv, s, plan)
+
+
+def dense_scaled(bl_s: torch.Tensor, plan: SchurPlan, dtype: torch.dtype) -> torch.Tensor:
+    """The scaled reduced matrix ``[6 Pa, 6 Pa]`` in ``dtype``: each block
+    at ``(brow, bcol)`` and the transpose of each off-diagonal block at
+    ``(bcol, brow)``, written block-flat and then laid out by one
+    reshape-transpose, as the JAX package's dense branch builds it (the
+    pattern's blocks are distinct, so writing is its sum with zeros)."""
+    Pa = plan.diag_pos.shape[0]
+    nnz = bl_s.shape[0]
+    brow, bcol = plan.blk_row, plan.blk_col
+    vals = bl_s.to(dtype)
+    off = brow != bcol
+    mirror = vals.reshape(nnz, 6, 6).transpose(-1, -2).reshape(nnz, 36)
+    flat = torch.zeros((Pa * Pa, 36), dtype=dtype, device=bl_s.device)
+    flat[brow * Pa + bcol] = vals
+    flat[bcol * Pa + brow] = torch.where(off[:, None], mirror, flat[bcol * Pa + brow])
+    return flat.reshape(Pa, Pa, 6, 6).permute(0, 2, 1, 3).reshape(Pa * 6, Pa * 6)
+
+
+def solve_reduced_dense(
+    blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve ``Hsc xp = bsc`` on the dense route (the dense branch of the
+    JAX package's ``_solve_reduced_blocks``), in plain torch: the Jacobi-
+    scaled matrix (:func:`dense_scaled`) factored by ``cholesky_ex`` in the
+    plan's target type and solved by two triangular solves.  Where the
+    target is the working type (``"exact"``, or f32 mode) the one solve is
+    the step; under ``"mixed"`` at f64 the f32 factor is followed by two
+    f64 refinement rounds and the residual test (:func:`_refined`).  A
+    matrix that is not positive definite gives ``info > 0``, folded into
+    the verdict on the device: nothing is read back and nothing raises, so
+    the LM loop re-damps as the JAX package does on its factor's NaNs."""
+    dtype, target = blocks.dtype, plan.target
+    Pa = bsc.shape[0]
+    bl_s, bv, s = scaled_blocks(blocks, bsc, plan)
+    L, info = torch.linalg.cholesky_ex(dense_scaled(bl_s, plan, target))
+    factored = info == 0
+
+    def tri_solve(r):
+        y = torch.linalg.solve_triangular(L, r.reshape(-1, 1).to(target), upper=False)
+        x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+        return x.to(dtype).reshape(Pa, 6)
+
+    if target == dtype:
+        x = tri_solve(bv)
+        return x * s, torch.all(torch.isfinite(x)) & factored
+    return _refined(tri_solve, bl_s, bv, s, plan, factored)
+
+
+def solve_reduced(
+    blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage "6: Numerical Decomposition" by the structure's route:
+    ``(xp [Pa, 6], success)``, both on the device."""
+    if plan.route == "band":
+        return solve_reduced_band(blocks, bsc, plan)
+    return solve_reduced_dense(blocks, bsc, plan)
 
 
 def schur_back_substitute(
@@ -438,17 +553,19 @@ class BlockSolver:
     """Owns the packed device arrays, the symbolic structure and the plan."""
 
     def __init__(self, options, device):
-        if options.dtype != "float64":
-            raise outside_slice(f"dtype={options.dtype!r}", "A4: f32 mode")
-        if options.solver_precision != "mixed":
-            raise outside_slice(
-                f"solver_precision={options.solver_precision!r}", "A6: the exact dense solve"
+        if options.dtype not in DTYPES:
+            raise ValueError(f"unknown dtype {options.dtype!r} (one of {sorted(DTYPES)})")
+        if options.solver_precision not in PRECISIONS:
+            raise ValueError(
+                f"unknown solver_precision {options.solver_precision!r} (one of {PRECISIONS})"
             )
         self.options = options
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' requested but no CUDA device is available")
-        self.dtype = torch.float64
+        self.dtype = DTYPES[options.dtype]
+        # an f32 factor with f64 refinement: only where the working type is f64
+        self.mixed = options.solver_precision == "mixed" and self.dtype == torch.float64
         self.graph: Optional[GraphArrays] = None
         self.packed: Optional[PackedEdges] = None
         self.meta: Optional[EdgeSetMeta] = None
@@ -596,12 +713,10 @@ class BlockSolver:
         tri_ei, tri_ej, tri_off = sort_triples(s)
         self.symbolic_ms = (time.perf_counter() - t0) * 1e3
 
-        # banded Hsc -> band kernels (B7/B8)
+        # banded Hsc in an f32 factor -> band kernels (B7/B8); else dense
         bw = int(np.max(s.blk_col.astype(np.int64) - s.blk_row))
-        if bw + 1 > MAX_BAND:
-            raise outside_slice(
-                f"an Hsc band of width {bw + 1} (> {MAX_BAND})", "A6: PCG and the dense solve"
-            )
+        target = torch.float32 if self.mixed else self.dtype
+        route = reduced_route(bw, Pa, target)
         sb = -(-(bw + 1) // 8) * 8
 
         def up(a, dtype=np.int64):
@@ -630,6 +745,8 @@ class BlockSolver:
             row_seg=make_segments(s.blk_row, Pa, dev),
             col_seg=make_segments(s.blk_col, Pa, dev),
             band=BandMeta(bw=bw, sb=sb),
+            route=route,
+            target=target,
             lin_plan=lin_plan,
             pair_plan=pair_plan,
         )
@@ -642,7 +759,9 @@ class BlockSolver:
 
     def _plan_knobs(self) -> tuple:
         """What a cached plan depends on beyond the index digest: the torch
-        device (type and index), the dtype and solve precision, and the
+        device (type and index), the dtype and solve precision (they fix the
+        reduced route and its factor's type; the kernels' workspaces are f64
+        in either working type, so no workspace depends on them), and the
         module constants the plans capture when they are made (tests
         monkeypatch such constants, and a stale cached plan would keep the
         old values)."""
@@ -652,7 +771,7 @@ class BlockSolver:
             index = torch.cuda.current_device()
         return (
             dev.type, index, str(self.dtype), self.options.solver_precision,
-            MAX_BAND, _pairprod.ITEM, _terms.TILE,
+            MAX_BAND, PCG_MIN_POSES, _pairprod.ITEM, _terms.TILE,
         )
 
     # -- stage API used by the LM loop -----------------------------------------
@@ -684,7 +803,7 @@ class BlockSolver:
         with self._stage(timer, prof.PROF_SCHUR_COMPLEMENT):
             blocks, bsc, invHll = schur_reduce(sys, lam, self.plan)
         with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):
-            xp, success = solve_reduced_band(blocks, bsc, self.plan)
+            xp, success = solve_reduced(blocks, bsc, self.plan)
         with self._stage(timer, prof.PROF_UPDATE):
             xl = schur_back_substitute(sys, invHll, xp, self.plan)
             new_graph = apply_update(self.graph, xp, xl)
@@ -702,9 +821,10 @@ class BlockSolver:
     # -- results ---------------------------------------------------------------
 
     def result_poses(self) -> tuple[np.ndarray, np.ndarray]:
-        """Pose estimates ``(q, t)`` in the caller's order (undoes RCM)."""
-        q = self.graph.q.cpu().numpy()
-        t = self.graph.t.cpu().numpy()
+        """Pose estimates ``(q, t)`` in the caller's order (undoes RCM), as
+        f64 arrays in either working type, as the JAX package returns them."""
+        q = self.graph.q.cpu().numpy().astype(np.float64, copy=False)
+        t = self.graph.t.cpu().numpy().astype(np.float64, copy=False)
         if self.pose_perm is None:
             return q, t
         out_q, out_t = q.copy(), t.copy()
@@ -713,5 +833,5 @@ class BlockSolver:
         return out_q, out_t
 
     def result_landmarks(self) -> np.ndarray:
-        """Landmark estimates in the caller's order."""
-        return self.graph.Xw.cpu().numpy()
+        """Landmark estimates in the caller's order (f64 arrays)."""
+        return self.graph.Xw.cpu().numpy().astype(np.float64, copy=False)

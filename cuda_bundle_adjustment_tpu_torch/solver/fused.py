@@ -4,7 +4,8 @@ The host loop (``optimizer.py _optimize_host``) reads chi2 at the head of
 every iteration and Fhat, the scale and the solve's verdict after every
 trial, and makes every one of a trial's ~800 launches from Python.  Here
 the LM state lives on the solver's device as 0-d tensors -- lambda, nu, F
-and the chi2 trace in f64, the trial count and the iteration counter in
+and the chi2 trace in the working type (f64, or f32 in f32 mode, as in the
+JAX package's fused loop), the trial count and the iteration counter in
 int32 -- and each step is a function of those tensors alone:
 
 * :meth:`FusedLoop.linearise_and_trial`: the linearisation
@@ -44,7 +45,11 @@ iterations): ``MAXQ`` trials at most, accept on ``rho > 0`` with
 ``lam *= nu`` and ``nu *= 2``, bail on a non-finite lambda or ``Fhat - F <
 1e-4``, stop on ``q == MAXQ``, ``rho < RHO_DONE`` or a non-finite lambda.
 The float rule of the host loop (``optimizer.py lm_update``) and
-:func:`lm_update` here agree bit for bit, so the two loops' traces do.
+:func:`lm_update` here agree bit for bit at f64, so the two loops' traces
+do.  In f32 the constants stay weak (a Python float times an f32 tensor is
+f32), so the LM state stays f32 as in the JAX package's fused loop, while
+the host loop keeps lambda as a Python float, as the JAX package's host
+loop does: in f32 the two loops are not bit for bit in either package.
 """
 
 from __future__ import annotations

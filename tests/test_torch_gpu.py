@@ -24,13 +24,16 @@ from torch_fragile import (
     fragile_edge_pattern,
     fragile_pair_problem,
 )
+from cuda_bundle_adjustment_tpu_torch import GraphOptimisationOptions
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
+from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_loop_closure_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_mixed_ba_problem
 from cuda_bundle_adjustment_tpu_torch.kernels import (
     bandchol, gather, lminv, pairprod, schurvec, terms,
 )
 from cuda_bundle_adjustment_tpu_torch.ops.components import flat_mv_3x3, flat_sym3x3_inv
+from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
 from cuda_bundle_adjustment_tpu_torch.solver.segments import make_segments
 from cuda_bundle_adjustment_tpu_torch.types import PackedEdges
 
@@ -694,3 +697,191 @@ def test_repeated_optimize_reuses_the_capture_pool():
         del opt
         reserved.append(torch.cuda.memory_reserved(dev))
     assert reserved[3] == reserved[2], reserved
+
+
+# -- f32 mode and the dense route ----------------------------------------------
+
+# an f32 kernel and its twin are each the f64 computation rounded once: where
+# the f64 values agree within 1e-12 the f32 ones agree within one rounding
+F32_ROUND = 2.0**-23
+
+
+def _f32_edges(qt, xw, data):
+    f = torch.float32
+    return qt.to(f), xw.to(f), data._replace(
+        meas=data.meas.to(f), omega=data.omega.to(f), cam=data.cam.to(f),
+        both_free=data.both_free.to(f), active=data.active.to(f),
+        mask3=None if data.mask3 is None else data.mask3.to(f))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mdim,masked", [(2, False), (3, False), (3, True)],
+                         ids=["mono", "stereo", "mixed"])
+def test_f32_terms_and_gather_kernels_match_twins(mdim, masked):
+    """B1, B2 and B3 on f32 operands: f32 outputs within one rounding of
+    their twins (Hpl bit for bit), B3's sums bit for bit the twin's stacks
+    summed in the plan's order, B2 bit for bit, a second launch bit for
+    bit, and an f32 pose state 8 bytes off a 16-byte boundary gives the
+    same bits."""
+    from chip_smoke import linearise_in_plan_order
+
+    dev = _cuda()
+    rng = np.random.default_rng(40 + mdim + 10 * masked)
+    P, L, E = 300, 4000, 20_000
+    qt, xw, data, (ps, ls), _ = _random_edges(rng, E, P, L, mdim, masked, dev)
+    qt, xw, data = _f32_edges(qt, xw, data)
+    chi = terms.chi_edges(qt, xw, data)
+    assert chi.dtype == torch.float32
+    assert _close_rel(chi, terms.chi_edges_plain(qt, xw, data), F32_ROUND)
+    plan = terms.make_linearise_plan(ps, ls, E)
+    got = terms.linearise(qt, xw, data, ps, ls, plan)
+    want = terms.linearise_plain(qt, xw, data, ps, ls)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape and _close_rel(g, w, F32_ROUND)
+    assert torch.equal(got[2], want[2])
+    ordered = linearise_in_plan_order(qt, xw, data, ps, ls, plan)
+    assert torch.equal(got[0], ordered[0]) and torch.equal(got[1], ordered[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, terms.linearise(qt, xw, data, ps, ls, plan)))
+    off = torch.empty(E * 12 + 2, dtype=torch.float32, device=dev)[2:].view(E, 12)
+    off.copy_(qt)
+    assert off.data_ptr() % 16 == 8
+    assert all(torch.equal(a, b) for a, b in zip(got, terms.linearise(off, xw, data, ps, ls, plan)))
+    table = torch.as_tensor(rng.standard_normal((1322, 12)), dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(rng.integers(-1, 1323, 50_000), device=dev)
+    assert torch.equal(gather.gather_rows(table, idx), gather.gather_rows_plain(table, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mono", "stereo", "mixed"])
+def test_f32_schur_kernels_match_twins(kind):
+    """B4, B5, B6, B9 and B10 in f32 at an f32 solver's first linearisation
+    on the card: B4, B9 and B10 bit for bit their twins, B5 bit for bit its
+    twin summed in the plan's order, B6 within one rounding of its twin and
+    of the twin's products summed in the plan's order; a captured B4 replayed
+    after ``lam`` changed gives the twin at the new value; f64 operands with
+    an f32 ``lam`` are refused."""
+    from chip_smoke import pair_products_in_plan_order
+
+    dev = _cuda()
+    kw = dict(num_poses=40, num_landmarks=1500, mean_obs_per_landmark=4.0, seed=2)
+    problem = make_mixed_ba_problem(**kw) if kind == "mixed" else make_ba_problem(kind=kind, **kw)
+    s = optimizer_from_problem(problem, options=GraphOptimisationOptions(dtype="float32"),
+                               device=dev).solver
+    s.build_structure()
+    _, sys_ = s.head()
+    p = s.plan
+    assert sys_.Hpl.dtype == torch.float32
+    lam = 1e-5 * bs.max_diagonal(sys_)
+    assert lam.dtype == torch.float32
+    inv, y = lminv.damped_inverse(sys_.Hll, sys_.bl, lam)
+    want = lminv.damped_inverse_plain(sys_.Hll, sys_.bl, lam)
+    assert torch.equal(inv, want[0]) and torch.equal(y, want[1])
+    mv = (sys_.Hpl, y, p.ba_lm_idx, sys_.bp, p.pose_seg)
+    bsc = schurvec.hpl_mv_segment_sum(*mv, p.lin_plan)
+    assert torch.equal(bsc, hpl_mv_in_plan_order(*mv, p.lin_plan))
+    assert _close_rel(bsc, schurvec.hpl_mv_segment_sum_plain(*mv), F32_ROUND)
+    xp = (bsc * 1e-6).contiguous()
+    mtv = (sys_.Hpl, xp, p.ba_pose_idx, sys_.bl, p.lm_seg)
+    cl = schurvec.hpl_mtv_segment_sum(*mtv, p.lin_plan)
+    assert torch.equal(cl, schurvec.hpl_mtv_segment_sum_plain(*mtv))
+    assert torch.equal(cl, hpl_mtv_in_plan_order(*mtv, p.lin_plan))
+    assert not p.lin_plan.count.any()
+    assert torch.equal(lminv.sym3x3_mv(inv, cl), lminv.sym3x3_mv_plain(inv, cl))
+    args = (sys_.Hpl, inv, p.ba_lm_idx, p.tri_ei, p.tri_ej, p.tri_offsets)
+    got = pairprod.schur_pair_products(*args, p.pair_plan)
+    assert got.dtype == torch.float32
+    assert _close_rel(got, pairprod.schur_pair_products_plain(*args), F32_ROUND)
+    assert _close_rel(got, pair_products_in_plan_order(*args, p.pair_plan), F32_ROUND)
+    assert torch.equal(got, pairprod.schur_pair_products(*args, p.pair_plan))
+
+    lam_at = lam.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_inv, g_y = lminv.damped_inverse(sys_.Hll, sys_.bl, lam_at)
+    lam_at.mul_(7.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = lminv.damped_inverse_plain(sys_.Hll, sys_.bl, lam_at)
+    assert torch.equal(g_inv, want[0]) and torch.equal(g_y, want[1])
+    with pytest.raises(TypeError, match="lam"):
+        lminv.damped_inverse(sys_.Hll.double(), sys_.bl.double(), lam)
+
+
+def _card_and_cpu(problem, niter, options=None, **robust):
+    out = {}
+    for d in ("cuda", "cpu"):
+        opt = optimizer_from_problem(problem, options=options, device=d, **robust)
+        opt.optimize(niter)
+        out[d] = opt
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,rk", [("mono", 3), ("stereo", 0)], ids=["mono-huber", "stereo"])
+def test_f32_fused_loop_on_the_card(kind, rk):
+    """f32 mode through the fused loop's replays on the card: the trace
+    against the f32 twins on the CPU at rtol 1e-4 (the same f64 arithmetic
+    rounded once, sums in another order, so the two f32 band factors differ
+    in the last bit of their systems and each step by about kappa x 2^-24;
+    the JAX package's f32 tolerance) and against the card's f64 trace at
+    rtol 1e-3, one B8 solve a trial, and a second run bit for bit."""
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    _cuda()
+    problem = make_ba_problem(num_poses=16, num_landmarks=400, mean_obs_per_landmark=4.0,
+                              kind=kind, seed=13)
+    robust = dict(rk=rk, delta=3.0) if rk else {}
+    f32 = GraphOptimisationOptions(dtype="float32")
+    kernels.reset_launch_counts()
+    runs = _card_and_cpu(problem, 5, f32, **robust)
+    card, cpu = runs["cuda"], runs["cpu"]
+    counts = kernels.launch_counts()
+    trace = [s.chi2 for s in card.batch_statistics().get()]
+    st = card.loop_stats
+    assert st["captures"] >= 1 and st["replays"] >= 4
+    assert counts["band_solve"] == counts["band_factor"] == st["trials"]
+    np.testing.assert_allclose(trace, [s.chi2 for s in cpu.batch_statistics().get()], rtol=1e-4)
+    o64 = optimizer_from_problem(problem, **robust)
+    o64.optimize(5)
+    np.testing.assert_allclose(trace, [s.chi2 for s in o64.batch_statistics().get()], rtol=1e-3)
+    again = optimizer_from_problem(problem, options=f32, **robust)
+    again.optimize(5)
+    assert [s.chi2 for s in again.batch_statistics().get()] == trace
+    assert all(torch.equal(a, b) for a, b in zip(again.solver.graph, card.solver.graph))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["exact", "loop-mixed", "loop-f32"])
+def test_dense_route_in_the_fused_loop_on_the_card(case):
+    """The dense route (``cholesky_ex`` and two triangular solves) inside
+    the fused loop's captured graphs: ``"exact"`` on a banded graph and the
+    120-pose loop-closure graph under ``"mixed"`` and in f32, each against
+    the CPU at rtol 1e-9 (1e-4 in f32), no band kernel launched, captures
+    replayed, and the card's host loop bit for bit (f64)."""
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    _cuda()
+    if case == "exact":
+        problem = make_ba_problem(num_poses=16, num_landmarks=400, seed=13)
+        options = GraphOptimisationOptions(solver_precision="exact")
+    else:
+        problem = make_loop_closure_problem(num_poses=120, num_landmarks=1200,
+                                            long_range_fraction=0.3, seed=2)
+        options = GraphOptimisationOptions(dtype="float32" if case == "loop-f32" else "float64")
+    kernels.reset_launch_counts()
+    runs = _card_and_cpu(problem, 6, options)
+    counts = kernels.launch_counts()
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card.solver.plan.route == "dense"
+    assert counts["band_factor"] == counts["band_solve"] == 0
+    st = card.loop_stats
+    assert st["captures"] >= 1 and st["replays"] >= 5
+    trace = [s.chi2 for s in card.batch_statistics().get()]
+    rtol = 1e-4 if case == "loop-f32" else 1e-9
+    np.testing.assert_allclose(trace, [s.chi2 for s in cpu.batch_statistics().get()], rtol=rtol)
+    if case != "loop-f32":
+        host = optimizer_from_problem(problem, options=options)
+        host.use_fused_loop = False
+        host.optimize(6)
+        assert [s.chi2 for s in host.batch_statistics().get()] == trace

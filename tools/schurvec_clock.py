@@ -323,7 +323,7 @@ def ablate(path: Path) -> int:
                     sys_.Hpl.data_ptr(), y.data_ptr(), plan.ba_lm_idx.data_ptr(),
                     sys_.bp.data_ptr(), sys_.bp.stride(0), *(t.data_ptr() for t in lp.pose),
                     lp.count.data_ptr(),
-                    lp.scratch.data_ptr(), E, Pa, La, bsc.data_ptr(), _build.stream_ptr(bsc)),
+                    lp.scratch.data_ptr(), E, Pa, La, 0, bsc.data_ptr(), _build.stream_ptr(bsc)),
                     "mv")
 
             def mtv(lib=lib):
@@ -331,7 +331,7 @@ def ablate(path: Path) -> int:
                     sys_.Hpl.data_ptr(), xp.data_ptr(), plan.ba_pose_idx.data_ptr(),
                     sys_.bl.data_ptr(), sys_.bl.stride(0), *(t.data_ptr() for t in lp.lm),
                     lp.lm_slot.data_ptr(),
-                    lp.count.data_ptr() + 4 * Pa, lm_scratch, E, La, Pa, cl.data_ptr(),
+                    lp.count.data_ptr() + 4 * Pa, lm_scratch, E, La, Pa, 0, cl.data_ptr(),
                     _build.stream_ptr(cl)), "mtv")
 
             row[name] = dict(B5=round(cs.device_ms(mv), 4), B9=round(cs.device_ms(mtv), 4))
