@@ -70,7 +70,16 @@ caught):
    ``kitti07_mono``'s trace must agree with a run of the plain twins on the
    CPU, and ``kitti07_mono_wide`` (the same graph, poses renamed) with
    ``kitti07_mono``; prints cold and warm times and a per-stage profile;
-   then runs ``kitti00_huber_f32`` alike (one B8 a trial; its trace within
+   then the ``object_api`` phase (``object_api_phase``): ``kitti00_mono``
+   built with the bulk constructors of the object API, ``initialize()`` +
+   ``optimize(10)`` with the launch counters zeroed just before and read
+   just after, bit for bit the array path's trace, final state and launch
+   counts, the estimates written back exactly, and a re-initialize with the
+   estimates reset that must hit the structure cache and repeat the trace;
+   ``kitti07_mono`` through ``write_graph`` and ``read_graph`` (one edge
+   object an edge) against the same file's ``read_problem`` at rtol 1e-9;
+   the committed fixture through ``read_graph`` against its golden trace at
+   rtol 1e-6; then runs ``kitti00_huber_f32`` alike (one B8 a trial; its trace within
    rtol 1e-3 of ``kitti00_huber``'s; the host loop's printed, not held) and
    the dense route: ``kitti00_mono`` under ``"exact"`` (against
    ``kitti00_mono`` at 1e-8) and an 800-pose loop-closure graph whose band is
@@ -156,6 +165,22 @@ HELD_SHORT = {("mono", "tukey"): 6}
 # small-graph case whose card-against-CPU tolerance widens after its first
 # iterations: (iterations held at 1e-9, tolerance of the later ones)
 HELD_LOOSER = {("mixed", "tukey"): (7, 1e-8)}
+# the committed mono + stereo graph file and its 10-iteration chi2 trace from
+# the dense f64 oracle (tests/test_io.py holds the JAX package to it)
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                       "mini_mixed_graph.json")
+GOLDEN_MIXED_TRACE = [
+    1797.1091985976145,
+    1230.5173422653224,
+    1194.830797312648,
+    1172.7164165427946,
+    1150.446571696927,
+    1131.7173476567623,
+    1112.5951707431036,
+    1092.1643143753622,
+    1076.0163186443292,
+    1067.623531588372,
+]
 
 
 def nvidia_smi_line() -> str:
@@ -1537,6 +1562,146 @@ def wide_band_agreement(narrow: dict, wide: dict, rename) -> None:
           f"trace max rel diff {rel:.3e} (tol 1e-8), poses and landmarks within 1e-7")
 
 
+def object_api_phase(mono, kitti07, runs: dict) -> dict:
+    """The object_api phase: the object-graph API and the graph files on the
+    card, against the array path's runs of phase 5.
+
+    ``kitti00_mono`` through the bulk constructors (``add_vertices_bulk``,
+    ``add_edges_bulk``), ``initialize()`` and ``optimize(10)``, with the
+    launch counters zeroed just before and read just after: the trace, the
+    final state and the launch counts must equal the array path's bit for
+    bit (the same packed arrays; the index dtype differs, so the structure
+    cache misses), and the estimates written back into the vertex sets must
+    equal ``result_poses()`` / ``result_landmarks()`` exactly; then, with
+    the estimates reset through ``write_back``, a second ``initialize()`` +
+    ``optimize(10)`` must hit the structure cache and repeat the trace.
+    ``kitti07_mono`` written with ``write_graph`` and read back with
+    ``read_graph`` (one ``MonoEdge`` object an edge, each edge's own
+    information) and with ``read_problem``: the two traces within rtol 1e-9.
+    The committed fixture through ``read_graph``: its golden trace at rtol
+    1e-6.  Returns the bulk run's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import cuda_bundle_adjustment_tpu_torch as tbt
+    from cuda_bundle_adjustment_tpu_torch import kernels
+    from cuda_bundle_adjustment_tpu_torch.io import opencv_json
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+    from cuda_bundle_adjustment_tpu_torch.utils import profiling as prof
+
+    def ms_since(t0):
+        return (time.perf_counter() - t0) * 1e3
+
+    def optimiser(vertex_sets, edge_sets, options=None):
+        opt = tbt.TorchGraphOptimisation.create(options)
+        for vs in vertex_sets:
+            opt.add_vertex_set(vs)
+        for es in edge_sets:
+            opt.add_edge_set(es)
+        return opt
+
+    def run(opt):
+        """initialize() + optimize(10): wall s, initialize()'s host ms, the
+        structure cache's (hits, misses) and the trace."""
+        before = bs.structure_cache_info()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.initialize()
+        opt.optimize(10)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        after = bs.structure_cache_info()
+        return (sec, opt.time_profile()[prof.PROF_INITIALIZE],
+                (after["hits"] - before["hits"], after["misses"] - before["misses"]),
+                [s.chi2 for s in opt.batch_statistics().get()])
+
+    label = "object_api kitti00_mono (bulk API)"
+    p, arr = mono, runs["kitti00_mono"]
+    P, L = p.pose_q.shape[0], p.landmarks.shape[0]
+    t0 = time.perf_counter()
+    poses, landmarks = tbt.PoseVertexSet(), tbt.LandmarkVertexSet()
+    poses.add_vertices_bulk(np.arange(P), p.pose_q, p.pose_t, np.arange(P) >= p.num_active_poses)
+    landmarks.add_vertices_bulk(P + np.arange(L), p.landmarks,
+                                np.arange(L) >= p.num_active_landmarks)
+    edges = tbt.MonoEdgeSet()
+    edges.set_information(1.0)
+    edges.set_camera(tbt.Camera(*p.cam.tolist()))
+    edges.add_edges_bulk(p.meas, p.pose_idx, P + p.lm_idx)
+    build_ms = ms_since(t0)
+    opt = optimiser((poses, landmarks), (edges,))
+    kernels.reset_launch_counts()
+    cold_s, cold_init_ms, hm, trace = run(opt)
+    counts = kernels.launch_counts()
+    check(opt.device.type == "cuda", f"{label}: the default device is {opt.device}")
+    check(hm == (0, 1), f"{label}: the first initialize read the structure cache as {hm}")
+    check(counts == arr["counts"],
+          f"{label}: launch counts {counts} differ from the array path's {arr['counts']}")
+    check(trace == arr["trace"], f"{label}: the trace differs from the array path's")
+    check(all(torch.equal(a, b) for a, b in zip(opt.solver.graph, arr["solver"].graph)),
+          f"{label}: the final state differs from the array path's")
+    (q, t), X = opt.solver.result_poses(), opt.solver.result_landmarks()
+    (bq, bt), bX = poses.bulk_estimates(), landmarks.bulk_estimates()
+    check(np.array_equal(bq, q) and np.array_equal(bt, t) and np.array_equal(bX, X),
+          f"{label}: the written-back estimates differ from result_poses()/result_landmarks()")
+    poses.write_back(p.pose_q, p.pose_t)  # the starting estimates again
+    landmarks.write_back(p.landmarks)
+    warm_s, warm_init_ms, hm, again = run(opt)
+    check(hm == (1, 0) and opt.solver.symbolic_ms == 0.0,
+          f"{label}: the re-initialize did not hit the structure cache ({hm})")
+    check(again == trace, f"{label}: the re-initialized run's trace differs from the first")
+    print(f"{label}: bulk sets built in {build_ms:.1f} ms; initialize()+optimize(10) cold "
+          f"{cold_s:.4f} s (initialize() {cold_init_ms:.2f} ms on the host, structure cache "
+          f"miss), re-initialized {warm_s:.4f} s (initialize() {warm_init_ms:.2f} ms, cache hit, "
+          f"symbolic_ms 0); trace, final state and launch counts bit for bit the array path's, "
+          f"estimates written back exactly [{nvidia_smi_line()}]")
+
+    label = "object_api kitti07_mono (graph file)"
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "kitti07_mono.json")
+        t0 = time.perf_counter()
+        opencv_json.write_graph(path, problem=kitti07)
+        write_ms = ms_since(t0)
+        t0 = time.perf_counter()
+        g_poses, g_landmarks, edge_sets, _ = opencv_json.read_graph(path)
+        read_graph_ms = ms_since(t0)
+        t0 = time.perf_counter()
+        problem = opencv_json.read_problem(path)
+        read_problem_ms = ms_since(t0)
+    n_objects = sum(len(es.edges) for es in edge_sets)
+    check(n_objects == kitti07.meas.shape[0] and all(es.KIND == "mono" for es in edge_sets),
+          f"{label}: read_graph made {n_objects} edge objects")
+    gopt = optimiser((g_poses, g_landmarks), edge_sets,
+                     tbt.GraphOptimisationOptions(per_edge_information=True))
+    g_s, g_init_ms, _, g_trace = run(gopt)
+    aopt = optimizer_from_problem(problem)
+    aopt.optimize(10)
+    a_trace = [s.chi2 for s in aopt.batch_statistics().get()]
+    check(len(g_trace) == len(a_trace), f"{label}: the traces have different lengths")
+    np.testing.assert_allclose(g_trace, a_trace, rtol=1e-9)
+    rel = max(abs(a - b) / b for a, b in zip(g_trace, a_trace))
+    print(f"{label}: write_graph {write_ms:.0f} ms, read_graph {read_graph_ms:.0f} ms "
+          f"({n_objects} MonoEdge objects), read_problem {read_problem_ms:.0f} ms; "
+          f"initialize() {g_init_ms:.2f} ms on the host, initialize()+optimize(10) {g_s:.4f} s; "
+          f"trace against read_problem's: max rel diff {rel:.3e} (tol 1e-9), "
+          f"bit for bit: {g_trace == a_trace} [{nvidia_smi_line()}]")
+
+    label = "object_api fixture (read_graph)"
+    f_poses, f_landmarks, f_sets, _ = opencv_json.read_graph(FIXTURE)
+    fopt = optimiser((f_poses, f_landmarks), f_sets,
+                     tbt.GraphOptimisationOptions(per_edge_information=True))
+    *_, f_trace = run(fopt)
+    check(fopt.solver.packed.mask3 is not None, f"{label}: not one merged masked stereo set")
+    check(len(f_trace) == len(GOLDEN_MIXED_TRACE), f"{label}: {len(f_trace)} iterations, not 10")
+    np.testing.assert_allclose(f_trace, GOLDEN_MIXED_TRACE, rtol=1e-6)
+    rel = max(abs(a - b) / b for a, b in zip(f_trace, GOLDEN_MIXED_TRACE))
+    print(f"{label}: {sum(es.nedges() for es in f_sets)} edges (mono and stereo merged), "
+          f"trace max rel diff {rel:.3e} from the golden trace (tol 1e-6)")
+    return counts
+
+
 def dense_cells(runs: dict) -> dict:
     """The dense route at full size: ``kitti00_mono`` under ``"exact"`` (an
     f64 factor of the 7926-row scaled matrix, one solve a trial) against
@@ -1788,6 +1953,8 @@ def main() -> int:
         "kitti07_mono_wide": main_path(kitti07_wide, "kitti07_mono_wide", warm_runs=2),
     }
     lap("six full-size paths")
+    object_counts = object_api_phase(mono, kitti07, runs)
+    lap("object_api")
     runs["kitti00_huber_f32"] = main_path(mono, "kitti00_huber_f32", warm_runs=2, options=f32,
                                           profiled=False, **huber)
     f32_trace, f64_trace = runs["kitti00_huber_f32"]["trace"], runs["kitti00_huber"]["trace"]
@@ -1818,7 +1985,8 @@ def main() -> int:
         r = res[name]
         row = dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts[name], max_abs_err=r["max_abs_err"],
+            launches=counts[name], object_api_launches=object_counts[name],
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], device_ms=r["device_ms"], host_ms=r["host_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         )

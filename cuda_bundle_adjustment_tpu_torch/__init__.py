@@ -4,26 +4,52 @@ The JAX package ``cuda_bundle_adjustment_tpu`` is the reference; this
 package mirrors its module and function names so each counterpart is easy to
 find, but imports ``torch`` and never ``jax``.
 
-The port runs the ``bench.py`` configurations end to end: one mono or
-stereo edge set, or a mono and a stereo set merged into one masked stereo
-set, with one global camera, a robust kernel or none, f64 or f32 state
+The port takes a graph as vertex and edge sets (objects, or arrays through
+the bulk constructors), as a graph file (``io.opencv_json``) or as raw
+arrays (``io.arrays.optimizer_from_problem``), and runs it through one
+packed path: one mono or stereo edge set, or a mono and a stereo set merged
+into one masked stereo set, with one camera an edge set, global or
+per-edge information, a robust kernel or none, f64 or f32 state
 (``GraphOptimisationOptions(dtype=...)``), ``solver_precision="mixed"`` or
 ``"exact"``, through the device-resident LM loop.  The reduced system is
 solved on a band (Hsc band up to 48 blocks) or densely (``"exact"`` at f64,
 and wider bands below 1024 poses).  Ten kernels on that path are
 hand-written CUDA C++ for ``sm_90a`` (``csrc/``, listed in ``kernels``);
-every other stage is plain PyTorch.
-Everything outside the slice raises ``NotImplementedError`` naming its open
-ROADMAP item.
+every other stage is plain PyTorch.  Everything outside it (depth and ICP
+edges, a per-edge camera, outlier thresholds, a pose-only graph, edge sets
+that do not merge) raises ``NotImplementedError`` naming its open ROADMAP
+item.
 
 Quick start::
 
-    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
-    from cuda_bundle_adjustment_tpu_torch.io.synthetic import kitti00_scale_problem
+    import cuda_bundle_adjustment_tpu_torch as tba
 
-    opt = optimizer_from_problem(kitti00_scale_problem(), device="cuda")
+    poses = tba.PoseVertexSet()
+    landmarks = tba.LandmarkVertexSet()
+    poses.add_vertex(tba.PoseVertex(0, tba.Se3(q0, t0), fixed=True))
+    landmarks.add_vertex(tba.LandmarkVertex(100, Xw))
+    ...
+    edges = tba.MonoEdgeSet()
+    edges.set_information(1.0)
+    edges.set_camera(tba.Camera(fx, fy, cx, cy, bf))
+    e = tba.MonoEdge()
+    e.set_vertex(poses.get_vertex(0), 0)
+    e.set_vertex(landmarks.get_vertex(100), 1)
+    e.set_measurement([u, v])
+    edges.add_edge(e)
+    ...
+    opt = tba.TorchGraphOptimisation.create(device="cuda")
+    opt.add_vertex_set(poses)
+    opt.add_vertex_set(landmarks)
+    opt.add_edge_set(edges)
+    opt.initialize()
     opt.optimize(10)
     trace = [s.chi2 for s in opt.batch_statistics().get()]
+    estimate = poses.get_vertex(1).get_estimate()  # written back
+
+Vertices and edges can also be added as arrays:
+``PoseVertexSet.add_vertices_bulk``, ``LandmarkVertexSet.add_vertices_bulk``
+and ``EdgeSet.add_edges_bulk``.
 """
 
 import torch
@@ -32,15 +58,55 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .graph import Camera, GraphOptimisationOptions  # noqa: E402
+from .graph import (  # noqa: E402
+    Camera,
+    GraphOptimisationOptions,
+    LandmarkVertex,
+    LandmarkVertexSet,
+    PoseVertex,
+    PoseVertexSet,
+    Se3,
+)
+from .models import (  # noqa: E402
+    DepthEdge,
+    DepthEdgeSet,
+    LineEdge,
+    LineEdgeSet,
+    MonoEdge,
+    MonoEdgeSet,
+    PlaneEdge,
+    PlaneEdgeSet,
+    PointToLineMatch,
+    PointToPlaneMatch,
+    StereoEdge,
+    StereoEdgeSet,
+)
 from .ops.robust import RobustKernelType  # noqa: E402
-from .optimizer import TorchGraphOptimisation  # noqa: E402
+from .optimizer import TorchGraphOptimisation, TorchGraphOptimisationImpl  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Camera",
     "GraphOptimisationOptions",
+    "Se3",
+    "PoseVertex",
+    "LandmarkVertex",
+    "PoseVertexSet",
+    "LandmarkVertexSet",
+    "MonoEdge",
+    "MonoEdgeSet",
+    "StereoEdge",
+    "StereoEdgeSet",
+    "DepthEdge",
+    "DepthEdgeSet",
+    "LineEdge",
+    "LineEdgeSet",
+    "PlaneEdge",
+    "PlaneEdgeSet",
+    "PointToLineMatch",
+    "PointToPlaneMatch",
     "RobustKernelType",
     "TorchGraphOptimisation",
+    "TorchGraphOptimisationImpl",
 ]

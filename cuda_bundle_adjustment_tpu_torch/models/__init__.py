@@ -1,1 +1,34 @@
-"""Subpackage."""
+"""Measurement models (edge types): the user-facing edge and edge-set
+classes, and the stage functions of the models the solver runs."""
+
+from .ba import (
+    MODEL_REGISTRY,
+    DepthEdge,
+    DepthEdgeSet,
+    MonoEdge,
+    MonoEdgeSet,
+    MonoModel,
+    StereoEdge,
+    StereoEdgeSet,
+    StereoModel,
+)
+from .icp import LineEdge, LineEdgeSet, PlaneEdge, PlaneEdgeSet
+from .measurements import PointToLineMatch, PointToPlaneMatch
+
+__all__ = [
+    "MODEL_REGISTRY",
+    "MonoEdge",
+    "MonoEdgeSet",
+    "MonoModel",
+    "StereoEdge",
+    "StereoEdgeSet",
+    "StereoModel",
+    "DepthEdge",
+    "DepthEdgeSet",
+    "LineEdge",
+    "LineEdgeSet",
+    "PlaneEdge",
+    "PlaneEdgeSet",
+    "PointToLineMatch",
+    "PointToPlaneMatch",
+]

@@ -17,13 +17,18 @@ kernels B1 and B3 (``kernels/terms.py``).  A merged mono+stereo set
 Jacobian row masked per edge.  The kernels take the robust kernel from
 outside: the solver applies rho to B1's per-edge chi and hands B3 the weight
 rescaled by rho', which equals ``Model.chi`` / ``Model.terms`` at that
-``rk, delta`` with the original weight.  Depth waits for ROADMAP A7.
+``rk, delta`` with the original weight.
+
+The user-facing edge and edge-set classes of the object API follow the
+models.  The depth model waits for ROADMAP A7: a depth set can be built,
+and packing it raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..graph import BaseEdge, EdgeSet
 from ..kernels.gather import gather_rows
 from ..ops import components as C
 from ..ops.robust import robust_derivative, robustify
@@ -137,3 +142,44 @@ class StereoModel:
 
 
 MODEL_REGISTRY = {"mono": MonoModel, "stereo": StereoModel}
+
+
+# ---------------------------------------------------------------------------
+# user-facing edge / edge-set classes
+# ---------------------------------------------------------------------------
+
+
+class MonoEdge(BaseEdge):
+    """Monocular projection edge (pose, landmark) with a 2D pixel measurement."""
+
+    NVERTS = 2
+
+
+class StereoEdge(BaseEdge):
+    """Stereo projection edge with a ``[u_l, v, u_r]`` measurement."""
+
+    NVERTS = 2
+
+
+class DepthEdge(BaseEdge):
+    """Depth edge with a ``[u, v, 1/z]`` measurement."""
+
+    NVERTS = 2
+
+
+class MonoEdgeSet(EdgeSet):
+    KIND = "mono"
+    MDIM = 2
+    NVERTS = 2
+
+
+class StereoEdgeSet(EdgeSet):
+    KIND = "stereo"
+    MDIM = 3
+    NVERTS = 2
+
+
+class DepthEdgeSet(EdgeSet):
+    KIND = "depth"
+    MDIM = 3
+    NVERTS = 2

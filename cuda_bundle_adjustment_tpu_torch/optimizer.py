@@ -10,17 +10,22 @@ functions run eagerly on the CPU), as the JAX package does; under
 ``verbose`` or ``set_profile(True)``, or with ``use_fused_loop = False``,
 it runs the host loop, which reads every value on the host where it is
 made.  The two give the same trace and final state bit for bit.
+
+A graph is given as vertex and edge sets (``add_vertex_set``,
+``add_edge_set``, then ``initialize()``), or as arrays
+(``io.arrays.optimizer_from_problem``).  Both loops end in the solver's
+``finalize()``, which writes the estimates back into the vertex sets.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
-from .graph import GraphOptimisationOptions
+from .graph import EdgeSet, GraphOptimisationOptions, VertexSet
 from .solver.block_solver import BlockSolver
 from .solver.fused import MAXQ, RHO_DONE, TAU, FusedLoop
 from .utils import profiling as prof
@@ -58,9 +63,10 @@ def lm_done(q: int, rho: float, lam: float) -> bool:
 
 
 class TorchGraphOptimisation:
-    """Graph optimiser holding a block solver on one torch device: the
-    CUDA card unless the caller asks for ``device="cpu"`` (without a card
-    the default raises ``RuntimeError``; there is no fallback)."""
+    """Graph optimiser holding vertex and edge sets and a block solver on
+    one torch device: the CUDA card unless the caller asks for
+    ``device="cpu"`` (without a card the default raises ``RuntimeError``;
+    there is no fallback)."""
 
     def __init__(
         self,
@@ -68,6 +74,8 @@ class TorchGraphOptimisation:
         device: Union[str, torch.device] = "cuda",
     ):
         self.options = options or GraphOptimisationOptions()
+        self.vertex_sets: list[VertexSet] = []
+        self.edge_sets: list[EdgeSet] = []
         self.solver = BlockSolver(self.options, device)
         self.stats = BatchStatistics()
         self.timer = prof.StageTimer()
@@ -90,10 +98,28 @@ class TorchGraphOptimisation:
     def device(self) -> torch.device:
         return self.solver.device
 
+    def add_vertex_set(self, vset: VertexSet) -> None:
+        self.vertex_sets.append(vset)
+
+    def add_edge_set(self, eset: EdgeSet) -> None:
+        self.edge_sets.append(eset)
+
+    def n_vertices(self, set_id: int) -> int:
+        return len(self.vertex_sets[set_id])
+
+    def get_edge_sets(self) -> Sequence[EdgeSet]:
+        return self.edge_sets
+
     # -- lifecycle ---------------------------------------------------------------
 
     def initialize(self) -> None:
-        self.solver.initialize((), ())
+        """Pack the vertex and edge sets onto the device (stage "0:
+        Initialize"), and clear the statistics and the stage times."""
+        t0 = time.perf_counter()
+        self.solver.initialize(self.edge_sets, self.vertex_sets)
+        self.stats.clear()
+        self.timer.clear()
+        self.timer.add(prof.PROF_INITIALIZE, (time.perf_counter() - t0) * 1e3)
 
     def optimize(self, niterations: int) -> None:
         solver = self.solver
@@ -117,6 +143,7 @@ class TorchGraphOptimisation:
         for it, chi2 in enumerate(loop.run()):
             self.stats.add_stat(BatchInfo(it, chi2))
         self.loop_stats = loop.stats
+        self.solver.finalize()
 
     def _optimize_host(self, niterations: int) -> None:
         solver = self.solver
@@ -159,11 +186,13 @@ class TorchGraphOptimisation:
                     f"iteration= {iteration};   time(ms): {time_taken:.4f}   "
                     f"chi2= {F:f};   lambda= {lam:f}   rho= {rho:f}\t   "
                     f"nedges= {solver.nedges()}    levenberg iterations = {q}   "
-                    f"outliers = 0"
+                    f"outliers = {sum(es.get_outlier_count() for es in self.edge_sets)}"
                 )
 
             if lm_done(q, rho, lam):
                 break
+
+        solver.finalize()
 
     # -- introspection -------------------------------------------------------------
 
@@ -180,7 +209,15 @@ class TorchGraphOptimisation:
         self.should_profile = bool(flag)
 
     # camelCase aliases matching the reference API
+    addVertexSet = add_vertex_set
+    addEdgeSet = add_edge_set
+    nVertices = n_vertices
+    getEdgeSets = get_edge_sets
     batchStatistics = batch_statistics
     timeProfile = time_profile
     setVerbose = set_verbose
     setProfile = set_profile
+
+
+# the reference's name for its implementation class
+TorchGraphOptimisationImpl = TorchGraphOptimisation

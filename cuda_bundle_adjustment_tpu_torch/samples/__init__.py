@@ -1,0 +1,7 @@
+"""Sample programs of the port, run as modules::
+
+    python -m cuda_bundle_adjustment_tpu_torch.samples.sample_ba_from_file GRAPH.json
+    python -m cuda_bundle_adjustment_tpu_torch.samples.sample_comparison_with_cpu GRAPH.json
+
+Both run on the CUDA card unless ``--device cpu`` is given.
+"""

@@ -24,6 +24,11 @@ path, in plain PyTorch around ten hand-written kernels:
 * the back-substitution products through kernels B9 and B10
   (:func:`schur_back_substitute`).
 
+An object graph (vertex and edge sets, :meth:`BlockSolver.initialize`) is
+turned into the same edge specs as an array problem and packed by
+:meth:`BlockSolver.initialize_from_arrays`; :meth:`BlockSolver.finalize`
+writes the estimates back into its vertices.
+
 Every per-pose, per-landmark and per-block-row sum is a
 fixed-order CSR segment sum over rows sorted by target once per structure
 (:class:`Segments`), never a float atomic, so two runs on one device give
@@ -50,6 +55,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..graph import EdgeSet, lookup_ids
 from ..kernels import pairprod as _pairprod
 from ..kernels import terms as _terms
 from ..kernels import (
@@ -228,6 +234,15 @@ def outside_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is outside the PyTorch port's current slice (ROADMAP {item})"
     )
+
+
+def _ids_to_indices(sets, ids) -> np.ndarray:
+    """Vectorised vertex-id -> global-index lookup across several vertex
+    sets (the global indices :meth:`BlockSolver.initialize` assigns).  Ids
+    must be unique across the sets of one role."""
+    pairs = [vs._ids_and_global_indices() for vs in sets]
+    return lookup_ids(np.concatenate([a for a, _ in pairs]),
+                      np.concatenate([b for _, b in pairs]), ids)
 
 
 def _merge_ba_specs(edge_specs):
@@ -576,11 +591,160 @@ class BlockSolver:
         self.symbolic_ms = 0.0
         self._host_idx: Optional[tuple[np.ndarray, np.ndarray]] = None
         self._struct_bundle: Optional[dict] = None  # this structure's cache entry
+        # the object graph packed by initialize(): finalize() writes back into
+        # these vertex sets; an array problem leaves them empty
+        self._pose_sets: list = []
+        self._lm_sets: list = []
+        self._edge_sets: list[EdgeSet] = []
+        # global active pose and landmark counts while the specs are made
+        self._obj_Pa = self._obj_La = 0
 
     # -- packing ------------------------------------------------------------
 
-    def initialize(self, edge_sets, vertex_sets) -> None:
-        raise outside_slice("initialize()", "A5: the object-graph API")
+    def initialize(self, edge_sets: Sequence[EdgeSet], vertex_sets) -> None:
+        """Pack an object graph into device state (stage "0: Initialize")
+        through :meth:`initialize_from_arrays`, so that it runs the array
+        path's packing, ordering, merging, kernels and loops.
+
+        Any number of pose and landmark vertex sets is taken: the sets of one
+        role share one global table, indexed active first across the sets
+        (every set's active vertices, then every set's fixed ones), and each
+        vertex's ``index`` becomes its global index."""
+        pose_sets = [v for v in vertex_sets if not v.is_marginilised()]
+        lm_sets = [v for v in vertex_sets if v.is_marginilised()]
+        if not pose_sets:
+            raise ValueError("BlockSolver requires at least one pose vertex set")
+        live_sets = [es for es in edge_sets if es.nedges() > 0]
+
+        def reindex(sets):
+            """Global active-first indices over several sets (object and
+            bulk vertices); returns the active and total counts."""
+            for vs in sets:
+                vs.generate_estimate_data()
+            acts = [vs.get_active_size() for vs in sets]
+            tots = [vs.total_size() for vs in sets]
+            na = sum(acts)
+            act_off, fix_off = 0, na
+            for vs, a, tot in zip(sets, acts, tots):
+                gmap = np.empty(tot, dtype=np.int64)
+                gmap[:a] = act_off + np.arange(a)
+                gmap[a:] = fix_off + np.arange(tot - a)
+                vs.assign_global_indices(gmap)
+                act_off += a
+                fix_off += tot - a
+            return na, sum(tots)
+
+        Pa, P = reindex(pose_sets)
+        q = np.empty((P, 4), dtype=np.float64)
+        t = np.empty((P, 3), dtype=np.float64)
+        for vs in pose_sets:
+            q[vs._gmap], t[vs._gmap] = vs.estimates_array()  # per-set order
+        La, L = reindex(lm_sets) if lm_sets else (0, 0)
+        Xw = np.empty((L, 3), dtype=np.float64)
+        for vs in lm_sets:
+            Xw[vs._gmap] = vs.estimates_array()
+
+        # _spec_from_edge_set reads the sets for the bulk edges' id lookups
+        self._pose_sets, self._lm_sets = pose_sets, lm_sets
+        self._obj_Pa, self._obj_La = Pa, La
+        specs = [self._spec_from_edge_set(es) for es in live_sets]
+        self.initialize_from_arrays(
+            pose_q=q, pose_t=t, num_active_poses=Pa,
+            landmarks=Xw, num_active_landmarks=La, edge_specs=specs,
+        )
+        # initialize_from_arrays forgets any object graph: keep this one's
+        # sets for finalize()
+        self._pose_sets, self._lm_sets, self._edge_sets = pose_sets, lm_sets, live_sets
+
+    def _spec_from_edge_set(self, es: EdgeSet) -> dict:
+        """The array spec of one object edge set (the packing of
+        :meth:`initialize`).  Edge objects are read in one pass a field;
+        ``add_edges_bulk`` arrays pass through a vectorised id lookup.
+        Edges whose vertices are all fixed are masked inactive here, and
+        ``es._active_edge_size`` counts the others."""
+        opts = self.options
+        edges = es.edges
+        E_obj = len(edges)
+        if es.KIND in ("mono", "stereo", "depth"):
+            K = es.MDIM
+            try:  # one C-level conversion of the whole list
+                meas_obj = np.array([e.measurement for e in edges], dtype=np.float64)
+                meas_obj = meas_obj.reshape(E_obj, K)
+            except (ValueError, TypeError):  # ragged shapes, e.g. (K, 1) beside (K,)
+                meas_obj = np.zeros((E_obj, K), dtype=np.float64)
+                for i, e in enumerate(edges):
+                    meas_obj[i] = np.asarray(e.measurement, dtype=np.float64).reshape(K)
+        else:
+            K = 10 if es.KIND == "line" else 7
+            vecs = [e.measurement.to_vec() for e in edges]
+            meas_obj = np.stack(vecs, axis=0) if vecs else np.zeros((0, K))
+
+        info_obj = np.fromiter((e.information for e in edges), np.float64, E_obj)
+        # per-edge information under the global-information mode would be
+        # ignored, and a zero global weight zeroes the whole system
+        if (E_obj > 0 and not opts.per_edge_information and es.information == 0.0
+                and np.any(info_obj != 0.0)):
+            raise ValueError(
+                f"{es.KIND} edge set: edges carry non-zero information but the "
+                "edge set's global information is 0 and "
+                "GraphOptimisationOptions.per_edge_information is False; either "
+                "call edge_set.set_information(...) or enable per-edge "
+                "information in the options"
+            )
+        if opts.per_edge_camera and any(e.camera is not None for e in edges):
+            raise outside_slice("a per-edge camera", "A7: per-edge camera")
+
+        pose_idx = np.fromiter((e.vertices[0].index for e in edges), np.int64, E_obj)
+        if es.NVERTS == 2:
+            lm_idx = np.fromiter((e.vertices[1].index for e in edges), np.int64, E_obj)
+        else:
+            lm_idx = np.zeros(E_obj, dtype=np.int64)
+        omega = info_obj if opts.per_edge_information else np.full(E_obj, es.information)
+        active = np.fromiter((e.is_active for e in edges), np.bool_, E_obj).astype(np.float64)
+
+        b = es._bulk
+        if b is not None and b["meas"].shape[0]:
+            Eb = b["meas"].shape[0]
+            pib = _ids_to_indices(self._pose_sets, b["pose_id"])
+            lib = (
+                _ids_to_indices(self._lm_sets, b["lm_id"])
+                if es.NVERTS == 2 and self._lm_sets
+                else np.zeros(Eb, dtype=np.int64)
+            )
+            ob = (
+                b["info"]
+                if opts.per_edge_information and b["info"] is not None
+                else np.full(Eb, es.information)
+            )
+            # NaN rows: batches added without information take the edge
+            # set's global value now, at packing
+            ob = np.where(np.isnan(ob), es.information, ob)
+            meas_obj = np.concatenate([meas_obj, b["meas"]], axis=0)
+            pose_idx = np.concatenate([pose_idx, pib])
+            lm_idx = np.concatenate([lm_idx, lib])
+            omega = np.concatenate([omega, ob])
+            active = np.concatenate([active, b["active"].astype(np.float64)])
+
+        # edges whose vertices are all fixed contribute nothing: masked
+        # (global active counts across every vertex set)
+        all_fixed = pose_idx >= self._obj_Pa
+        if es.NVERTS == 2:
+            all_fixed &= lm_idx >= self._obj_La
+        active = np.where(all_fixed, 0.0, active)
+        es._active_edge_size = int(np.sum(~all_fixed))
+
+        return dict(
+            kind=es.KIND,
+            meas=meas_obj,
+            pose_idx=pose_idx,
+            lm_idx=lm_idx,
+            omega=omega,
+            cam=es.camera.to_vec(),
+            rk=int(es.robust_kernel_type),
+            delta=float(es.robust_delta),
+            active=active,
+            outlier_threshold=float(es.outlier_threshold),
+        )
 
     def initialize_from_arrays(
         self,
@@ -599,7 +763,9 @@ class BlockSolver:
         outlier_threshold``.  Vertices are active-first: the
         first ``num_active_*`` rows are free, the rest fixed.  One mono or
         stereo set runs as it is; a mono and a stereo set merge into one
-        masked stereo set (:func:`_merge_ba_specs`)."""
+        masked stereo set (:func:`_merge_ba_specs`).  An object graph
+        packed before is forgotten: ``finalize`` writes nothing back."""
+        self._pose_sets, self._lm_sets, self._edge_sets = [], [], []
         edge_specs = _merge_ba_specs(edge_specs)
         if len(edge_specs) != 1:
             raise outside_slice(
@@ -835,3 +1001,17 @@ class BlockSolver:
     def result_landmarks(self) -> np.ndarray:
         """Landmark estimates in the caller's order (f64 arrays)."""
         return self.graph.Xw.cpu().numpy().astype(np.float64, copy=False)
+
+    def finalize(self) -> None:
+        """Write the estimates back into the vertex sets of the object graph
+        (every object and bulk vertex, through its global index, in the
+        caller's pose order); an array problem keeps them in ``graph``."""
+        if not self._pose_sets:
+            return
+        q, t = self.result_poses()
+        for vs in self._pose_sets:
+            vs.write_back(q, t)
+        if self._lm_sets and self.L > 0:
+            Xw = self.result_landmarks()
+            for vs in self._lm_sets:
+                vs.write_back(Xw)

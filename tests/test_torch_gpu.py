@@ -885,3 +885,62 @@ def test_dense_route_in_the_fused_loop_on_the_card(case):
         host.use_fused_loop = False
         host.optimize(6)
         assert [s.chi2 for s in host.batch_statistics().get()] == trace
+
+
+def _bulk_object_graph(problem, device):
+    """An optimiser on ``device`` holding ``problem`` as a bulk object graph
+    (pose ids ``0..P-1``, landmark ids ``P..``), its sets returned beside it."""
+    import cuda_bundle_adjustment_tpu_torch as tbt
+
+    P, L = problem.pose_q.shape[0], problem.landmarks.shape[0]
+    poses, landmarks = tbt.PoseVertexSet(), tbt.LandmarkVertexSet()
+    poses.add_vertices_bulk(np.arange(P), problem.pose_q, problem.pose_t,
+                            np.arange(P) >= problem.num_active_poses)
+    landmarks.add_vertices_bulk(P + np.arange(L), problem.landmarks,
+                                np.arange(L) >= problem.num_active_landmarks)
+    edges = tbt.MonoEdgeSet() if problem.kind == "mono" else tbt.StereoEdgeSet()
+    edges.set_information(1.0)
+    edges.set_camera(tbt.Camera(*problem.cam.tolist()))
+    edges.add_edges_bulk(problem.meas, problem.pose_idx, P + problem.lm_idx)
+    opt = tbt.TorchGraphOptimisation.create(device=device)
+    for s in (poses, landmarks):
+        opt.add_vertex_set(s)
+    opt.add_edge_set(edges)
+    return opt, poses, landmarks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mono", "stereo"])
+def test_object_api_on_the_card_equals_the_array_path(kind):
+    """The bulk object graph on the card: the array path's trace, final state
+    and launch counts bit for bit, the estimates written back exactly, and a
+    re-initialize with the estimates reset hits the structure cache and
+    repeats the trace."""
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    _cuda()
+    problem = make_ba_problem(num_poses=16, num_landmarks=400, kind=kind, seed=13)
+    kernels.reset_launch_counts()
+    arr = optimizer_from_problem(problem)
+    arr.optimize(8)
+    arr_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    opt, poses, landmarks = _bulk_object_graph(problem, "cuda")
+    opt.initialize()
+    opt.optimize(8)
+    assert kernels.launch_counts() == arr_counts
+    trace = [s.chi2 for s in opt.batch_statistics().get()]
+    assert trace == [s.chi2 for s in arr.batch_statistics().get()]
+    assert all(torch.equal(a, b) for a, b in zip(opt.solver.graph, arr.solver.graph))
+    q, t = opt.solver.result_poses()
+    assert np.array_equal(poses.bulk_estimates()[0], q)
+    assert np.array_equal(poses.bulk_estimates()[1], t)
+    assert np.array_equal(landmarks.bulk_estimates(), opt.solver.result_landmarks())
+
+    poses.write_back(problem.pose_q, problem.pose_t)
+    landmarks.write_back(problem.landmarks)
+    hits = bs.structure_cache_info()["hits"]
+    opt.initialize()
+    opt.optimize(8)
+    assert opt.solver.symbolic_ms == 0.0 and bs.structure_cache_info()["hits"] == hits + 1
+    assert [s.chi2 for s in opt.batch_statistics().get()] == trace

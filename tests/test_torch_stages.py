@@ -24,6 +24,7 @@ from cuda_bundle_adjustment_tpu.solver import symbolic as jsym
 from cuda_bundle_adjustment_tpu.types import GraphArrays as JaxGraph
 from cuda_bundle_adjustment_tpu.utils import dense_reference as jdense
 from cuda_bundle_adjustment_tpu.utils import stats as jstats
+import cuda_bundle_adjustment_tpu_torch as tbt
 from cuda_bundle_adjustment_tpu_torch import TorchGraphOptimisation
 from cuda_bundle_adjustment_tpu_torch.io import synthetic as tsyn
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
@@ -371,6 +372,35 @@ def _cpu(problem, **kw):
     return optimizer_from_problem(problem, device="cpu", **kw)
 
 
+def _object_graph_per_edge_camera():
+    """The object API runs (ROADMAP A5 done); an object graph whose edges
+    carry their own camera still waits for A7."""
+    p = _mono()
+    P = p.pose_q.shape[0]
+    poses, landmarks = tbt.PoseVertexSet(), tbt.LandmarkVertexSet()
+    poses.add_vertices_bulk(np.arange(P), p.pose_q, p.pose_t, np.arange(P) >= p.num_active_poses)
+    landmarks.add_vertices_bulk(P + np.arange(p.landmarks.shape[0]), p.landmarks)
+    edges = tbt.MonoEdgeSet()
+    edges.set_information(1.0)
+    edges.set_camera(tbt.Camera(*p.cam.tolist()))
+    edges.add_edges_bulk(p.meas, p.pose_idx, P + p.lm_idx)
+    pose = tbt.PoseVertex(P, tbt.Se3(p.pose_q[0], p.pose_t[0]))
+    landmark = tbt.LandmarkVertex(P + p.landmarks.shape[0], p.landmarks[0])
+    poses.add_vertex(pose)
+    landmarks.add_vertex(landmark)
+    e = tbt.MonoEdge()
+    e.set_vertex(pose, 0)
+    e.set_vertex(landmark, 1)
+    e.set_measurement(p.meas[0])
+    e.set_camera(tbt.Camera(*p.cam.tolist()))
+    edges.add_edge(e)
+    opt = TorchGraphOptimisation(tbt.GraphOptimisationOptions(per_edge_camera=True), device="cpu")
+    for vs in (poses, landmarks):
+        opt.add_vertex_set(vs)
+    opt.add_edge_set(edges)
+    opt.initialize()
+
+
 def _per_edge_camera_stereo():
     p = _mono(kind="stereo")
     cam = np.tile(np.asarray(p.cam, dtype=np.float64).reshape(1, 5), (p.meas.shape[0], 1))
@@ -385,7 +415,7 @@ def _per_edge_camera_stereo():
         (lambda: _cpu(_mono(kind="depth")), "A7"),
         (_unmerged_mixed, "A7"),
         (lambda: _cpu(_mono(), outlier_threshold=5.0), "A7"),
-        (lambda: TorchGraphOptimisation(device="cpu").initialize(), "A5"),
+        (_object_graph_per_edge_camera, "A7"),
     ],
     ids=["stereo", "depth", "mixed", "outliers", "object-api"],
 )
