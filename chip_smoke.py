@@ -92,7 +92,24 @@ caught):
    node counts) and through the host loop, traces each with
    ``torch.profiler`` and prints its device busy time, its count of device
    kernels, idle share, host reads per run, largest kernels and each hand
-   kernel's time and calls in the loop.
+   kernel's time and calls in the loop;
+7. runs the paths of PCG, the pose-only solve and outlier thresholding:
+   ``loop5000_pcg`` (the JAX package's 5000-pose loop-closure acceptance
+   graph on the PCG route: its kernels held against their twins, the fused
+   loop's three graphs a step with the CG block replayed until it reports
+   done, the CG iterations of every trial, the device ms of a CG iteration,
+   the trace within rtol 1e-6 of the port's f64 dense route forced on the
+   same graph and printed beside the JAX package's logged trace, and its LM
+   loop profiled as in phase 6); ``pcg1000_oracle`` (the stored dense
+   oracle of ``tests/data/pcg_1000pose_oracle.json`` at rtol 1e-6);
+   ``kitti00_mono_outliers`` (every 100th measurement moved by 30 px,
+   Huber and a threshold of 5.991: ``optimize(5)``, the mask held against
+   the twins' robustified chi2 thresholded, then ``optimize(10)`` on the
+   inliers, a structure-cache hit); ``kitti00_motion_only`` (every landmark
+   fixed: B1-B3 alone, the pose-only solve) with ``kitti07_mono``'s
+   motion-only trace against the CPU; and ``icp_scan`` (one scan against
+   50 000 planes and 5 000 lines, the pose recovered to the noise).  Every
+   path's fused loop is held bit for bit against its host loop.
 
 The last two lines are a JSON line describing the kernels and the JSON
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -598,7 +615,7 @@ def structure_phase(problem, label: str) -> dict:
     from cuda_bundle_adjustment_tpu_torch.solver.symbolic import build_schur_structure, sort_triples
 
     solver = optimizer_from_problem(problem).solver
-    args = (*solver._host_idx, solver.Pa, solver.La)
+    args = (*solver._host_idx[solver.ba], solver.Pa, solver.La)
     out, times = {}, {}
     for native in (True, False):
         runs = []
@@ -807,8 +824,8 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
                lambda: schurvec.hpl_mv_segment_sum_plain(*mv), ["bsc"],
                (*mv[:4], *plan.pose_seg), 36 * E, library=library_mv)
     blocks, bsc, _ = bs.schur_reduce(sys_, lam, plan)
-    xp, ok = bs.solve_reduced_band(blocks, bsc, plan)
-    check(bool(ok), f"{label}: the first trial's reduced solve was rejected")
+    xp, ok = bs.solve_reduced(blocks, bsc, plan)
+    check(bool(ok), f"{label}: the first trial's reduced solve ({plan.route}) was rejected")
     mtv = (sys_.Hpl, xp, plan.ba_pose_idx, sys_.bl, plan.lm_seg)
     bl_flat, xp_flat = sys_.bl.reshape(-1), xp.reshape(-1)
 
@@ -1079,11 +1096,12 @@ def kernel_checks(problem, dev, label, reported=None, options=None, **robust) ->
     print(f"{label} B6 schur_pair_products: max_abs_err {err:.3e} (max|block| {scale:.3e}, tol {near:.3g} "
           f"rel); {err_o:.3e} against the twin's products summed in the plan's order")
 
-    if not f32:
+    if not f32 and plan.route == "band":
         res.update(band_kernel_checks(solver, sys_, lam, label, reported))
     for name in ("gather_rows", "schur_pair_products"):
         report(label, name, res[name])
     res["SB"] = plan.band.sb
+    res["route"] = plan.route
     return res
 
 
@@ -1334,27 +1352,30 @@ def small_problem_checks(dev) -> None:
 
 
 def expected_launches(counts: dict, iters: int, trials: int, robust: bool, fused: bool,
-                      solver=None) -> dict:
+                      solver=None, thresholds: int = 0) -> dict:
     """The launch counts a run of ``iters`` iterations and ``trials`` trials
     must show: a trial launches B4-B7, B9, B10 once, B8 three times (once in
     f32 mode: no refinement round) and B1 once (its chi) with two B2
-    gathers; on the dense route no B7 or B8; an iteration's linearisation B3
-    once with two B2 (and B1 under a robust kernel).  The host loop adds a
-    chi pass (B1 + 2 B2) at every iteration's head, the fused loop one
-    before the first and none after (F is carried).  ``solver``: the run's,
-    for its route and type (the f64 band route by default)."""
+    gathers; on the dense and PCG routes no B7 or B8, on the pose-only
+    solve none of B4-B10; an iteration's linearisation B3 once with two B2
+    (and B1 under a robust kernel).  The host loop adds a chi pass (B1 + 2
+    B2) at every iteration's head, the fused loop one before the first and
+    none after (F is carried).  ``thresholds``: the outlier passes of
+    ``update_edges`` (B1 + 2 B2 each).  ``solver``: the run's, for its route
+    and type (the f64 band route by default)."""
     head = 1 if fused else iters
-    band = solver is None or solver.plan.route == "band"
+    route = "band" if solver is None else solver.plan.route
     solves = 3 if solver is None or solver.mixed else 1
-    want = {k: trials for k in counts}
-    want.update(chi_edges=head + trials + (iters if robust else 0),
-                gather_rows=2 * head + 2 * iters + 2 * trials, linearise=iters,
-                band_factor=trials if band else 0, band_solve=solves * trials if band else 0)
+    want = {k: 0 if route == "pose_only" else trials for k in counts}
+    want.update(chi_edges=head + trials + (iters if robust else 0) + thresholds,
+                gather_rows=2 * (head + iters + trials + thresholds), linearise=iters,
+                band_factor=trials if route == "band" else 0,
+                band_solve=solves * trials if route == "band" else 0)
     return want
 
 
 def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool = True,
-              **robust) -> dict:
+              niter: int = 10, **robust) -> dict:
     """Phase 5: one configuration's optimize(10) on the default device (the
     card) through the default loop (the fused loop), counted, repeated and
     timed.  The structure cache is emptied before the cold run, which must
@@ -1366,8 +1387,11 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
     trace is printed beside the fused loop's and not held).  Each loop's launch counts must follow from its iterations
     and trials (``expected_launches``), so the fused loop's replays were
     counted.  ``options``: the solver's; ``profiled=False`` leaves out the
-    two profiled runs.  Returns the launch counts and chi2 trace of its
-    first run, that run's solver and the allocator's peak over it."""
+    two profiled runs; ``niter``: the iterations a run.  On the PCG route
+    each trial's CG iterations are printed, the same in both loops, and the
+    host reads count one a CG block.  Returns the launch counts and chi2
+    trace of its first run, that run's solver and the allocator's peak over
+    it."""
     import numpy as np
     import torch
 
@@ -1387,7 +1411,7 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
         t0 = time.perf_counter()
         opt = optimizer_from_problem(problem, options=options, **robust)
         opt.use_fused_loop = fused_loop
-        opt.optimize(10)
+        opt.optimize(niter)
         torch.cuda.synchronize()
         return opt, time.perf_counter() - t0
 
@@ -1412,8 +1436,11 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
     # replay
     check(st is not None and st["captures"] >= 1 and st["replays"] >= iters - 1,
           f"{label}: the default run did not replay captured graphs: {st}")
-    check(st["reads"] == st["trials"] + 1,
-          f"{label}: {st['reads']} host reads for {st['trials']} trials, not one a trial and one")
+    check(st["reads"] == st["trials"] + 1 + st["cg_reads"],
+          f"{label}: {st['reads']} host reads for {st['trials']} trials and {st['cg_reads']} CG "
+          f"blocks, not one a trial, one a block and one")
+    check(len(st["cg_iterations"]) == (st["trials"] if opt.solver.plan.route == "pcg" else 0),
+          f"{label}: {len(st['cg_iterations'])} CG solves in {st['trials']} trials")
     check(counts == expected_launches(counts, iters, st["trials"], bool(robust.get("rk")), True,
                                       opt.solver),
           f"{label}: fused launch counts {counts} do not follow from {iters} iterations and "
@@ -1442,6 +1469,8 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
         check(host_trace == trace, f"{label}: the host loop's trace differs from the fused loop's")
         check(all(torch.equal(a, b) for a, b in zip(state(ho), state(opt))),
               f"{label}: the host loop's final state differs from the fused loop's")
+        check(ho.cg_iterations == opt.cg_iterations,
+              f"{label}: the host loop's CG iterations differ from the fused loop's")
         host_trials = st["trials"]
     check(host_counts == expected_launches(host_counts, len(host_trace), host_trials,
                                            bool(robust.get("rk")), False, ho.solver),
@@ -1460,7 +1489,7 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
         torch.cuda.synchronize()
         pack_ms = (time.perf_counter() - t0) * 1e3
         po.set_profile(True)
-        _, hm = cache_delta(lambda: po.optimize(10))
+        _, hm = cache_delta(lambda: po.optimize(niter))
         check(hm == ((1, 0) if case == "hit" else (0, 1)),
               f"{label}: the profiled {case} run read the cache as (hits, misses) {hm}")
         if not f32:  # the host loop's trace: in f32 held above
@@ -1471,8 +1500,9 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
               f"{pack_ms:.1f}):", json.dumps(tp))
 
     band = opt.solver.plan.band
+    shape = "no Schur pattern" if band is None else f"bw={band.bw} SB={band.sb}"
     print(f"{label}: Pa={opt.solver.Pa} La={opt.solver.La} "
-          f"E={opt.solver.packed.pose_idx.shape[0]} bw={band.bw} SB={band.sb}, "
+          f"E={opt.solver.packed.pose_idx.shape[0]} {shape}, "
           f"{opt.solver.dtype}, reduced route {opt.solver.plan.route} "
           f"(factor {opt.solver.plan.target}); allocator peak over the cold run "
           f"{peak_gib:.3f} GiB above what was allocated before it")
@@ -1488,24 +1518,31 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
         and bool(torch.isfinite(g.q).all() and torch.isfinite(g.t).all() and torch.isfinite(g.Xw).all()),
         f"{label}: final state has the wrong shape or non-finite values",
     )
+    route = opt.solver.plan.route
     for name, n in counts.items():
-        check(n > 0 or opt.solver.plan.route == "dense" and name.startswith("band_"),
+        check(n > 0 or route in ("dense", "pcg") and name.startswith("band_")
+              or route == "pose_only" and name not in ("chi_edges", "gather_rows", "linearise"),
               f"{label}: kernel {name} was not launched")
-    print(f"{label} launch counts (one optimize(10) run, fused loop, {iters} iterations, "
+    print(f"{label} launch counts (one optimize({niter}) run, fused loop, {iters} iterations, "
           f"{st['trials']} trials): {json.dumps(counts)}")
     print(f"{label} launch counts (host loop, same run): {json.dumps(host_counts)}")
-    print(f"{label} fused loop, cold then warm runs (trials, host reads, captures, replays, ms of "
-          f"the eager iteration 0, the captures, the replays):",
+    print(f"{label} fused loop on the {route} route, cold then warm runs (trials, host reads, "
+          f"captures, replays, ms of the eager iteration 0, the captures, the replays, CG blocks "
+          f"read, pose-only trials):",
           json.dumps([[s["trials"], s["reads"], s["captures"], s["replays"],
                        round(s["eager_ms"], 2), round(s["capture_ms"], 2),
-                       round(s["replay_ms"], 2)] for s in stats]))
+                       round(s["replay_ms"], 2), s["cg_reads"],
+                       s["trials"] if route == "pose_only" else 0] for s in stats]))
+    if route == "pcg":
+        print(f"{label} CG iterations a trial (cold run; the host loop's the same):",
+              json.dumps(st["cg_iterations"]))
     if f32:
         print(f"{label} host loop (lambda a Python float, not held in f32): its trace",
               json.dumps(host_trace), "; the warm fused runs bit for bit the cold one")
     else:
         print(f"{label} host loop: its trace and final state equal the fused loop's bit for bit")
     print(
-        f"{label} optimizer_from_problem+optimize(10): cold {cold_s:.4f} s, "
+        f"{label} optimizer_from_problem+optimize({niter}): cold {cold_s:.4f} s, "
         f"warm median {statistics.median(warm):.4f} s over {len(warm)} runs "
         f"{json.dumps([round(w, 4) for w in warm])}, host loop (warm) {host_s:.4f} s; the "
         f"allocator holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
@@ -1513,7 +1550,7 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
     )
     return dict(counts=counts, trace=trace, solver=opt.solver, stages=stages, peak_gib=peak_gib,
                 warm_s=statistics.median(warm) if warm else None, cold_s=cold_s,
-                loop_stats=st)
+                loop_stats=st, host_counts=host_counts)
 
 
 def cpu_twin_agreement(problem, run: dict, label: str) -> None:
@@ -1771,7 +1808,7 @@ def graph_nodes(graph) -> dict:
     return out
 
 
-def loop_device_profile(problem, label: str, options=None, **robust) -> None:
+def loop_device_profile(problem, label: str, options=None, niter: int = 10, **robust) -> None:
     """Phase 6: the LM loop after the structure, through the fused loop and
     through the host loop: each timed on the host clock without the
     profiler, then traced with torch.profiler; busy = the sum of the device
@@ -1781,7 +1818,8 @@ def loop_device_profile(problem, label: str, options=None, **robust) -> None:
     inside the replays estimated as busy a trial x replays over the replay
     time; host reads per run: the fused loop's counted, the host loop's
     from its code (chi an iteration, the first lambda, Fhat, scale and the
-    verdict a trial).  ``options`` and ``robust``: the configuration's."""
+    verdict a trial, and one a CG block on the PCG route).  ``options`` and
+    ``robust``: the configuration's; ``niter``: the iterations a run."""
     import contextlib
 
     import torch
@@ -1802,20 +1840,20 @@ def loop_device_profile(problem, label: str, options=None, **robust) -> None:
         with (profile(activities=[ProfilerActivity.CUDA]) if traced
               else contextlib.nullcontext()) as prof:
             if fused_loop:  # as _optimize_fused runs it, the loop kept
-                fl = FusedLoop(opt.solver, 10)
+                fl = FusedLoop(opt.solver, niter)
                 iters = len(fl.run())
             else:
-                opt._optimize_host(10)
+                opt._optimize_host(niter)
                 iters = len(opt.batch_statistics().get())
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         trials = kernels.launch_counts()["sym3x3_mv"]  # B10: once a trial, on every route
-        return ms, prof, fl, iters, trials
+        return ms, prof, fl, iters, trials, opt.solver.cg.reads
 
     for fused_loop, name in ((True, "fused"), (False, "host")):
         loop(fused_loop, True)  # the first trace pays the profiler's start-up
-        loop_ms, _, fl, iters, trials = loop(fused_loop, False)
-        traced_ms, prof, _, _, _ = loop(fused_loop, True)
+        loop_ms, _, fl, iters, trials, cg_reads = loop(fused_loop, False)
+        traced_ms, prof, _, _, _, _ = loop(fused_loop, True)
         rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
         busy = sum(r[1] for r in rows)
@@ -1829,16 +1867,17 @@ def loop_device_profile(problem, label: str, options=None, **robust) -> None:
                 if k.removeprefix("void ").startswith("(anonymous namespace)::")}
         if fused_loop:
             st = fl.stats
-            check(st["reads"] == trials + 1, f"{label}: {st['reads']} host reads for {trials} trials")
+            check(st["reads"] == trials + 1 + cg_reads,
+                  f"{label}: {st['reads']} host reads for {trials} trials and {cg_reads} CG blocks")
             reads = st["reads"]
             split = (f", of it eager iteration 0 {st['eager_ms']:.1f} ms, captures "
                      f"{st['capture_ms']:.1f} ms ({st['captures']}), replays {st['replay_ms']:.1f} ms "
                      f"({st['replays']}, idle inside them ~"
                      f"{100 * (1 - busy / trials * st['replays'] / st['replay_ms']):.1f}%)")
-            print(f"{label} fused loop graph nodes:",
-                  json.dumps({k: graph_nodes(g) for k, g in fl.graphs.items()}))
+            print(f"{label} fused loop graph nodes (each step's graphs in replay order):",
+                  json.dumps({k: [graph_nodes(g) for g in gs] for k, gs in fl.graphs.items()}))
         else:
-            reads, split = iters + 1 + 3 * trials, ""
+            reads, split = iters + 1 + 3 * trials + cg_reads, ""
         print(f"{label} LM loop, {name}: {loop_ms:.1f} ms untraced ({traced_ms:.1f} ms traced)"
               f"{split}; {iters} iterations, {trials} trials, {reads} host reads; device busy "
               f"{busy:.1f} ms in {sum(r[2] for r in rows)} kernels, idle "
@@ -1846,6 +1885,445 @@ def loop_device_profile(problem, label: str, options=None, **robust) -> None:
         print(f"{label} {name} loop, largest device kernels (ms, calls):",
               json.dumps([[k[:60], round(ms, 3), n] for k, ms, n in top]))
         print(f"{label} {name} loop, hand kernels (ms in all, calls):", json.dumps(hand))
+
+
+# the 5000-pose loop-closure graph's trace as the JAX package's acceptance run
+# logged it (tools/loop_closure_demo.py; a TPU run, history: printed beside
+# the port's trace, not held)
+LOOP_CLOSURE_LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                                "LOOP_CLOSURE.log")
+PCG_ORACLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                          "pcg_1000pose_oracle.json")
+CHI2_2DOF = 5.991  # ORB-SLAM2's outlier threshold: the 95% chi2 quantile of 2 dof
+
+
+def logged_trace(path: str) -> list:
+    """The ``chi2=`` values of a log, in order."""
+    with open(path) as f:
+        return [float(line.split("chi2=")[1].split()[0]) for line in f if "chi2=" in line]
+
+
+def rel_diff(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def pcg_phase(problem, label: str, dev) -> dict:
+    """``loop5000_pcg``: the JAX package's acceptance graph (5000 poses, 5%
+    long-range co-visibility: no pose order gives a band of 48) through the
+    PCG route, ``optimize(8)`` f64 ``"mixed"``.  The kernels on its path
+    (B1-B6, B9, B10) held against their twins at its first linearisation;
+    ``main_path`` (fused cold and warm, the host loop bit for bit, the CG
+    iterations of each trial the same in both loops, launches as the route
+    says: no B7 or B8); the device ms of a CG iteration (one CG block of
+    the first trial captured and replayed) and of the preconditioner's
+    assembly and batched factor; then the same graph on the port's f64
+    dense route (``PCG_MIN_POSES`` raised for the phase, ``"exact"``, the
+    host loop: a 6 Pa-row f64 matrix a trial), the two traces within rtol
+    1e-6; the JAX package's logged trace printed beside, not held."""
+    import numpy as np
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch import GraphOptimisationOptions
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+    from cuda_bundle_adjustment_tpu_torch.solver import pcg
+
+    res = kernel_checks(problem, dev, label, reported=set())
+    check(res["route"] == "pcg", f"{label}: the reduced route is {res['route']}, not pcg")
+    run = main_path(problem, label, warm_runs=1, profiled=False, niter=8)
+    s = run["solver"]
+    check(s.plan.route == "pcg" and s.plan.band.bw + 1 > bs.MAX_BAND and s.Pa >= bs.PCG_MIN_POSES,
+          f"{label}: not a wide pattern on {bs.PCG_MIN_POSES} poses or more")
+    check(run["counts"]["band_factor"] == run["counts"]["band_solve"] == 0,
+          f"{label}: a band kernel launched on the PCG route")
+    its = run["loop_stats"]["cg_iterations"]
+
+    # one CG block of the first trial, and the preconditioner, on the device
+    solver, sys_, lam = first_linearisation(problem, dev)
+    blocks, bsc, _ = bs.schur_reduce(sys_, lam, solver.plan)
+    bl_s, bv, _ = bs.scaled_blocks(blocks, bsc, solver.plan)
+    pc = solver.plan.pcg
+    st = pcg.cg_start(bv, bs.block_matvec(bl_s, solver.plan),
+                      pcg.preconditioner(bl_s, solver.Pa, pc)[0], pc)
+    it_ms = device_ms(lambda: pcg.cg_block(st), calls=2) / pcg.CG_BLOCK
+    pre_ms = device_ms(lambda: pcg.preconditioner(bl_s, solver.Pa, pc), calls=2)
+    del solver, sys_, blocks, bl_s, st
+
+    # the port's own f64 dense route on the same graph
+    old = bs.PCG_MIN_POSES
+    bs.PCG_MIN_POSES = 1 << 30
+    try:
+        dense = optimizer_from_problem(problem,
+                                       options=GraphOptimisationOptions(solver_precision="exact"))
+        dense.use_fused_loop = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense.optimize(8)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+    finally:
+        bs.PCG_MIN_POSES = old
+    check(dense.solver.plan.route == "dense" and dense.solver.plan.target == torch.float64,
+          f"{label}: the oracle did not take the f64 dense route")
+    dtrace = [x.chi2 for x in dense.batch_statistics().get()]
+    trace = run["trace"]
+    check(len(dtrace) == len(trace), f"{label}: {len(trace)} iterations, the dense route "
+          f"{len(dtrace)}")
+    np.testing.assert_allclose(trace, dtrace, rtol=1e-6)
+    jtrace = logged_trace(LOOP_CLOSURE_LOG)
+    out = dict(Pa=s.Pa, La=s.La, E=int(s.packed.pose_idx.shape[0]), bw=s.plan.band.bw,
+               nnz=int(s.plan.blk_row.shape[0]), triples=int(s.plan.tri_ei.shape[0]),
+               chunks=pc.nch, cg_iterations=its, cg_iteration_ms=it_ms, preconditioner_ms=pre_ms,
+               dense_rel_diff=rel_diff(trace, dtrace), dense_s=dense_s,
+               jax_log_rel_diff=rel_diff(trace, jtrace) if len(jtrace) == len(trace) else None)
+    del dense
+    torch.cuda.empty_cache()
+    print(f"{label}: Pa={out['Pa']} La={out['La']} E={out['E']} bandwidth after RCM {out['bw']}, "
+          f"{out['nnz']} Hsc blocks, {out['triples']} triples, {pc.nch} preconditioner chunks; "
+          f"CG iterations a trial {json.dumps(its)} (mean {statistics.mean(its):.1f}); device ms a "
+          f"CG iteration {it_ms:.4f}, the preconditioner's assembly and factor {pre_ms:.3f} "
+          f"[{nvidia_smi_line()}]")
+    print(f"{label} against the f64 dense route (exact, host loop, {dense_s:.2f} s): trace max "
+          f"rel diff {out['dense_rel_diff']:.3e} (tol 1e-6); dense trace {json.dumps(dtrace)}")
+    print(f"{label} beside the JAX package's logged trace ({os.path.relpath(LOOP_CLOSURE_LOG)}, "
+          f"not held): {json.dumps(jtrace)}, max rel diff {out['jax_log_rel_diff']}")
+    return dict(run, **out)
+
+
+def pcg_oracle_phase() -> dict:
+    """``pcg1000_oracle``: ``tests/data/pcg_1000pose_oracle.json``'s graph
+    on the PCG route (``PCG_MIN_POSES`` 0 and ``CG_MAXITER`` the oracle's,
+    for the phase) through the fused loop and the host loop on the card:
+    bit for bit each other, launches as the route says, within rtol 1e-6
+    of the stored dense f64 trace, as the JAX package's
+    ``tests/test_pcg.py`` holds it."""
+    import numpy as np
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch import kernels
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_loop_closure_problem
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+    from cuda_bundle_adjustment_tpu_torch.solver import pcg
+
+    with open(PCG_ORACLE) as f:
+        gold = json.load(f)
+    p = make_loop_closure_problem(
+        num_poses=gold["num_poses"], num_landmarks=gold["num_landmarks"],
+        mean_obs_per_landmark=gold["mean_obs_per_landmark"],
+        long_range_fraction=gold["long_range_fraction"], seed=gold["seed"])
+    old = bs.PCG_MIN_POSES, pcg.CG_MAXITER
+    bs.PCG_MIN_POSES, pcg.CG_MAXITER = 0, int(gold["cg_maxiter"])
+    try:
+        runs, seconds, counts = [], [], []
+        for fused in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt = optimizer_from_problem(p)
+            opt.use_fused_loop = fused
+            kernels.reset_launch_counts()
+            opt.optimize(gold["niterations"])
+            torch.cuda.synchronize()
+            runs.append(opt)
+            seconds.append(time.perf_counter() - t0)
+            counts.append(kernels.launch_counts())
+    finally:
+        bs.PCG_MIN_POSES, pcg.CG_MAXITER = old
+    f, h = runs
+    trace = [x.chi2 for x in f.batch_statistics().get()]
+    check(f.solver.plan.route == "pcg" and f.solver.plan.pcg.maxiter == gold["cg_maxiter"],
+          "pcg1000_oracle: not the PCG route at the oracle's CG_MAXITER")
+    check(trace == [x.chi2 for x in h.batch_statistics().get()]
+          and f.cg_iterations == h.cg_iterations, "pcg1000_oracle: the host loop differs")
+    check(len(trace) == len(gold["oracle_trace"]), "pcg1000_oracle: another number of iterations")
+    trials = f.loop_stats["trials"]
+    for c, fused, s in ((counts[0], True, f.solver), (counts[1], False, h.solver)):
+        check(c == expected_launches(c, len(trace), trials, False, fused, s),
+              f"pcg1000_oracle: launch counts {c} do not follow from {len(trace)} iterations and "
+              f"{trials} trials")
+    np.testing.assert_allclose(trace, gold["oracle_trace"], rtol=1e-6)
+    rel = rel_diff(trace, gold["oracle_trace"])
+    print(f"pcg1000_oracle: trace max rel diff {rel:.3e} from the stored dense f64 oracle (tol "
+          f"1e-6); CG iterations a trial {json.dumps(f.cg_iterations)}; fused loop "
+          f"{json.dumps({k: f.loop_stats[k] for k in ('trials', 'reads', 'captures', 'replays')})}")
+    print(f"pcg1000_oracle chi2 trace {json.dumps(trace)}; optimizer_from_problem+optimize("
+          f"{gold['niterations']}) with the structure cold: fused {seconds[0]:.4f} s, host loop "
+          f"{seconds[1]:.4f} s (a cache hit) [{nvidia_smi_line()}]; launch counts (fused): "
+          f"{json.dumps(counts[0])}")
+    return dict(rel_diff=rel, cg_iterations=f.cg_iterations)
+
+
+def outlier_problem(mono, every: int = 100, shift: float = 30.0, seed: int = 0):
+    """``kitti00_mono`` with every ``every``-th measurement moved by
+    ``shift`` pixels in a seeded direction, and the rows moved."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    meas = mono.meas.copy()
+    rows = np.arange(0, meas.shape[0], every)
+    angle = rng.uniform(0.0, 2 * np.pi, rows.size)
+    meas[rows] += shift * np.stack([np.cos(angle), np.sin(angle)], axis=1)
+    return mono._replace(meas=meas), rows
+
+
+def outliers_phase(mono) -> dict:
+    """``kitti00_mono_outliers``: ORB-SLAM2's local-BA pattern at full
+    size.  ``kitti00_mono`` with every 100th measurement moved by 30 px,
+    Huber (delta sqrt(5.991)) and threshold 5.991: ``optimize(5)``, then
+    ``optimize(10)`` on the inliers, through the fused loop and again
+    through the host loop (bit for bit: traces, states, masks), launch
+    counters zeroed before each ``optimize()`` and read after (the
+    threshold's pass: one B1 and two B2).  The mask must equal the plain
+    twins' robustified per-edge chi2 (B2's and B1's twins and rho, on the
+    card) at the first run's final state thresholded; only edges active
+    before count (``kitti00_mono`` has no edge whose vertices are all
+    fixed: every landmark is free); the second run must hit the structure
+    cache and keep the masked edges out; both traces must fall."""
+    import numpy as np
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch import kernels
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.kernels import terms
+    from cuda_bundle_adjustment_tpu_torch.models.ba import _pose_state_table
+    from cuda_bundle_adjustment_tpu_torch.ops.robust import robustify
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    label = "kitti00_mono_outliers"
+    problem, moved = outlier_problem(mono)
+    robust = dict(rk=ROBUST["huber"], delta=float(np.sqrt(CHI2_2DOF)),
+                  outlier_threshold=CHI2_2DOF)
+    out = {}
+    for fused in (True, False):
+        bs.clear_structure_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt = optimizer_from_problem(problem, **robust)
+        opt.use_fused_loop = fused
+        kernels.reset_launch_counts()
+        opt.optimize(5)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        c1 = kernels.launch_counts()
+        s = opt.solver
+        first = [x.chi2 for x in opt.batch_statistics().get()]
+        keep = s.packed.active > 0
+        # the twins' robustified chi2 of every edge at this state
+        g, d = s.graph, s.packed
+        qt, xw = _pose_state_table(g)[d.pose_idx], g.Xw[d.lm_idx]
+        chi = robustify(robust["rk"], robust["delta"],
+                        terms.chi_edges_plain(qt, xw, d._replace(active=torch.ones_like(d.active))))
+        check(torch.equal(keep, chi <= CHI2_2DOF),
+              f"{label}: the mask is not the twins' robustified chi2 thresholded")
+        check(s._outlier_counts == [int((~keep).sum())], f"{label}: outlier count "
+              f"{s._outlier_counts}, the mask {int((~keep).sum())}")
+        hits = bs.structure_cache_info()["hits"]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        opt.optimize(10)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        c2 = kernels.launch_counts()
+        check(bs.structure_cache_info()["hits"] == hits + 1 and s.symbolic_ms == 0.0,
+              f"{label}: the second optimize() did not hit the structure cache")
+        check(not bool((s.packed.active > 0)[~keep].any()),
+              f"{label}: a masked edge came back in the second run")
+        second = [x.chi2 for x in opt.batch_statistics().get()][len(first):]
+        check(first[-1] < first[0] and second[-1] < second[0] < first[-1],
+              f"{label}: a trace did not fall ({first}, {second})")
+        for c, n_iter, st in ((c1, len(first), None), (c2, len(second), opt.loop_stats)):
+            trials = c["sym3x3_mv"]  # B10: once a trial on the band route
+            check(c == expected_launches(c, n_iter, trials, True, fused, s, thresholds=1),
+                  f"{label}: launch counts {c} do not follow from {n_iter} iterations, "
+                  f"{trials} trials and one threshold pass")
+        out[fused] = dict(first=first, second=second, state=[a.clone() for a in s.graph],
+                          active=s.packed.active.clone(), counts=(c1, c2),
+                          outliers=int((~keep).sum()), moved_flagged=int((~keep)[moved].sum()),
+                          times=(first_s, second_s), stats=opt.loop_stats)
+        del opt, s
+    f, h = out[True], out[False]
+    check(f["first"] == h["first"] and f["second"] == h["second"]
+          and torch.equal(f["active"], h["active"])
+          and all(torch.equal(a, b) for a, b in zip(f["state"], h["state"])),
+          f"{label}: the host loop differs from the fused loop")
+    print(f"{label}: {moved.size} measurements moved by 30 px; {f['outliers']} edges masked, "
+          f"{f['moved_flagged']} of them moved; the mask the twins' robustified chi2 at the first "
+          f"run's final state thresholded at {CHI2_2DOF}; the host loop bit for bit (traces, state, "
+          f"masks)")
+    print(f"{label} chi2 traces, optimize(5) then optimize(10) on the inliers:",
+          json.dumps(f["first"]), json.dumps(f["second"]))
+    print(f"{label} launch counts (fused; each optimize() with the counters zeroed before it):",
+          json.dumps(f["counts"]))
+    print(f"{label} seconds (fused, host loop): optimize(5) with the structure cold "
+          f"{f['times'][0]:.4f}, {h['times'][0]:.4f}; optimize(10) on the inliers "
+          f"{f['times'][1]:.4f}, {h['times'][1]:.4f}; fused loop of the second run "
+          f"{json.dumps({k: f['stats'][k] for k in ('trials', 'reads', 'captures', 'replays')})} "
+          f"[{nvidia_smi_line()}]")
+    for name, n in f["counts"][0].items():
+        check(n > 0, f"{label}: kernel {name} was not launched")
+    return f
+
+
+def motion_only_phase(mono, kitti07) -> dict:
+    """``kitti00_motion_only``: ``kitti00_mono`` with every landmark fixed
+    (motion-only BA for a whole sequence: 1321 free poses, 559679 edges):
+    ``main_path``, where B1, B2 and B3 (its landmark side empty) launch and
+    B4-B10 do not, the fused loop bit for bit the host loop, the trace
+    falling; the same setup on ``kitti07_mono`` on the card and on the CPU
+    (the twins), traces within rtol 1e-9."""
+    import numpy as np
+
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+
+    label = "kitti00_motion_only"
+    run = main_path(mono._replace(num_active_landmarks=0), label, warm_runs=1, profiled=False)
+    s = run["solver"]
+    check(s.plan.route == "pose_only" and s.La == 0 and s.schur is None,
+          f"{label}: not the pose-only solve")
+    check(all(run["counts"][k] > 0 for k in ("chi_edges", "gather_rows", "linearise"))
+          and all(n == 0 for k, n in run["counts"].items()
+                  if k not in ("chi_edges", "gather_rows", "linearise")),
+          f"{label}: launch counts {run['counts']}: not B1-B3 alone")
+    small = kitti07._replace(num_active_landmarks=0)
+    traces = {}
+    for d in ("cuda", "cpu"):
+        opt = optimizer_from_problem(small, device=d)
+        opt.optimize(10)
+        traces[d] = [x.chi2 for x in opt.batch_statistics().get()]
+    check(len(traces["cuda"]) == len(traces["cpu"]), "kitti07 motion-only: iterations differ")
+    np.testing.assert_allclose(traces["cuda"], traces["cpu"], rtol=1e-9)
+    rel = rel_diff(traces["cuda"], traces["cpu"])
+    print(f"kitti07_mono motion-only (247 free poses, every landmark fixed) on the card against the "
+          f"CPU twins: trace max rel diff {rel:.3e} (tol 1e-9)")
+    return dict(run, kitti07_rel_diff=rel)
+
+
+def icp_scan_problem(n_plane: int = 50_000, n_line: int = 5_000, seed: int = 0):
+    """A LOAM-style scan registration: one free pose, ``n_plane``
+    point-to-plane and ``n_line`` point-to-line matches, made with numpy
+    from ``seed``.  World points out to 50 m on random planes and lines;
+    the scan's points are the world points in the true pose's frame plus
+    1 cm of noise; the start is 5 cm and 1 degree off.  Returns the plane
+    and line measurement rows, the start and the true pose."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def quat(axis, angle):
+        axis = axis / np.linalg.norm(axis)
+        return np.concatenate([np.sin(angle / 2) * axis, [np.cos(angle / 2)]])
+
+    def rotmat(q):
+        x, y, z, w = q
+        return np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+
+    def qmul(a, b):
+        ax, ay, az, aw = a
+        bx, by, bz, bw = b
+        return np.array([aw * bx + ax * bw + ay * bz - az * by,
+                         aw * by - ax * bz + ay * bw + az * bx,
+                         aw * bz + ax * by - ay * bx + az * bw,
+                         aw * bw - ax * bx - ay * by - az * bz])
+
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    q_true, t_true = quat(rng.normal(size=3), np.deg2rad(10.0)), np.array([1.0, -2.0, 0.5])
+    R = rotmat(q_true)
+
+    def scan(w):  # world points in the true pose's frame, with 1 cm of noise
+        return (w - t_true) @ R + rng.normal(scale=0.01, size=w.shape)
+
+    w = unit(n_plane) * rng.uniform(1.0, 50.0, (n_plane, 1))
+    n = unit(n_plane)
+    planes = np.concatenate([n, np.sum(n * w, axis=1, keepdims=True), scan(w)], axis=1)
+    a = unit(n_line) * rng.uniform(1.0, 50.0, (n_line, 1))
+    u = unit(n_line)
+    w = a + u * rng.uniform(-5.0, 5.0, (n_line, 1))
+    lines = np.concatenate([a, a + u, np.ones((n_line, 1)), scan(w)], axis=1)
+    q0 = qmul(quat(rng.normal(size=3), np.deg2rad(1.0)), q_true)
+    t0 = t_true + 0.05 * unit(1)[0]
+    return planes, lines, (q0, t0), (q_true, t_true)
+
+
+def icp_optimizer(planes, lines, start, device="cuda"):
+    """One free pose at ``start`` and a plane and a line edge set of bulk
+    matches, ``initialize()``d, on ``device``."""
+    import numpy as np
+
+    import cuda_bundle_adjustment_tpu_torch as tbt
+
+    poses = tbt.PoseVertexSet()
+    poses.add_vertices_bulk([0], start[0][None], start[1][None], [False])
+    opt = tbt.TorchGraphOptimisation.create(device=device)
+    opt.add_vertex_set(poses)
+    for es, rows in ((tbt.PlaneEdgeSet(), planes), (tbt.LineEdgeSet(), lines)):
+        es.set_information(1.0)
+        es.add_edges_bulk(rows, np.zeros(rows.shape[0], dtype=np.int64))
+        opt.add_edge_set(es)
+    opt.initialize()
+    return opt, poses
+
+
+def pose_error(q, t, truth) -> tuple:
+    """Translation error (m) and rotation angle (rad) of ``(q, t)``."""
+    import numpy as np
+
+    q_true, t_true = truth
+    dot = min(1.0, abs(float(np.dot(q / np.linalg.norm(q), q_true))))
+    return float(np.linalg.norm(t - t_true)), 2.0 * float(np.arccos(dot))
+
+
+def icp_scan_phase() -> dict:
+    """``icp_scan``: one scan registered against 50 000 planes and 5 000
+    lines (plain torch, no kernel of the table: the JAX package's ICP
+    models are XLA), ``optimize(10)`` through the fused loop and the host
+    loop on the card (bit for bit) and on the CPU (rtol 1e-9); the pose
+    recovered to the noise: within 1 mm and 0.01 degree of the truth."""
+    import numpy as np
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    label = "icp_scan"
+    planes, lines, start, truth = icp_scan_problem()
+    runs = {}
+    for device, fused in (("cuda", True), ("cuda", False), ("cpu", True)):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, poses = icp_optimizer(planes, lines, start, device)
+        opt.use_fused_loop = fused
+        opt.optimize(10)
+        torch.cuda.synchronize()
+        runs[device, fused] = dict(
+            trace=[x.chi2 for x in opt.batch_statistics().get()], s=time.perf_counter() - t0,
+            pose=poses.bulk_estimates(), stats=opt.loop_stats, counts=kernels.launch_counts(),
+            route=opt.solver.plan.route)
+    f, h, c = runs["cuda", True], runs["cuda", False], runs["cpu", True]
+    check(f["route"] == "pose_only", f"{label}: not the pose-only solve")
+    check(f["trace"] == h["trace"] and all(np.array_equal(a, b) for a, b in
+                                            zip(f["pose"], h["pose"])),
+          f"{label}: the host loop differs from the fused loop")
+    np.testing.assert_allclose(f["trace"], c["trace"], rtol=1e-9)
+    check(f["trace"][-1] < f["trace"][0], f"{label}: chi2 did not fall")
+    err0 = pose_error(start[0], start[1], truth)
+    err = pose_error(f["pose"][0][0], f["pose"][1][0], truth)
+    check(err[0] < 1e-3 and err[1] < np.deg2rad(0.01),
+          f"{label}: pose off by {err[0]:.3e} m, {np.rad2deg(err[1]):.3e} deg")
+    print(f"{label}: {planes.shape[0]} planes + {lines.shape[0]} lines, one free pose; start off by "
+          f"{err0[0]:.4f} m, {np.rad2deg(err0[1]):.3f} deg; after optimize(10) {err[0]:.3e} m, "
+          f"{np.rad2deg(err[1]):.3e} deg; trace {json.dumps(f['trace'])}; CPU max rel diff "
+          f"{rel_diff(f['trace'], c['trace']):.3e} (tol 1e-9); host loop bit for bit")
+    print(f"{label} seconds (object graph built, initialize() + optimize(10)): card fused "
+          f"{f['s']:.4f}, card host loop {h['s']:.4f}, CPU {c['s']:.4f}; fused loop "
+          f"{json.dumps({k: f['stats'][k] for k in ('trials', 'reads', 'captures', 'replays')})}; "
+          f"hand-kernel launches {sum(f['counts'].values())} [{nvidia_smi_line()}]")
+    return f
 
 
 def main() -> int:
@@ -1903,6 +2381,9 @@ def main() -> int:
     exact = GraphOptimisationOptions(solver_precision="exact")
     loop800 = make_loop_closure_problem(num_poses=800, num_landmarks=80_000,
                                         long_range_fraction=0.05, seed=0)
+    # the JAX package's loop-closure acceptance graph (tools/loop_closure_demo.py)
+    loop5000 = make_loop_closure_problem(num_poses=5000, num_landmarks=60_000,
+                                         long_range_fraction=0.05, seed=7)
     structure_phase(mono, "kitti00_mono")
     structure_phase(mixed, "kitti00_mixed")
     lap("symbolic analysis, native against numpy")
@@ -1979,6 +2460,20 @@ def main() -> int:
     loop_device_profile(mono, "kitti00_mono_exact", options=exact)
     lap("agreement and LM-loop profiles")
 
+    # PCG, the pose-only solve and outlier thresholding
+    runs["loop5000_pcg"] = pcg_phase(loop5000, "loop5000_pcg", dev)
+    lap("loop5000_pcg")
+    loop_device_profile(loop5000, "loop5000_pcg", niter=8)
+    lap("loop5000_pcg LM-loop profile")
+    pcg_oracle_phase()
+    lap("pcg1000_oracle")
+    runs["kitti00_mono_outliers"] = outliers_phase(mono)
+    lap("kitti00_mono_outliers")
+    runs["kitti00_motion_only"] = motion_only_phase(mono, kitti07)
+    lap("kitti00_motion_only")
+    icp_scan_phase()
+    lap("icp_scan")
+
     counts = runs["kitti00_mono"]["counts"]
     rows = []
     for name, (src, replaces) in KERNEL_INFO.items():
@@ -1986,6 +2481,10 @@ def main() -> int:
         row = dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=counts[name], object_api_launches=object_counts[name],
+            # one optimize() of each later path, counters zeroed just before
+            path_launches={label: runs[label]["counts"][name] if label in (
+                "loop5000_pcg", "kitti00_motion_only") else runs[label]["counts"][0][name]
+                for label in ("loop5000_pcg", "kitti00_motion_only", "kitti00_mono_outliers")},
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], device_ms=r["device_ms"], host_ms=r["host_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -12,7 +12,7 @@ from .ba import (
     StereoEdgeSet,
     StereoModel,
 )
-from .icp import LineEdge, LineEdgeSet, PlaneEdge, PlaneEdgeSet
+from .icp import LineEdge, LineEdgeSet, LineModel, PlaneEdge, PlaneEdgeSet, PlaneModel
 from .measurements import PointToLineMatch, PointToPlaneMatch
 
 __all__ = [
@@ -27,8 +27,10 @@ __all__ = [
     "DepthEdgeSet",
     "LineEdge",
     "LineEdgeSet",
+    "LineModel",
     "PlaneEdge",
     "PlaneEdgeSet",
+    "PlaneModel",
     "PointToLineMatch",
     "PointToPlaneMatch",
 ]

@@ -20,8 +20,9 @@ rescaled by rho', which equals ``Model.chi`` / ``Model.terms`` at that
 ``rk, delta`` with the original weight.
 
 The user-facing edge and edge-set classes of the object API follow the
-models.  The depth model waits for ROADMAP A7: a depth set can be built,
-and packing it raises.
+models.  ``MODEL_REGISTRY`` also holds the pose-only ICP models of
+``models/icp.py``.  The depth model waits for ROADMAP A7: a depth set can be
+built, and packing it raises.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..kernels.gather import gather_rows
 from ..ops import components as C
 from ..ops.robust import robust_derivative, robustify
 from ..types import GraphArrays, PackedEdges
+from .icp import LineModel, PlaneModel
 
 
 def _pose_state_table(graph: GraphArrays) -> torch.Tensor:
@@ -141,7 +143,8 @@ class StereoModel:
         )
 
 
-MODEL_REGISTRY = {"mono": MonoModel, "stereo": StereoModel}
+MODEL_REGISTRY = {"mono": MonoModel, "stereo": StereoModel, "line": LineModel,
+                  "plane": PlaneModel}
 
 
 # ---------------------------------------------------------------------------

@@ -155,6 +155,7 @@ def weighted_block_stacks(JP, JL, e, w):
     ``hpp = w JP^T JP`` (row-major 36), ``bp = w JP^T e`` (6),
     ``hll = w JL^T JL`` (9), ``bl = w JL^T e`` (3) and ``hpl = JP^T JL``
     (18, unweighted: the caller applies ``w`` with the both-free mask).
+    ``JL`` is None for a pose-only model: ``(pose_stack, None, None)``.
     """
     M = len(JP)
     cols = []
@@ -164,6 +165,8 @@ def weighted_block_stacks(JP, JL, e, w):
     for i in range(6):
         cols.append(w * _sum(JP[m][i] * e[m] for m in range(M)))
     pose_stack = torch.stack(cols, dim=-1)
+    if JL is None:
+        return pose_stack, None, None
 
     cols_l = []
     for i in range(3):

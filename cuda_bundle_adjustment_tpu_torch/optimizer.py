@@ -14,7 +14,9 @@ made.  The two give the same trace and final state bit for bit.
 A graph is given as vertex and edge sets (``add_vertex_set``,
 ``add_edge_set``, then ``initialize()``), or as arrays
 (``io.arrays.optimizer_from_problem``).  Both loops end in the solver's
-``finalize()``, which writes the estimates back into the vertex sets.
+``update_edges()``, which masks the edges above their set's outlier
+threshold for the next ``optimize()``, and ``finalize()``, which writes the
+estimates back into the vertex sets.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from .graph import EdgeSet, GraphOptimisationOptions, VertexSet
 from .solver.block_solver import BlockSolver
 from .solver.fused import MAXQ, RHO_DONE, TAU, FusedLoop
+from .solver.pcg import CgRunner
 from .utils import profiling as prof
 from .utils.stats import BatchInfo, BatchStatistics
 
@@ -83,8 +86,11 @@ class TorchGraphOptimisation:
         self.should_profile = False
         self.use_fused_loop = True
         # the last fused run's FusedLoop.stats (trials, host reads, captures,
-        # replays, host-clock ms); None before one
+        # replays, host-clock ms, CG iterations); None before one
         self.loop_stats: Optional[dict] = None
+        # the CG iterations of every trial of the last optimize() on the PCG
+        # route, through either loop (empty on the other routes)
+        self.cg_iterations: list[int] = []
 
     @classmethod
     def create(
@@ -143,10 +149,13 @@ class TorchGraphOptimisation:
         for it, chi2 in enumerate(loop.run()):
             self.stats.add_stat(BatchInfo(it, chi2))
         self.loop_stats = loop.stats
+        self.cg_iterations = loop.stats["cg_iterations"]
+        self.solver.update_edges()
         self.solver.finalize()
 
     def _optimize_host(self, niterations: int) -> None:
         solver = self.solver
+        solver.cg = CgRunner()
 
         nu = 2.0
         lam = 0.0
@@ -192,6 +201,8 @@ class TorchGraphOptimisation:
             if lm_done(q, rho, lam):
                 break
 
+        self.cg_iterations = solver.cg.iterations
+        solver.update_edges()
         solver.finalize()
 
     # -- introspection -------------------------------------------------------------

@@ -15,14 +15,25 @@ path, in plain PyTorch around ten hand-written kernels:
 * the reduced solve (:func:`solve_reduced`) by the route the structure
   fixes (:func:`reduced_route`): the band factor and solves through kernels
   B7 and B8 (:func:`solve_reduced_band`) for a band height up to
-  ``MAX_BAND`` where the factor's type is f32, or a dense Cholesky in plain
+  ``MAX_BAND`` where the factor's type is f32, a dense Cholesky in plain
   torch (:func:`solve_reduced_dense`) under ``solver_precision="exact"`` at
-  f64 and for wider bands on fewer than ``PCG_MIN_POSES`` poses; under
-  ``"mixed"`` at f64 the f32 factor is followed by exactly two f64
-  refinement rounds and the ``1e-8 ||b||`` residual check, elsewhere the
-  one solve is returned as it is;
+  f64 on a band and for wider patterns on fewer than ``PCG_MIN_POSES``
+  poses, and block-Jacobi preconditioned CG in plain torch
+  (:func:`solve_reduced_pcg`, ``solver/pcg.py``) for wider patterns from
+  there; under ``"mixed"`` at f64 the f32 band or dense factor is followed
+  by exactly two f64 refinement rounds and the ``1e-8 ||b||`` residual
+  check, elsewhere the one solve is returned as it is;
 * the back-substitution products through kernels B9 and B10
-  (:func:`schur_back_substitute`).
+  (:func:`schur_back_substitute`);
+* without free landmarks, the pose-only solve (:func:`solve_pose_only`):
+  ``Hpp`` is block-diagonal and each damped 6x6 block is solved on its own,
+  with no Schur reduction and no landmark step.
+
+Besides one mono, stereo or merged mono+stereo set (or none), a graph may
+hold pose-only ICP sets (``models/icp.py``, plain torch); their per-pose
+stacks are summed set after set onto the pose side.  Edges above an edge
+set's outlier threshold are masked by :meth:`BlockSolver.update_edges`, at
+the end of every ``optimize()``.
 
 An object graph (vertex and edge sets, :meth:`BlockSolver.initialize`) is
 turned into the same edge specs as an array problem and packed by
@@ -79,15 +90,15 @@ from ..ops.lie import se3_exp, se3_update_left
 from ..ops.robust import RobustKernelType, robust_derivative, robustify
 from ..types import GraphArrays, PackedEdges, SystemBlocks
 from ..utils import profiling as prof
+from . import pcg as _pcg
 from .segments import Segments, make_segments, segment_sum
 from .symbolic import SchurStructure, build_schur_structure, sort_triples
 
 # widest band the band kernels take (bw + 1 <= MAX_BAND); a wider Hsc takes
-# the dense solve below PCG_MIN_POSES poses and needs the PCG of ROADMAP A6
-# from there
+# the dense solve below PCG_MIN_POSES poses and PCG from there
 MAX_BAND = 48
-# pose count from which a wide Hsc pattern needs PCG instead of the dense
-# solve (the JAX package's constant of the same name)
+# pose count from which a wide Hsc pattern is solved by PCG instead of the
+# dense solve (the JAX package's constant of the same name)
 PCG_MIN_POSES = 1024
 # the options the solver takes, and the torch type of each working dtype
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
@@ -176,55 +187,73 @@ class BandMeta(NamedTuple):
 
 def reduced_route(bw: int, Pa: int, target: torch.dtype) -> str:
     """How the reduced system of a structure is solved, decided once a
-    structure as the JAX package decides it (without its VMEM test, ROADMAP
-    A6): ``"band"`` (kernels B7/B8) where the band fits ``MAX_BAND`` and
-    the factor's type ``target`` is f32, else ``"dense"`` on fewer than
-    ``PCG_MIN_POSES`` poses; a wider pattern on more poses raises."""
+    structure:
+
+    * ``"band"`` (kernels B7/B8) where the band fits ``MAX_BAND`` (``bw + 1
+      <= 48``) and the factor's type ``target`` is f32;
+    * ``"dense"`` (a Cholesky of the whole scaled matrix) where the band
+      fits and the factor is f64 (``"exact"``), and for any wider pattern
+      on fewer than ``PCG_MIN_POSES`` poses;
+    * ``"pcg"`` (``solver/pcg.py``) for a wider pattern on ``PCG_MIN_POSES``
+      poses or more.
+
+    The JAX package also holds the band against VMEM (``(Pa + SB) SB 512 B
+    <= 11 MiB``), because its band kernels keep the whole band in VMEM; a
+    graph past it goes dense or to PCG there (Pa over 1392 at SB 16, over
+    672 at SB 32, over 421 at SB 48).  Kernels B7/B8 stream the band, so the
+    port keeps the band wherever it fits 48: on the card they are the faster
+    solve, and an f32 band factor with two f64 rounds behind the ``1e-8
+    ||b||`` residual test is at least as exact as CG at ``1e-10``."""
     if bw + 1 <= MAX_BAND and target == torch.float32:
         return "band"
     if bw + 1 <= MAX_BAND or Pa < PCG_MIN_POSES:
         return "dense"
-    raise outside_slice(
-        f"an Hsc band of width {bw + 1} (> {MAX_BAND}) on {Pa} poses (>= {PCG_MIN_POSES})",
-        "A6: PCG",
-    )
+    return "pcg"
 
 
 class SchurPlan(NamedTuple):
     """Device-side plan for the stages, constant per structure.  All but the
     edge index tensors (the solver's own) and B5/B9's counters and scratch
-    come from the structure cache."""
+    come from the structure cache.  Without free landmarks (the pose-only
+    solve, ``route == "pose_only"``) the Schur fields are None."""
 
-    ba_pose_idx: torch.Tensor  # [E] int64
-    ba_lm_idx: torch.Tensor  # [E] int64
-    blk_row: torch.Tensor  # [nnz] int64 (sorted by row, then col)
-    blk_col: torch.Tensor  # [nnz]
-    diag_pos: torch.Tensor  # [Pa]
+    ba_pose_idx: Optional[torch.Tensor]  # [E] int64 of the landmark set
+    ba_lm_idx: Optional[torch.Tensor]  # [E] int64
+    blk_row: Optional[torch.Tensor]  # [nnz] int64 (sorted by row, then col)
+    blk_col: Optional[torch.Tensor]  # [nnz]
+    diag_pos: Optional[torch.Tensor]  # [Pa]
     # [T] int32 triples sorted by target block; on the card the very tensors
     # of pair_plan (no int64 copy)
-    tri_ei: torch.Tensor
-    tri_ej: torch.Tensor  # [T] int32
-    tri_offsets: torch.Tensor  # [nnz + 1] int64 CSR offsets of the triples
-    pose_seg: Segments  # edges -> poses
-    lm_seg: Segments  # edges -> landmarks
-    row_seg: Segments  # Hsc blocks -> block rows
-    col_seg: Segments  # Hsc blocks -> block columns
-    band: BandMeta
-    route: str  # "band" or "dense" (:func:`reduced_route`)
+    tri_ei: Optional[torch.Tensor]
+    tri_ej: Optional[torch.Tensor]  # [T] int32
+    tri_offsets: Optional[torch.Tensor]  # [nnz + 1] int64 CSR offsets of the triples
+    pose_seg: Optional[Segments]  # the landmark set's edges -> poses
+    lm_seg: Optional[Segments]  # its edges -> landmarks
+    row_seg: Optional[Segments]  # Hsc blocks -> block rows
+    col_seg: Optional[Segments]  # Hsc blocks -> block columns
+    band: Optional[BandMeta]
+    route: str  # "band", "dense", "pcg" (:func:`reduced_route`) or "pose_only"
     target: torch.dtype  # the reduced factor's type
     # what the CUDA kernels B3, B5, B9 and B6 walk; None on the CPU, where the
     # twins run
     lin_plan: Optional[LinearisePlan]  # tiles and chunks over pose_seg, lm_seg
     pair_plan: Optional[PairPlan]  # int32 triples and items
+    pcg: Optional[_pcg.PcgPlan]  # the preconditioner's plan on the "pcg" route
+    # every edge set's edges -> poses, in set order (the landmark set's is
+    # pose_seg)
+    set_segs: tuple = ()
 
 
-def _solver_plan(cached: SchurPlan, packed: PackedEdges) -> SchurPlan:
+def _solver_plan(cached: SchurPlan, packed: Optional[PackedEdges]) -> SchurPlan:
     """The cached plan of a structure for one solver: its own edge index
-    tensors and, on the card, its own B5/B9 counters and scratch, so that no
-    stage writes a cached tensor."""
+    tensors of the landmark set (``packed``, None without one) and, on the
+    card, its own B5/B9 counters and scratch, so that no stage writes a
+    cached tensor."""
     lin = cached.lin_plan
     if lin is not None:
         lin = lin._replace(count=torch.zeros_like(lin.count), scratch=torch.empty_like(lin.scratch))
+    if packed is None:
+        return cached
     return cached._replace(ba_pose_idx=packed.pose_idx, ba_lm_idx=packed.lm_idx, lin_plan=lin)
 
 
@@ -311,6 +340,7 @@ def _merge_ba_specs(edge_specs):
         merged["outlier_threshold"] = np.concatenate(
             [np.broadcast_to(t, (E,)) for t, E in thr]
         )
+    merged["merged_sizes"] = sizes  # the un-merge map of update_edges
     return [merged]
 
 
@@ -319,37 +349,57 @@ def _merge_ba_specs(edge_specs):
 # ---------------------------------------------------------------------------
 
 
-def compute_chi(graph: GraphArrays, data: PackedEdges, meta: EdgeSetMeta) -> torch.Tensor:
-    """Total chi2 (reference stage "2: Compute Error"): the robust kernel's
-    rho on the per-edge ``omega |e|^2`` of kernel B1, summed (inert rows
-    give 0, and rho(0) = 0)."""
-    x = chi_edges(*edge_state(graph, data), data)
-    return robustify(meta.rk, meta.delta, x).sum()
+def set_chi(graph: GraphArrays, data: PackedEdges, meta: EdgeSetMeta) -> torch.Tensor:
+    """Per-edge robustified chi2 ``[E]`` of one edge set: for a mono or
+    stereo set the robust kernel's rho on kernel B1's ``omega |e|^2`` (inert
+    rows give 0, and rho(0) = 0), for an ICP set its model's chi."""
+    model = MODEL_REGISTRY[meta.kind]
+    if model.HAS_LANDMARK:
+        return robustify(meta.rk, meta.delta, chi_edges(*edge_state(graph, data), data))
+    return model.chi(graph, data, meta.rk, meta.delta)
 
 
-def build_system(
-    graph: GraphArrays, data: PackedEdges, meta: EdgeSetMeta, plan: SchurPlan
-) -> SystemBlocks:
+def compute_chi(graph: GraphArrays, packs: Sequence[PackedEdges],
+                metas: Sequence[EdgeSetMeta]) -> torch.Tensor:
+    """Total chi2 (reference stage "2: Compute Error"): every edge set's
+    :func:`set_chi` summed, set after set."""
+    total = None
+    for data, meta in zip(packs, metas):
+        chi = set_chi(graph, data, meta).sum()
+        total = chi if total is None else total + chi
+    return total
+
+
+def build_system(graph: GraphArrays, packs: Sequence[PackedEdges],
+                 metas: Sequence[EdgeSetMeta], plan: SchurPlan) -> SystemBlocks:
     """Assemble Hpp/bp/Hll/bl and per-edge Hpl blocks (stage "3: Build
-    System") through kernel B3.  Contributions of fixed vertices drop out
-    because their rows are not in the segment plans.  Under a robust kernel
-    the weight is rescaled by rho'(x) before the quadratic form, as the
-    reference does: x per edge from kernel B1, rho' in plain tensor code,
-    then B3 with the ``[E]`` weight."""
-    state = edge_state(graph, data)
-    if meta.rk:
-        x = chi_edges(*state, data)
-        data = data._replace(omega=data.omega * robust_derivative(meta.rk, meta.delta, x))
-    pose_acc, lm_acc, hpl = linearise(
-        *state, data, plan.pose_seg, plan.lm_seg, plan.lin_plan
-    )  # [Pa, 42], [La, 12], [E, 18]
+    System").  The mono or stereo set goes through kernel B3; contributions
+    of fixed vertices drop out because their rows are not in the segment
+    plans.  Under a robust kernel the weight is rescaled by rho'(x) before
+    the quadratic form, as the reference does: x per edge from kernel B1,
+    rho' in plain tensor code, then B3 with the ``[E]`` weight.  An ICP
+    set's per-edge pose stacks (plain torch) are summed per pose through
+    its own segment plan and added, set after set.  Without free landmarks
+    ``Hll``, ``bl`` and ``Hpl`` are None."""
+    pose_acc = Hll = bl = Hpl = None
+    for data, meta, seg in zip(packs, metas, plan.set_segs):
+        model = MODEL_REGISTRY[meta.kind]
+        if model.HAS_LANDMARK:
+            state = edge_state(graph, data)
+            if meta.rk:
+                x = chi_edges(*state, data)
+                data = data._replace(omega=data.omega * robust_derivative(meta.rk, meta.delta, x))
+            acc, lm_acc, hpl = linearise(
+                *state, data, plan.pose_seg, plan.lm_seg, plan.lin_plan
+            )  # [Pa, 42], [La, 12], [E, 18]
+            if plan.route != "pose_only":
+                Hll, bl, Hpl = lm_acc[:, :9], lm_acc[:, 9:], hpl
+        else:
+            acc = segment_sum(model.terms(graph, data, meta.rk, meta.delta)[0], seg)
+        pose_acc = acc if pose_acc is None else pose_acc + acc
     Pa = pose_acc.shape[0]
     return SystemBlocks(
-        Hpp=pose_acc[:, :36].reshape(Pa, 6, 6),
-        bp=pose_acc[:, 36:],
-        Hll=lm_acc[:, :9],
-        bl=lm_acc[:, 9:],
-        Hpl=hpl,
+        Hpp=pose_acc[:, :36].reshape(Pa, 6, 6), bp=pose_acc[:, 36:], Hll=Hll, bl=bl, Hpl=Hpl,
     )
 
 
@@ -358,6 +408,8 @@ def max_diagonal(sys: SystemBlocks) -> torch.Tensor:
     The diagonals are strided views: no index tensor is made, so nothing
     is uploaded and a CUDA graph can capture it."""
     m = torch.diagonal(sys.Hpp, dim1=-2, dim2=-1).max()
+    if sys.Hll is None:
+        return m
     return torch.maximum(m, sys.Hll[:, 0::4].max())  # Hll entries 0, 4, 8
 
 
@@ -420,6 +472,20 @@ def scaled_band(blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan):
     return band, bl_s, bv, s
 
 
+def block_matvec(bl_s: torch.Tensor, plan: SchurPlan):
+    """The symmetric block SpMV ``y = A x`` of the scaled upper-triangle
+    blocks ``bl_s`` on the plan's pattern (``x``, ``y``: ``[Pa, 6]``):
+    fixed-order row and column segment sums, no float atomics."""
+    brow, bcol = plan.blk_row, plan.blk_col
+    bl_s_off = bl_s * (brow != bcol).to(bl_s.dtype)[:, None]
+
+    def matvec(xv):
+        y = segment_sum(C.flat_mv_6x6(bl_s, xv[bcol]), plan.row_seg)
+        return y + segment_sum(C.flat_mtv_6x6(bl_s_off, xv[brow]), plan.col_seg)
+
+    return matvec
+
+
 def _refined(tri_solve, bl_s, bv, s, plan: SchurPlan, factored=None):
     """``solver_precision="mixed"`` at f64 behind an f32 factor: exactly two
     f64 refinement rounds against the scaled f64 blocks, then success only
@@ -427,14 +493,7 @@ def _refined(tri_solve, bl_s, bv, s, plan: SchurPlan, factored=None):
     factor that completed: ``factored``, a 0-d bool, where the factor
     reports it), as in the JAX package: an f64 factor here would accept
     steps the reference rejects."""
-    brow, bcol = plan.blk_row, plan.blk_col
-    offm = (brow != bcol).to(bl_s.dtype)[:, None]
-    bl_s_off = bl_s * offm
-
-    def matvec(xv):  # symmetric block SpMV in the scaled space, f64
-        y = segment_sum(C.flat_mv_6x6(bl_s, xv[bcol]), plan.row_seg)
-        return y + segment_sum(C.flat_mtv_6x6(bl_s_off, xv[brow]), plan.col_seg)
-
+    matvec = block_matvec(bl_s, plan)  # in the scaled space, f64
     x = tri_solve(bv)
     # two rounds suffice for LM-damped, Jacobi-scaled systems; the residual
     # check below rejects any solve they do not converge
@@ -521,14 +580,47 @@ def solve_reduced_dense(
     return _refined(tri_solve, bl_s, bv, s, plan, factored)
 
 
+def solve_reduced_pcg(
+    blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan, runner=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Solve ``Hsc xp = bsc`` on the PCG route (the JAX package's
+    ``solve_blocks_pcg``): symmetric Jacobi scaling in block form, then
+    preconditioned CG on the scaled blocks through :func:`block_matvec`
+    (``solver/pcg.py``); success only for a converged, finite result, so an
+    unconverged CG is a rejected trial.  ``runner``: what runs the CG
+    blocks (``pcg.CgRunner``; the fused loop's capture takes its place)."""
+    bl_s, bv, s = scaled_blocks(blocks, bsc, plan)
+    return _pcg.solve_blocks_pcg(bl_s, bv, s, block_matvec(bl_s, plan), bsc.shape[0], plan.pcg,
+                                 runner)
+
+
 def solve_reduced(
-    blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan
+    blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan, runner=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage "6: Numerical Decomposition" by the structure's route:
-    ``(xp [Pa, 6], success)``, both on the device."""
+    ``(xp [Pa, 6], success)``, both on the device.  ``runner``: the PCG
+    route's block runner."""
     if plan.route == "band":
         return solve_reduced_band(blocks, bsc, plan)
+    if plan.route == "pcg":
+        return solve_reduced_pcg(blocks, bsc, plan, runner)
     return solve_reduced_dense(blocks, bsc, plan)
+
+
+def solve_pose_only(sys: SystemBlocks, lam) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pose-only solve (no free landmarks): ``Hpp`` is block-diagonal,
+    so each damped 6x6 block is solved on its own by a batched
+    ``cholesky_ex`` and two triangular solves, the same solution as a
+    factor of the whole matrix.  A block that is not positive definite
+    gives ``info > 0``, folded into the verdict on the device with the
+    finiteness of ``xp``, as the JAX package's NaN factor makes its
+    verdict False.  ``lam``: a 0-d tensor or a Python float."""
+    lam = as_lam(lam, sys.bp)
+    Hpp_d = sys.Hpp + lam * torch.eye(6, dtype=sys.bp.dtype, device=sys.bp.device)
+    L, info = torch.linalg.cholesky_ex(Hpp_d)
+    z = torch.linalg.solve_triangular(L, sys.bp[..., None], upper=False)
+    xp = torch.linalg.solve_triangular(L.mT, z, upper=True)[..., 0]
+    return xp, torch.all(torch.isfinite(xp)) & torch.all(info == 0)
 
 
 def schur_back_substitute(
@@ -540,23 +632,30 @@ def schur_back_substitute(
     return sym3x3_mv(invHll, cl)
 
 
-def apply_update(graph: GraphArrays, xp: torch.Tensor, xl: torch.Tensor) -> GraphArrays:
+def apply_update(graph: GraphArrays, xp: torch.Tensor, xl: Optional[torch.Tensor]) -> GraphArrays:
     """SE3-exp left-compose pose update + additive landmark update (stage
-    "7: Update Solution")."""
-    Pa, La = xp.shape[0], xl.shape[0]
+    "7: Update Solution"); ``xl`` None (the pose-only solve) leaves the
+    landmarks as they are."""
+    Pa = xp.shape[0]
     dq, dt = se3_exp(xp)
     q_new, t_new = se3_update_left(dq, dt, graph.q[:Pa], graph.t[:Pa])
+    Xw = graph.Xw
+    if xl is not None:
+        Xw = torch.cat([Xw[: xl.shape[0]] + xl, Xw[xl.shape[0]:]], dim=0)
     return GraphArrays(
-        q=torch.cat([q_new, graph.q[Pa:]], dim=0),
-        t=torch.cat([t_new, graph.t[Pa:]], dim=0),
-        Xw=torch.cat([graph.Xw[:La] + xl, graph.Xw[La:]], dim=0),
+        q=torch.cat([q_new, graph.q[Pa:]], dim=0), t=torch.cat([t_new, graph.t[Pa:]], dim=0), Xw=Xw,
     )
 
 
-def compute_scale(xp: torch.Tensor, xl: torch.Tensor, sys: SystemBlocks, lam) -> torch.Tensor:
+def compute_scale(xp: torch.Tensor, xl: Optional[torch.Tensor], sys: SystemBlocks,
+                  lam) -> torch.Tensor:
     """LM gain-ratio denominator ``sum x (lam x + b)`` (``lam``: a 0-d
-    tensor on the device or a Python float)."""
-    return torch.sum(xp * (lam * xp + sys.bp)) + torch.sum(xl * (lam * xl + sys.bl))
+    tensor on the device or a Python float; ``xl`` None: no landmark
+    term)."""
+    scale = torch.sum(xp * (lam * xp + sys.bp))
+    if xl is None:
+        return scale
+    return scale + torch.sum(xl * (lam * xl + sys.bl))
 
 
 # ---------------------------------------------------------------------------
@@ -582,15 +681,29 @@ class BlockSolver:
         # an f32 factor with f64 refinement: only where the working type is f64
         self.mixed = options.solver_precision == "mixed" and self.dtype == torch.float64
         self.graph: Optional[GraphArrays] = None
-        self.packed: Optional[PackedEdges] = None
-        self.meta: Optional[EdgeSetMeta] = None
+        # every packed edge set and its meta, in the order given (a mono and
+        # a stereo set merged into one); ``ba``: the position of the set with
+        # landmarks (mono, stereo or merged), None without one
+        self.packs: tuple[PackedEdges, ...] = ()
+        self.metas: tuple[EdgeSetMeta, ...] = ()
+        self.ba: Optional[int] = None
         self.P = self.Pa = self.L = self.La = 0
         self.schur: Optional[SchurStructure] = None
         self.plan: Optional[SchurPlan] = None
         self.pose_perm = None  # RCM pose order; None = identity
         self.symbolic_ms = 0.0
-        self._host_idx: Optional[tuple[np.ndarray, np.ndarray]] = None
+        # each set's (pose_idx, lm_idx) as packed, on the host
+        self._host_idx: list[tuple[np.ndarray, np.ndarray]] = []
         self._struct_bundle: Optional[dict] = None  # this structure's cache entry
+        # runs the PCG route's CG blocks: iterations of every solve and host
+        # reads (the fused loop's capture takes its place while it captures)
+        self.cg = _pcg.CgRunner()
+        # outliers: each packed set's threshold (a scalar, or per edge for a
+        # merged set), its sizes before a merge, and the last update_edges'
+        # deactivations per set
+        self._spec_thresholds: list = []
+        self._merged_sizes: list = []
+        self._outlier_counts: list[int] = []
         # the object graph packed by initialize(): finalize() writes back into
         # these vertex sets; an array problem leaves them empty
         self._pose_sets: list = []
@@ -653,7 +766,7 @@ class BlockSolver:
             landmarks=Xw, num_active_landmarks=La, edge_specs=specs,
         )
         # initialize_from_arrays forgets any object graph: keep this one's
-        # sets for finalize()
+        # sets for update_edges() and finalize()
         self._pose_sets, self._lm_sets, self._edge_sets = pose_sets, lm_sets, live_sets
 
     def _spec_from_edge_set(self, es: EdgeSet) -> dict:
@@ -760,64 +873,67 @@ class BlockSolver:
         Each ``edge_spec`` dict has keys ``kind, meas [E,K], pose_idx [E],
         lm_idx [E], omega [E], cam ([5] or [E,5])`` and optional ``rk``
         (a ``RobustKernelType`` value), ``delta, active,
-        outlier_threshold``.  Vertices are active-first: the
-        first ``num_active_*`` rows are free, the rest fixed.  One mono or
-        stereo set runs as it is; a mono and a stereo set merge into one
-        masked stereo set (:func:`_merge_ba_specs`).  An object graph
-        packed before is forgotten: ``finalize`` writes nothing back."""
+        outlier_threshold`` (a scalar, or ``[E]``).  Vertices are
+        active-first: the first ``num_active_*`` rows are free, the rest
+        fixed.  A mono and a stereo set merge into one masked stereo set
+        (:func:`_merge_ba_specs`); beside the one set with landmarks, any
+        number of pose-only ICP sets (``kind`` ``"line"`` or ``"plane"``,
+        ``lm_idx`` may be left out) is packed in the order given.  Edges are
+        packed in the order given.  An object graph packed before is
+        forgotten: ``finalize`` writes nothing back."""
         self._pose_sets, self._lm_sets, self._edge_sets = [], [], []
-        edge_specs = _merge_ba_specs(edge_specs)
-        if len(edge_specs) != 1:
+        edge_specs = [
+            dict(s, lm_idx=s.get("lm_idx", np.zeros(np.asarray(s["meas"]).shape[0], np.int64)))
+            for s in _merge_ba_specs(edge_specs)
+        ]
+        if not edge_specs:
+            raise ValueError("the graph has no edges")
+        for spec in edge_specs:
+            kind = spec["kind"]
+            if kind not in MODEL_REGISTRY:
+                raise outside_slice(f"{kind!r} edges", "A7: the depth model")
+            if int(spec.get("rk", 0)) not in tuple(RobustKernelType):
+                raise ValueError(f"unknown robust kernel rk={spec.get('rk')}")
+            cam = np.asarray(spec.get("cam", np.zeros(5)), dtype=np.float64).reshape(-1, 5)
+            if not np.all(cam == cam[0]):
+                raise outside_slice("a per-edge camera", "A7: per-edge camera")
+        ba = [i for i, sp in enumerate(edge_specs) if MODEL_REGISTRY[sp["kind"]].HAS_LANDMARK]
+        if len(ba) > 1:
             raise outside_slice(
-                f"{len(edge_specs)} edge sets that do not merge into one",
+                f"{len(ba)} landmark edge sets that do not merge into one",
                 "A7: multiple edge sets",
             )
-        spec = edge_specs[0]
-        kind = spec["kind"]
-        if kind not in MODEL_REGISTRY:
-            raise outside_slice(f"{kind!r} edges", "A7: the depth and ICP models")
-        rk = int(spec.get("rk", 0))
-        if rk not in tuple(RobustKernelType):
-            raise ValueError(f"unknown robust kernel rk={rk}")
-        if np.any(np.asarray(spec.get("outlier_threshold", 0.0)) > 0):
-            raise outside_slice("outlier thresholding", "A7: update_edges outliers")
-        cam = np.asarray(spec.get("cam", np.zeros(5)), dtype=np.float64).reshape(-1, 5)
-        if not np.all(cam == cam[0]):
-            raise outside_slice("a per-edge camera", "A7: per-edge camera")
+        self.ba = ba[0] if ba else None
 
         self.P = pose_q.shape[0]
         self.Pa = int(num_active_poses)
         self.L = landmarks.shape[0]
         self.La = int(num_active_landmarks)
-        if self.La == 0:
-            raise outside_slice("a graph without free landmarks", "A7: pose-only solve")
         pose_q = np.asarray(pose_q, dtype=np.float64)
         pose_t = np.asarray(pose_t, dtype=np.float64)
         landmarks = np.asarray(landmarks, dtype=np.float64).reshape(-1, 3)
-        meas = np.asarray(spec["meas"], dtype=np.float64)
-        E = meas.shape[0]
-        pose_idx = np.asarray(spec["pose_idx"], dtype=np.int64)
-        lm_idx = np.asarray(spec["lm_idx"], dtype=np.int64)
 
         # the structure's cache entry, keyed on the index arrays as given
         self._struct_bundle = bundle = _struct_bundle(
             _struct_digest(edge_specs, self.P, self.Pa, self.L, self.La)
         )
-        # bandwidth-reducing pose ordering, applied as in the JAX package:
-        # trajectory graphs keep the identity order
-        if "pose_perm" not in bundle:
-            from .ordering import plan_pose_order
+        # bandwidth-reducing pose ordering, applied as in the JAX package
+        # (trajectory graphs keep the identity order): only for one set
+        # with landmarks and free landmarks
+        self.pose_perm = perm = None
+        if self.La > 0 and len(edge_specs) == 1 and self.ba == 0:
+            if "pose_perm" not in bundle:
+                from .ordering import plan_pose_order
 
-            bundle["pose_perm"] = _frozen(plan_pose_order(pose_idx, lm_idx, self.Pa, self.La)[0])
-        self.pose_perm = perm = bundle["pose_perm"]
+                bundle["pose_perm"] = _frozen(plan_pose_order(
+                    np.asarray(edge_specs[0]["pose_idx"], dtype=np.int64),
+                    np.asarray(edge_specs[0]["lm_idx"], dtype=np.int64), self.Pa, self.La)[0])
+            self.pose_perm = perm = bundle["pose_perm"]
         if perm is not None:  # perm[i] = old pose at new position i
             new_of_old = np.empty(self.Pa, dtype=np.int64)
             new_of_old[perm] = np.arange(self.Pa)
             pose_q = np.concatenate([pose_q[perm], pose_q[self.Pa :]])
             pose_t = np.concatenate([pose_t[perm], pose_t[self.Pa :]])
-            pose_idx = np.where(
-                pose_idx < self.Pa, new_of_old[np.minimum(pose_idx, self.Pa - 1)], pose_idx
-            )
 
         dev, dt = self.device, self.dtype
         self.graph = GraphArrays(
@@ -825,36 +941,67 @@ class BlockSolver:
             t=torch.as_tensor(pose_t, dtype=dt, device=dev),
             Xw=torch.as_tensor(landmarks, dtype=dt, device=dev),
         )
-        omega = np.asarray(spec["omega"], dtype=np.float64).reshape(-1)
-        if omega.size and np.all(omega == omega[0]):
-            omega = omega[:1]  # a uniform weight broadcasts from one value
-        active = np.broadcast_to(
-            np.asarray(spec.get("active", 1.0), dtype=np.float64), (E,)
-        )
-        mask3 = spec.get("mask3")
-        pose_idx_d = torch.as_tensor(pose_idx, device=dev)
-        lm_idx_d = torch.as_tensor(lm_idx, device=dev)
-        self.packed = PackedEdges(
-            meas=torch.as_tensor(np.ascontiguousarray(meas.T), dtype=dt, device=dev),
-            omega=torch.as_tensor(omega, dtype=dt, device=dev),
-            cam=torch.as_tensor(cam[:1].T.copy(), dtype=dt, device=dev),
-            pose_idx=pose_idx_d,
-            lm_idx=lm_idx_d,
-            both_free=((pose_idx_d < self.Pa) & (lm_idx_d < self.La)).to(dt),
-            active=torch.as_tensor(active > 0, device=dev).to(dt),
-            mask3=None if mask3 is None else torch.as_tensor(
-                np.asarray(mask3) > 0, device=dev
-            ).to(dt),
-        )
-        self.meta = EdgeSetMeta(
-            kind=kind,
-            rk=rk,
-            delta=float(spec.get("delta", 1.0)),
-            nedges=int(np.sum(active > 0)),
-        )
-        self._host_idx = (pose_idx, lm_idx)
+        packs, metas, self._host_idx = [], [], []
+        self._spec_thresholds, self._merged_sizes, self._outlier_counts = [], [], []
+        for spec in edge_specs:
+            meas = np.asarray(spec["meas"], dtype=np.float64)
+            E = meas.shape[0]
+            pose_idx = np.asarray(spec["pose_idx"], dtype=np.int64)
+            lm_idx = np.asarray(spec["lm_idx"], dtype=np.int64)
+            if E and (pose_idx.min() < 0 or pose_idx.max() >= self.P or (
+                    MODEL_REGISTRY[spec["kind"]].HAS_LANDMARK
+                    and (lm_idx.min() < 0 or lm_idx.max() >= self.L))):
+                raise ValueError(f"{spec['kind']} edges name a vertex outside the graph's "
+                                 f"{self.P} poses and {self.L} landmarks")
+            if perm is not None:
+                pose_idx = np.where(
+                    pose_idx < self.Pa, new_of_old[np.minimum(pose_idx, self.Pa - 1)], pose_idx
+                )
+            cam = np.asarray(spec.get("cam", np.zeros(5)), dtype=np.float64).reshape(-1, 5)
+            omega = np.asarray(spec["omega"], dtype=np.float64).reshape(-1)
+            if omega.size and np.all(omega == omega[0]):
+                omega = omega[:1]  # a uniform weight broadcasts from one value
+            active = np.broadcast_to(
+                np.asarray(spec.get("active", 1.0), dtype=np.float64), (E,)
+            )
+            mask3 = spec.get("mask3")
+            pose_idx_d = torch.as_tensor(pose_idx, device=dev)
+            lm_idx_d = torch.as_tensor(lm_idx, device=dev)
+            packs.append(PackedEdges(
+                meas=torch.as_tensor(np.ascontiguousarray(meas.T), dtype=dt, device=dev),
+                omega=torch.as_tensor(omega, dtype=dt, device=dev),
+                cam=torch.as_tensor(cam[:1].T.copy(), dtype=dt, device=dev),
+                pose_idx=pose_idx_d,
+                lm_idx=lm_idx_d,
+                both_free=((pose_idx_d < self.Pa) & (lm_idx_d < self.La)).to(dt),
+                active=torch.as_tensor(active > 0, device=dev).to(dt),
+                mask3=None if mask3 is None else torch.as_tensor(
+                    np.asarray(mask3) > 0, device=dev
+                ).to(dt),
+            ))
+            metas.append(EdgeSetMeta(
+                kind=spec["kind"],
+                rk=int(spec.get("rk", 0)),
+                delta=float(spec.get("delta", 1.0)),
+                nedges=int(np.sum(active > 0)),
+            ))
+            self._host_idx.append((pose_idx, lm_idx))
+            self._spec_thresholds.append(spec.get("outlier_threshold", 0.0))
+            self._merged_sizes.append(spec.get("merged_sizes"))
+        self.packs, self.metas = tuple(packs), tuple(metas)
         self.schur = None
         self.plan = None
+
+    @property
+    def packed(self) -> Optional[PackedEdges]:
+        """The packed set with landmarks (mono, stereo or merged), else the
+        first set."""
+        return self.packs[0 if self.ba is None else self.ba] if self.packs else None
+
+    @property
+    def meta(self) -> Optional[EdgeSetMeta]:
+        """The meta of :attr:`packed`."""
+        return self.metas[0 if self.ba is None else self.ba] if self.metas else None
 
     # -- structure ------------------------------------------------------------
 
@@ -862,66 +1009,78 @@ class BlockSolver:
         """Host symbolic analysis and the device plan (stages "1: Build
         Structure" + "5: Symbolic Decomposition").  A structure whose plan
         the cache holds for this solver's knobs reuses it: no symbolic pass
-        (``symbolic_ms = 0``), no plan made and nothing uploaded."""
+        (``symbolic_ms = 0``), no plan made and nothing uploaded.  Without
+        free landmarks no Schur pattern, triples, band or PCG plan is made:
+        the pose-only solve needs the per-set pose segments alone (and, for
+        a mono or stereo set, B3's plan)."""
         bundle, knobs = self._struct_bundle, self._plan_knobs()
+        ba_packed = None if self.ba is None else self.packed
         if bundle.get("plan_knobs") == knobs:
             _STRUCT_STATS["hits"] += 1
             self.schur = bundle["schur"]
-            self.plan = _solver_plan(bundle["plan"], self.packed)
+            self.plan = _solver_plan(bundle["plan"], ba_packed)
             self.symbolic_ms = 0.0
             return
         _STRUCT_STATS["misses"] += 1
 
-        pose_idx, lm_idx = self._host_idx
         Pa, La, dev = self.Pa, self.La, self.device
-        t0 = time.perf_counter()
-        s = build_schur_structure(pose_idx, lm_idx, Pa, La)
-        tri_ei, tri_ej, tri_off = sort_triples(s)
-        self.symbolic_ms = (time.perf_counter() - t0) * 1e3
-
-        # banded Hsc in an f32 factor -> band kernels (B7/B8); else dense
-        bw = int(np.max(s.blk_col.astype(np.int64) - s.blk_row))
+        set_segs = tuple(make_segments(pi, Pa, dev) for pi, _ in self._host_idx)
+        pose_seg = lm_seg = lin_plan = None
+        if self.ba is not None:
+            pose_idx, lm_idx = self._host_idx[self.ba]
+            pose_seg, lm_seg = set_segs[self.ba], make_segments(lm_idx, La, dev)
+            if dev.type == "cuda":
+                lin_plan = make_linearise_plan(pose_seg, lm_seg, pose_idx.shape[0])
         target = torch.float32 if self.mixed else self.dtype
-        route = reduced_route(bw, Pa, target)
-        sb = -(-(bw + 1) // 8) * 8
-
-        def up(a, dtype=np.int64):
-            return torch.as_tensor(np.asarray(a, dtype=dtype), device=dev)
-
-        pose_seg, lm_seg = make_segments(pose_idx, Pa, dev), make_segments(lm_idx, La, dev)
-        # int32 triples: on the card make_pair_plan keeps these very tensors,
-        # so no int64 copy of the ~1.7M triples stays beside them
-        tri_ei, tri_ej = up(tri_ei, np.int32), up(tri_ej, np.int32)
-        tri_off = up(tri_off)
-        lin_plan = pair_plan = None
-        if dev.type == "cuda":
-            lin_plan = make_linearise_plan(pose_seg, lm_seg, pose_idx.shape[0])
-            pair_plan = make_pair_plan(self.packed.lm_idx, tri_ei, tri_ej, tri_off)
         plan = SchurPlan(
-            ba_pose_idx=None,
-            ba_lm_idx=None,
-            blk_row=up(s.blk_row),
-            blk_col=up(s.blk_col),
-            diag_pos=up(s.diag_pos),
-            tri_ei=tri_ei,
-            tri_ej=tri_ej,
-            tri_offsets=tri_off,
-            pose_seg=pose_seg,
-            lm_seg=lm_seg,
-            row_seg=make_segments(s.blk_row, Pa, dev),
-            col_seg=make_segments(s.blk_col, Pa, dev),
-            band=BandMeta(bw=bw, sb=sb),
-            route=route,
-            target=target,
-            lin_plan=lin_plan,
-            pair_plan=pair_plan,
+            ba_pose_idx=None, ba_lm_idx=None, blk_row=None, blk_col=None, diag_pos=None,
+            tri_ei=None, tri_ej=None, tri_offsets=None, pose_seg=pose_seg, lm_seg=lm_seg,
+            row_seg=None, col_seg=None, band=None, route="pose_only", target=target,
+            lin_plan=lin_plan, pair_plan=None, pcg=None, set_segs=set_segs,
         )
-        for a in s:
-            if isinstance(a, np.ndarray):
-                _frozen(a)
+        s = None
+        self.symbolic_ms = 0.0
+        if self.ba is not None and La > 0:
+            t0 = time.perf_counter()
+            s = build_schur_structure(pose_idx, lm_idx, Pa, La)
+            tri_ei, tri_ej, tri_off = sort_triples(s)
+            self.symbolic_ms = (time.perf_counter() - t0) * 1e3
+
+            # banded Hsc in an f32 factor -> band kernels (B7/B8); else dense
+            # or, for a wide pattern on many poses, PCG
+            bw = int(np.max(s.blk_col.astype(np.int64) - s.blk_row))
+            route = reduced_route(bw, Pa, target)
+            sb = -(-(bw + 1) // 8) * 8
+
+            def up(a, dtype=np.int64):
+                return torch.as_tensor(np.asarray(a, dtype=dtype), device=dev)
+
+            # int32 triples: on the card make_pair_plan keeps these very
+            # tensors, so no int64 copy of the ~1.7M triples stays beside them
+            tri_ei, tri_ej = up(tri_ei, np.int32), up(tri_ej, np.int32)
+            tri_off = up(tri_off)
+            plan = plan._replace(
+                blk_row=up(s.blk_row),
+                blk_col=up(s.blk_col),
+                diag_pos=up(s.diag_pos),
+                tri_ei=tri_ei,
+                tri_ej=tri_ej,
+                tri_offsets=tri_off,
+                row_seg=make_segments(s.blk_row, Pa, dev),
+                col_seg=make_segments(s.blk_col, Pa, dev),
+                band=BandMeta(bw=bw, sb=sb),
+                route=route,
+                pair_plan=(make_pair_plan(self.packed.lm_idx, tri_ei, tri_ej, tri_off)
+                           if dev.type == "cuda" else None),
+                pcg=(_pcg.build_pcg_plan(s.blk_row, s.blk_col, Pa, dev)
+                     if route == "pcg" else None),
+            )
+            for a in s:
+                if isinstance(a, np.ndarray):
+                    _frozen(a)
         bundle.update(plan_knobs=knobs, schur=s, plan=plan)
         self.schur = s
-        self.plan = _solver_plan(plan, self.packed)
+        self.plan = _solver_plan(plan, ba_packed)
 
     def _plan_knobs(self) -> tuple:
         """What a cached plan depends on beyond the index digest: the torch
@@ -938,6 +1097,7 @@ class BlockSolver:
         return (
             dev.type, index, str(self.dtype), self.options.solver_precision,
             MAX_BAND, PCG_MIN_POSES, _pairprod.ITEM, _terms.TILE,
+            float(_pcg.CG_TOL), int(_pcg.CG_MAXITER),
         )
 
     # -- stage API used by the LM loop -----------------------------------------
@@ -949,12 +1109,20 @@ class BlockSolver:
             return contextlib.nullcontext()
         return timer.stage(name, self.device)
 
+    def chi(self, graph: GraphArrays) -> torch.Tensor:
+        """Total chi2 of ``graph`` over every edge set."""
+        return compute_chi(graph, self.packs, self.metas)
+
+    def linearise(self) -> SystemBlocks:
+        """The linearised system at the current state."""
+        return build_system(self.graph, self.packs, self.metas, self.plan)
+
     def head(self, timer=None):
         """Chi2 and the linearised system at the current state."""
         with self._stage(timer, prof.PROF_COMPUTE_ERROR):
-            chi = compute_chi(self.graph, self.packed, self.meta)
+            chi = self.chi(self.graph)
         with self._stage(timer, prof.PROF_BUILD_SYSTEM):
-            sys = build_system(self.graph, self.packed, self.meta, self.plan)
+            sys = self.linearise()
         return chi, sys
 
     def max_diagonal(self, sys: SystemBlocks) -> float:
@@ -964,17 +1132,24 @@ class BlockSolver:
         """One damped trial: ``(new_graph, Fhat, scale, success)`` in the
         order of the JAX package's trial stage, all on the device.  ``lam``:
         the host loop's Python float or the fused loop's 0-d device tensor
-        (the same value gives the same bits)."""
+        (the same value gives the same bits).  Without free landmarks the
+        pose-only solve takes the place of the Schur stages."""
         lam = as_lam(lam, sys.bp)
-        with self._stage(timer, prof.PROF_SCHUR_COMPLEMENT):
-            blocks, bsc, invHll = schur_reduce(sys, lam, self.plan)
-        with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):
-            xp, success = solve_reduced(blocks, bsc, self.plan)
+        if self.plan.route == "pose_only":
+            with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):
+                xp, success = solve_pose_only(sys, lam)
+            xl = None
+        else:
+            with self._stage(timer, prof.PROF_SCHUR_COMPLEMENT):
+                blocks, bsc, invHll = schur_reduce(sys, lam, self.plan)
+            with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):
+                xp, success = solve_reduced(blocks, bsc, self.plan, self.cg)
         with self._stage(timer, prof.PROF_UPDATE):
-            xl = schur_back_substitute(sys, invHll, xp, self.plan)
+            if self.plan.route != "pose_only":
+                xl = schur_back_substitute(sys, invHll, xp, self.plan)
             new_graph = apply_update(self.graph, xp, xl)
         with self._stage(timer, prof.PROF_COMPUTE_ERROR):
-            Fhat = compute_chi(new_graph, self.packed, self.meta)
+            Fhat = self.chi(new_graph)
         scale = compute_scale(xp, xl, sys, lam)
         return new_graph, Fhat, scale, success
 
@@ -982,7 +1157,73 @@ class BlockSolver:
         self.graph = new_graph
 
     def nedges(self) -> int:
-        return self.meta.nedges
+        return sum(m.nedges for m in self.metas)
+
+    # -- outliers ---------------------------------------------------------------
+
+    def update_edges(self) -> None:
+        """Mask the edges whose robustified chi2 is above their set's outlier
+        threshold for every later ``optimize()`` (the shapes stay: the
+        structure cache hits), and write the masks back to the object graph:
+        ``edge.inactivate()`` on edge objects, the ``active`` array of bulk
+        edges, and each set's ``get_outlier_count()``.  Packed order is the
+        caller's edge order (object edges, then bulk edges); a merged
+        mono+stereo set is split back by its sizes before the merge."""
+        newly_masks = self._update_edges_arrays()
+        if newly_masks is None or not self._edge_sets:
+            return
+        if len(newly_masks) == 1 and self._merged_sizes[0]:
+            sizes = self._merged_sizes[0]
+            if newly_masks[0] is None:
+                parts = [None] * len(sizes)
+            else:
+                parts = np.split(newly_masks[0], np.cumsum(sizes)[:-1])
+        else:
+            parts = newly_masks
+        for es, newly in zip(self._edge_sets, parts):
+            if newly is None or es.outlier_threshold <= 0.0:
+                continue
+            n_out = 0
+            for i, edge in enumerate(es.edges):
+                if newly[i] and edge.is_active:
+                    edge.inactivate()
+                    n_out += 1
+            b = es._bulk
+            if b is not None and b["meas"].shape[0]:
+                nb = newly[len(es.edges):]
+                n_out += int((b["active"] & nb).sum())
+                b["active"] = b["active"] & ~nb
+            es._outlier_count = n_out
+
+    def _update_edges_arrays(self) -> Optional[list]:
+        """Outlier thresholding on the packed arrays: each set with a
+        threshold above 0 has its robustified per-edge chi2 computed
+        (:func:`set_chi`: kernels B2 and B1 and rho on the card) and read
+        once, and keeps the edges at or below it.  Only deactivations the
+        threshold causes count: an edge masked before (at packing, where all
+        its vertices are fixed, or by an earlier call) is not reported.
+        Returns each set's newly masked edges in packed order (None where no
+        threshold applies), or None when no set has a threshold."""
+        thrs = self._spec_thresholds
+        if not any(np.any(np.asarray(t) > 0) for t in thrs):
+            return None
+        packs, newly_masks = list(self.packs), []
+        self._outlier_counts = []
+        for si, (data, meta, thr) in enumerate(zip(self.packs, self.metas, thrs)):
+            thr = np.asarray(thr, dtype=np.float64)
+            if not np.any(thr > 0):
+                self._outlier_counts.append(0)
+                newly_masks.append(None)
+                continue
+            chi = set_chi(self.graph, data, meta).cpu().numpy()
+            was = data.active.cpu().numpy() > 0
+            keep = ((thr <= 0) | (chi <= thr)) & was
+            newly = was & ~keep
+            packs[si] = data._replace(active=torch.as_tensor(keep, device=self.device).to(self.dtype))
+            self._outlier_counts.append(int(newly.sum()))
+            newly_masks.append(newly)
+        self.packs = tuple(packs)
+        return newly_masks
 
     # -- results ---------------------------------------------------------------
 

@@ -16,7 +16,13 @@ int32 -- and each step is a function of those tensors alone:
   LM update.
 
 On the card each step is captured once an ``optimize()`` into a CUDA graph
-and replayed.  Iteration 0 runs the two steps eagerly: that is the warm-up
+and replayed.  On the PCG route a step's CG runs in blocks of iterations
+whose number depends on the data (``solver/pcg.py``), so its capture is cut
+in three graphs: up to the first CG block, one CG block, and the rest.  A
+replay runs the first, then the CG block through the solver's
+``pcg.CgRunner`` (one host read of ``[done, iterations]`` a block, as the
+eager steps and the host loop run the blocks) until it reports done, then
+the rest.  Iteration 0 runs the two steps eagerly: that is the warm-up
 every capture needs (kernel modules loaded, shared-memory attributes set,
 the library's lazy state made) and it is iteration 0's own work, so nothing
 runs twice and the trace cannot move.  From iteration 1 on each step is a
@@ -61,6 +67,7 @@ import torch
 from .. import kernels
 from ..types import GraphArrays
 from . import block_solver as bs
+from . import pcg
 
 MAXQ = 10  # inner trials at most
 TAU = 1e-5  # initial lambda factor
@@ -125,9 +132,11 @@ class FusedLoop:
     leaves the final state in ``solver.graph``; ``stats`` then holds the
     trials, host reads, captures and replays, and the host-clock ms of the
     eager iteration, the captures and the replays (each ending in its
-    trial's flag read).  ``graphs`` holds the captured graphs by step name
-    (``keep_graph=True``: their nodes can be inspected) until the loop is
-    dropped."""
+    trial's flag read), and on the PCG route the CG iterations of every
+    trial and the reads of their blocks (counted in the host reads).
+    ``graphs`` holds the captured graphs of each step by name, in replay
+    order (``keep_graph=True``: their nodes can be inspected) until the loop
+    is dropped."""
 
     def __init__(self, solver, niterations: int):
         self.solver = solver
@@ -136,7 +145,7 @@ class FusedLoop:
         # the loop's own state buffers, written in place: a captured graph
         # reads and writes them at the addresses it was captured with
         solver.accept(GraphArrays(*(a.clone() for a in solver.graph)))
-        self.F = bs.compute_chi(solver.graph, solver.packed, solver.meta)
+        self.F = solver.chi(solver.graph)
         self.lam = torch.zeros((), dtype=dt, device=dev)
         self.nu = torch.full((), 2.0, dtype=dt, device=dev)
         self.q = torch.zeros((), dtype=i32, device=dev)
@@ -150,16 +159,25 @@ class FusedLoop:
         self._host_flags = (
             torch.empty(2, dtype=torch.bool, pin_memory=True) if self.card else None
         )
-        self.graphs: dict[str, torch.cuda.CUDAGraph] = {}
-        self._deltas: dict[str, dict[str, int]] = {}
+        # each step's captured graphs in replay order, with the launch counts
+        # each adds a replay and, for a CG block, the status its runner reads
+        self._parts: dict[str, list[tuple]] = {}
+        # the CG runner of this run: every PCG solve's iterations and reads
+        solver.cg = pcg.CgRunner()
         self.stats = dict(trials=0, reads=0, captures=0, replays=0,
-                          eager_ms=0.0, capture_ms=0.0, replay_ms=0.0)
+                          eager_ms=0.0, capture_ms=0.0, replay_ms=0.0,
+                          cg_iterations=solver.cg.iterations, cg_reads=0)
+
+    @property
+    def graphs(self) -> dict[str, list[torch.cuda.CUDAGraph]]:
+        """Each captured step's graphs by name, in replay order."""
+        return {name: [g for g, _, _ in parts] for name, parts in self._parts.items()}
 
     # -- the two steps ----------------------------------------------------------
 
     def linearise_and_trial(self) -> None:
         s = self.solver
-        self.sys = bs.build_system(s.graph, s.packed, s.meta, s.plan)
+        self.sys = s.linearise()
         lam = torch.where(self.it == 0, TAU * bs.max_diagonal(self.sys), self.lam)
         self._trial(lam, self._q0)
 
@@ -192,8 +210,10 @@ class FusedLoop:
                 more, done = self._step("retry", eager=it == 0)
             if done:
                 break
-        # one read for the trace and the device's iteration count
-        self.stats["reads"] += 1
+        # one read for the trace and the device's iteration count; the CG
+        # runner's reads (one a CG block) count as host reads too
+        self.stats["cg_reads"] = self.solver.cg.reads
+        self.stats["reads"] += 1 + self.solver.cg.reads
         *trace, n_done = torch.cat(
             [self.trace[:iterations], self.it.view(1).to(self.trace.dtype)]).tolist()
         if int(n_done) != iterations:
@@ -209,12 +229,16 @@ class FusedLoop:
             getattr(self, name)()
             key = "eager_ms"
         else:
-            graph = self.graphs.get(name)
-            if graph is None:
-                graph = self._capture(name)
+            parts = self._parts.get(name)
+            if parts is None:
+                parts = self._capture(name)
                 t0 = time.perf_counter()
-            graph.replay()
-            kernels.add_launch_counts(self._deltas[name])
+            for graph, delta, status in parts:
+                if status is None:
+                    graph.replay()
+                else:  # a CG block, until it reports done
+                    self.solver.cg(graph.replay, status)
+                kernels.add_launch_counts(delta)
             self.stats["replays"] += 1
             key = "replay_ms"
         flags = self._read()
@@ -230,40 +254,70 @@ class FusedLoop:
         torch.cuda.current_stream(self.solver.device).synchronize()
         return self._host_flags.tolist()
 
-    def _capture(self, name: str) -> torch.cuda.CUDAGraph:
+    def _capture(self, name: str) -> list[tuple]:
         """Capture one step on the device's capture stream into its pool.
-        Capture launches nothing, so the launch counts it moved are taken
-        back and kept as the step's delta for every replay.  A failure
-        raises (after the capture is ended, so the stream is usable)."""
+        On the PCG route the solver's CG runner is replaced for the capture
+        by one that ends the graph captured so far, captures one CG block
+        into a graph of its own and begins the next: the step becomes the
+        graphs ``(graph, launch counts, None)`` and ``(block, launch counts,
+        status)`` in replay order.  Capture launches nothing, so the launch
+        counts it moved are taken back and kept per graph for every replay.
+        A failure raises (after the capture is ended, so the stream is
+        usable)."""
         t0 = time.perf_counter()
         dev = self.solver.device
         pool, stream = _capture_pool(dev)
         if name == "linearise_and_trial":
             self.sys = None  # the eager iteration's system is not the graph's
-        before = kernels.launch_counts()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        parts: list[tuple] = []
+        graph = before = None  # the graph being captured, the counts at its start
+
+        def begin():
+            nonlocal graph, before
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             graph.capture_begin(pool=pool)
+            before = kernels.launch_counts()
+
+        def end(status=None):
+            nonlocal graph
+            graph.capture_end()
+            delta = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+            kernels.add_launch_counts({k: -d for k, d in delta.items()})
+            parts.append((graph, delta, status))
+            graph = None
+
+        def split(block, status):  # the CG runner while capturing
+            end()
+            begin()
+            block()
+            end(status)
+            begin()
+
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        runner, self.solver.cg = self.solver.cg, split
+        with torch.cuda.stream(stream):
+            begin()
             try:
                 getattr(self, name)()
+                end()
             except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass  # the capture was invalidated by the error raised below
+                if graph is not None:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture was invalidated by the error raised below
+                    kernels.add_launch_counts(
+                        {k: before[k] - n for k, n in kernels.launch_counts().items()})
                 # a capture that failed may stay registered with the allocator
                 # as recording to its pool, which then refuses every later
                 # capture: the next loop takes a new pool and stream
                 _CAPTURE.pop(_index(dev), None)
                 raise
             finally:
-                delta = {k: n - before[k] for k, n in kernels.launch_counts().items()}
-                kernels.add_launch_counts({k: -d for k, d in delta.items()})
-            graph.capture_end()
-        graph.instantiate()
-        self._deltas[name] = delta
-        self.graphs[name] = graph
+                self.solver.cg = runner
+        for g, _, _ in parts:
+            g.instantiate()
+        self._parts[name] = parts
         self.stats["captures"] += 1
         self.stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
-        return graph
+        return parts

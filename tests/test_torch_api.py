@@ -3,8 +3,9 @@ run on twin graphs, one made of the JAX package's classes and one of the
 port's, built from the same seeded numpy problem, each result held against
 the JAX package (traces at rtol 1e-9, written-back estimates at atol 1e-9)
 and, where the packed arrays are the same, against the port's array path
-bit for bit.  The cases the port does not run yet assert the
-``NotImplementedError`` naming their ROADMAP A7 item."""
+bit for bit.  The cases the port does not run yet (depth edges, a per-edge
+camera, landmark sets that do not merge) assert the ``NotImplementedError``
+naming their ROADMAP A7 item."""
 
 import time
 
@@ -160,9 +161,9 @@ def test_mixed_edge_sets():
     _held(_object_estimates(*graphs[tba][:2], P, L), _object_estimates(*graphs[jba][:2], P, L))
 
 
-def _outlier_graph():
+def _outlier_graph(m):
     problem = make_ba_problem(num_poses=8, num_landmarks=40, kind="mono", seed=19, noise_px=0.5)
-    poses, landmarks, edge_set = _object_graph(tba, problem)
+    poses, landmarks, edge_set = _object_graph(m, problem)
     for edge in edge_set.edges[::10]:
         edge.measurement = np.asarray(edge.measurement) + 500.0
     edge_set.set_outlier_threshold(100.0)
@@ -170,21 +171,56 @@ def _outlier_graph():
 
 
 def test_outlier_threshold_deactivates_edges():
-    """Outlier thresholds wait for A7: ``initialize()`` refuses them."""
-    poses, landmarks, edge_set = _outlier_graph()
-    opt = _create(tba)
-    for s in (poses, landmarks):
-        opt.add_vertex_set(s)
-    opt.add_edge_set(edge_set)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7: update_edges outliers"):
+    """Every tenth measurement moved by 500 px and a threshold of 100: after
+    ``optimize(3)`` the same edges are inactivated and counted as in the JAX
+    package, and a second ``initialize()`` + ``optimize(5)`` without them
+    gives its trace at rtol 1e-9."""
+    graphs = {m: _outlier_graph(m) for m in PKGS}
+    runs = {}
+    for m, (poses, landmarks, edge_set) in graphs.items():
+        opt = _create(m)
+        for s in (poses, landmarks):
+            opt.add_vertex_set(s)
+        opt.add_edge_set(edge_set)
         opt.initialize()
-    assert all(e.is_active for e in edge_set.edges)
+        opt.optimize(3)
+        runs[m] = opt
+    es, jes = graphs[tba][2], graphs[jba][2]
+    flagged = [i for i, e in enumerate(es.edges) if not e.is_active]
+    assert es.get_outlier_count() == jes.get_outlier_count() == len(flagged) > 0
+    assert flagged == [i for i, e in enumerate(jes.edges) if not e.is_active]
+    assert set(range(0, len(es.edges), 10)) <= set(flagged)
+    traces = {}
+    for m, opt in runs.items():
+        opt.initialize()
+        opt.optimize(5)
+        traces[m] = _trace(opt)
+    assert runs[tba].solver.nedges() == len(es.edges) - len(flagged)
+    assert np.isfinite(traces[tba][-1])
+    np.testing.assert_allclose(traces[tba], traces[jba], rtol=1e-9)
 
 
 def test_outlier_threshold_array_path():
+    """The array path's twin of the case above: the same counts as the JAX
+    package, the masked edges out of the packed ``active`` mask, and a second
+    ``optimize(5)`` (no new packing) at rtol 1e-9 of the JAX package's."""
+    from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
+
     problem = make_ba_problem(num_poses=8, num_landmarks=40, kind="mono", seed=19, noise_px=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7: update_edges outliers"):
-        optimizer_from_problem(problem, outlier_threshold=100.0, device="cpu")
+    meas = problem.meas.copy()
+    meas[::10] += 500.0
+    problem = problem._replace(meas=meas)
+    opt = optimizer_from_problem(problem, outlier_threshold=100.0, device="cpu")
+    jopt = jax_optimizer(problem, outlier_threshold=100.0)
+    for o in (opt, jopt):
+        o.optimize(3)
+    counts = opt.solver._outlier_counts
+    assert counts == jopt.solver._outlier_counts and sum(counts) > 0
+    assert int(opt.solver.packed.active.sum()) == problem.meas.shape[0] - sum(counts)
+    assert not bool(opt.solver.packed.active[::10].any())
+    for o in (opt, jopt):
+        o.optimize(5)
+    np.testing.assert_allclose(_trace(opt), _trace(jopt), rtol=1e-9)
 
 
 def test_per_edge_information_and_camera():
@@ -218,26 +254,37 @@ def test_per_edge_information_and_camera():
 
 
 def test_pose_only_plane_graph():
-    """A point-to-plane graph builds (the classes and the match exist) and
-    packing it names A7."""
-    rng = np.random.default_rng(29)
-    poses = tba.PoseVertexSet()
-    q0 = np.array([0.02, -0.01, 0.015, 1.0])
-    poses.add_vertex(tba.PoseVertex(0, tba.Se3(q0 / np.linalg.norm(q0), [0.1, -0.05, 0.2])))
-    plane_set = tba.PlaneEdgeSet()
-    plane_set.set_information(1.0)
-    for _ in range(60):
-        n = rng.normal(size=3)
-        n /= np.linalg.norm(n)
-        d = rng.normal()
-        edge = tba.PlaneEdge()
-        edge.set_vertex(poses.get_vertex(0), 0)
-        edge.set_measurement(tba.PointToPlaneMatch(n, d, n * d + np.cross(n, rng.normal(size=3))))
-        edge.set_information(1.0)
-        plane_set.add_edge(edge)
-    assert plane_set.nedges() == 60
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        _optimize(tba, (poses,), (plane_set,), 10)
+    """Point-to-plane ICP graph: one free pose, no landmarks; the trace at
+    rtol 1e-9 of the JAX package's and the pose recovered as there."""
+    def build(m):
+        rng = np.random.default_rng(29)
+        poses = m.PoseVertexSet()
+        q0 = np.array([0.02, -0.01, 0.015, 1.0])
+        poses.add_vertex(m.PoseVertex(0, m.Se3(q0 / np.linalg.norm(q0), [0.1, -0.05, 0.2]),
+                                      False))
+        plane_set = m.PlaneEdgeSet()
+        plane_set.set_information(1.0)
+        for _ in range(60):
+            n = rng.normal(size=3)
+            n /= np.linalg.norm(n)
+            d = rng.normal()
+            edge = m.PlaneEdge()
+            edge.set_vertex(poses.get_vertex(0), 0)
+            edge.set_measurement(
+                m.PointToPlaneMatch(n, d, n * d + np.cross(n, rng.normal(size=3))))
+            edge.set_information(1.0)
+            plane_set.add_edge(edge)
+        return poses, plane_set
+
+    graphs = _twins(build)
+    runs = {m: _optimize(m, g[:1], g[1:], 10) for m, g in graphs.items()}
+    (opt, trace), (_, jtrace) = runs[tba], runs[jba]
+    assert graphs[tba][1].nedges() == 60 and opt.solver.plan.route == "pose_only"
+    assert trace[-1] < 1e-12
+    np.testing.assert_allclose(trace, jtrace, rtol=1e-9, atol=1e-20)
+    est = graphs[tba][0].get_vertex(0).estimate
+    np.testing.assert_allclose(est.t, 0.0, atol=1e-6)
+    np.testing.assert_allclose(np.abs(est.q[3]), 1.0, atol=1e-6)
 
 
 def test_forgotten_per_edge_information_raises():
@@ -351,8 +398,8 @@ def test_bulk_vertices_mixed_with_objects():
 
 def test_all_fixed_edge_not_flagged_as_outlier():
     """An edge whose vertices are all fixed is masked at packing: it adds
-    nothing and is not counted, as in the JAX package.  The outlier
-    threshold of the original case waits for A7."""
+    nothing and is not counted, and outlier thresholding neither
+    inactivates nor counts it, as in the JAX package."""
     p = _problem(8, 40, 21)
     P = p.pose_q.shape[0]
 
@@ -377,10 +424,13 @@ def test_all_fixed_edge_not_flagged_as_outlier():
     assert opt.solver.packed.active[E].item() == 0.0
     assert es.edges[E].is_active and es.get_outlier_count() == 0
 
-    ps, ls, es = build(tba)
-    es.set_outlier_threshold(1e3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7: update_edges outliers"):
-        _optimize(tba, (ps, ls), (es,), 3)
+    # under a threshold the gross all-fixed edge is neither inactivated nor
+    # counted, in either package
+    for m in PKGS:
+        ps, ls, es = build(m)
+        es.set_outlier_threshold(1e3)
+        _optimize(m, (ps, ls), (es,), 3)
+        assert es.edges[E].is_active and es.get_outlier_count() == 0
 
 
 def test_bulk_info_batches_take_pack_time_global():
@@ -528,15 +578,13 @@ def _depth_graph():
 
 
 def _line_graph():
-    poses = tba.PoseVertexSet()
-    poses.add_vertex(tba.PoseVertex(0, tba.Se3([0, 0, 0, 1.0], [0, 0, 0])))
+    """A line set beside a mono set and a stereo set under another robust
+    kernel (landmark sets that do not merge)."""
+    (ps, ls), (mono, stereo) = _unmerged_graph()
     lines = tba.LineEdgeSet()
     lines.set_information(1.0)
-    e = tba.LineEdge()
-    e.set_vertex(poses.get_vertex(0), 0)
-    e.set_measurement(tba.PointToLineMatch([0, 0, 0], [1.0, 0, 0], [0.5, 0.1, 0]))
-    lines.add_edge(e)
-    return (poses,), (lines,)
+    lines.add_edges_bulk(np.tile([0, 0, 0, 1.0, 0, 0, 1.0, 0.5, 0.1, 0], (3, 1)), np.zeros(3))
+    return (ps, ls), (mono, stereo, lines)
 
 
 def _unmerged_graph():
@@ -548,22 +596,27 @@ def _unmerged_graph():
 
 
 def _pose_only_mono_graph():
-    p = _problem(6, 30, 1)
-    ps, _, es = _bulk_graph(tba, p)
-    return (ps,), (es,)
+    """A pose-only plane set beside a depth set."""
+    (ps, ls), (depth,) = _depth_graph()
+    planes = tba.PlaneEdgeSet()
+    planes.set_information(1.0)
+    planes.add_edges_bulk(np.tile([0, 0, 1.0, 1.0, 0, 0, 1.0], (3, 1)), np.zeros(3))
+    return (ps, ls), (planes, depth)
 
 
 @pytest.mark.parametrize(
     "make,item",
     [
-        (_depth_graph, "A7: the depth and ICP models"),
-        (_line_graph, "A7: the depth and ICP models"),
+        (_depth_graph, "A7: the depth model"),
+        (_line_graph, "A7: multiple edge sets"),
         (_unmerged_graph, "A7: multiple edge sets"),
-        (_pose_only_mono_graph, "A7: pose-only solve"),
+        (_pose_only_mono_graph, "A7: the depth model"),
     ],
     ids=["depth", "line", "unmerged", "pose-only"],
 )
 def test_object_graphs_outside_the_slice_raise(make, item):
+    """What the port does not run yet raises by name, also beside an ICP
+    set: depth edges, and landmark sets that do not merge."""
     vertex_sets, edge_sets = make()
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         _optimize(tba, vertex_sets, edge_sets, 1)

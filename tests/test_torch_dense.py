@@ -3,7 +3,7 @@
 than ``PCG_MIN_POSES`` poses) against the JAX package's dense branch on the
 CPU and the numpy ``DenseLM`` oracle, and the route each input takes.
 
-The JAX package's CPU path always solves densely, so under ``"exact"`` the
+The JAX package's CPU path solves these graphs densely, so under ``"exact"`` the
 two run the same algorithm (an f64 Cholesky of the Jacobi-scaled matrix and
 two triangular solves): a step is held at 1e-12 of its largest entry and a
 10-iteration trace at rtol 1e-10.  Under ``"mixed"`` both factor in f32 and
@@ -208,8 +208,8 @@ def test_the_route_table():
     """Which route each input takes, decided once a structure: the band
     (B7/B8) only where the factor is f32 and the band fits; the dense route
     under ``"exact"`` at f64 at any band and any size, and for wider bands
-    below 1024 poses; a wider band on 1024 poses raises naming ROADMAP A6
-    (PCG), on both sides of the limit."""
+    below 1024 poses; a wider band on 1024 poses takes PCG (ROADMAP A6),
+    on both sides of the limit."""
     banded = make_ba_problem(num_poses=10, num_landmarks=50, seed=5)
     cases = [
         (banded, "float64", "mixed", "band", torch.float32),
@@ -225,15 +225,41 @@ def test_the_route_table():
         s = optimizer_from_problem(problem, options=opts, device="cpu").solver
         s.build_structure()
         assert (s.plan.route, s.plan.target) == (route, target), (dtype, precision)
-    # 1023 free poses (one fixed): dense; 1024: PCG, not ported
-    for num_poses, raises in ((1024, False), (1025, True)):
+        assert s.plan.pcg is None
+    # 1023 free poses (one fixed): dense; 1024: PCG, with its plan
+    for num_poses, route in ((1024, "dense"), (1025, "pcg")):
         problem = make_loop_closure_problem(num_poses=num_poses, num_landmarks=3000,
                                             long_range_fraction=0.3, seed=2)
         s = optimizer_from_problem(problem, device="cpu").solver
         assert s.Pa == num_poses - 1
-        if raises:
-            with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-                s.build_structure()
-        else:
-            s.build_structure()
-            assert s.plan.route == "dense" and s.plan.band.bw + 1 > tbs.MAX_BAND
+        s.build_structure()
+        assert s.plan.route == route and s.plan.band.bw + 1 > tbs.MAX_BAND
+        assert (s.plan.pcg is not None) == (route == "pcg")
+
+
+@pytest.mark.parametrize("height", [48, 49])
+@pytest.mark.parametrize("Pa", [1023, 1024])
+@pytest.mark.parametrize("target", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_the_band_rule_on_both_sides_of_each_boundary(height, Pa, target):
+    """``reduced_route`` at band height 48 and 49, on 1023 and 1024 poses,
+    for an f32 factor (f64 ``"mixed"``, f32) and an f64 one (``"exact"``):
+    the band where it fits and the factor is f32, dense where it fits and
+    the factor is f64 or below 1024 poses, else PCG."""
+    fits = height <= tbs.MAX_BAND
+    want = ("band" if target == torch.float32 else "dense") if fits else (
+        "dense" if Pa < tbs.PCG_MIN_POSES else "pcg")
+    assert tbs.reduced_route(height - 1, Pa, target) == want
+
+
+def test_a_graph_past_the_jax_vmem_limit_keeps_the_band():
+    """1400 free poses at band height 16: past the JAX package's VMEM test
+    (``(Pa + SB) SB 512 B`` over 11 MiB, which sends it to PCG there), the
+    port keeps the band, whose kernels stream it."""
+    problem = make_ba_problem(num_poses=1401, num_landmarks=3000, mean_obs_per_landmark=4.0,
+                              seed=5)
+    s = optimizer_from_problem(problem, device="cpu").solver
+    s.build_structure()
+    Pa, sb = s.Pa, s.plan.band.sb
+    assert Pa >= tbs.PCG_MIN_POSES and sb == 16
+    assert (Pa + sb) * sb * 512 > 11 * 2**20
+    assert s.plan.route == "band" and s.plan.pcg is None

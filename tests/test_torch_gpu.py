@@ -339,15 +339,20 @@ def test_lminv_kernels_match_twins_bit_for_bit(lam):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):  # a trace that comes back empty is taken again
+    # the profiler's trace has come back short (2 of 3 events): a short trace
+    # is taken again, up to three times, and each attempt's reading printed;
+    # a device kernel of another name, or more than three, fails at once
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 lminv.damped_inverse(Hv, bv, lam)
             torch.cuda.synchronize()
         names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if names:
+        print(f"B4 profiler trace, attempt {attempt + 1}: {names}")
+        assert len(names) <= 3 and all("damped_inverse_kernel" in n for n in names), names
+        if len(names) == 3:
             break
-    assert len(names) == 3 and all("damped_inverse_kernel" in n for n in names), names
+    assert len(names) == 3, names
 
 
 @pytest.mark.gpu
@@ -944,3 +949,110 @@ def test_object_api_on_the_card_equals_the_array_path(kind):
     opt.optimize(8)
     assert opt.solver.symbolic_ms == 0.0 and bs.structure_cache_info()["hits"] == hits + 1
     assert [s.chi2 for s in opt.batch_statistics().get()] == trace
+
+
+# -- PCG, the pose-only solve and outliers ---------------------------------------
+
+
+@pytest.mark.gpu
+def test_pcg_route_in_the_fused_loop_on_the_card(monkeypatch):
+    """The PCG route on the card (``PCG_MIN_POSES`` 0, the 160-pose
+    loop-closure graph): each step captured as three graphs (up to the first
+    CG block, one block, the rest), the block replayed until it reports
+    done; trace, final state and CG iterations bit for bit the card's host
+    loop, the trace at rtol 1e-9 of the CPU's; one host read a trial, one a
+    CG block and one a run; no band kernel launched."""
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    _cuda()
+    monkeypatch.setattr(bs, "PCG_MIN_POSES", 0)
+    problem = make_loop_closure_problem(num_poses=160, num_landmarks=500,
+                                        mean_obs_per_landmark=4.0, long_range_fraction=0.3,
+                                        seed=21)
+    (f, cf), (h, ch) = _fused_and_host(problem, 6)
+    assert f.solver.plan.route == "pcg" and cf["band_factor"] == cf["band_solve"] == 0
+    tf = [s.chi2 for s in f.batch_statistics().get()]
+    assert tf == [s.chi2 for s in h.batch_statistics().get()] and len(tf) == 6
+    assert all(torch.equal(a, b) for a, b in zip(f.solver.graph, h.solver.graph))
+    st = f.loop_stats
+    assert f.cg_iterations == h.cg_iterations and len(f.cg_iterations) == st["trials"]
+    assert st["reads"] == st["trials"] + 1 + st["cg_reads"] and st["replays"] >= 5
+    cpu = optimizer_from_problem(problem, device="cpu")
+    cpu.optimize(6)
+    np.testing.assert_allclose(tf, [s.chi2 for s in cpu.batch_statistics().get()], rtol=1e-9)
+    for name in ("damped_inverse", "hpl_mv_segment_sum", "schur_pair_products",
+                 "hpl_mtv_segment_sum", "sym3x3_mv"):
+        assert cf[name] == ch[name] == st["trials"], name
+
+
+@pytest.mark.gpu
+def test_fused_pcg_step_is_three_graphs(monkeypatch):
+    """A PCG step's capture: the graph before the CG, the CG block (with the
+    status its runner reads) and the rest, in that order."""
+    from cuda_bundle_adjustment_tpu_torch.solver.fused import FusedLoop
+
+    _cuda()
+    monkeypatch.setattr(bs, "PCG_MIN_POSES", 0)
+    problem = make_loop_closure_problem(num_poses=160, num_landmarks=500,
+                                        mean_obs_per_landmark=4.0, long_range_fraction=0.3,
+                                        seed=21)
+    opt = optimizer_from_problem(problem)
+    opt.solver.build_structure()
+    loop = FusedLoop(opt.solver, 4)
+    loop.run()
+    assert loop.graphs and all(len(g) == 3 for g in loop.graphs.values())
+    for parts in loop._parts.values():
+        assert [status is not None for _, _, status in parts] == [False, True, False]
+
+
+@pytest.mark.gpu
+def test_pose_only_solve_on_the_card():
+    """Motion-only BA (a mono graph with every landmark fixed) on the card:
+    B1, B2 and B3 (its landmark side empty) launch, B4-B10 do not; the
+    fused loop bit for bit the host loop, the trace at rtol 1e-9 of the
+    CPU's."""
+    _cuda()
+    p = make_ba_problem(num_poses=16, num_landmarks=200, seed=13)
+    p = p._replace(num_active_landmarks=0)
+    (f, cf), (h, ch) = _fused_and_host(p, 8)
+    assert f.solver.plan.route == "pose_only"
+    tf = [s.chi2 for s in f.batch_statistics().get()]
+    assert tf == [s.chi2 for s in h.batch_statistics().get()] and tf[-1] < tf[0]
+    assert all(torch.equal(a, b) for a, b in zip(f.solver.graph, h.solver.graph))
+    assert cf["linearise"] == len(tf) and cf["chi_edges"] > 0 and cf["gather_rows"] > 0
+    for name in ("damped_inverse", "hpl_mv_segment_sum", "schur_pair_products", "band_factor",
+                 "band_solve", "hpl_mtv_segment_sum", "sym3x3_mv"):
+        assert cf[name] == ch[name] == 0, name
+    cpu = optimizer_from_problem(p, device="cpu")
+    cpu.optimize(8)
+    np.testing.assert_allclose(tf, [s.chi2 for s in cpu.batch_statistics().get()], rtol=1e-9)
+
+
+@pytest.mark.gpu
+def test_outliers_on_the_card_mask_as_the_cpu_and_capture_anew():
+    """Outlier thresholds on the card: the mask and counts the CPU's; a
+    second ``optimize()`` reads the new mask, hits the structure cache and
+    captures anew; its trace at rtol 1e-9 of the CPU's."""
+    _cuda()
+    p = make_ba_problem(num_poses=16, num_landmarks=400, seed=13, noise_px=0.5)
+    meas = p.meas.copy()
+    meas[::20] += 30.0
+    p = p._replace(meas=meas)
+    robust = dict(rk=3, delta=float(np.sqrt(5.991)), outlier_threshold=5.991)
+    runs, masks = {}, {}
+    for d in ("cuda", "cpu"):  # one device after the other: the cache keys on it
+        o = runs[d] = optimizer_from_problem(p, device=d, **robust)
+        o.optimize(5)
+        active, first = o.solver.packed.active.clone(), o.loop_stats
+        masks[d] = (active.cpu(), list(o.solver._outlier_counts))
+        hits = bs.structure_cache_info()["hits"]
+        o.optimize(10)
+        assert bs.structure_cache_info()["hits"] == hits + 1
+        assert not bool((o.solver.packed.active > 0)[active == 0].any())  # masked stay out
+        # a new loop, which captured its own graphs
+        assert d == "cpu" or o.loop_stats is not first and o.loop_stats["captures"] >= 1
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert masks["cuda"][1] == masks["cpu"][1] and sum(masks["cuda"][1]) > 0
+    assert torch.equal(masks["cuda"][0], masks["cpu"][0])
+    np.testing.assert_allclose([s.chi2 for s in card.batch_statistics().get()],
+                               [s.chi2 for s in cpu.batch_statistics().get()], rtol=1e-9)

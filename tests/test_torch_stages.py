@@ -225,9 +225,9 @@ def test_merge_ba_specs_matches_jax():
         got = tbs._merge_ba_specs(specs)
         assert len(got) == len(want)
         for g, w in zip(got, want):
-            # the port writes nothing back to the unmerged sets, so it keeps
-            # no un-merge map
-            assert g.keys() == w.keys() - {"merged_sizes"}
+            # the un-merge map (merged_sizes) included: update_edges splits
+            # a merged set's mask back by it
+            assert g.keys() == w.keys()
             for k in g:
                 np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]), err_msg=k)
 
@@ -408,13 +408,22 @@ def _per_edge_camera_stereo():
     _cpu(p._replace(cam=cam))
 
 
+def _outliers_per_edge_camera():
+    """Outlier thresholds run (ROADMAP A7's update_edges, done); beside a
+    per-edge camera they are still refused, naming A7."""
+    p = _mono()
+    cam = np.tile(np.asarray(p.cam, dtype=np.float64).reshape(1, 5), (p.meas.shape[0], 1))
+    cam[1::2, 0] *= 1.01
+    _cpu(p._replace(cam=cam), outlier_threshold=5.0)
+
+
 @pytest.mark.parametrize(
     "make,item",
     [
         (_per_edge_camera_stereo, "A7"),
         (lambda: _cpu(_mono(kind="depth")), "A7"),
         (_unmerged_mixed, "A7"),
-        (lambda: _cpu(_mono(), outlier_threshold=5.0), "A7"),
+        (_outliers_per_edge_camera, "A7"),
         (_object_graph_per_edge_camera, "A7"),
     ],
     ids=["stereo", "depth", "mixed", "outliers", "object-api"],
@@ -434,7 +443,8 @@ def test_fused_loop_and_wide_band_raise():
     runs.  A band wider than the kernels take solves on the dense route
     below 1024 poses (ROADMAP A6's first part, done), through either loop,
     as ``tests/test_torch_dense.py`` holds against the JAX package; on 1024
-    free poses it still raises, naming A6 (PCG), through either loop."""
+    free poses it takes the PCG route (A6's rest, done) through either loop,
+    with the same trace and the same CG iterations."""
     opt = _cpu(_mono())
     assert opt.use_fused_loop
     opt.optimize(1)
@@ -446,6 +456,7 @@ def test_fused_loop_and_wide_band_raise():
     big = tsyn.make_loop_closure_problem(
         num_poses=1025, num_landmarks=3000, long_range_fraction=0.3, seed=2
     )
+    runs = []
     for fused_loop in (True, False):
         opt = _cpu(p)
         opt.use_fused_loop = fused_loop
@@ -454,5 +465,8 @@ def test_fused_loop_and_wide_band_raise():
         assert opt.solver.plan.band.bw + 1 > tbs.MAX_BAND
         opt = _cpu(big)
         opt.use_fused_loop = fused_loop
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            opt.optimize(1)
+        opt.optimize(1)
+        assert opt.solver.plan.route == "pcg" and opt.solver.Pa == 1024
+        assert opt.solver.plan.band.bw + 1 > tbs.MAX_BAND and opt.cg_iterations
+        runs.append((opt.batch_statistics().get()[0].chi2, opt.cg_iterations))
+    assert runs[0] == runs[1]
