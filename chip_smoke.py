@@ -389,6 +389,71 @@ def reverse_pose_blocks(problem, block: int = 16):
     return problem._replace(pose_q=pose_q, pose_t=pose_t, pose_idx=pose_idx), rename
 
 
+# ORB-SLAM2's chi2 thresholds (Optimizer.cc: 95% of chi2 with 2 and 3
+# degrees of freedom): the outlier thresholds of its mono and stereo edges,
+# and the squares of their Huber deltas (thHuberMono, thHuberStereo)
+ORBSLAM_CHI2 = {"mono": 5.991, "stereo": 7.815}
+# the second camera of kitti07_two_cams: fx, fy x 1.05, cx + 12, cy - 8
+SECOND_CAMERA = ((1.05, 1.05, 1.0, 1.0, 1.0), (0.0, 0.0, 12.0, -8.0, 0.0))
+
+
+def mono_depth_problem(problem, seed: int = 0):
+    """A depth problem split as ``make_mixed_ba_problem`` splits a stereo one
+    (RGB-D SLAM: a feature with a depth reading is a depth edge, the others
+    mono): each edge is a depth edge where ``rng(seed + 1).random(E) < 0.5``,
+    the others mono with ``meas[:, :2]``.  Returns a ``MixedBAProblem``."""
+    import numpy as np
+
+    from cuda_bundle_adjustment_tpu_torch.io.synthetic import MixedBAProblem
+
+    is_depth = np.random.default_rng(seed + 1).random(problem.meas.shape[0]) < 0.5
+
+    def part(rows, kind, cols):
+        return dict(kind=kind, meas=problem.meas[rows][:, :cols], pose_idx=problem.pose_idx[rows],
+                    lm_idx=problem.lm_idx[rows], omega=problem.omega[rows], cam=problem.cam)
+
+    return MixedBAProblem(
+        pose_q=problem.pose_q, pose_t=problem.pose_t, num_active_poses=problem.num_active_poses,
+        landmarks=problem.landmarks, num_active_landmarks=problem.num_active_landmarks,
+        cam=problem.cam, specs=(part(~is_depth, "mono", 2), part(is_depth, "depth", 3)))
+
+
+def orbslam_problem(mixed):
+    """A mono + stereo ``MixedBAProblem`` under ORB-SLAM2's settings: each
+    set its Huber kernel (delta the square root of its chi2 threshold) and
+    its outlier threshold, so that the two sets do not merge."""
+    specs = tuple(dict(s, rk=3, delta=ORBSLAM_CHI2[s["kind"]] ** 0.5,
+                       outlier_threshold=ORBSLAM_CHI2[s["kind"]]) for s in mixed.specs)
+    return mixed._replace(specs=specs)
+
+
+def two_camera_problem(problem):
+    """A mono ``BAProblem`` whose edges of odd poses see through a second
+    camera (``SECOND_CAMERA``): ``cam`` becomes ``[E, 5]`` and those edges'
+    measurements are moved by the same affine map, ``u' = 1.05 (u - cx) +
+    cx'``, so the graph's solution stays the same."""
+    import numpy as np
+
+    cam = np.asarray(problem.cam, dtype=np.float64)
+    scale, shift = (np.asarray(a) for a in SECOND_CAMERA)
+    cam2 = cam * scale + shift
+    odd = (np.asarray(problem.pose_idx) % 2 == 1)[:, None]
+    meas = problem.meas.copy()
+    meas[:, :2] = np.where(odd, scale[:2] * (meas[:, :2] - cam[2:4]) + cam2[2:4], meas[:, :2])
+    return problem._replace(meas=meas, cam=np.where(odd, cam2, cam))
+
+
+def strided_camera(solver) -> None:
+    """The landmark pack's one camera ``[5, 1]`` repacked as ``[5, E]``, each
+    column the same camera, so that B1 and B3 run their per-edge-camera
+    instantiation on the same values (packing collapses a uniform camera to
+    one column, as the JAX package's does)."""
+    packs = list(solver.packs)
+    d = packs[solver.ba]
+    packs[solver.ba] = d._replace(cam=d.cam.expand(5, d.pose_idx.shape[0]).contiguous())
+    solver.packs = tuple(packs)
+
+
 def borderline_population(rk: int, seeds, device="cpu") -> list[dict]:
     """The reduced systems ``Hsc xp = bsc`` that the port meets in
     ``optimize(10)`` on the 16-pose mono graph (120 landmarks, 4 observations
@@ -637,17 +702,19 @@ def structure_phase(problem, label: str) -> dict:
     return dict(native_ms=times[True], numpy_ms=times[False], blocks_reordered=differ)
 
 
-def first_linearisation(problem, dev, options=None, **robust):
+def first_linearisation(problem, dev, options=None, prepare=None, **robust):
     """The solver at the problem's first linearisation (``options``: the
-    solver's; ``robust``: ``rk`` and ``delta``), its system and the LM's
-    first damping (TAU x max diagonal) as the loops hand it to the stages: a
-    0-d tensor of the working type on the device, which B4 reads through its
-    pointer."""
+    solver's; ``robust``: ``rk`` and ``delta``; ``prepare``: called on the
+    solver once packed), its system and the LM's first damping (TAU x max
+    diagonal) as the loops hand it to the stages: a 0-d tensor of the
+    working type on the device, which B4 reads through its pointer."""
     from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
     from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
     from cuda_bundle_adjustment_tpu_torch.solver.fused import TAU
 
     solver = optimizer_from_problem(problem, options=options, device=dev, **robust).solver
+    if prepare is not None:
+        prepare(solver)
     solver.build_structure()
     _, sys_ = solver.head()
     return solver, sys_, TAU * bs.max_diagonal(sys_)
@@ -671,64 +738,66 @@ def _held(name, k_out, p_out, what, tol=F64_TOL) -> float:
     return max(errs)
 
 
-def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
-    """B1, B3, B4, B5, B9 and B10 against their twins at one linearisation,
-    in the solver's working type (f64, or f32 in f32 mode: the twins'
-    tolerances then ``F32_ROUND``, the bit-for-bit checks unchanged).
-    ``reported``: the kernels whose times a table reports from this input
-    (all of them by default); the others are held alike and timed briefly."""
+def _held_timed(res, name, kernel, plain, what, ins, flops, tol, reported, library=None):
+    """``res[name]``: a kernel held against its twin within ``tol`` x max|value|
+    (0: bit for bit), timed (fully where ``reported`` is None or names it)
+    and bounded; the kernels compute in f64 in either working type, so their
+    operations are bounded by the f64 rate, their bytes by the operands'
+    type."""
+    k_out, p_out = kernel(), plain()
+    if not isinstance(k_out, tuple):
+        k_out, p_out = (k_out,), (p_out,)
+    res[name] = dict(
+        max_abs_err=_held(name, k_out, p_out, what, tol),
+        **timed(kernel, plain, library, full=reported is None or name in reported),
+        **bound((*ins, *k_out), flops, "f64"),
+    )
+
+
+def terms_held(solver, label, reported=None) -> dict:
+    """B1 and B3 against their twins at the solver's state, the model, the
+    camera and the sets' robust kernels as the solver packed them: chi bit
+    for bit; B3 with the weight each set's rho' rescales, as
+    ``build_system`` hands it over, within 1e-12 (f32: one rounding), Hpl
+    bit for bit, Hll|bl bit for bit for every landmark the plan sums as one
+    chunk, exact zeros on rows of fixed vertices, a second launch bit for
+    bit, and every row bit for bit the twin's stacks summed in the plan's
+    order.  Where the pack's camera is a camera an edge whose columns are
+    all one camera, the one-camera instantiation runs beside it on the same
+    inputs: its outputs bit for bit the same, its device times printed
+    beside.  ``reported`` as for :func:`path_kernel_checks`."""
     import torch
 
-    from cuda_bundle_adjustment_tpu_torch.kernels import lminv, schurvec, terms
+    from cuda_bundle_adjustment_tpu_torch.kernels import terms
     from cuda_bundle_adjustment_tpu_torch.models.ba import edge_state
-    from cuda_bundle_adjustment_tpu_torch.ops.robust import robust_derivative
     from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
 
-    plan, data, graph, meta = solver.plan, solver.packed, solver.graph, solver.meta
+    plan, data, meta = solver.plan, solver.packed, solver.meta
     mdim, E = data.meas.shape
-    La = solver.La
-    dtype = sys_.bp.dtype
-    near = F64_TOL if dtype == torch.float64 else F32_ROUND
-    m3 = 0 if data.mask3 is None else int(data.mask3.sum().item())
-    print(f"{label}: mdim={mdim}, {m3} stereo rows of {E} (mask3), robust kernel {meta.rk}, "
-          f"{dtype}")
+    qt, xw = edge_state(solver.graph, data)
+    near = F64_TOL if qt.dtype == torch.float64 else F32_ROUND
     res = {}
-    qt, xw = edge_state(graph, data)
-
-    # the kernels compute in f64 in either working type: their operations
-    # are bounded by the f64 rate, their bytes by the operands' type
-    def held_timed(name, kernel, plain, what, ins, flops, tol=None, library=None):
-        tol = near if tol is None else tol
-        k_out, p_out = kernel(), plain()
-        if not isinstance(k_out, tuple):
-            k_out, p_out = (k_out,), (p_out,)
-        res[name] = dict(
-            max_abs_err=_held(name, k_out, p_out, what, tol),
-            **timed(kernel, plain, library, full=reported is None or name in reported),
-            **bound((*ins, *k_out), flops, "f64"),
-        )
-
-    edge_in = (qt, xw, data.meas, data.omega, data.cam, data.active, data.mask3)
-    held_timed("chi_edges", lambda: terms.chi_edges(qt, xw, data),
-               lambda: terms.chi_edges_plain(qt, xw, data), ["chi"],
-               edge_in, CHI_FLOPS[mdim] * E)
+    edge_in = (qt, xw, data.meas, data.omega, data.cam, data.active, data.mask3, data.code)
+    _held_timed(res, "chi_edges", lambda: terms.chi_edges(qt, xw, data),
+                lambda: terms.chi_edges_plain(qt, xw, data), ["chi"], edge_in,
+                CHI_FLOPS[mdim] * E, 0.0, reported)
     segs = (plan.pose_seg, plan.lm_seg)
     lin = data
-    if meta.rk:  # B3 takes the weight rescaled by rho'(x), as build_system hands it over
+    if bs.is_robust(meta):  # B3 takes the weight rescaled by rho'(x), as build_system hands it
         x = terms.chi_edges(qt, xw, data)
-        lin = data._replace(omega=data.omega * robust_derivative(meta.rk, meta.delta, x))
+        lin = data._replace(omega=bs.robust_weight(data, meta, x))
         share = (lin.omega != data.omega).double().mean().item()
         check(share > 0, f"{label}: the robust kernel rescales no edge's weight")
         print(f"{label}: rho' rescales the weight of {100 * share:.2f}% of the edges")
     lin_plan = plan.lin_plan
 
-    def linearise():
-        return terms.linearise(qt, xw, lin, *segs, lin_plan)
+    def linearise(d=lin):
+        return terms.linearise(qt, xw, d, *segs, lin_plan)
 
-    held_timed("linearise", linearise, lambda: terms.linearise_plain(qt, xw, lin, *segs),
-               ["Hpp|bp", "Hll|bl", "Hpl"],
-               (*edge_in, data.both_free, *lin_plan.pose, *lin_plan.lm),
-               LINEARISE_FLOPS[mdim] * E)
+    _held_timed(res, "linearise", linearise, lambda: terms.linearise_plain(qt, xw, lin, *segs),
+                ["Hpp|bp", "Hll|bl", "Hpl"],
+                (*edge_in, lin.omega, data.both_free, *lin_plan.pose, *lin_plan.lm),
+                LINEARISE_FLOPS[mdim] * E, near, reported)
     # B3 beyond 1e-12: Hpl bit for bit; Hll|bl bit for bit for every landmark
     # the plan sums as one chunk (the others associate their chunks' sums
     # differently from the twin's sequential sum); exact zeros on rows of
@@ -751,13 +820,58 @@ def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
     passes = {}
     if reported is None:
         passes = {k: round(v, 5) for k, v in device_ms_by_kernel(linearise).items()}
-    print(f"{label} B3 linearise: {int(lone.sum())} of {lone.numel()} landmarks are one chunk "
-          f"(bit for bit the twin's; every row bit for bit the sum in the plan's order), "
-          f"{lin_plan.pose.chunks.shape[0]} pose chunks; device ms by pass: {json.dumps(passes)}")
+    codes = None if data.code is None else torch.bincount(data.code.long(), minlength=3).tolist()
+    print(f"{label} B1 chi_edges bit for bit its twin; B3 linearise ({data.kind} model, kind "
+          f"codes mono/stereo/depth {codes}, camera {tuple(data.cam.shape)}): {int(lone.sum())} "
+          f"of {lone.numel()} landmarks are one chunk (bit for bit the twin's; every row bit for "
+          f"bit the sum in the plan's order), {lin_plan.pose.chunks.shape[0]} pose chunks; device "
+          f"ms by pass: {json.dumps(passes)}")
+    if data.cam.shape[1] > 1 and bool((data.cam == data.cam[:, :1]).all()):
+        one = data._replace(cam=data.cam[:, :1].contiguous())
+        lin_one = lin._replace(cam=one.cam)
+        check(torch.equal(terms.chi_edges(qt, xw, one), terms.chi_edges(qt, xw, data))
+              and all(torch.equal(a, b) for a, b in zip(linearise(lin_one), k_out)),
+              f"{label}: the one-camera instantiation gives other bits")
+        res["one_camera"] = dict(chi_device_ms=device_ms(lambda: terms.chi_edges(qt, xw, one)),
+                                 linearise_device_ms=device_ms(lambda: linearise(lin_one)))
+        print(f"{label}: the same camera as one column, bit for bit; device ms of B1, B3 with "
+              f"the camera an edge {res['chi_edges']['device_ms']:.5f}, "
+              f"{res['linearise']['device_ms']:.5f}; with one camera "
+              f"{res['one_camera']['chi_device_ms']:.5f}, "
+              f"{res['one_camera']['linearise_device_ms']:.5f} [{nvidia_smi_line()}]")
+    return res
+
+
+def path_kernel_checks(solver, sys_, lam, label, reported=None) -> dict:
+    """B1, B3 (:func:`terms_held`), B4, B5, B9 and B10 against their twins
+    at one linearisation, in the solver's working type (f64, or f32 in f32
+    mode: the twins' tolerances then ``F32_ROUND``, the bit-for-bit checks
+    unchanged).  ``reported``: the kernels whose times a table reports from
+    this input (all of them by default); the others are held alike and
+    timed briefly."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.kernels import lminv, schurvec
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    plan, data = solver.plan, solver.packed
+    mdim, E = data.meas.shape
+    La = solver.La
+    dtype = sys_.bp.dtype
+    near = F64_TOL if dtype == torch.float64 else F32_ROUND
+    m3 = 0 if data.mask3 is None else int(data.mask3.sum().item())
+    print(f"{label}: {data.kind} model, mdim={mdim}, {m3} stereo rows of {E} (mask3), sets "
+          f"{json.dumps(set_counts(solver))}, camera {tuple(data.cam.shape)}, {dtype}")
+    res = terms_held(solver, label, reported)
+    lin_plan = plan.lin_plan
+
+    def held_timed(name, kernel, plain, what, ins, flops, tol=None, library=None):
+        _held_timed(res, name, kernel, plain, what, ins, flops, near if tol is None else tol,
+                    reported, library)
 
     # B4: bit for bit; one library yardstick is linalg.inv plus a batched
     # product on the damped [La, 3, 3] blocks
-    diag9 = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=dtype, device=qt.device)
+    diag9 = torch.tensor([1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=dtype, device=sys_.bp.device)
     damped = (sys_.Hll + lam * diag9).view(La, 3, 3)
     bl3 = sys_.bl.view(La, 3, 1)
 
@@ -1374,8 +1488,19 @@ def expected_launches(counts: dict, iters: int, trials: int, robust: bool, fused
     return want
 
 
+def set_counts(solver) -> list:
+    """``[kind, edges, active edges]`` of every edge set the solver packed,
+    in packed order (a landmark pack's sets one by one)."""
+    out = []
+    for data, meta in zip(solver.packs, solver.metas):
+        E = int(data.pose_idx.shape[0])
+        parts = meta.parts or ((meta, 0, E),)
+        out += [[m.kind, b - a, m.nedges] for m, a, b in parts]
+    return out
+
+
 def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool = True,
-              niter: int = 10, **robust) -> dict:
+              niter: int = 10, falls: bool = True, prepare=None, **robust) -> dict:
     """Phase 5: one configuration's optimize(10) on the default device (the
     card) through the default loop (the fused loop), counted, repeated and
     timed.  The structure cache is emptied before the cold run, which must
@@ -1387,7 +1512,9 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
     trace is printed beside the fused loop's and not held).  Each loop's launch counts must follow from its iterations
     and trials (``expected_launches``), so the fused loop's replays were
     counted.  ``options``: the solver's; ``profiled=False`` leaves out the
-    two profiled runs; ``niter``: the iterations a run.  On the PCG route
+    two profiled runs; ``niter``: the iterations a run; ``falls=False``: the
+    chi2 is not held to fall (a depth graph's does not, in either package);
+    ``prepare``: called on every run's solver once packed.  On the PCG route
     each trial's CG iterations are printed, the same in both loops, and the
     host reads count one a CG block.  Returns the launch counts and chi2
     trace of its first run, that run's solver and the allocator's peak over
@@ -1410,6 +1537,8 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt = optimizer_from_problem(problem, options=options, **robust)
+        if prepare is not None:
+            prepare(opt.solver)
         opt.use_fused_loop = fused_loop
         opt.optimize(niter)
         torch.cuda.synchronize()
@@ -1433,16 +1562,16 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
     trace = [s.chi2 for s in opt.batch_statistics().get()]
     iters, st = len(trace), opt.loop_stats
     # iteration 0 runs eagerly (the captures' warm-up), every later trial is a
-    # replay
-    check(st is not None and st["captures"] >= 1 and st["replays"] >= iters - 1,
+    # replay (a run that ends in iteration 0 captures nothing)
+    check(st is not None and st["captures"] >= min(1, iters - 1) and st["replays"] >= iters - 1,
           f"{label}: the default run did not replay captured graphs: {st}")
     check(st["reads"] == st["trials"] + 1 + st["cg_reads"],
           f"{label}: {st['reads']} host reads for {st['trials']} trials and {st['cg_reads']} CG "
           f"blocks, not one a trial, one a block and one")
     check(len(st["cg_iterations"]) == (st["trials"] if opt.solver.plan.route == "pcg" else 0),
           f"{label}: {len(st['cg_iterations'])} CG solves in {st['trials']} trials")
-    check(counts == expected_launches(counts, iters, st["trials"], bool(robust.get("rk")), True,
-                                      opt.solver),
+    robust_run = bs.is_robust(opt.solver.meta)
+    check(counts == expected_launches(counts, iters, st["trials"], robust_run, True, opt.solver),
           f"{label}: fused launch counts {counts} do not follow from {iters} iterations and "
           f"{st['trials']} trials")
     warm, traces, stats = [], [], [st]
@@ -1473,7 +1602,7 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
               f"{label}: the host loop's CG iterations differ from the fused loop's")
         host_trials = st["trials"]
     check(host_counts == expected_launches(host_counts, len(host_trace), host_trials,
-                                           bool(robust.get("rk")), False, ho.solver),
+                                           robust_run, False, ho.solver),
           f"{label}: host launch counts {host_counts} do not follow from its iterations")
 
     # separate profiled runs for the per-stage breakdown (each stage ends in
@@ -1486,6 +1615,8 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         po = optimizer_from_problem(problem, options=options, **robust)
+        if prepare is not None:
+            prepare(po.solver)
         torch.cuda.synchronize()
         pack_ms = (time.perf_counter() - t0) * 1e3
         po.set_profile(True)
@@ -1507,10 +1638,13 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
           f"(factor {opt.solver.plan.target}); allocator peak over the cold run "
           f"{peak_gib:.3f} GiB above what was allocated before it")
     print(f"{label} chi2 trace:", json.dumps(trace))
+    print(f"{label} edge sets [kind, edges, active]: {json.dumps(set_counts(opt.solver))}; "
+          f"the landmark pack's model {opt.solver.packed.kind}, camera "
+          f"{tuple(opt.solver.packed.cam.shape)}")
     print(f"{label} stages 1 and 5 (ms), structure cache miss and hit:", json.dumps(stages))
     check(all(tr == trace for tr in traces), f"{label}: traces differ between runs")
     check(np.all(np.isfinite(trace)), f"{label}: non-finite chi2")
-    check(trace[-1] < trace[0], f"{label}: chi2 did not fall")
+    check(trace[-1] < trace[0] or not falls, f"{label}: chi2 did not fall")
     g = opt.solver.graph
     check(
         g.q.shape == (problem.pose_q.shape[0], 4)
@@ -2326,6 +2460,215 @@ def icp_scan_phase() -> dict:
     return f
 
 
+def terms_checks(problem, dev, label, options=None, prepare=None) -> dict:
+    """B1 and B3 alone at one configuration's first linearisation
+    (:func:`terms_held`, every time read), for a path whose other kernels
+    see nothing new: ``options`` the solver's, ``prepare`` called on it once
+    packed."""
+    solver, _, _ = first_linearisation(problem, dev, options, prepare)
+    print(f"{label}: sets {json.dumps(set_counts(solver))}, {solver.dtype}")
+    res = terms_held(solver, label)
+    for name in ("chi_edges", "linearise"):
+        report(label, name, res[name])
+    return res
+
+
+def depth_phase(depth, dev) -> dict:
+    """``kitti00_depth``: one depth set at kitti00 size.  The ten kernels
+    held against their twins at its first linearisation (B1 bit for bit; B1
+    and B3 timed), B1 and B3 in f32 mode bit for bit their twins, then
+    ``main_path``: fused bit for bit the host loop, the warm run the cold
+    trace.  The reference's depth residual climbs against its Jacobian, so
+    every trial of the first iteration is rejected: the trace is not held to
+    fall."""
+    from cuda_bundle_adjustment_tpu_torch import GraphOptimisationOptions
+
+    label = "kitti00_depth"
+    b1b3 = {"chi_edges", "linearise"}
+    res = kernel_checks(depth, dev, label, b1b3)
+    res32 = terms_checks(depth, dev, f"{label}_f32", GraphOptimisationOptions(dtype="float32"))
+    run = main_path(depth, label, warm_runs=1, profiled=False, falls=False)
+    check(run["solver"].packed.kind == "depth" and run["solver"].plan.route == "band",
+          f"{label}: not one depth set on the band route")
+    return dict(run, terms=res, terms_f32=res32)
+
+
+def mono_depth_phase(depth, kitti07_depth, dev) -> dict:
+    """``kitti00_mono_depth``: the depth problem split into a mono and a
+    depth set (``mono_depth_problem``, about 280k edges each), one landmark
+    pack of the mixed model: B1 and B3 at its first linearisation, then
+    ``main_path`` on the band route with one B3 launch a linearisation over
+    both sets (the chi2 not held to fall: the depth rows' steps climb, as in
+    the JAX package); the same split at kitti07 size on the card against the
+    plain twins on the CPU (``cpu_twin_agreement``)."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+
+    label = "kitti00_mono_depth"
+    problem = mono_depth_problem(depth)
+    res = terms_checks(problem, dev, label)
+    # the depth half's steps climb (the reference's model): the joint trace is
+    # not held to fall
+    run = main_path(problem, label, warm_runs=1, profiled=False, falls=False)
+    s = run["solver"]
+    check(len(s.packs) == 1 and s.packed.kind == "mixed" and len(s.meta.parts) == 2
+          and s.plan.route == "band", f"{label}: not one mixed pack of two sets on the band route")
+    small = mono_depth_problem(kitti07_depth)
+    opt = optimizer_from_problem(small)
+    opt.optimize(10)
+    torch.cuda.synchronize()
+    cpu_twin_agreement(small, dict(trace=[x.chi2 for x in opt.batch_statistics().get()],
+                                   solver=opt.solver), "kitti07_mono_depth")
+    return dict(run, terms=res)
+
+
+def orbslam_phase(mixed, dev) -> dict:
+    """``kitti00_mixed_orbslam``: ``kitti00_mixed``'s mono and stereo sets
+    under ORB-SLAM2's settings (``orbslam_problem``: Huber at sqrt(5.991)
+    and sqrt(7.815), thresholds 5.991 and 7.815), so they do not merge:
+    B1 and B3 at the first linearisation with the two sets' weights, then
+    ``optimize(5)`` and ``optimize(10)`` on the inliers, through the fused
+    loop and again through the host loop (bit for bit: traces, states,
+    masks), launch counters zeroed before each ``optimize()``.  Each set's
+    mask must equal its own rho of the twins' per-edge chi2 at the first
+    run's final state thresholded at its threshold, and its count the
+    mask's; the second run must hit the structure cache and keep the masked
+    edges out; both traces must fall."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch import kernels
+    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+    from cuda_bundle_adjustment_tpu_torch.kernels import terms
+    from cuda_bundle_adjustment_tpu_torch.models.ba import _pose_state_table
+    from cuda_bundle_adjustment_tpu_torch.ops.robust import robustify
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    label = "kitti00_mixed_orbslam"
+    problem = orbslam_problem(mixed)
+    res = terms_checks(problem, dev, label)
+    out = {}
+    for fused in (True, False):
+        bs.clear_structure_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt = optimizer_from_problem(problem)
+        opt.use_fused_loop = fused
+        kernels.reset_launch_counts()
+        opt.optimize(5)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        c1 = kernels.launch_counts()
+        s = opt.solver
+        check(len(s.packs) == 1 and s.packed.kind == "stereo" and len(s.meta.parts) == 2,
+              f"{label}: not one landmark pack of two sets")
+        first = [x.chi2 for x in opt.batch_statistics().get()]
+        keep = s.packed.active > 0
+        g, d = s.graph, s.packed
+        qt, xw = _pose_state_table(g)[d.pose_idx], g.Xw[d.lm_idx]
+        x = terms.chi_edges_plain(qt, xw, d._replace(active=torch.ones_like(d.active)))
+        counts = []
+        for (m, a, b), spec in zip(s.meta.parts, problem.specs):
+            thr = spec["outlier_threshold"]
+            check(torch.equal(keep[a:b], robustify(m.rk, m.delta, x[a:b]) <= thr),
+                  f"{label}: the {m.kind} set's mask is not its rho of the twins' chi2 "
+                  f"thresholded at {thr}")
+            counts.append(int((~keep[a:b]).sum()))
+        check(s._outlier_counts == counts and all(counts),
+              f"{label}: outlier counts {s._outlier_counts}, the masks {counts}")
+        hits = bs.structure_cache_info()["hits"]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        opt.optimize(10)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        c2 = kernels.launch_counts()
+        check(bs.structure_cache_info()["hits"] == hits + 1 and s.symbolic_ms == 0.0,
+              f"{label}: the second optimize() did not hit the structure cache")
+        check(not bool((s.packed.active > 0)[~keep].any()),
+              f"{label}: a masked edge came back in the second run")
+        second = [x.chi2 for x in opt.batch_statistics().get()][len(first):]
+        check(first[-1] < first[0] and second[-1] < second[0] < first[-1],
+              f"{label}: a trace did not fall ({first}, {second})")
+        for c, n_iter in ((c1, len(first)), (c2, len(second))):
+            trials = c["sym3x3_mv"]  # B10: once a trial on the band route
+            check(c == expected_launches(c, n_iter, trials, True, fused, s, thresholds=1),
+                  f"{label}: launch counts {c} do not follow from {n_iter} iterations, "
+                  f"{trials} trials and one threshold pass")
+        out[fused] = dict(first=first, second=second, state=[a.clone() for a in s.graph],
+                          active=s.packed.active.clone(), counts=(c1, c2), outliers=counts,
+                          times=(first_s, second_s), stats=opt.loop_stats, sets=set_counts(s))
+        del opt, s
+    f, h = out[True], out[False]
+    check(f["first"] == h["first"] and f["second"] == h["second"]
+          and torch.equal(f["active"], h["active"])
+          and all(torch.equal(a, b) for a, b in zip(f["state"], h["state"])),
+          f"{label}: the host loop differs from the fused loop")
+    print(f"{label}: edge sets [kind, edges, active when packed] {json.dumps(f['sets'])}; "
+          f"outliers masked by set {f['outliers']}, each set's mask its rho of the twins' chi2 "
+          f"thresholded; the host loop bit for bit (traces, state, masks)")
+    print(f"{label} chi2 traces, optimize(5) then optimize(10) on the inliers:",
+          json.dumps(f["first"]), json.dumps(f["second"]))
+    print(f"{label} launch counts (fused; each optimize() with the counters zeroed before it):",
+          json.dumps(f["counts"]))
+    print(f"{label} seconds (fused, host loop): optimize(5) with the structure cold "
+          f"{f['times'][0]:.4f}, {h['times'][0]:.4f}; optimize(10) on the inliers "
+          f"{f['times'][1]:.4f}, {h['times'][1]:.4f}; fused loop of the second run "
+          f"{json.dumps({k: f['stats'][k] for k in ('trials', 'reads', 'captures', 'replays')})} "
+          f"[{nvidia_smi_line()}]")
+    for name, n in f["counts"][0].items():
+        check(n > 0, f"{label}: kernel {name} was not launched")
+    return dict(f, terms=res)
+
+
+def percam_phase(mono, mono_run, dev) -> dict:
+    """``kitti00_mono_percam``: ``kitti00_mono`` with its camera given as
+    ``[E, 5]``, every row the global camera.  Packing collapses it to one
+    column, as the JAX package's does, so the phase repacks it as ``[5, E]``
+    (``strided_camera``) and B1 and B3 run their per-edge-camera
+    instantiation: held at the first linearisation (against the one-camera
+    instantiation too, bit for bit, its device times beside), then
+    ``main_path``, whose trace and final state must be ``kitti00_mono``'s
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    label = "kitti00_mono_percam"
+    E = mono.meas.shape[0]
+    problem = mono._replace(cam=np.tile(np.asarray(mono.cam, dtype=np.float64), (E, 1)))
+
+    def prepare(solver):
+        check(solver.packed.cam.shape == (5, 1), f"{label}: the uniform camera was not collapsed")
+        strided_camera(solver)
+        check(solver.packed.cam.shape == (5, E), f"{label}: the camera is not packed [5, E]")
+
+    res = terms_checks(problem, dev, label, prepare=prepare)
+    run = main_path(problem, label, warm_runs=1, profiled=False, prepare=prepare)
+    s, ref = run["solver"], mono_run["solver"]
+    check(s.packed.cam.shape == (5, E) and run["counts"]["linearise"] > 0,
+          f"{label}: B3 did not run the strided camera")
+    check(run["trace"] == mono_run["trace"]
+          and all(torch.equal(a, b) for a, b in zip(s.graph, ref.graph)),
+          f"{label}: the trace or final state differs from kitti00_mono's")
+    print(f"{label}: trace and final state bit for bit kitti00_mono's")
+    return dict(run, terms=res)
+
+
+def two_cams_phase(kitti07, dev) -> dict:
+    """``kitti07_two_cams``: ``kitti07_mono`` whose odd poses' edges see
+    through a second camera (``two_camera_problem``): B1 and B3 with a
+    camera an edge at the first linearisation, ``main_path`` (the trace
+    falls), and the card's run within 1e-9 of the plain twins on the CPU."""
+    label = "kitti07_two_cams"
+    problem = two_camera_problem(kitti07)
+    res = terms_checks(problem, dev, label)
+    run = main_path(problem, label, warm_runs=1, profiled=False)
+    check(run["solver"].packed.cam.shape == (5, problem.meas.shape[0]),
+          f"{label}: not a camera an edge")
+    cpu_twin_agreement(problem, run, label)
+    return dict(run, terms=res)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2474,6 +2817,29 @@ def main() -> int:
     icp_scan_phase()
     lap("icp_scan")
 
+    # depth edges, landmark sets that do not merge and a camera an edge
+    depth = kitti00_scale_problem(kind="depth", seed=0)
+    runs["kitti00_depth"] = depth_phase(depth, dev)
+    lap("kitti00_depth")
+    runs["kitti00_mono_depth"] = mono_depth_phase(
+        depth, kitti07_scale_problem(kind="depth", seed=0), dev)
+    lap("kitti00_mono_depth")
+    runs["kitti00_mixed_orbslam"] = orbslam_phase(mixed, dev)
+    lap("kitti00_mixed_orbslam")
+    runs["kitti00_mono_percam"] = percam_phase(mono, runs["kitti00_mono"], dev)
+    lap("kitti00_mono_percam")
+    runs["kitti07_two_cams"] = two_cams_phase(kitti07, dev)
+    lap("kitti07_two_cams")
+
+    def path_count(label, name):
+        """One optimize() of a later path, counters zeroed just before."""
+        c = runs[label]["counts"]
+        return (c[0] if isinstance(c, tuple) else c)[name]
+
+    # B1 and B3 at the new paths' inputs, each row as the table's
+    terms_rows = {"depth": "kitti00_depth", "mixed_kinds": "kitti00_mono_depth",
+                  "two_weights": "kitti00_mixed_orbslam", "per_edge_camera": "kitti00_mono_percam",
+                  "two_cams": "kitti07_two_cams"}
     counts = runs["kitti00_mono"]["counts"]
     rows = []
     for name, (src, replaces) in KERNEL_INFO.items():
@@ -2482,9 +2848,10 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=counts[name], object_api_launches=object_counts[name],
             # one optimize() of each later path, counters zeroed just before
-            path_launches={label: runs[label]["counts"][name] if label in (
-                "loop5000_pcg", "kitti00_motion_only") else runs[label]["counts"][0][name]
-                for label in ("loop5000_pcg", "kitti00_motion_only", "kitti00_mono_outliers")},
+            path_launches={label: path_count(label, name) for label in (
+                "loop5000_pcg", "kitti00_motion_only", "kitti00_mono_outliers", "kitti00_depth",
+                "kitti00_mono_depth", "kitti00_mixed_orbslam", "kitti00_mono_percam",
+                "kitti07_two_cams")},
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], device_ms=r["device_ms"], host_ms=r["host_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -2498,6 +2865,18 @@ def main() -> int:
                 host_ms=r32["host_ms"], plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
                 bound_by=r32["bound_by"], library_ms=r32["library_ms"],
             )
+        if name in ("chi_edges", "linearise"):
+            # the instantiations of the new paths, at their first linearisation
+            for key, label in terms_rows.items():
+                t = runs[label]["terms"][name]
+                row[key] = dict(config=label, launches=path_count(label, name),
+                                **{k: t[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms",
+                                                     "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")})
+            t = runs["kitti00_depth"]["terms_f32"][name]
+            row["depth_f32"] = dict(config="kitti00_depth_f32", **{
+                k: t[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")})
         if name in ("band_factor", "band_solve"):
             # the same kernel at the wide-band path's height (the v1 range)
             w = wide_res[name]

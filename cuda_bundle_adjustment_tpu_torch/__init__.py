@@ -7,18 +7,19 @@ find, but imports ``torch`` and never ``jax``.
 The port takes a graph as vertex and edge sets (objects, or arrays through
 the bulk constructors), as a graph file (``io.opencv_json``) or as raw
 arrays (``io.arrays.optimizer_from_problem``), and runs it through one
-packed path: one mono or stereo edge set, or a mono and a stereo set merged
-into one masked stereo set, with one camera an edge set, global or
-per-edge information, a robust kernel or none, f64 or f32 state
+packed path: mono, stereo and depth edge sets, packed as one landmark pack
+(a mono and a stereo set under one robust kernel merged into one masked
+stereo set first; sets that do not merge keep their own kind, robust kernel
+and outlier threshold), beside point-to-line and point-to-plane ICP sets;
+one camera an edge set or a camera an edge, global or per-edge information,
+a robust kernel or none, f64 or f32 state
 (``GraphOptimisationOptions(dtype=...)``), ``solver_precision="mixed"`` or
 ``"exact"``, through the device-resident LM loop.  The reduced system is
-solved on a band (Hsc band up to 48 blocks) or densely (``"exact"`` at f64,
-and wider bands below 1024 poses).  Ten kernels on that path are
-hand-written CUDA C++ for ``sm_90a`` (``csrc/``, listed in ``kernels``);
-every other stage is plain PyTorch.  Everything outside it (depth and ICP
-edges, a per-edge camera, outlier thresholds, a pose-only graph, edge sets
-that do not merge) raises ``NotImplementedError`` naming its open ROADMAP
-item.
+solved on a band (Hsc band up to 48 blocks), densely (``"exact"`` at f64,
+and wider bands below 1024 poses) or by PCG, and without free landmarks by
+the pose-only solve.  Ten kernels on that path are hand-written CUDA C++ for
+``sm_90a`` (``csrc/``, listed in ``kernels``); every other stage is plain
+PyTorch.
 
 Quick start::
 

@@ -1,8 +1,9 @@
-// Kernels B1 (per-edge chi) and B3 (fused linearisation) of the mono and
-// stereo BA models, the reference's computeActiveErrorsKernel and
+// Kernels B1 (per-edge chi) and B3 (fused linearisation) of the mono,
+// stereo and depth BA models, the reference's computeActiveErrorsKernel and
 // constructQuadraticFormKernel.
 //
-//   B1: chi[e] = omega * active * |e|^2  (rk = 0; e = proj - meas)
+//   B1: chi[e] = omega * active * |e|^2  (rk = 0; e = proj - meas, for a
+//       depth edge meas - proj)
 //   B3: Hpp|bp [Pa, 42] = sum over a pose's edges of w JP^T JP | w JP^T e,
 //       Hll|bl [La, 12] = sum over a landmark's edges of w JL^T JL | w JL^T e,
 //       Hpl [E, 18]     = w both_free JP^T JL per edge,
@@ -16,10 +17,24 @@
 // plain doubles over the edges as packed, and see every edge: Hpl carries the
 // both_free factor itself, as the plain twin does (models/ba.py).
 //
+// Models (the kind argument of the launchers, one instantiation each, with
+// its plain twin in models/ba.py):
+//   mono    MDIM 2, the mono Jacobian;
+//   stereo  MDIM 3, the stereo Jacobian; a pack of mono and stereo rows
+//           masks the third row of its mono rows by m3;
+//   depth   MDIM 3, the residual (m0 - u, m1 - v, m2 - inv_z), meas - proj
+//           as the reference has it, with the stereo Jacobian, bf row
+//           included (the reference's quirk, kept);
+//   mixed   MDIM 3, each edge's kind read from a byte code (0 mono, 1
+//           stereo, 2 depth): the depth residual on depth rows, the stereo
+//           one elsewhere, the third row masked on mono rows (code 0).
+// The camera is one [5] operand for every edge, or [5, E], a camera an edge
+// (cam_stride 1): a template flag, so the one-camera instantiations compile
+// as they did before the per-edge camera, and the per-edge one reads 40 more
+// bytes an edge in f64 (20 in f32).
+//
 // Arithmetic: the expressions of the plain twin (ops/components.py and
-// models/ba.py) operation for operation, mono rows with the mono Jacobian
-// (MDIM 2), stereo and merged mono+stereo rows with the stereo Jacobian and
-// the third row masked by m3 (MDIM 3).  The file is built with -fmad=false
+// models/ba.py) operation for operation.  The file is built with -fmad=false
 // (kernels/_build.py): the residual proj - meas cancels terms as large as the
 // projected pixel coordinates, and a contracted a * b + c rounds differently
 // from the twin by up to an ulp of those terms.  So per-edge values (chi, the
@@ -79,6 +94,8 @@
 // finishing kernels 20 and 25 registers; B1 32 / 40.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -89,6 +106,13 @@ constexpr int kThreads = 256;
 constexpr int kTile = 128;
 constexpr int kQtRow = 13;
 constexpr int kHplRow = 19;
+
+// The models of the kind argument (kernels/terms.py _KINDS must agree) and
+// the per-edge codes of a mixed pack (types.py KIND_CODES).
+enum Kind : int { kMono = 0, kStereo = 1, kDepth = 2, kMixed = 3 };
+constexpr uint8_t kCodeMono = 0, kCodeDepth = 2;
+
+__host__ __device__ constexpr int mdim_of(int kind) { return kind == kMono ? 2 : 3; }
 
 // What a per-edge evaluation reads, in the working type T.  A null mask
 // reads as 1 (active, both_free) or as no mask (m3).
@@ -101,10 +125,17 @@ struct EdgeInputs {
   const T* active;     // [E] or null
   const T* both_free;  // [E] or null
   const T* m3;         // [E] or null
-  const T* cam;        // [5]: fx fy cx cy bf
+  const uint8_t* code;  // [E] kind codes of a mixed pack, or null
+  const T* cam;        // [5] or [5, E]: fx fy cx cy bf
   int64_t E;
   int omega_stride;  // 0: one weight for every edge, 1: one per edge
 };
+
+// Entry k of edge i's camera: [5] for every edge, or [5, E] (PEC).
+template <bool PEC, typename T>
+__device__ __forceinline__ double cam_at(const EdgeInputs<T>& in, int64_t i, int k) {
+  return static_cast<double>(PEC ? in.cam[k * in.E + i] : in.cam[k]);
+}
 
 template <int MDIM>
 struct Edge {
@@ -117,12 +148,13 @@ struct Edge {
 
 // Edge i from its pose row s [12] and landmark row X [3] (T in device
 // memory, or double in shared memory) and the per-edge columns of ``in``.
-template <int MDIM, typename T, typename S>
+template <int KIND, bool PEC, typename T, typename S>
 __device__ __forceinline__ void load_edge(const EdgeInputs<T>& in, int64_t i,
                                           const S* s, const S* X,
-                                          Edge<MDIM>& g) {
-  const double fx = in.cam[0], fy = in.cam[1], cx = in.cam[2],
-               cy = in.cam[3], bf = in.cam[4];
+                                          Edge<mdim_of(KIND)>& g) {
+  const double fx = cam_at<PEC>(in, i, 0), fy = cam_at<PEC>(in, i, 1),
+               cx = cam_at<PEC>(in, i, 2), cy = cam_at<PEC>(in, i, 3),
+               bf = cam_at<PEC>(in, i, 4);
 #pragma unroll
   for (int k = 0; k < 9; ++k) g.R[k] = s[3 + k];
   const double X0 = X[0], X1 = X[1], X2 = X[2];
@@ -133,20 +165,37 @@ __device__ __forceinline__ void load_edge(const EdgeInputs<T>& in, int64_t i,
   const double act = in.active ? static_cast<double>(in.active[i]) : 1.0;
   g.inv_z = act * (fabs(z) > 1e-30 ? 1.0 / z : 0.0);
   g.w = static_cast<double>(in.omega[in.omega_stride ? i : 0]) * act;
-  g.m3 = in.m3 ? static_cast<double>(in.m3[i]) : 1.0;
+  bool depth = KIND == kDepth;
+  if constexpr (KIND == kMixed) {
+    const uint8_t c = in.code[i];
+    g.m3 = c != kCodeMono ? 1.0 : 0.0;
+    depth = c == kCodeDepth;
+  } else {
+    g.m3 = in.m3 ? static_cast<double>(in.m3[i]) : 1.0;
+  }
+  const double m0 = static_cast<double>(in.meas[i]);
+  const double m1 = static_cast<double>(in.meas[in.E + i]);
   const double u = fx * g.inv_z * g.Xx + cx;
-  g.e[0] = u - static_cast<double>(in.meas[i]);
-  g.e[1] = fy * g.inv_z * g.Xy + cy - static_cast<double>(in.meas[in.E + i]);
-  if constexpr (MDIM == 3)
-    g.e[2] = (u - bf * g.inv_z - static_cast<double>(in.meas[2 * in.E + i])) * g.m3;
+  if constexpr (KIND == kMono || KIND == kStereo) {
+    g.e[0] = u - m0;
+    g.e[1] = fy * g.inv_z * g.Xy + cy - m1;
+  } else {
+    const double v = fy * g.inv_z * g.Xy + cy;
+    g.e[0] = depth ? m0 - u : u - m0;
+    g.e[1] = depth ? m1 - v : v - m1;
+  }
+  if constexpr (KIND != kMono) {
+    const double m2 = static_cast<double>(in.meas[2 * in.E + i]);
+    g.e[2] = (depth ? m2 - g.inv_z : u - bf * g.inv_z - m2) * g.m3;
+  }
 }
 
 // JP [MDIM][6] (ops/components.py mono_ / stereo_jacobian_comps)
-template <int MDIM, typename T>
-__device__ __forceinline__ void pose_jacobian(const T* cam,
+template <int MDIM, bool PEC, typename T>
+__device__ __forceinline__ void pose_jacobian(const EdgeInputs<T>& in, int64_t i,
                                               const Edge<MDIM>& g,
                                               double JP[MDIM][6]) {
-  const double fx = static_cast<double>(cam[0]), fy = static_cast<double>(cam[1]);
+  const double fx = cam_at<PEC>(in, i, 0), fy = cam_at<PEC>(in, i, 1);
   const double Xx = g.Xx, Xy = g.Xy, inv_z = g.inv_z;
   if constexpr (MDIM == 2) {
     const double x = inv_z * Xx, y = inv_z * Xy;
@@ -164,7 +213,7 @@ __device__ __forceinline__ void pose_jacobian(const T* cam,
     JP[1][4] = -fy_iz;
     JP[1][5] = fy_iz * y;
   } else {
-    const double bf = static_cast<double>(cam[4]);
+    const double bf = cam_at<PEC>(in, i, 4);
     const double inv_zz = inv_z * inv_z;
     JP[0][0] = Xx * Xy * inv_zz * fx;
     JP[0][1] = -(1 + Xx * Xx * inv_zz) * fx;
@@ -188,11 +237,11 @@ __device__ __forceinline__ void pose_jacobian(const T* cam,
 }
 
 // JL [MDIM][3]
-template <int MDIM, typename T>
-__device__ __forceinline__ void landmark_jacobian(const T* cam,
+template <int MDIM, bool PEC, typename T>
+__device__ __forceinline__ void landmark_jacobian(const EdgeInputs<T>& in, int64_t i,
                                                   const Edge<MDIM>& g,
                                                   double JL[MDIM][3]) {
-  const double fx = static_cast<double>(cam[0]), fy = static_cast<double>(cam[1]);
+  const double fx = cam_at<PEC>(in, i, 0), fy = cam_at<PEC>(in, i, 1);
   const double* R = g.R;
   const double inv_z = g.inv_z;
   if constexpr (MDIM == 2) {
@@ -204,7 +253,7 @@ __device__ __forceinline__ void landmark_jacobian(const T* cam,
       JL[1][j] = -fy_iz * (R[3 + j] - y * R[6 + j]);
     }
   } else {
-    const double bf = static_cast<double>(cam[4]);
+    const double bf = cam_at<PEC>(in, i, 4);
     const double inv_zz = inv_z * inv_z;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -215,13 +264,14 @@ __device__ __forceinline__ void landmark_jacobian(const T* cam,
   }
 }
 
-template <int MDIM, typename T>
+template <int KIND, bool PEC, typename T>
 __global__ void __launch_bounds__(kThreads)
 chi_edges_kernel(EdgeInputs<T> in, T* __restrict__ out) {
+  constexpr int MDIM = mdim_of(KIND);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= in.E) return;
   Edge<MDIM> g;
-  load_edge<MDIM>(in, i, in.qt + i * 12, in.xw + i * 3, g);
+  load_edge<KIND, PEC>(in, i, in.qt + i * 12, in.xw + i * 3, g);
   double s = g.e[0] * g.e[0] + g.e[1] * g.e[1];
   if constexpr (MDIM == 3) s += g.e[2] * g.e[2];
   const double act = in.active ? static_cast<double>(in.active[i]) : 1.0;
@@ -306,10 +356,11 @@ __device__ __forceinline__ void chunk_sums(const ChunkPlan<T>& p, const TileRows
   }
 }
 
-template <int MDIM, typename T>
+template <int KIND, bool PEC, typename T>
 __global__ void __launch_bounds__(kTile)
 edge_tile_kernel(EdgeInputs<T> in, ChunkPlan<T> pose, ChunkPlan<T> lm,
                  T* __restrict__ hpl) {
+  constexpr int MDIM = mdim_of(KIND);
   extern __shared__ double smem[];
   double* s_io = smem;                      // pose|landmark rows in, Hpl out
   double* s_pose = smem + kTile * kHplRow;  // [kTile, 27]
@@ -364,13 +415,13 @@ edge_tile_kernel(EdgeInputs<T> in, ChunkPlan<T> pose, ChunkPlan<T> lm,
   const int64_t i = tile0 + tid;
   const bool live = tid < n;
   Edge<MDIM> g;
-  if (live) load_edge<MDIM>(in, i, s_io + tid * kQtRow, s_xw + tid * 3, g);
+  if (live) load_edge<KIND, PEC>(in, i, s_io + tid * kQtRow, s_xw + tid * 3, g);
   __syncthreads();  // every row is in registers: s_io now takes the Hpl tile
 
   if (live) {
     double JP[MDIM][6], JL[MDIM][3];
-    pose_jacobian<MDIM>(in.cam, g, JP);
-    landmark_jacobian<MDIM>(in.cam, g, JL);
+    pose_jacobian<MDIM, PEC>(in, i, g, JP);
+    landmark_jacobian<MDIM, PEC>(in, i, g, JL);
     const double wb = g.w * (in.both_free ? static_cast<double>(in.both_free[i]) : 1.0);
     double* o = s_io + tid * kHplRow;
 #pragma unroll
@@ -451,12 +502,12 @@ unsigned blocks_for(int64_t n, int per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
 }
 
-template <int MDIM, typename T>
+template <int KIND, bool PEC, typename T>
 void launch_chi(const EdgeInputs<T>& in, T* out, cudaStream_t st) {
-  chi_edges_kernel<MDIM, T><<<blocks_for(in.E, kThreads), kThreads, 0, st>>>(in, out);
+  chi_edges_kernel<KIND, PEC, T><<<blocks_for(in.E, kThreads), kThreads, 0, st>>>(in, out);
 }
 
-template <int MDIM, typename T>
+template <int KIND, bool PEC, typename T>
 cudaError_t launch_linearise(const EdgeInputs<T>& in, const ChunkPlan<T>& pose,
                              const int32_t* pose_off, int64_t Pa,
                              const ChunkPlan<T>& lm, const int32_t* lm_off,
@@ -464,14 +515,14 @@ cudaError_t launch_linearise(const EdgeInputs<T>& in, const ChunkPlan<T>& pose,
   if (in.E > 0) {
     // the tiles are doubles in either working type: one size
     constexpr int kBytes = kTile * (kHplRow + 27 + 9) * sizeof(double);
-    static bool sized = false;  // once a process, model and type
+    static bool sized = false;  // once a process, model, camera and type
     if (!sized) {
       const cudaError_t err = cudaFuncSetAttribute(
-          edge_tile_kernel<MDIM, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+          edge_tile_kernel<KIND, PEC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
       if (err != cudaSuccess) return err;
       sized = true;
     }
-    edge_tile_kernel<MDIM, T><<<blocks_for(in.E, kTile), kTile, kBytes, st>>>(
+    edge_tile_kernel<KIND, PEC, T><<<blocks_for(in.E, kTile), kTile, kBytes, st>>>(
         in, pose, lm, hpl);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -488,11 +539,27 @@ cudaError_t launch_linearise(const EdgeInputs<T>& in, const ChunkPlan<T>& pose,
   return cudaGetLastError();
 }
 
+// Calls f(Kind constant, camera flag constant) for the run-time kind and
+// camera stride: one instantiation each.
+template <typename F>
+cudaError_t with_model(int kind, int cam_stride, F&& f) {
+  auto cams = [&](auto k) {
+    return cam_stride ? f(k, std::true_type{}) : f(k, std::false_type{});
+  };
+  switch (kind) {
+    case kMono: return cams(std::integral_constant<int, kMono>{});
+    case kStereo: return cams(std::integral_constant<int, kStereo>{});
+    case kDepth: return cams(std::integral_constant<int, kDepth>{});
+    case kMixed: return cams(std::integral_constant<int, kMixed>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 EdgeInputs<T> edge_inputs(const void* qt, const void* xw, const void* meas,
                           const void* omega, const void* active,
-                          const void* both_free, const void* m3, const void* cam,
-                          long long E, int omega_stride) {
+                          const void* both_free, const void* m3, const void* code,
+                          const void* cam, long long E, int omega_stride) {
   EdgeInputs<T> in;
   in.qt = static_cast<const T*>(qt);
   in.xw = static_cast<const T*>(xw);
@@ -501,6 +568,7 @@ EdgeInputs<T> edge_inputs(const void* qt, const void* xw, const void* meas,
   in.active = static_cast<const T*>(active);
   in.both_free = static_cast<const T*>(both_free);
   in.m3 = static_cast<const T*>(m3);
+  in.code = static_cast<const uint8_t*>(code);
   in.cam = static_cast<const T*>(cam);
   in.E = E;
   in.omega_stride = omega_stride;
@@ -509,30 +577,31 @@ EdgeInputs<T> edge_inputs(const void* qt, const void* xw, const void* meas,
 
 template <typename T>
 int chi_edges(const void* qt, const void* xw, const void* meas, const void* omega,
-              const void* active, const void* m3, const void* cam, long long E,
-              int omega_stride, int mdim, void* out, void* stream) {
+              const void* active, const void* m3, const void* code, const void* cam,
+              long long E, int omega_stride, int cam_stride, int kind, void* out,
+              void* stream) {
   const EdgeInputs<T> in = edge_inputs<T>(qt, xw, meas, omega, active, nullptr, m3,
-                                          cam, E, omega_stride);
+                                          code, cam, E, omega_stride);
   auto st = static_cast<cudaStream_t>(stream);
-  if (mdim == 2)
-    launch_chi<2>(in, static_cast<T*>(out), st);
-  else
-    launch_chi<3>(in, static_cast<T*>(out), st);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = with_model(kind, cam_stride, [&](auto k, auto pec) {
+    launch_chi<decltype(k)::value, decltype(pec)::value>(in, static_cast<T*>(out), st);
+    return cudaGetLastError();
+  });
+  return static_cast<int>(err);
 }
 
 template <typename T>
 int linearise(const void* qt, const void* xw, const void* meas, const void* omega,
               const void* active, const void* both_free, const void* m3,
-              const void* cam, long long E, int omega_stride, int mdim,
-              const void* pose_rows, const void* pose_chunks,
-              const void* pose_tile_off, const void* pose_vertex_off,
-              void* pose_scratch, long long Pa, const void* lm_rows,
-              const void* lm_chunks, const void* lm_tile_off,
+              const void* code, const void* cam, long long E, int omega_stride,
+              int cam_stride, int kind, const void* pose_rows,
+              const void* pose_chunks, const void* pose_tile_off,
+              const void* pose_vertex_off, void* pose_scratch, long long Pa,
+              const void* lm_rows, const void* lm_chunks, const void* lm_tile_off,
               const void* lm_vertex_off, void* lm_scratch, long long La,
               void* pose_out, void* lm_out, void* hpl_out, void* stream) {
   const EdgeInputs<T> in = edge_inputs<T>(qt, xw, meas, omega, active, both_free, m3,
-                                          cam, E, omega_stride);
+                                          code, cam, E, omega_stride);
   auto st = static_cast<cudaStream_t>(stream);
   const ChunkPlan<T> pose = {static_cast<const uint8_t*>(pose_rows),
                              static_cast<const int4*>(pose_chunks),
@@ -547,56 +616,63 @@ int linearise(const void* qt, const void* xw, const void* meas, const void* omeg
   auto pf = static_cast<const int32_t*>(pose_vertex_off);
   auto lf = static_cast<const int32_t*>(lm_vertex_off);
   auto hpl = static_cast<T*>(hpl_out);
-  const cudaError_t err =
-      mdim == 2 ? launch_linearise<2>(in, pose, pf, Pa, lm, lf, La, hpl, st)
-                : launch_linearise<3>(in, pose, pf, Pa, lm, lf, La, hpl, st);
+  const cudaError_t err = with_model(kind, cam_stride, [&](auto k, auto pec) {
+    return launch_linearise<decltype(k)::value, decltype(pec)::value>(
+        in, pose, pf, Pa, lm, lf, La, hpl, st);
+  });
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Per-edge chi [E] (kernel B1).  active and m3 may be null.  f32: 1 where
-// every float operand and the output are f32, 0 where they are f64.
+// Per-edge chi [E] (kernel B1).  active and m3 may be null; code is the
+// mixed pack's [E] uint8 kinds (null for the other models).  cam is [5]
+// (cam_stride 0) or [5, E] (cam_stride 1).  kind: 0 mono, 1 stereo, 2
+// depth, 3 mixed.  f32: 1 where every float operand and the output are
+// f32, 0 where they are f64.
 extern "C" int tba_chi_edges(const void* qt, const void* xw, const void* meas,
                              const void* omega, const void* active,
-                             const void* m3, const void* cam, long long E,
-                             int omega_stride, int mdim, int f32, void* out,
-                             void* stream) {
-  if (mdim != 2 && mdim != 3) return static_cast<int>(cudaErrorInvalidValue);
+                             const void* m3, const void* code, const void* cam,
+                             long long E, int omega_stride, int cam_stride,
+                             int kind, int f32, void* out, void* stream) {
+  if (kind < kMono || kind > kMixed || (kind == kMixed) != (code != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (E == 0) return 0;
-  return f32 ? chi_edges<float>(qt, xw, meas, omega, active, m3, cam, E, omega_stride,
-                                mdim, out, stream)
-             : chi_edges<double>(qt, xw, meas, omega, active, m3, cam, E, omega_stride,
-                                 mdim, out, stream);
+  return f32 ? chi_edges<float>(qt, xw, meas, omega, active, m3, code, cam, E,
+                                omega_stride, cam_stride, kind, out, stream)
+             : chi_edges<double>(qt, xw, meas, omega, active, m3, code, cam, E,
+                                 omega_stride, cam_stride, kind, out, stream);
 }
 
 // Hpp|bp [Pa, 42], Hll|bl [La, 12] and Hpl [E, 18] (kernel B3).  active,
-// both_free and m3 may be null.  Per vertex kind the plan of
-// kernels/terms.py make_linearise_plan: rows [n] (uint8), chunks [chunks, 4]
-// and tile_off [tiles + 1] for the tile kernel, vertex_off [vertices + 1] for
-// the finishing kernel (int32), and a scratch [chunks, 27 or 9] f64 in either
+// both_free and m3 may be null; code, cam, cam_stride and kind as for
+// tba_chi_edges.  Per vertex kind the plan of kernels/terms.py
+// make_linearise_plan: rows [n] (uint8), chunks [chunks, 4] and tile_off
+// [tiles + 1] for the tile kernel, vertex_off [vertices + 1] for the
+// finishing kernel (int32), and a scratch [chunks, 27 or 9] f64 in either
 // working type.  f32: as for tba_chi_edges.
 extern "C" int tba_linearise(const void* qt, const void* xw, const void* meas,
                              const void* omega, const void* active,
                              const void* both_free, const void* m3,
-                             const void* cam, long long E, int omega_stride,
-                             int mdim, int f32, const void* pose_rows,
-                             const void* pose_chunks, const void* pose_tile_off,
-                             const void* pose_vertex_off, void* pose_scratch,
-                             long long Pa, const void* lm_rows,
+                             const void* code, const void* cam, long long E,
+                             int omega_stride, int cam_stride, int kind, int f32,
+                             const void* pose_rows, const void* pose_chunks,
+                             const void* pose_tile_off, const void* pose_vertex_off,
+                             void* pose_scratch, long long Pa, const void* lm_rows,
                              const void* lm_chunks, const void* lm_tile_off,
                              const void* lm_vertex_off, void* lm_scratch,
                              long long La, void* pose_out, void* lm_out,
                              void* hpl_out, void* stream) {
-  if (mdim != 2 && mdim != 3) return static_cast<int>(cudaErrorInvalidValue);
-  return f32 ? linearise<float>(qt, xw, meas, omega, active, both_free, m3, cam, E,
-                                omega_stride, mdim, pose_rows, pose_chunks, pose_tile_off,
-                                pose_vertex_off, pose_scratch, Pa, lm_rows, lm_chunks,
-                                lm_tile_off, lm_vertex_off, lm_scratch, La, pose_out,
-                                lm_out, hpl_out, stream)
-             : linearise<double>(qt, xw, meas, omega, active, both_free, m3, cam, E,
-                                 omega_stride, mdim, pose_rows, pose_chunks, pose_tile_off,
-                                 pose_vertex_off, pose_scratch, Pa, lm_rows, lm_chunks,
-                                 lm_tile_off, lm_vertex_off, lm_scratch, La, pose_out,
-                                 lm_out, hpl_out, stream);
+  if (kind < kMono || kind > kMixed || (kind == kMixed) != (code != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return f32 ? linearise<float>(qt, xw, meas, omega, active, both_free, m3, code, cam,
+                                E, omega_stride, cam_stride, kind, pose_rows, pose_chunks,
+                                pose_tile_off, pose_vertex_off, pose_scratch, Pa, lm_rows,
+                                lm_chunks, lm_tile_off, lm_vertex_off, lm_scratch, La,
+                                pose_out, lm_out, hpl_out, stream)
+             : linearise<double>(qt, xw, meas, omega, active, both_free, m3, code, cam,
+                                 E, omega_stride, cam_stride, kind, pose_rows, pose_chunks,
+                                 pose_tile_off, pose_vertex_off, pose_scratch, Pa, lm_rows,
+                                 lm_chunks, lm_tile_off, lm_vertex_off, lm_scratch, La,
+                                 pose_out, lm_out, hpl_out, stream);
 }

@@ -50,9 +50,11 @@ class GraphOptimisationOptions:
 
     ``per_edge_information``: each edge's own information is packed (omega
     ``[E]``, read by kernels B1 and B3); otherwise the edge set's global
-    value.  ``per_edge_camera``: edges that carry a camera raise
-    ``NotImplementedError`` at ``initialize()`` (ROADMAP A7); otherwise the
-    edge set's camera is used.
+    value.  ``per_edge_camera``: each edge that carries a camera is
+    projected through it, the others (and bulk edges) through the edge
+    set's camera (a ``[5, E]`` camera read by kernels B1 and B3, packed as
+    one camera where all are equal); otherwise the edge set's camera is
+    used.
     ``dtype``: ``"float64"`` or ``"float32"`` (f32 mode: state, edge data
     and every stage in f32; the kernels compute in f64 and round once).
     ``solver_precision``: ``"mixed"`` (at f64, an f32 factor of the reduced

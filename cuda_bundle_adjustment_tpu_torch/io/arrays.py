@@ -25,8 +25,10 @@ def optimizer_from_problem(
     shared vertices; a mono and a stereo set merge into one masked stereo
     set).  The device is the CUDA card unless the caller asks for
     ``device="cpu"``; without a card the default raises ``RuntimeError``.
-    ``rk`` (a ``RobustKernelType`` value) and ``delta`` select the robust
-    kernel of every edge set.
+    ``rk`` (a ``RobustKernelType`` value), ``delta`` and
+    ``outlier_threshold`` apply to every edge set that does not name its
+    own (a :class:`MixedBAProblem` spec may carry ``rk``, ``delta`` and
+    ``outlier_threshold``, as ORB-SLAM2's mono and stereo sets differ).
 
     Call ``optimize(n)`` directly on the result; estimates stay in
     ``opt.solver.graph`` (``q``/``t``/``Xw`` tensors on ``device``), and
@@ -36,7 +38,7 @@ def optimizer_from_problem(
     opt = TorchGraphOptimisation(options, device)
     if isinstance(problem, MixedBAProblem):
         specs = [
-            dict(s, rk=rk, delta=delta, outlier_threshold=outlier_threshold)
+            dict(dict(rk=rk, delta=delta, outlier_threshold=outlier_threshold), **s)
             for s in problem.specs
         ]
     else:

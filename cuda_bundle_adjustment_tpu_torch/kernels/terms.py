@@ -4,10 +4,12 @@ their plain twins.
 Counterparts of ``pallas/terms.py`` ``chi_class_call`` and
 ``terms_class_call``.  Both take the per-edge state that kernel B2 gathers
 (``models/ba.py edge_state``: pose ``[E, 12]``, landmark ``[E, 3]``) and the
-edge payload of :class:`PackedEdges`: ``meas [mdim, E]`` (mdim 2 runs the
-mono model, 3 the stereo model, with ``mask3`` masking the third row of a
-merged mono+stereo set), ``omega [1] or [E]``, ``active``, ``both_free``
-and the camera ``[5, 1]``.  Neither kernel knows a robust kernel: B1 returns
+edge payload of :class:`PackedEdges`: ``meas [mdim, E]``, the model
+``kind`` (one instantiation each: ``"mono"`` with mdim 2; ``"stereo"``,
+with ``mask3`` masking the third row of a pack of mono and stereo rows;
+``"depth"``; ``"mixed"``, each edge's kind read from ``code``), ``omega
+[1] or [E]``, ``active``, ``both_free`` and the camera ``[5, 1]`` or ``[5,
+E]`` (one an edge, read with a stride).  Neither kernel knows a robust kernel: B1 returns
 ``x = omega * active * |e|^2`` per edge, to which the solver applies rho for
 chi and rho' for the ``[E]`` weight it hands B3 in ``omega``
 (``solver/block_solver.py build_system``).  The wrappers dispatch on
@@ -36,11 +38,17 @@ from ..types import PackedEdges
 from . import _build
 from ._types import check_floats, f32_flag, narrow, wide, wide_edges
 
+# the kernels' models (csrc/terms.cu Kind)
+_KINDS = {"mono": 0, "stereo": 1, "depth": 2, "mixed": 3}
+
 
 def _model(data: PackedEdges):
-    from ..models.ba import MonoModel, StereoModel
+    """The twin of the kernels' instantiation for ``data.kind``."""
+    from ..models.ba import MODEL_REGISTRY
 
-    return MonoModel if data.meas.shape[0] == 2 else StereoModel
+    if data.kind not in _KINDS:
+        raise ValueError(f"B1/B3 run the models {sorted(_KINDS)}, not {data.kind!r}")
+    return MODEL_REGISTRY[data.kind]
 
 
 def chi_edges_plain(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Tensor:
@@ -167,34 +175,44 @@ def _ptr(t) -> int | None:
 def _check(name, qt, xw, data: PackedEdges, segs=()):
     """Validate the operands of a CUDA launch; returns them contiguous."""
     E = qt.shape[0]
-    mdim = data.meas.shape[0]
+    mdim = _model(data).MDIM
     floats = [qt, xw, data.meas, data.omega, data.cam, data.active, data.both_free, data.mask3]
     floats = [t for t in floats if t is not None]
     ints = [t for s in segs for t in s]
     check_floats(name, *floats)
     if any(t.dtype != torch.int64 for t in ints):
         raise TypeError(f"{name}: expects int64 segment plans")
-    if any(t.device != qt.device for t in floats + ints):
+    if any(t.device != qt.device for t in floats + ints + [data.code] if t is not None):
         raise ValueError(f"{name}: all operands must be on one device")
-    if mdim not in (2, 3) or data.meas.shape != (mdim, E):
-        raise ValueError(f"{name}: expects meas [2 or 3, E]")
-    if qt.shape != (E, 12) or xw.shape != (E, 3) or data.cam.numel() != 5:
-        raise ValueError(f"{name}: expects pose state [E, 12], landmark [E, 3], camera [5]")
+    if data.meas.shape != (mdim, E):
+        raise ValueError(f"{name}: the {data.kind} model expects meas [{mdim}, E]")
+    if qt.shape != (E, 12) or xw.shape != (E, 3) or data.cam.shape not in ((5, 1), (5, E)):
+        raise ValueError(f"{name}: expects pose state [E, 12], landmark [E, 3], camera [5, 1] "
+                         "or [5, E]")
     if data.omega.shape not in ((1,), (E,)):
         raise ValueError(f"{name}: expects omega [1] or [E]")
-    for t in (data.active, data.both_free, data.mask3):
+    for t in (data.active, data.both_free, data.mask3, data.code):
         if t is not None and t.shape != (E,):
-            raise ValueError(f"{name}: expects active, both_free and mask3 of shape [E]")
-    if data.mask3 is not None and mdim != 3:
-        raise ValueError(f"{name}: mask3 needs a stereo (mdim 3) measurement")
+            raise ValueError(f"{name}: expects active, both_free, mask3 and code of shape [E]")
+    if data.mask3 is not None and data.kind != "stereo":
+        raise ValueError(f"{name}: mask3 belongs to a stereo pack, not {data.kind!r}")
+    if (data.code is not None) != (data.kind == "mixed") or (
+            data.code is not None and data.code.dtype != torch.uint8):
+        raise ValueError(f"{name}: a mixed pack, and only one, carries a uint8 kind code")
     return (
         qt.contiguous(), xw.contiguous(),
         data._replace(
             meas=data.meas.contiguous(), omega=data.omega.contiguous(),
-            cam=data.cam.reshape(5).contiguous(), active=_contiguous(data.active),
+            cam=data.cam.contiguous(), active=_contiguous(data.active),
             both_free=_contiguous(data.both_free), mask3=_contiguous(data.mask3),
+            code=_contiguous(data.code),
         ),
     )
+
+
+def _strides(d: PackedEdges) -> tuple:
+    """The launchers' ``omega_stride, cam_stride, kind`` of checked operands."""
+    return int(d.omega.shape[0] != 1), int(d.cam.shape[1] != 1), _KINDS[d.kind]
 
 
 def _contiguous(t):
@@ -203,12 +221,13 @@ def _contiguous(t):
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    # qt xw meas omega active m3 cam | E omega_stride mdim f32 | out stream
-    "tba_chi_edges": [_VP] * 7 + [_LL, _INT, _INT, _INT, _VP, _VP],
-    # qt xw meas omega active both_free m3 cam | E omega_stride mdim f32 |
-    # pose rows, chunks, tile_off, vertex_off, scratch, Pa | the same of the
-    # landmarks, La | 3 outputs, stream
-    "tba_linearise": [_VP] * 8 + [_LL, _INT, _INT, _INT] + ([_VP] * 5 + [_LL]) * 2
+    # qt xw meas omega active m3 code cam | E omega_stride cam_stride kind f32
+    # | out stream
+    "tba_chi_edges": [_VP] * 8 + [_LL, _INT, _INT, _INT, _INT, _VP, _VP],
+    # qt xw meas omega active both_free m3 code cam | E omega_stride
+    # cam_stride kind f32 | pose rows, chunks, tile_off, vertex_off, scratch,
+    # Pa | the same of the landmarks, La | 3 outputs, stream
+    "tba_linearise": [_VP] * 9 + [_LL, _INT, _INT, _INT, _INT] + ([_VP] * 5 + [_LL]) * 2
     + [_VP] * 4,
 }
 
@@ -235,9 +254,8 @@ def chi_edges(qt: torch.Tensor, xw: torch.Tensor, data: PackedEdges) -> torch.Te
         return out
     status = _fn("tba_chi_edges")(
         qt.data_ptr(), xw.data_ptr(), d.meas.data_ptr(), d.omega.data_ptr(),
-        _ptr(d.active), _ptr(d.mask3), d.cam.data_ptr(), E,
-        int(d.omega.shape[0] != 1), d.meas.shape[0], f32_flag(qt.dtype), out.data_ptr(),
-        _build.stream_ptr(qt),
+        _ptr(d.active), _ptr(d.mask3), _ptr(d.code), d.cam.data_ptr(), E, *_strides(d),
+        f32_flag(qt.dtype), out.data_ptr(), _build.stream_ptr(qt),
     )
     _build.check(status, "chi_edges")
     chi_edges.launches += 1
@@ -275,8 +293,8 @@ def linearise(qt, xw, data: PackedEdges, pose_seg: Segments, lm_seg: Segments,
                           device=qt.device)
     status = _fn("tba_linearise")(
         qt.data_ptr(), xw.data_ptr(), d.meas.data_ptr(), d.omega.data_ptr(),
-        _ptr(d.active), _ptr(d.both_free), _ptr(d.mask3), d.cam.data_ptr(), E,
-        int(d.omega.shape[0] != 1), d.meas.shape[0], f32_flag(qt.dtype),
+        _ptr(d.active), _ptr(d.both_free), _ptr(d.mask3), _ptr(d.code), d.cam.data_ptr(), E,
+        *_strides(d), f32_flag(qt.dtype),
         *(t.data_ptr() for t in plan.pose), scratch.data_ptr(), Pa,
         *(t.data_ptr() for t in plan.lm), scratch.data_ptr() + 8 * pose_rows, La,
         pose.data_ptr(), lm.data_ptr(), hpl.data_ptr(), _build.stream_ptr(qt),

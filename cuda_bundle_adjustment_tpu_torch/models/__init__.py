@@ -5,6 +5,8 @@ from .ba import (
     MODEL_REGISTRY,
     DepthEdge,
     DepthEdgeSet,
+    DepthModel,
+    MixedModel,
     MonoEdge,
     MonoEdgeSet,
     MonoModel,
@@ -25,6 +27,8 @@ __all__ = [
     "StereoModel",
     "DepthEdge",
     "DepthEdgeSet",
+    "DepthModel",
+    "MixedModel",
     "LineEdge",
     "LineEdgeSet",
     "LineModel",

@@ -1,4 +1,4 @@
-"""The mono and stereo bundle-adjustment models (counterpart of
+"""The mono, stereo and depth bundle-adjustment models (counterpart of
 ``models/ba.py``).
 
 Two batched stage functions per model, in the JAX package's component form
@@ -12,17 +12,22 @@ Two batched stage functions per model, in the JAX package's component form
 The per-edge pose and landmark state comes in through kernel B2
 (:func:`edge_state`); ``state=`` hands in a state gathered already, as the
 JAX package's ``pose_state=`` does.  These functions are the plain twins of
-kernels B1 and B3 (``kernels/terms.py``).  A merged mono+stereo set
-(``data.mask3``) runs the stereo model with the third residual component and
-Jacobian row masked per edge.  The kernels take the robust kernel from
-outside: the solver applies rho to B1's per-edge chi and hands B3 the weight
-rescaled by rho', which equals ``Model.chi`` / ``Model.terms`` at that
-``rk, delta`` with the original weight.
+kernels B1 and B3 (``kernels/terms.py``), one model for each of the
+kernels' instantiations.  A pack of mono and stereo rows (``data.mask3``)
+runs the stereo model with the third residual component and Jacobian row
+masked per edge.  The depth model is the reference's: the residual ``meas -
+proj`` (the sign flipped) with the stereo Jacobian, ``bf`` row included
+(JAX ``models/ba.py``); it is kept so.  A pack of depth rows beside mono or
+stereo rows (``MixedModel``) reads each edge's kind from ``data.code``: the
+depth residual on depth rows, the stereo model elsewhere, the third row
+masked on mono rows.  The kernels take the robust kernel from outside: the
+solver applies rho to B1's per-edge chi and hands B3 the weight rescaled by
+rho', which equals ``Model.chi`` / ``Model.terms`` at that ``rk, delta``
+with the original weight.
 
 The user-facing edge and edge-set classes of the object API follow the
 models.  ``MODEL_REGISTRY`` also holds the pose-only ICP models of
-``models/icp.py``.  The depth model waits for ROADMAP A7: a depth set can be
-built, and packing it raises.
+``models/icp.py``.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from ..graph import BaseEdge, EdgeSet
 from ..kernels.gather import gather_rows
 from ..ops import components as C
 from ..ops.robust import robust_derivative, robustify
-from ..types import GraphArrays, PackedEdges
+from ..types import KIND_CODES, GraphArrays, PackedEdges
 from .icp import LineModel, PlaneModel
 
 
@@ -73,40 +78,58 @@ def _edge_inputs(graph, data: PackedEdges, state=None):
     return R, Xc, cam, inv_z
 
 
-def _residual(kind: str, Xc, cam, meas, inv_z):
+def mask3(data: PackedEdges):
+    """The third-row mask of a pack: ``mask3`` of a mono+stereo pack, 0.0 on
+    the mono rows of a "mixed" pack (``code``), else None."""
+    if data.code is None:
+        return data.mask3
+    return (data.code != KIND_CODES["mono"]).to(data.meas.dtype)
+
+
+def _residual(kind: str, Xc, cam, data: PackedEdges, inv_z):
+    """Residual components, the third masked per edge where the pack says
+    so (a mono row of a pack with stereo or depth rows drops it)."""
+    meas = data.meas
     if kind == "mono":
         return C.mono_residual_comps(Xc, cam, meas[0], meas[1], inv_z)
     if kind == "stereo":
-        return C.stereo_residual_comps(Xc, cam, meas[0], meas[1], meas[2], inv_z)
-    raise ValueError(kind)
+        e = C.stereo_residual_comps(Xc, cam, meas[0], meas[1], meas[2], inv_z)
+    elif kind == "depth":
+        e = C.depth_residual_comps(Xc, cam, meas[0], meas[1], meas[2], inv_z)
+    elif kind == "mixed":
+        depth = data.code == KIND_CODES["depth"]
+        e = tuple(torch.where(depth, d, s) for s, d in zip(
+            C.stereo_residual_comps(Xc, cam, meas[0], meas[1], meas[2], inv_z),
+            C.depth_residual_comps(Xc, cam, meas[0], meas[1], meas[2], inv_z)))
+    else:
+        raise ValueError(kind)
+    m3 = mask3(data)
+    if m3 is not None:
+        # mono rows (mask 0) drop the third residual component
+        e = e[:2] + (e[2] * m3,)
+    return e
 
 
 def _chi_projective(kind, graph, data, rk, delta, state=None):
     # inactive rows produce finite garbage (inv_z is zeroed at the source)
     # and the trailing ``* active`` zeroes their chi exactly
     _, Xc, cam, inv_z = _edge_inputs(graph, data, state)
-    e = _residual(kind, Xc, cam, data.meas, inv_z)
-    if data.mask3 is not None:
-        # merged mono+stereo set: mono rows (mask3 = 0) drop the third
-        # residual component
-        e = e[:2] + (e[2] * data.mask3,)
+    e = _residual(kind, Xc, cam, data, inv_z)
     x = data.omega * C._sum(c * c for c in e)
     return robustify(rk, delta, x) * data.active
 
 
 def _terms_projective(kind, jac_fn, graph, data, rk, delta, state=None):
     R, Xc, cam, inv_z = _edge_inputs(graph, data, state)
-    e = _residual(kind, Xc, cam, data.meas, inv_z)
-    if data.mask3 is not None:
-        e = e[:2] + (e[2] * data.mask3,)
+    e = _residual(kind, Xc, cam, data, inv_z)
     x = data.omega * C._sum(c * c for c in e)
     # ``* active`` in w zeroes every stack contribution of inactive rows
     w = data.omega * robust_derivative(rk, delta, x) * data.active
     JP, JL = jac_fn(Xc, R, cam, inv_z)
-    if data.mask3 is not None:
+    m3 = mask3(data)
+    if m3 is not None:
         # zero the third Jacobian row too: J^T J and J^T e then reduce to
         # the mono quadratic form for mono rows
-        m3 = data.mask3
         JP = (JP[0], JP[1], tuple(m3 * c for c in JP[2]))
         JL = (JL[0], JL[1], tuple(m3 * c for c in JL[2]))
     pose_stack, lm_stack, hpl = C.weighted_block_stacks(JP, JL, e, w)
@@ -143,8 +166,47 @@ class StereoModel:
         )
 
 
-MODEL_REGISTRY = {"mono": MonoModel, "stereo": StereoModel, "line": LineModel,
-                  "plane": PlaneModel}
+class DepthModel:
+    """Inverse-depth edge ``[u, v, 1/z]``: the reference's residual ``meas -
+    proj`` with the stereo Jacobian (the twin of B1/B3's depth
+    instantiation)."""
+
+    MDIM = 3
+    HAS_LANDMARK = True
+
+    @staticmethod
+    def chi(graph, data, rk, delta, state=None):
+        return _chi_projective("depth", graph, data, rk, delta, state)
+
+    @staticmethod
+    def terms(graph, data, rk, delta, state=None):
+        return _terms_projective(
+            "depth", C.stereo_jacobian_comps, graph, data, rk, delta, state
+        )
+
+
+class MixedModel:
+    """A landmark pack of depth rows beside mono or stereo rows, each edge's
+    kind read from ``data.code`` (the twin of B1/B3's mixed instantiation):
+    :class:`DepthModel` on depth rows, :class:`StereoModel` on the others,
+    the third row masked on mono rows."""
+
+    MDIM = 3
+    HAS_LANDMARK = True
+
+    @staticmethod
+    def chi(graph, data, rk, delta, state=None):
+        return _chi_projective("mixed", graph, data, rk, delta, state)
+
+    @staticmethod
+    def terms(graph, data, rk, delta, state=None):
+        return _terms_projective(
+            "mixed", C.stereo_jacobian_comps, graph, data, rk, delta, state
+        )
+
+
+MODEL_REGISTRY = {"mono": MonoModel, "stereo": StereoModel, "depth": DepthModel,
+                  "mixed": MixedModel, "line": LineModel, "plane": PlaneModel}
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,7 @@
 
 Every per-edge quantity is a plain ``[E]`` vector and rank-2 per-edge blocks
 exist only as flat row-major ``[E, K]`` stacks, exactly as in the JAX
-package, so the two compute the same floats in the same order.  The depth
-comps wait for ROADMAP A7.
+package, so the two compute the same floats in the same order.
 """
 
 from __future__ import annotations
@@ -67,6 +66,18 @@ def stereo_residual_comps(Xc, cam, m0, m1, m2, inv_z):
     e0 = u - m0
     e1 = fy * inv_z * Xy + cy - m1
     e2 = u - bf * inv_z - m2
+    return e0, e1, e2
+
+
+def depth_residual_comps(Xc, cam, m0, m1, m2, inv_z):
+    """Depth residual components ``[u, v, 1/z]`` as ``meas - proj``: the
+    sign is the reference's, flipped against mono and stereo (the depth
+    model pairs it with the stereo Jacobian, as the reference does)."""
+    Xx, Xy, _ = Xc
+    fx, fy, cx, cy, _ = cam
+    e0 = m0 - (fx * inv_z * Xx + cx)
+    e1 = m1 - (fy * inv_z * Xy + cy)
+    e2 = m2 - inv_z
     return e0, e1, e2
 
 

@@ -6,9 +6,10 @@ path, in plain PyTorch around ten hand-written kernels:
 
 * per-edge state gathers through kernel B2 (``models/ba.py edge_state``);
 * chi through kernel B1 (:func:`compute_chi`) and the linearisation through
-  kernel B3 (:func:`build_system`), for mono, stereo and merged mono+stereo
-  edge sets; a robust kernel (Huber, Cauchy, Tukey) applies rho to B1's
-  per-edge output and hands B3 the weight rescaled by rho';
+  kernel B3 (:func:`build_system`), for mono, stereo and depth edges, with
+  one camera or a camera an edge; a robust kernel (Huber, Cauchy, Tukey)
+  applies rho to B1's per-edge output and hands B3 the weight rescaled by
+  rho';
 * the damped landmark inverse and ``y = inv(Hll) bl`` through kernel B4, the
   bsc product through kernel B5 and the Schur pair products through kernel
   B6 (:func:`schur_reduce`);
@@ -29,11 +30,17 @@ path, in plain PyTorch around ten hand-written kernels:
   ``Hpp`` is block-diagonal and each damped 6x6 block is solved on its own,
   with no Schur reduction and no landmark step.
 
-Besides one mono, stereo or merged mono+stereo set (or none), a graph may
-hold pose-only ICP sets (``models/icp.py``, plain torch); their per-pose
-stacks are summed set after set onto the pose side.  Edges above an edge
-set's outlier threshold are masked by :meth:`BlockSolver.update_edges`, at
-the end of every ``optimize()``.
+Every edge set with landmarks (mono, stereo, depth; a mono and a stereo
+set under one robust kernel merge into one masked stereo set first) goes
+into one landmark pack, the sets concatenated in the caller's order, each
+keeping its kind, robust kernel and bounds (:class:`EdgeSetMeta`): B1 and
+B3 launch once a pass over the pack, whatever the number of sets, rho and
+rho' apply set by set to B1's output, and the Schur stages run on the
+concatenation unchanged.  Beside it a graph may hold pose-only ICP sets
+(``models/icp.py``, plain torch); their per-pose stacks are summed set
+after set onto the pose side.  Edges above an edge set's outlier threshold
+are masked by :meth:`BlockSolver.update_edges`, at the end of every
+``optimize()``.
 
 An object graph (vertex and edge sets, :meth:`BlockSolver.initialize`) is
 turned into the same edge specs as an array problem and packed by
@@ -47,8 +54,7 @@ the same chi2 trace bit for bit.  Everything derived from the index arrays
 alone (the RCM order, the symbolic structure and the device plan) is cached
 across solvers by a content digest (:func:`_struct_digest`), so a
 re-optimisation of the same topology skips the host analysis and the plan
-uploads.  Anything outside the slice raises ``NotImplementedError`` naming
-its ROADMAP item.
+uploads.
 
 The working type is ``options.dtype``: f64, or f32 (f32 mode), in which the
 state, the edge data and every stage's output are f32 and the kernels
@@ -88,7 +94,7 @@ from ..models.ba import MODEL_REGISTRY, edge_state
 from ..ops import components as C
 from ..ops.lie import se3_exp, se3_update_left
 from ..ops.robust import RobustKernelType, robust_derivative, robustify
-from ..types import GraphArrays, PackedEdges, SystemBlocks
+from ..types import KIND_CODES, GraphArrays, PackedEdges, SystemBlocks
 from ..utils import profiling as prof
 from . import pcg as _pcg
 from .segments import Segments, make_segments, segment_sum
@@ -118,6 +124,10 @@ PRECISIONS = ("mixed", "exact")
 # B5/B9 counters and scratch (:func:`_solver_plan`).
 _STRUCT_CACHE: "OrderedDict[str, dict]" = OrderedDict()
 _STRUCT_CACHE_MAX = 8
+# plans one structure keeps, one a set of knobs (:meth:`BlockSolver._plan_knobs`:
+# a CPU and a card solver of one graph, f64 and f32, "mixed" and "exact"),
+# the least recently used going first
+_PLANS_PER_STRUCTURE = 4
 # plans reused (hits) and built (misses) by build_structure
 _STRUCT_STATS = {"hits": 0, "misses": 0}
 
@@ -151,12 +161,15 @@ def _struct_bundle(key: str) -> dict:
 
 def _struct_digest(edge_specs, P, Pa, L, La) -> str:
     """Content digest of everything the host symbolic pipeline reads: the
-    vertex counts and each edge set's kind and index arrays.  An array is
-    hashed as it comes, its dtype and shape with it (no int64 copy: half the
-    bytes for int32 indices), by SHA-256, which the host CPU accelerates."""
+    vertex counts and each edge set's kind, bounds and index arrays (two
+    graphs whose sets split the same edges otherwise do not share it).  An
+    array is hashed as it comes, its dtype and shape with it (no int64 copy:
+    half the bytes for int32 indices), by SHA-256, which the host CPU
+    accelerates."""
     h = hashlib.sha256(np.array([P, Pa, L, La], dtype=np.int64).tobytes())
     for sp in edge_specs:
-        h.update(f"|{sp['kind']}".encode())
+        # a set's bounds are its arrays' shapes; a merged set's its sizes
+        h.update(f"|{sp['kind']}|{sp.get('merged_sizes')}".encode())
         for key in ("pose_idx", "lm_idx"):
             a = np.ascontiguousarray(sp[key])
             h.update(f"|{a.dtype.str}{a.shape}|".encode())
@@ -172,12 +185,17 @@ def _frozen(a):
 
 
 class EdgeSetMeta(NamedTuple):
-    """Static per-edge-set info."""
+    """Static info of one packed set: the model it runs, its robust kernel
+    and its active edges.  A pack of several landmark sets (:func:`pack_kind`)
+    has ``parts``: each set's own meta, with its kind, robust kernel and
+    active edges, and the set's edges ``[start, stop)`` in the pack; the
+    pack's ``rk`` is then 0 and ``nedges`` their sum."""
 
     kind: str
     rk: int  # RobustKernelType value
     delta: float
     nedges: int
+    parts: tuple = ()  # ((EdgeSetMeta, start, stop), ...)
 
 
 class BandMeta(NamedTuple):
@@ -257,14 +275,6 @@ def _solver_plan(cached: SchurPlan, packed: Optional[PackedEdges]) -> SchurPlan:
     return cached._replace(ba_pose_idx=packed.pose_idx, ba_lm_idx=packed.lm_idx, lin_plan=lin)
 
 
-def outside_slice(what: str, item: str) -> NotImplementedError:
-    """The refusal for an input the port does not run yet; ``item`` names
-    the open ROADMAP item, e.g. ``"A4: f32 mode"``."""
-    return NotImplementedError(
-        f"{what} is outside the PyTorch port's current slice (ROADMAP {item})"
-    )
-
-
 def _ids_to_indices(sets, ids) -> np.ndarray:
     """Vectorised vertex-id -> global-index lookup across several vertex
     sets (the global indices :meth:`BlockSolver.initialize` assigns).  Ids
@@ -272,6 +282,32 @@ def _ids_to_indices(sets, ids) -> np.ndarray:
     pairs = [vs._ids_and_global_indices() for vs in sets]
     return lookup_ids(np.concatenate([a for a, _ in pairs]),
                       np.concatenate([b for _, b in pairs]), ids)
+
+
+# the edge kinds a spec may name, and the model a pack of several landmark
+# sets runs
+SET_KINDS = ("mono", "stereo", "depth", "line", "plane")
+
+
+def pack_kind(kinds: Sequence[str]) -> str:
+    """The model of a pack of edge sets of ``kinds`` (B1/B3's
+    instantiation): their one kind where they share it; ``"stereo"`` for
+    mono beside stereo (the mono rows' third row masked, ``mask3``);
+    ``"mixed"`` for depth beside either (a kind code an edge)."""
+    kinds = set(kinds)
+    if len(kinds) == 1:
+        return kinds.pop()
+    return "stereo" if kinds <= {"mono", "stereo"} else "mixed"
+
+
+def _uniform_rows(parts: Sequence[np.ndarray], sizes: Sequence[int]) -> np.ndarray:
+    """The rows of several sets' ``[1 or E, K]`` arrays as one array: one
+    row where every edge has the same, else a row an edge."""
+    if all(p.shape[0] == 1 for p in parts) and all(
+            np.array_equal(p, parts[0]) for p in parts[1:]):
+        return parts[0]
+    rows = np.concatenate([np.broadcast_to(p, (E, p.shape[1])) for p, E in zip(parts, sizes)])
+    return rows[:1] if rows.shape[0] and np.all(rows == rows[0]) else rows
 
 
 def _merge_ba_specs(edge_specs):
@@ -349,35 +385,66 @@ def _merge_ba_specs(edge_specs):
 # ---------------------------------------------------------------------------
 
 
+def robust_parts(meta: EdgeSetMeta) -> tuple:
+    """``(rk, delta, slice)`` of each edge set of a pack: the pack's own, or
+    each of its ``parts``."""
+    if not meta.parts:
+        return ((meta.rk, meta.delta, slice(None)),)
+    return tuple((m.rk, m.delta, slice(a, b)) for m, a, b in meta.parts)
+
+
+def is_robust(meta: EdgeSetMeta) -> bool:
+    """Whether some set of the pack has a robust kernel (B3 then takes the
+    weight rescaled by rho', from a B1 pass)."""
+    return any(rk for rk, _, _ in robust_parts(meta))
+
+
+def _by_set(meta: EdgeSetMeta, x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(rk, delta, x)`` on each set's stretch of the per-edge ``x``, in
+    set order (one call on the whole of ``x`` for a pack of one set)."""
+    parts = robust_parts(meta)
+    if len(parts) == 1:
+        return fn(parts[0][0], parts[0][1], x)
+    return torch.cat([fn(rk, delta, x[sl]) for rk, delta, sl in parts])
+
+
+def robust_weight(data: PackedEdges, meta: EdgeSetMeta, x: torch.Tensor) -> torch.Tensor:
+    """The weight ``[E]`` B3 takes: ``omega`` times each set's rho' of B1's
+    per-edge ``x`` on that set's edges."""
+    return data.omega * _by_set(meta, x, robust_derivative)
+
+
 def set_chi(graph: GraphArrays, data: PackedEdges, meta: EdgeSetMeta) -> torch.Tensor:
-    """Per-edge robustified chi2 ``[E]`` of one edge set: for a mono or
-    stereo set the robust kernel's rho on kernel B1's ``omega |e|^2`` (inert
-    rows give 0, and rho(0) = 0), for an ICP set its model's chi."""
+    """Per-edge robustified chi2 ``[E]`` of one pack: for a landmark pack
+    each set's rho on kernel B1's ``omega |e|^2`` over its edges (inert rows
+    give 0, and rho(0) = 0), for an ICP set its model's chi."""
     model = MODEL_REGISTRY[meta.kind]
-    if model.HAS_LANDMARK:
-        return robustify(meta.rk, meta.delta, chi_edges(*edge_state(graph, data), data))
-    return model.chi(graph, data, meta.rk, meta.delta)
+    if not model.HAS_LANDMARK:
+        return model.chi(graph, data, meta.rk, meta.delta)
+    return _by_set(meta, chi_edges(*edge_state(graph, data), data), robustify)
 
 
 def compute_chi(graph: GraphArrays, packs: Sequence[PackedEdges],
                 metas: Sequence[EdgeSetMeta]) -> torch.Tensor:
     """Total chi2 (reference stage "2: Compute Error"): every edge set's
-    :func:`set_chi` summed, set after set."""
+    robustified chi summed, set after set (the sets of a landmark pack from
+    one B1 launch)."""
     total = None
     for data, meta in zip(packs, metas):
-        chi = set_chi(graph, data, meta).sum()
-        total = chi if total is None else total + chi
+        chi = set_chi(graph, data, meta)
+        for _, _, sl in robust_parts(meta):
+            total = chi[sl].sum() if total is None else total + chi[sl].sum()
     return total
 
 
 def build_system(graph: GraphArrays, packs: Sequence[PackedEdges],
                  metas: Sequence[EdgeSetMeta], plan: SchurPlan) -> SystemBlocks:
     """Assemble Hpp/bp/Hll/bl and per-edge Hpl blocks (stage "3: Build
-    System").  The mono or stereo set goes through kernel B3; contributions
-    of fixed vertices drop out because their rows are not in the segment
+    System").  The landmark pack goes through kernel B3; contributions of
+    fixed vertices drop out because their rows are not in the segment
     plans.  Under a robust kernel the weight is rescaled by rho'(x) before
     the quadratic form, as the reference does: x per edge from kernel B1,
-    rho' in plain tensor code, then B3 with the ``[E]`` weight.  An ICP
+    each set's rho' in plain tensor code, then B3 with the ``[E]`` weight.  An ICP
     set's per-edge pose stacks (plain torch) are summed per pose through
     its own segment plan and added, set after set.  Without free landmarks
     ``Hll``, ``bl`` and ``Hpl`` are None."""
@@ -386,9 +453,9 @@ def build_system(graph: GraphArrays, packs: Sequence[PackedEdges],
         model = MODEL_REGISTRY[meta.kind]
         if model.HAS_LANDMARK:
             state = edge_state(graph, data)
-            if meta.rk:
+            if is_robust(meta):
                 x = chi_edges(*state, data)
-                data = data._replace(omega=data.omega * robust_derivative(meta.rk, meta.delta, x))
+                data = data._replace(omega=robust_weight(data, meta, x))
             acc, lm_acc, hpl = linearise(
                 *state, data, plan.pose_seg, plan.lm_seg, plan.lin_plan
             )  # [Pa, 42], [La, 12], [E, 18]
@@ -681,12 +748,15 @@ class BlockSolver:
         # an f32 factor with f64 refinement: only where the working type is f64
         self.mixed = options.solver_precision == "mixed" and self.dtype == torch.float64
         self.graph: Optional[GraphArrays] = None
-        # every packed edge set and its meta, in the order given (a mono and
-        # a stereo set merged into one); ``ba``: the position of the set with
-        # landmarks (mono, stereo or merged), None without one
+        # every packed set and its meta: the landmark pack (every set with
+        # landmarks, concatenated) where its first set stands, each ICP set
+        # where it stands; ``ba``: the landmark pack's position, None
+        # without one; ``_pack_specs``: the edge specs (after the mono+stereo
+        # merge) each pack holds
         self.packs: tuple[PackedEdges, ...] = ()
         self.metas: tuple[EdgeSetMeta, ...] = ()
         self.ba: Optional[int] = None
+        self._pack_specs: list[tuple[int, ...]] = []
         self.P = self.Pa = self.L = self.La = 0
         self.schur: Optional[SchurStructure] = None
         self.plan: Optional[SchurPlan] = None
@@ -698,9 +768,9 @@ class BlockSolver:
         # runs the PCG route's CG blocks: iterations of every solve and host
         # reads (the fused loop's capture takes its place while it captures)
         self.cg = _pcg.CgRunner()
-        # outliers: each packed set's threshold (a scalar, or per edge for a
+        # outliers: each edge spec's threshold (a scalar, or per edge for a
         # merged set), its sizes before a merge, and the last update_edges'
-        # deactivations per set
+        # deactivations per spec
         self._spec_thresholds: list = []
         self._merged_sizes: list = []
         self._outlier_counts: list[int] = []
@@ -804,8 +874,14 @@ class BlockSolver:
                 "call edge_set.set_information(...) or enable per-edge "
                 "information in the options"
             )
+        # a camera an edge where edges carry one (the others take the set's),
+        # packed as [5, E] unless every edge's is the same
+        cam = global_cam = es.camera.to_vec()
         if opts.per_edge_camera and any(e.camera is not None for e in edges):
-            raise outside_slice("a per-edge camera", "A7: per-edge camera")
+            cam = np.broadcast_to(global_cam, (E_obj, 5)).copy()
+            for i, e in enumerate(edges):
+                if e.camera is not None:
+                    cam[i] = e.camera.to_vec()
 
         pose_idx = np.fromiter((e.vertices[0].index for e in edges), np.int64, E_obj)
         if es.NVERTS == 2:
@@ -837,6 +913,8 @@ class BlockSolver:
             lm_idx = np.concatenate([lm_idx, lib])
             omega = np.concatenate([omega, ob])
             active = np.concatenate([active, b["active"].astype(np.float64)])
+            if cam.ndim == 2:  # bulk rows take the set's camera
+                cam = np.concatenate([cam, np.broadcast_to(global_cam, (Eb, 5))], axis=0)
 
         # edges whose vertices are all fixed contribute nothing: masked
         # (global active counts across every vertex set)
@@ -852,7 +930,7 @@ class BlockSolver:
             pose_idx=pose_idx,
             lm_idx=lm_idx,
             omega=omega,
-            cam=es.camera.to_vec(),
+            cam=cam,
             rk=int(es.robust_kernel_type),
             delta=float(es.robust_delta),
             active=active,
@@ -873,13 +951,15 @@ class BlockSolver:
         Each ``edge_spec`` dict has keys ``kind, meas [E,K], pose_idx [E],
         lm_idx [E], omega [E], cam ([5] or [E,5])`` and optional ``rk``
         (a ``RobustKernelType`` value), ``delta, active,
-        outlier_threshold`` (a scalar, or ``[E]``).  Vertices are
-        active-first: the first ``num_active_*`` rows are free, the rest
-        fixed.  A mono and a stereo set merge into one masked stereo set
-        (:func:`_merge_ba_specs`); beside the one set with landmarks, any
-        number of pose-only ICP sets (``kind`` ``"line"`` or ``"plane"``,
-        ``lm_idx`` may be left out) is packed in the order given.  Edges are
-        packed in the order given.  An object graph packed before is
+        outlier_threshold`` (a scalar, or ``[E]``).  ``kind`` is
+        ``"mono"``, ``"stereo"``, ``"depth"`` (``[u, v, 1/z]``), or a
+        pose-only ICP kind, ``"line"`` or ``"plane"`` (``lm_idx`` may be
+        left out).  Vertices are active-first: the first ``num_active_*``
+        rows are free, the rest fixed.  A mono and a stereo set under one
+        robust kernel merge into one masked stereo set
+        (:func:`_merge_ba_specs`); the sets with landmarks are packed as one
+        (:meth:`_pack`), each ICP set on its own, in the order given, and
+        edges in the order given.  An object graph packed before is
         forgotten: ``finalize`` writes nothing back."""
         self._pose_sets, self._lm_sets, self._edge_sets = [], [], []
         edge_specs = [
@@ -889,21 +969,11 @@ class BlockSolver:
         if not edge_specs:
             raise ValueError("the graph has no edges")
         for spec in edge_specs:
-            kind = spec["kind"]
-            if kind not in MODEL_REGISTRY:
-                raise outside_slice(f"{kind!r} edges", "A7: the depth model")
+            if spec["kind"] not in SET_KINDS:
+                raise ValueError(f"unknown edge kind {spec['kind']!r} (one of {SET_KINDS})")
             if int(spec.get("rk", 0)) not in tuple(RobustKernelType):
                 raise ValueError(f"unknown robust kernel rk={spec.get('rk')}")
-            cam = np.asarray(spec.get("cam", np.zeros(5)), dtype=np.float64).reshape(-1, 5)
-            if not np.all(cam == cam[0]):
-                raise outside_slice("a per-edge camera", "A7: per-edge camera")
-        ba = [i for i, sp in enumerate(edge_specs) if MODEL_REGISTRY[sp["kind"]].HAS_LANDMARK]
-        if len(ba) > 1:
-            raise outside_slice(
-                f"{len(ba)} landmark edge sets that do not merge into one",
-                "A7: multiple edge sets",
-            )
-        self.ba = ba[0] if ba else None
+        has_lm = [MODEL_REGISTRY[sp["kind"]].HAS_LANDMARK for sp in edge_specs]
 
         self.P = pose_q.shape[0]
         self.Pa = int(num_active_poses)
@@ -917,18 +987,20 @@ class BlockSolver:
         self._struct_bundle = bundle = _struct_bundle(
             _struct_digest(edge_specs, self.P, self.Pa, self.L, self.La)
         )
-        # bandwidth-reducing pose ordering, applied as in the JAX package
-        # (trajectory graphs keep the identity order): only for one set
-        # with landmarks and free landmarks
+        # bandwidth-reducing pose ordering over every set's edges, applied as
+        # in the JAX package (trajectory graphs keep the identity order):
+        # where every set has landmarks and some landmark is free
         self.pose_perm = perm = None
-        if self.La > 0 and len(edge_specs) == 1 and self.ba == 0:
+        if self.La > 0 and all(has_lm):
             if "pose_perm" not in bundle:
                 from .ordering import plan_pose_order
 
                 bundle["pose_perm"] = _frozen(plan_pose_order(
-                    np.asarray(edge_specs[0]["pose_idx"], dtype=np.int64),
-                    np.asarray(edge_specs[0]["lm_idx"], dtype=np.int64), self.Pa, self.La)[0])
+                    np.concatenate([np.asarray(sp["pose_idx"], np.int64) for sp in edge_specs]),
+                    np.concatenate([np.asarray(sp["lm_idx"], np.int64) for sp in edge_specs]),
+                    self.Pa, self.La)[0])
             self.pose_perm = perm = bundle["pose_perm"]
+        new_of_old = None
         if perm is not None:  # perm[i] = old pose at new position i
             new_of_old = np.empty(self.Pa, dtype=np.int64)
             new_of_old[perm] = np.arange(self.Pa)
@@ -941,11 +1013,50 @@ class BlockSolver:
             t=torch.as_tensor(pose_t, dtype=dt, device=dev),
             Xw=torch.as_tensor(landmarks, dtype=dt, device=dev),
         )
+        # one pack of every landmark set, in set order, where the first of
+        # them stands; each ICP set a pack of its own
+        lm_sets = [i for i, h in enumerate(has_lm) if h]
+        groups = []
+        for i, h in enumerate(has_lm):
+            if not h:
+                groups.append([i])
+            elif i == lm_sets[0]:
+                self.ba = len(groups)
+                groups.append(lm_sets)
+        if not lm_sets:
+            self.ba = None
         packs, metas, self._host_idx = [], [], []
-        self._spec_thresholds, self._merged_sizes, self._outlier_counts = [], [], []
-        for spec in edge_specs:
+        self._spec_thresholds = [sp.get("outlier_threshold", 0.0) for sp in edge_specs]
+        self._merged_sizes = [sp.get("merged_sizes") for sp in edge_specs]
+        self._outlier_counts = []
+        self._pack_specs = [tuple(m) for m in groups]
+        for members in groups:
+            pack, meta, host_idx = self._pack([edge_specs[i] for i in members], new_of_old)
+            packs.append(pack)
+            metas.append(meta)
+            self._host_idx.append(host_idx)
+        self.packs, self.metas = tuple(packs), tuple(metas)
+        self.schur = None
+        self.plan = None
+
+    def _pack(self, specs: list, new_of_old) -> tuple:
+        """One packed set of ``specs`` (one edge set, or several landmark
+        sets concatenated in their order): ``(PackedEdges, EdgeSetMeta,
+        (pose_idx, lm_idx) on the host)``.  ``new_of_old``: the RCM pose
+        renaming, None for the identity.  A uniform weight packs as ``[1]``
+        and a uniform camera as ``[5, 1]``, whatever shape they came in;
+        several sets' model is :func:`pack_kind`'s, a mono set's measurement
+        padded with a zero third row where the pack's rows are three."""
+        dev, dt, Pa = self.device, self.dtype, self.Pa
+        kind = pack_kind([sp["kind"] for sp in specs])
+        rows = MODEL_REGISTRY[kind].MDIM
+        meas_p, pi_p, li_p, om_p, cam_p, act_p, code_p, parts = ([] for _ in range(8))
+        start = 0
+        for spec in specs:
             meas = np.asarray(spec["meas"], dtype=np.float64)
             E = meas.shape[0]
+            if meas.shape[1] < rows:
+                meas = np.concatenate([meas, np.zeros((E, rows - meas.shape[1]))], axis=1)
             pose_idx = np.asarray(spec["pose_idx"], dtype=np.int64)
             lm_idx = np.asarray(spec["lm_idx"], dtype=np.int64)
             if E and (pose_idx.min() < 0 or pose_idx.max() >= self.P or (
@@ -953,48 +1064,63 @@ class BlockSolver:
                     and (lm_idx.min() < 0 or lm_idx.max() >= self.L))):
                 raise ValueError(f"{spec['kind']} edges name a vertex outside the graph's "
                                  f"{self.P} poses and {self.L} landmarks")
-            if perm is not None:
-                pose_idx = np.where(
-                    pose_idx < self.Pa, new_of_old[np.minimum(pose_idx, self.Pa - 1)], pose_idx
-                )
-            cam = np.asarray(spec.get("cam", np.zeros(5)), dtype=np.float64).reshape(-1, 5)
-            omega = np.asarray(spec["omega"], dtype=np.float64).reshape(-1)
-            if omega.size and np.all(omega == omega[0]):
-                omega = omega[:1]  # a uniform weight broadcasts from one value
+            if new_of_old is not None:
+                pose_idx = np.where(pose_idx < Pa, new_of_old[np.minimum(pose_idx, Pa - 1)],
+                                    pose_idx)
             active = np.broadcast_to(
-                np.asarray(spec.get("active", 1.0), dtype=np.float64), (E,)
-            )
-            mask3 = spec.get("mask3")
-            pose_idx_d = torch.as_tensor(pose_idx, device=dev)
-            lm_idx_d = torch.as_tensor(lm_idx, device=dev)
-            packs.append(PackedEdges(
-                meas=torch.as_tensor(np.ascontiguousarray(meas.T), dtype=dt, device=dev),
-                omega=torch.as_tensor(omega, dtype=dt, device=dev),
-                cam=torch.as_tensor(cam[:1].T.copy(), dtype=dt, device=dev),
-                pose_idx=pose_idx_d,
-                lm_idx=lm_idx_d,
-                both_free=((pose_idx_d < self.Pa) & (lm_idx_d < self.La)).to(dt),
-                active=torch.as_tensor(active > 0, device=dev).to(dt),
-                mask3=None if mask3 is None else torch.as_tensor(
-                    np.asarray(mask3) > 0, device=dev
-                ).to(dt),
-            ))
-            metas.append(EdgeSetMeta(
-                kind=spec["kind"],
-                rk=int(spec.get("rk", 0)),
-                delta=float(spec.get("delta", 1.0)),
-                nedges=int(np.sum(active > 0)),
-            ))
-            self._host_idx.append((pose_idx, lm_idx))
-            self._spec_thresholds.append(spec.get("outlier_threshold", 0.0))
-            self._merged_sizes.append(spec.get("merged_sizes"))
-        self.packs, self.metas = tuple(packs), tuple(metas)
-        self.schur = None
-        self.plan = None
+                np.asarray(spec.get("active", 1.0), dtype=np.float64), (E,))
+            # each edge's kind: the set's, or a merged set's from its mask3
+            code = np.full(E, KIND_CODES.get(spec["kind"], 0), dtype=np.uint8)
+            if spec.get("mask3") is not None:
+                code[np.asarray(spec["mask3"]) <= 0] = KIND_CODES["mono"]
+            meas_p.append(meas)
+            pi_p.append(pose_idx)
+            li_p.append(lm_idx)
+            om_p.append(np.asarray(spec["omega"], np.float64).reshape(-1, 1))
+            cam_p.append(np.asarray(spec.get("cam", np.zeros(5)), np.float64).reshape(-1, 5))
+            act_p.append(active)
+            code_p.append(code)
+            parts.append((EdgeSetMeta(kind=spec["kind"], rk=int(spec.get("rk", 0)),
+                                      delta=float(spec.get("delta", 1.0)),
+                                      nedges=int(np.sum(active > 0))), start, start + E))
+            start += E
+        cat = (lambda a: a[0]) if len(specs) == 1 else np.concatenate
+        meas, pose_idx, lm_idx, active = cat(meas_p), cat(pi_p), cat(li_p), cat(act_p)
+        sizes = [b - a for _, a, b in parts]
+        # a uniform weight and a uniform camera broadcast from one row
+        omega = _uniform_rows(om_p, sizes)[:, 0]
+        cam = _uniform_rows(cam_p, sizes)
+        # the per-edge kind: a code where depth rows stand beside others, the
+        # third-row mask where mono rows stand beside stereo ones
+        mask3 = code = None
+        if kind == "mixed":
+            code = torch.as_tensor(cat(code_p), device=dev)
+        elif kind == "stereo" and any(sp["kind"] == "mono" or "mask3" in sp for sp in specs):
+            mask3 = torch.as_tensor(cat(code_p) != KIND_CODES["mono"], device=dev).to(dt)
+        pose_idx_d = torch.as_tensor(pose_idx, device=dev)
+        lm_idx_d = torch.as_tensor(lm_idx, device=dev)
+        pack = PackedEdges(
+            meas=torch.as_tensor(np.ascontiguousarray(meas.T), dtype=dt, device=dev),
+            omega=torch.as_tensor(omega, dtype=dt, device=dev),
+            cam=torch.as_tensor(np.ascontiguousarray(cam.T), dtype=dt, device=dev),
+            pose_idx=pose_idx_d,
+            lm_idx=lm_idx_d,
+            both_free=((pose_idx_d < Pa) & (lm_idx_d < self.La)).to(dt),
+            active=torch.as_tensor(active > 0, device=dev).to(dt),
+            kind=kind,
+            mask3=mask3,
+            code=code,
+        )
+        if len(specs) == 1:
+            meta = parts[0][0]
+        else:
+            meta = EdgeSetMeta(kind=kind, rk=0, delta=1.0, parts=tuple(parts),
+                               nedges=sum(m.nedges for m, _, _ in parts))
+        return pack, meta, (pose_idx, lm_idx)
 
     @property
     def packed(self) -> Optional[PackedEdges]:
-        """The packed set with landmarks (mono, stereo or merged), else the
+        """The landmark pack (every mono, stereo and depth set), else the
         first set."""
         return self.packs[0 if self.ba is None else self.ba] if self.packs else None
 
@@ -1012,13 +1138,15 @@ class BlockSolver:
         (``symbolic_ms = 0``), no plan made and nothing uploaded.  Without
         free landmarks no Schur pattern, triples, band or PCG plan is made:
         the pose-only solve needs the per-set pose segments alone (and, for
-        a mono or stereo set, B3's plan)."""
-        bundle, knobs = self._struct_bundle, self._plan_knobs()
+        a landmark pack, B3's plan)."""
+        knobs = self._plan_knobs()
+        plans = self._struct_bundle.setdefault("plans", OrderedDict())
         ba_packed = None if self.ba is None else self.packed
-        if bundle.get("plan_knobs") == knobs:
+        if knobs in plans:
             _STRUCT_STATS["hits"] += 1
-            self.schur = bundle["schur"]
-            self.plan = _solver_plan(bundle["plan"], ba_packed)
+            plans.move_to_end(knobs)
+            self.schur, cached = plans[knobs]
+            self.plan = _solver_plan(cached, ba_packed)
             self.symbolic_ms = 0.0
             return
         _STRUCT_STATS["misses"] += 1
@@ -1078,7 +1206,9 @@ class BlockSolver:
             for a in s:
                 if isinstance(a, np.ndarray):
                     _frozen(a)
-        bundle.update(plan_knobs=knobs, schur=s, plan=plan)
+        plans[knobs] = (s, plan)
+        while len(plans) > _PLANS_PER_STRUCTURE:
+            plans.popitem(last=False)
         self.schur = s
         self.plan = _solver_plan(plan, ba_packed)
 
@@ -1167,8 +1297,9 @@ class BlockSolver:
         structure cache hits), and write the masks back to the object graph:
         ``edge.inactivate()`` on edge objects, the ``active`` array of bulk
         edges, and each set's ``get_outlier_count()``.  Packed order is the
-        caller's edge order (object edges, then bulk edges); a merged
-        mono+stereo set is split back by its sizes before the merge."""
+        caller's edge order (object edges, then bulk edges); a landmark pack
+        is split back by its sets' bounds, and a merged mono+stereo set by
+        its sizes before the merge."""
         newly_masks = self._update_edges_arrays()
         if newly_masks is None or not self._edge_sets:
             return
@@ -1196,32 +1327,37 @@ class BlockSolver:
             es._outlier_count = n_out
 
     def _update_edges_arrays(self) -> Optional[list]:
-        """Outlier thresholding on the packed arrays: each set with a
-        threshold above 0 has its robustified per-edge chi2 computed
-        (:func:`set_chi`: kernels B2 and B1 and rho on the card) and read
-        once, and keeps the edges at or below it.  Only deactivations the
-        threshold causes count: an edge masked before (at packing, where all
-        its vertices are fixed, or by an earlier call) is not reported.
-        Returns each set's newly masked edges in packed order (None where no
-        threshold applies), or None when no set has a threshold."""
-        thrs = self._spec_thresholds
-        if not any(np.any(np.asarray(t) > 0) for t in thrs):
+        """Outlier thresholding on the packed arrays: each pack with a set
+        whose threshold is above 0 has its robustified per-edge chi2
+        computed (:func:`set_chi`: kernels B2 and B1 and each set's rho on
+        the card) and read once, and keeps the edges at or below their
+        set's threshold.  Only deactivations the threshold causes count: an
+        edge masked before (at packing, where all its vertices are fixed, or
+        by an earlier call) is not reported.  Returns each edge set's newly
+        masked edges in packed order (None where no threshold applies), or
+        None when no set has a threshold."""
+        thrs = [np.asarray(t, dtype=np.float64) for t in self._spec_thresholds]
+        if not any(np.any(t > 0) for t in thrs):
             return None
-        packs, newly_masks = list(self.packs), []
-        self._outlier_counts = []
-        for si, (data, meta, thr) in enumerate(zip(self.packs, self.metas, thrs)):
-            thr = np.asarray(thr, dtype=np.float64)
-            if not np.any(thr > 0):
-                self._outlier_counts.append(0)
-                newly_masks.append(None)
+        packs = list(self.packs)
+        newly_masks: list = [None] * len(thrs)
+        self._outlier_counts = [0] * len(thrs)
+        for si, (data, meta, members) in enumerate(zip(self.packs, self.metas, self._pack_specs)):
+            if not any(np.any(thrs[i] > 0) for i in members):
                 continue
+            E = data.active.shape[0]
+            bounds = [(a, b) for _, a, b in meta.parts] if meta.parts else [(0, E)]
+            thr = np.concatenate([np.broadcast_to(thrs[i], (b - a,))
+                                  for i, (a, b) in zip(members, bounds)])
             chi = set_chi(self.graph, data, meta).cpu().numpy()
             was = data.active.cpu().numpy() > 0
             keep = ((thr <= 0) | (chi <= thr)) & was
             newly = was & ~keep
             packs[si] = data._replace(active=torch.as_tensor(keep, device=self.device).to(self.dtype))
-            self._outlier_counts.append(int(newly.sum()))
-            newly_masks.append(newly)
+            for i, (a, b) in zip(members, bounds):
+                if np.any(thrs[i] > 0):
+                    newly_masks[i] = newly[a:b]
+                    self._outlier_counts[i] = int(newly[a:b].sum())
         self.packs = tuple(packs)
         return newly_masks
 

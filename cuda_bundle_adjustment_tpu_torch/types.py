@@ -22,17 +22,31 @@ class PackedEdges(NamedTuple):
 
     meas: torch.Tensor  # [K, E] measurement payload, component-first
     omega: torch.Tensor  # [E] or [1] scalar information
-    cam: torch.Tensor  # [5, 1] fx fy cx cy bf (one camera per edge set)
+    # [5, 1] fx fy cx cy bf: one camera for every edge; or [5, E], a camera
+    # an edge
+    cam: torch.Tensor
     pose_idx: torch.Tensor  # [E] int64 dense pose index
     lm_idx: torch.Tensor  # [E] int64 dense landmark index
     both_free: torch.Tensor  # [E] float mask: pose AND landmark free
     active: torch.Tensor  # [E] float mask: 1.0 active, 0.0 masked
-    # [E] float mask of a merged mono+stereo set: 1.0 stereo row, 0.0 mono
-    # row.  The set runs the stereo model with the third residual component
-    # and Jacobian row masked per edge, which reduces exactly to the mono
-    # model on mono rows (the mono Jacobian is, in exact arithmetic, the stereo
-    # one's rows 0-1)
+    # the model the set runs (``models.MODEL_REGISTRY``): "mono", "stereo",
+    # "depth", "line", "plane", or "mixed" for a landmark pack whose kind is
+    # read per edge from ``code``
+    kind: str
+    # [E] float mask of a pack of mono and stereo rows: 1.0 stereo row, 0.0
+    # mono row.  The set runs the stereo model with the third residual
+    # component and Jacobian row masked per edge, which reduces exactly to
+    # the mono model on mono rows (the mono Jacobian is, in exact
+    # arithmetic, the stereo one's rows 0-1)
     mask3: Optional[torch.Tensor] = None
+    # [E] uint8 per-edge kind of a "mixed" pack (one with depth rows beside
+    # mono or stereo rows): ``KIND_CODES``.  Its mono/stereo case is mask3:
+    # a mono row runs the stereo model with its third row masked
+    code: Optional[torch.Tensor] = None
+
+
+# the per-edge kind codes of a "mixed" pack (``PackedEdges.code``)
+KIND_CODES = {"mono": 0, "stereo": 1, "depth": 2}
 
 
 class GraphArrays(NamedTuple):

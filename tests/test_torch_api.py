@@ -3,9 +3,9 @@ run on twin graphs, one made of the JAX package's classes and one of the
 port's, built from the same seeded numpy problem, each result held against
 the JAX package (traces at rtol 1e-9, written-back estimates at atol 1e-9)
 and, where the packed arrays are the same, against the port's array path
-bit for bit.  The cases the port does not run yet (depth edges, a per-edge
-camera, landmark sets that do not merge) assert the ``NotImplementedError``
-naming their ROADMAP A7 item."""
+bit for bit.  Depth edges, a per-edge camera and landmark sets that do not
+merge run too, also beside ICP sets (``tests/test_torch_sets.py`` has their
+other cases)."""
 
 import time
 
@@ -225,7 +225,9 @@ def test_outlier_threshold_array_path():
 
 def test_per_edge_information_and_camera():
     """Per-edge information runs (omega ``[E]`` into kernels B1 and B3) and
-    agrees with the JAX package; a per-edge camera waits for A7."""
+    agrees with the JAX package; so does ``per_edge_camera=True`` with every
+    edge carrying the set's camera (``tests/test_api.py``'s case), bit for
+    bit the run without it."""
     problem = make_ba_problem(num_poses=6, num_landmarks=30, kind="mono", seed=23)
     P, L = problem.pose_q.shape[0], problem.landmarks.shape[0]
 
@@ -247,10 +249,14 @@ def test_per_edge_information_and_camera():
     np.testing.assert_allclose(trace, jtrace, rtol=1e-9)
     _held(_object_estimates(*graphs[tba][:2], P, L), _object_estimates(*graphs[jba][:2], P, L))
 
-    poses, landmarks, edge_set = build(tba, camera=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7: per-edge camera"):
-        _optimize(tba, (poses, landmarks), (edge_set,), 3,
-                  per_edge_information=True, per_edge_camera=True)
+    # every edge carrying the set's camera: one camera packed, as there
+    graphs = _twins(build, camera=True)
+    runs = {m: _optimize(m, g[:2], g[2:], 3, per_edge_information=True, per_edge_camera=True)
+            for m, g in graphs.items()}
+    (opt, ctrace), (_, jctrace) = runs[tba], runs[jba]
+    assert opt.solver.packed.cam.shape == (5, 1)
+    np.testing.assert_allclose(ctrace, jctrace, rtol=1e-9)
+    assert ctrace == trace
 
 
 def test_pose_only_plane_graph():
@@ -568,58 +574,69 @@ def test_reinitialize_hits_the_structure_cache_and_repeats_the_trace():
     assert _trace(opt) == first
 
 
-def _depth_graph():
-    p = _problem(6, 30, 1, kind="stereo")
-    ps, ls, _ = _bulk_graph(tba, p)
-    depth = tba.DepthEdgeSet()
+def _depth_graph(m):
+    """A depth set: the stereo graph's observations as ``[u, v, 1/z]``."""
+    p = _problem(6, 30, 1, kind="depth")
+    ps, ls, _ = _bulk_graph(m, p)
+    depth = m.DepthEdgeSet()
     depth.set_information(1.0)
+    depth.set_camera(m.Camera(*p.cam.tolist()))
     depth.add_edges_bulk(p.meas, p.pose_idx, p.pose_q.shape[0] + p.lm_idx)
     return (ps, ls), (depth,)
 
 
-def _line_graph():
+def _line_graph(m):
     """A line set beside a mono set and a stereo set under another robust
     kernel (landmark sets that do not merge)."""
-    (ps, ls), (mono, stereo) = _unmerged_graph()
-    lines = tba.LineEdgeSet()
+    (ps, ls), (mono, stereo) = _unmerged_graph(m)
+    lines = m.LineEdgeSet()
     lines.set_information(1.0)
     lines.add_edges_bulk(np.tile([0, 0, 0, 1.0, 0, 0, 1.0, 0.5, 0.1, 0], (3, 1)), np.zeros(3))
     return (ps, ls), (mono, stereo, lines)
 
 
-def _unmerged_graph():
+def _unmerged_graph(m):
     p = _problem(6, 30, 1)
-    ps, ls, mono = _bulk_graph(tba, p)
-    _, _, stereo = _bulk_graph(tba, _problem(6, 30, 1, kind="stereo"))
-    stereo.set_robust_kernel(tba.RobustKernelType.CAUCHY, 1.0)
+    ps, ls, mono = _bulk_graph(m, p)
+    _, _, stereo = _bulk_graph(m, _problem(6, 30, 1, kind="stereo"))
+    stereo.set_robust_kernel(m.RobustKernelType.CAUCHY, 1.0)
     return (ps, ls), (mono, stereo)
 
 
-def _pose_only_mono_graph():
+def _pose_only_mono_graph(m):
     """A pose-only plane set beside a depth set."""
-    (ps, ls), (depth,) = _depth_graph()
-    planes = tba.PlaneEdgeSet()
+    (ps, ls), (depth,) = _depth_graph(m)
+    planes = m.PlaneEdgeSet()
     planes.set_information(1.0)
     planes.add_edges_bulk(np.tile([0, 0, 1.0, 1.0, 0, 0, 1.0], (3, 1)), np.zeros(3))
     return (ps, ls), (planes, depth)
 
 
 @pytest.mark.parametrize(
-    "make,item",
+    "make,packs",
     [
-        (_depth_graph, "A7: the depth model"),
-        (_line_graph, "A7: multiple edge sets"),
-        (_unmerged_graph, "A7: multiple edge sets"),
-        (_pose_only_mono_graph, "A7: the depth model"),
+        (_depth_graph, ["depth"]),
+        (_line_graph, ["stereo", "line"]),
+        (_unmerged_graph, ["stereo"]),
+        (_pose_only_mono_graph, ["plane", "depth"]),
     ],
     ids=["depth", "line", "unmerged", "pose-only"],
 )
-def test_object_graphs_outside_the_slice_raise(make, item):
-    """What the port does not run yet raises by name, also beside an ICP
-    set: depth edges, and landmark sets that do not merge."""
-    vertex_sets, edge_sets = make()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _optimize(tba, vertex_sets, edge_sets, 1)
+def test_object_graphs_outside_the_slice_raise(make, packs):
+    """Depth edges and landmark sets that do not merge, refused by name
+    before ROADMAP A7's rest, run through the object API, also beside an
+    ICP set: the trace at rtol 1e-9 of the JAX package's, the estimates
+    written back within 1e-9, the landmark sets in one pack and each ICP
+    set in one of its own."""
+    graphs = _twins(make)
+    runs = {m: _optimize(m, *g, 3) for m, g in graphs.items()}
+    (opt, trace), (_, jtrace) = runs[tba], runs[jba]
+    assert [m.kind for m in opt.solver.metas] == packs
+    assert len(trace) == len(jtrace)
+    np.testing.assert_allclose(trace, jtrace, rtol=1e-9)
+    (ps, ls), (jps, jls) = graphs[tba][0], graphs[jba][0]
+    _held((*ps.bulk_estimates(), ls.bulk_estimates()),
+          (*jps.bulk_estimates(), jls.bulk_estimates()))
 
 
 def test_verbose_host_loop_counts_outliers_and_writes_back():

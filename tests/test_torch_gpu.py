@@ -93,6 +93,7 @@ def _random_edges(rng, E, P, L, mdim, masked, dev, pose_idx=None, lm_idx=None):
         cam=T(np.array(CAM)[:, None]), pose_idx=T(pose_idx, torch.int64),
         lm_idx=T(lm_idx, torch.int64),
         both_free=T((pose_idx < P) & (lm_idx < L)), active=T(active),
+        kind="mono" if mdim == 2 else "stereo",
         mask3=T(rng.uniform(size=E) > 0.5) if masked else None,
     )
     qt = T(np.concatenate([t, R], axis=1))
@@ -716,7 +717,7 @@ def _f32_edges(qt, xw, data):
     return qt.to(f), xw.to(f), data._replace(
         meas=data.meas.to(f), omega=data.omega.to(f), cam=data.cam.to(f),
         both_free=data.both_free.to(f), active=data.active.to(f),
-        mask3=None if data.mask3 is None else data.mask3.to(f))
+        mask3=None if data.mask3 is None else data.mask3.to(f), code=data.code)
 
 
 @pytest.mark.gpu
@@ -1056,3 +1057,92 @@ def test_outliers_on_the_card_mask_as_the_cpu_and_capture_anew():
     assert torch.equal(masks["cuda"][0], masks["cpu"][0])
     np.testing.assert_allclose([s.chi2 for s in card.batch_statistics().get()],
                                [s.chi2 for s in cpu.batch_statistics().get()], rtol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f32", [False, True], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", ["depth", "mono-per-edge-camera", "mixed", "mixed-per-edge-camera"])
+def test_terms_kernels_of_depth_cameras_and_kinds_match_twins(case, f32):
+    """B1 and B3's depth, per-edge-camera and mixed-kind instantiations
+    against their twins (``DepthModel``, ``MixedModel``, a ``[5, E]``
+    camera) in f64 and f32: chi and Hpl bit for bit, the per-vertex sums bit
+    for bit the twin's stacks summed in the plan's order, a second launch
+    bit for bit; a camera an edge whose columns are all one camera gives the
+    one-camera instantiation's bits."""
+    from chip_smoke import linearise_in_plan_order
+
+    dev = _cuda()
+    rng = np.random.default_rng(["depth", "mono-per-edge-camera", "mixed",
+                                 "mixed-per-edge-camera"].index(case) + 7 * f32)
+    P, L, E = 300, 4000, 20_000
+    mdim = 2 if case.startswith("mono") else 3
+    qt, xw, data, (ps, ls), _ = _random_edges(rng, E, P, L, mdim, False, dev)
+    if case == "depth":
+        data = data._replace(kind="depth")
+    elif case.startswith("mixed"):
+        code = torch.as_tensor(rng.integers(0, 3, E).astype(np.uint8), device=dev)
+        data = data._replace(kind="mixed", code=code)
+    one_cam = data
+    if case.endswith("per-edge-camera"):
+        data = data._replace(cam=data.cam * torch.as_tensor(
+            rng.uniform(0.95, 1.05, (5, E)), device=dev))
+    if f32:
+        qt, xw, data = _f32_edges(qt, xw, data)
+        _, _, one_cam = _f32_edges(qt, xw, one_cam)
+    chi = terms.chi_edges(qt, xw, data)
+    assert chi.dtype == qt.dtype and torch.equal(chi, terms.chi_edges_plain(qt, xw, data))
+    plan = terms.make_linearise_plan(ps, ls, E)
+    got = terms.linearise(qt, xw, data, ps, ls, plan)
+    want = terms.linearise_plain(qt, xw, data, ps, ls)
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _close_rel(g, w, F32_ROUND if f32 else 1e-12)
+    ordered = linearise_in_plan_order(qt, xw, data, ps, ls, plan)
+    assert torch.equal(got[0], ordered[0]) and torch.equal(got[1], ordered[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, terms.linearise(qt, xw, data, ps, ls, plan)))
+    wide = one_cam._replace(cam=one_cam.cam.expand(5, E).contiguous())
+    assert torch.equal(terms.chi_edges(qt, xw, wide), terms.chi_edges(qt, xw, one_cam))
+    assert all(torch.equal(a, b) for a, b in zip(terms.linearise(qt, xw, wide, ps, ls, plan),
+                                                 terms.linearise(qt, xw, one_cam, ps, ls, plan)))
+
+
+@pytest.mark.gpu
+def test_mono_plus_depth_fused_loop_on_the_card():
+    """A mono set beside a depth set: one landmark pack, one B3 launch an
+    iteration over both sets, the fused loop bit for bit the host loop, the
+    trace at rtol 1e-9 of the CPU's."""
+    from chip_smoke import mono_depth_problem
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    _cuda()
+    p = mono_depth_problem(make_ba_problem(num_poses=16, num_landmarks=400, kind="depth", seed=3))
+    runs = {}
+    for fused in (True, False):
+        kernels.reset_launch_counts()
+        o = optimizer_from_problem(p)
+        o.use_fused_loop = fused
+        o.optimize(8)
+        runs[fused] = (o, kernels.launch_counts())
+    (f, cf), (h, _) = runs[True], runs[False]
+    assert f.solver.packed.kind == "mixed" and len(f.solver.packs) == 1
+    tf = [s.chi2 for s in f.batch_statistics().get()]
+    assert tf == [s.chi2 for s in h.batch_statistics().get()]
+    assert all(torch.equal(a, b) for a, b in zip(f.solver.graph, h.solver.graph))
+    assert cf["linearise"] == len(tf)
+    cpu = optimizer_from_problem(p, device="cpu")
+    cpu.optimize(8)
+    np.testing.assert_allclose(tf, [s.chi2 for s in cpu.batch_statistics().get()], rtol=1e-9)
+
+
+@pytest.mark.gpu
+def test_cpu_and_card_solvers_of_one_graph_keep_their_plans():
+    """A CPU and a card solver of one graph, interleaved: one structure-cache
+    miss each, then hits."""
+    _cuda()
+    p = make_ba_problem(num_poses=12, num_landmarks=150, seed=4)
+    bs.clear_structure_cache()
+    for _ in range(3):
+        for d in ("cpu", "cuda"):
+            optimizer_from_problem(p, device=d).solver.build_structure()
+    info = bs.structure_cache_info()
+    assert (info["hits"], info["misses"]) == (4, 2)

@@ -3,8 +3,8 @@ JAX package: ``LineModel``/``PlaneModel`` chi and terms at 1e-12 on seeded
 inputs; a line + plane graph (LOAM's edge and planar features), a mono +
 plane graph and motion-only BA (a mono graph whose landmarks are all fixed)
 through both packages' object API or array path, traces at rtol 1e-9; the
-fused loop bit for bit the host loop; the inputs still outside the port
-refused by name.  The plane-only graph of ``tests/test_api.py`` is
+fused loop bit for bit the host loop; depth edges, landmark sets that do
+not merge and a per-edge camera beside an ICP set.  The plane-only graph of ``tests/test_api.py`` is
 ``tests/test_torch_api.py::test_pose_only_plane_graph``."""
 
 import jax.numpy as jnp
@@ -119,7 +119,8 @@ def test_icp_models_match_jax(kind):
     td = PackedEdges(meas=torch.as_tensor(meas), omega=torch.as_tensor(omega),
                      cam=torch.zeros(5, 1, dtype=torch.float64), pose_idx=torch.as_tensor(pose_idx),
                      lm_idx=torch.zeros(E, dtype=torch.int64),
-                     both_free=torch.zeros(E, dtype=torch.float64), active=torch.as_tensor(active))
+                     both_free=torch.zeros(E, dtype=torch.float64), active=torch.as_tensor(active),
+                     kind=kind)
     for got, want in ((tm.chi(tg, td, 0, 1.0), jm.chi(jg, jd, 0, 1.0)),
                       (tm.terms(tg, td, 0, 1.0)[0], jm.terms(jg, jd, 0, 1.0)[0])):
         want = np.asarray(want)
@@ -271,16 +272,28 @@ def _per_edge_camera_beside_plane():
     return specs, q
 
 
-@pytest.mark.parametrize("make,item", [
-    (_depth_beside_plane, "A7: the depth model"),
-    (_unmerged_beside_line, "A7: multiple edge sets"),
-    (_per_edge_camera_beside_plane, "A7: per-edge camera"),
+@pytest.mark.parametrize("make", [
+    _depth_beside_plane, _unmerged_beside_line, _per_edge_camera_beside_plane,
 ], ids=["depth", "unmerged", "per-edge-camera"])
-def test_what_stays_outside_the_port_raises_beside_icp_sets(make, item):
-    """Depth edges, landmark sets that do not merge and a per-edge camera
-    still raise by name (ROADMAP A7), also beside an ICP set."""
+def test_what_stays_outside_the_port_raises_beside_icp_sets(make):
+    """Depth edges, landmark sets that do not merge and a per-edge camera,
+    refused by name before ROADMAP A7's rest, run beside an ICP set: the
+    trace at rtol 1e-9 of the JAX package's, no RCM beside the ICP set, the
+    fused loop bit for bit the host loop."""
     specs, p = make()
-    solver = tbs.BlockSolver(tba.GraphOptimisationOptions(), "cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        solver.initialize_from_arrays(p.pose_q, p.pose_t, p.num_active_poses, p.landmarks,
-                                      p.num_active_landmarks, specs)
+    runs = {}
+    for pkg, fused in (("jax", True), ("torch", True), ("torch", False)):
+        opt = jba.TpuGraphOptimisation.create() if pkg == "jax" else \
+            tba.TorchGraphOptimisation.create(device="cpu")
+        opt.use_fused_loop = fused
+        opt.solver.initialize_from_arrays(p.pose_q, p.pose_t, p.num_active_poses, p.landmarks,
+                                          p.num_active_landmarks, specs)
+        opt.optimize(6)
+        runs[pkg, fused] = opt
+    opt = runs["torch", True]
+    assert opt.solver.pose_perm is None and opt.solver.metas[-1].kind in ("line", "plane")
+    trace = _trace(opt)
+    assert len(trace) == len(_trace(runs["jax", True]))
+    np.testing.assert_allclose(trace, _trace(runs["jax", True]), rtol=1e-9)
+    assert trace == _trace(runs["torch", False])
+    assert all(torch.equal(a, b) for a, b in zip(opt.solver.graph, runs["torch", False].solver.graph))

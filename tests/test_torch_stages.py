@@ -24,6 +24,7 @@ from cuda_bundle_adjustment_tpu.solver import symbolic as jsym
 from cuda_bundle_adjustment_tpu.types import GraphArrays as JaxGraph
 from cuda_bundle_adjustment_tpu.utils import dense_reference as jdense
 from cuda_bundle_adjustment_tpu.utils import stats as jstats
+import cuda_bundle_adjustment_tpu as jba
 import cuda_bundle_adjustment_tpu_torch as tbt
 from cuda_bundle_adjustment_tpu_torch import TorchGraphOptimisation
 from cuda_bundle_adjustment_tpu_torch.io import synthetic as tsyn
@@ -351,86 +352,102 @@ def test_apply_update_matches_jax():
         _close(g.numpy(), w, 1e-12)
 
 
-# -- outside the slice ----------------------------------------------------------
+# -- what runs since ROADMAP A7's rest ---------------------------------------------
 
 
 def _mono(**kw):
     return tsyn.make_ba_problem(num_poses=6, num_landmarks=30, seed=1, **kw)
 
 
-def _unmerged_mixed():
-    """A mono and a stereo set whose robust kernels differ: they stay two
-    edge sets."""
-    mp = tsyn.make_mixed_ba_problem(num_poses=6, num_landmarks=30, seed=1)
-    TorchGraphOptimisation(device="cpu").solver.initialize_from_arrays(
-        mp.pose_q, mp.pose_t, mp.num_active_poses, mp.landmarks,
-        mp.num_active_landmarks, [dict(mp.specs[0], rk=0), dict(mp.specs[1], rk=2)],
-    )
-
-
 def _cpu(problem, **kw):
     return optimizer_from_problem(problem, device="cpu", **kw)
 
 
-def _object_graph_per_edge_camera():
-    """The object API runs (ROADMAP A5 done); an object graph whose edges
-    carry their own camera still waits for A7."""
+def _array_opt(pkg, problem, **kw):
+    """The optimiser of ``pkg`` ("jax" or "torch") packed from ``problem``."""
+    return jax_optimizer(problem, **kw) if pkg == "jax" else _cpu(problem, **kw)
+
+
+def _unmerged_mixed(pkg):
+    """A mono and a stereo set whose robust kernels differ: they stay two
+    edge sets (one landmark pack on the port)."""
+    mp = tsyn.make_mixed_ba_problem(num_poses=6, num_landmarks=30, seed=1)
+    opt = jba.TpuGraphOptimisation.create() if pkg == "jax" else \
+        TorchGraphOptimisation(device="cpu")
+    opt.solver.initialize_from_arrays(
+        mp.pose_q, mp.pose_t, mp.num_active_poses, mp.landmarks,
+        mp.num_active_landmarks, [dict(mp.specs[0], rk=0), dict(mp.specs[1], rk=2)],
+    )
+    return opt
+
+
+def _object_graph_per_edge_camera(pkg):
+    """An object graph whose one object edge carries its own camera beside
+    bulk edges, which take the set's: a ``[5, E]`` camera."""
+    m = jba if pkg == "jax" else tbt
     p = _mono()
     P = p.pose_q.shape[0]
-    poses, landmarks = tbt.PoseVertexSet(), tbt.LandmarkVertexSet()
+    poses, landmarks = m.PoseVertexSet(), m.LandmarkVertexSet()
     poses.add_vertices_bulk(np.arange(P), p.pose_q, p.pose_t, np.arange(P) >= p.num_active_poses)
     landmarks.add_vertices_bulk(P + np.arange(p.landmarks.shape[0]), p.landmarks)
-    edges = tbt.MonoEdgeSet()
+    edges = m.MonoEdgeSet()
     edges.set_information(1.0)
-    edges.set_camera(tbt.Camera(*p.cam.tolist()))
+    edges.set_camera(m.Camera(*p.cam.tolist()))
     edges.add_edges_bulk(p.meas, p.pose_idx, P + p.lm_idx)
-    pose = tbt.PoseVertex(P, tbt.Se3(p.pose_q[0], p.pose_t[0]))
-    landmark = tbt.LandmarkVertex(P + p.landmarks.shape[0], p.landmarks[0])
+    pose = m.PoseVertex(P, m.Se3(p.pose_q[0], p.pose_t[0]))
+    landmark = m.LandmarkVertex(P + p.landmarks.shape[0], p.landmarks[0])
     poses.add_vertex(pose)
     landmarks.add_vertex(landmark)
-    e = tbt.MonoEdge()
+    e = m.MonoEdge()
     e.set_vertex(pose, 0)
     e.set_vertex(landmark, 1)
     e.set_measurement(p.meas[0])
-    e.set_camera(tbt.Camera(*p.cam.tolist()))
+    e.set_camera(m.Camera(*(p.cam * [1.01, 1.01, 1.0, 1.0, 1.0]).tolist()))
     edges.add_edge(e)
-    opt = TorchGraphOptimisation(tbt.GraphOptimisationOptions(per_edge_camera=True), device="cpu")
+    options = m.GraphOptimisationOptions(per_edge_camera=True)
+    if pkg == "jax":
+        opt = jba.TpuGraphOptimisation.create(options)
+    else:
+        opt = TorchGraphOptimisation(options, device="cpu")
     for vs in (poses, landmarks):
         opt.add_vertex_set(vs)
     opt.add_edge_set(edges)
     opt.initialize()
+    return opt
 
 
-def _per_edge_camera_stereo():
-    p = _mono(kind="stereo")
+def _per_edge_camera(kind="mono"):
+    p = _mono(kind=kind)
     cam = np.tile(np.asarray(p.cam, dtype=np.float64).reshape(1, 5), (p.meas.shape[0], 1))
     cam[1::2, 0] *= 1.01
-    _cpu(p._replace(cam=cam))
-
-
-def _outliers_per_edge_camera():
-    """Outlier thresholds run (ROADMAP A7's update_edges, done); beside a
-    per-edge camera they are still refused, naming A7."""
-    p = _mono()
-    cam = np.tile(np.asarray(p.cam, dtype=np.float64).reshape(1, 5), (p.meas.shape[0], 1))
-    cam[1::2, 0] *= 1.01
-    _cpu(p._replace(cam=cam), outlier_threshold=5.0)
+    return p._replace(cam=cam)
 
 
 @pytest.mark.parametrize(
-    "make,item",
+    "make",
     [
-        (_per_edge_camera_stereo, "A7"),
-        (lambda: _cpu(_mono(kind="depth")), "A7"),
-        (_unmerged_mixed, "A7"),
-        (_outliers_per_edge_camera, "A7"),
-        (_object_graph_per_edge_camera, "A7"),
+        lambda pkg: _array_opt(pkg, _per_edge_camera("stereo")),
+        lambda pkg: _array_opt(pkg, _mono(kind="depth")),
+        _unmerged_mixed,
+        lambda pkg: _array_opt(pkg, _per_edge_camera(), rk=3, delta=1.0, outlier_threshold=5.0),
+        _object_graph_per_edge_camera,
     ],
     ids=["stereo", "depth", "mixed", "outliers", "object-api"],
 )
-def test_outside_the_slice_raises(make, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        make()
+def test_outside_the_slice_raises(make):
+    """A per-edge camera (array and object graphs, and beside outlier
+    thresholds), depth edges and landmark sets that do not merge, refused
+    by name before ROADMAP A7's rest, run: the trace at rtol 1e-9 of the JAX
+    package's, the outlier counts equal."""
+    runs = {}
+    for pkg in ("jax", "torch"):
+        opt = make(pkg)
+        opt.optimize(5)
+        runs[pkg] = opt
+    trace, jtrace = ([s.chi2 for s in runs[k].batch_statistics().get()] for k in ("torch", "jax"))
+    assert len(trace) == len(jtrace)
+    np.testing.assert_allclose(trace, jtrace, rtol=1e-9)
+    assert runs["torch"].solver._outlier_counts == runs["jax"].solver._outlier_counts
 
 
 def test_unknown_robust_kernel_raises():

@@ -2,12 +2,14 @@
 second optimiser over the same topology reuses the RCM order, the symbolic
 structure and the plan, and solves bit for bit as the first; any change of
 the index arrays or of a plan knob misses; the ninth structure evicts the
-first; cached arrays are read-only."""
+first; a structure keeps a plan for each set of knobs, up to four;
+cached arrays are read-only."""
 
 import numpy as np
 import pytest
 import torch
 
+from cuda_bundle_adjustment_tpu_torch import GraphOptimisationOptions
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import (
     make_ba_problem,
@@ -119,6 +121,35 @@ def test_ninth_structure_evicts_the_first():
     assert _hits_misses() == (1, 9)
     _solver(problems[0])
     assert _hits_misses() == (1, 10)
+
+
+def test_solvers_of_other_knobs_keep_their_plans_side_by_side():
+    """Solvers of one graph under other knobs (here f64 and f32, as a CPU
+    and a card solver are), interleaved: one miss each, then hits, each
+    solver's plan its own; a fifth set of knobs evicts the least recently
+    used plan of the structure and nothing else."""
+    problem = _problem()
+    f32 = GraphOptimisationOptions(dtype="float32")
+    exact = GraphOptimisationOptions(solver_precision="exact")
+    a, b = _solver(problem), _solver(problem, options=f32)
+    assert _hits_misses() == (0, 2)
+    for _ in range(2):
+        a2, b2 = _solver(problem), _solver(problem, options=f32)
+    assert _hits_misses() == (4, 2) and bs.structure_cache_info()["size"] == 1
+    assert a2.schur is a.schur and b2.schur is b.schur and a.schur is not b.schur
+    assert a2.plan.route == a.plan.route and b2.plan.target == torch.float32
+    # two more sets of knobs fill the structure's four plans; a fifth evicts
+    # the least recently used (f64 "mixed"), which then misses again
+    _solver(problem, options=exact)
+    _solver(problem, options=GraphOptimisationOptions(dtype="float32", solver_precision="exact"))
+    _solver(problem, options=f32)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(bs, "MAX_BAND", 40)
+        _solver(problem)
+    assert _hits_misses() == (5, 5)
+    _solver(problem, options=f32)
+    _solver(problem)
+    assert _hits_misses() == (6, 6)
 
 
 def test_cached_arrays_are_read_only():

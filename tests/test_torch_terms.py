@@ -93,7 +93,7 @@ def _graph_problem(rng, kind, masked, P=12, L=150, E=900, pose_idx=None, lm_idx=
         pose_idx=pose_idx, lm_idx=lm_idx, active=active,
         both_free=((pose_idx < P - 2) & (lm_idx < L - 2)).astype(np.float64),
         mask3=(rng.uniform(size=E) > 0.5).astype(np.float64) if masked else None,
-        P=P, L=L,
+        P=P, L=L, kind=kind,
     )
 
 
@@ -115,7 +115,8 @@ def _port_side(d):
     data = PackedEdges(
         meas=T(d["meas"]), omega=T(d["omega"]), cam=T(CAM[:, None]),
         pose_idx=T(d["pose_idx"]), lm_idx=T(d["lm_idx"]), both_free=T(d["both_free"]),
-        active=T(d["active"]), mask3=None if d["mask3"] is None else T(d["mask3"]),
+        active=T(d["active"]), kind=d["kind"],
+        mask3=None if d["mask3"] is None else T(d["mask3"]),
     )
     return graph, data
 
@@ -466,7 +467,8 @@ def test_terms_twins_match_pallas_interpret():
     T = torch.as_tensor
     data = PackedEdges(
         meas=T(meas), omega=T(omega), cam=T(CAM[:, None]), pose_idx=T(np.arange(E)),
-        lm_idx=T(np.arange(E)), both_free=T(np.ones(E)), active=T(active), mask3=T(m3),
+        lm_idx=T(np.arange(E)), both_free=T(np.ones(E)), active=T(active), kind="stereo",
+        mask3=T(m3),
     )
     ident = make_segments(np.arange(E), E, "cpu")
     pose, lm, hpl = terms.linearise(T(qt), T(xw), data, ident, ident)
