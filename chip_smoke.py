@@ -109,7 +109,20 @@ caught):
    fixed: B1-B3 alone, the pose-only solve) with ``kitti07_mono``'s
    motion-only trace against the CPU; and ``icp_scan`` (one scan against
    50 000 planes and 5 000 lines, the pose recovered to the noise).  Every
-   path's fused loop is held bit for bit against its host loop.
+   path's fused loop is held bit for bit against its host loop;
+8. runs the distributed path (``parallel/distributed.py``,
+   ``distributed_phase``): the city-scale graph (10k poses, 1M landmarks,
+   4.18M edges) on one card (its kernels but B7/B8 held against their
+   twins at its first linearisation), then dealt to two gloo ranks spawned
+   on the same card (``city_scale_d2``, the band route: rank 0's ten
+   kernels held against their twins at its shard's first linearisation, B5
+   with a zero ``bp``, B6 on the shard's triples and B7/B8 at the global
+   band among them; each rank's launches
+   counted, its trace and poses bit for bit the other's, the trace within
+   rtol 1e-7 of the one-card run's) and with ``pose_solver="pcg"``
+   (``city_scale_d2_pcg``, within rtol 1e-6 of the JAX package's logged
+   trace, ``artifacts/CITY_SCALE.log``), and ``kitti07_mono`` on one NCCL
+   rank (``kitti07_nccl_d1``), bit for bit the one-card run.
 
 The last two lines are a JSON line describing the kernels and the JSON
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -1133,30 +1146,15 @@ def band_from_dense_factor(L, Pa: int, SB: int, bw: int):
     return out
 
 
-def kernel_checks(problem, dev, label, reported=None, options=None, **robust) -> dict:
-    """Phase 3: each of the ten kernels against its twin at the shapes and
-    values of one configuration's first linearisation.  ``reported``: the
-    kernels whose ``device_ms`` and ``host_ms`` are read at this input (all
-    by default).  ``options``: the solver's; in f32 mode the eight retyped
-    kernels are held (B7 and B8 take f32 in either mode and are held at the
-    f64 inputs)."""
+def gather_held(solver, label, reported=None) -> dict:
+    """B2 bit for bit against its masked-gather twin and ``table[idx]`` on
+    the solver's pose table (``reported`` as in ``path_kernel_checks``)."""
     import torch
 
-    from cuda_bundle_adjustment_tpu_torch.kernels import gather, lminv, pairprod
+    from cuda_bundle_adjustment_tpu_torch.kernels import gather
     from cuda_bundle_adjustment_tpu_torch.models.ba import _pose_state_table
 
-    solver, sys_, lam = first_linearisation(problem, dev, options, **robust)
-    f32 = solver.dtype == torch.float32
-    near = F32_ROUND if f32 else F64_TOL
-    plan, data, graph = solver.plan, solver.packed, solver.graph
-    E, T = data.pose_idx.shape[0], plan.tri_ei.shape[0]
-    print(
-        f"{label} shapes: P={solver.P} Pa={solver.Pa} L={solver.L} La={solver.La} E={E} "
-        f"nnz={plan.blk_row.shape[0]} T={T} bw={plan.band.bw} SB={plan.band.sb}"
-    )
-    res = path_kernel_checks(solver, sys_, lam, label, reported)
-
-    # B2: bit-exact against the masked gather
+    data, graph = solver.packed, solver.graph
     table = _pose_state_table(graph)
     k_pose = gather.gather_rows(table, data.pose_idx)
     k_lm = gather.gather_rows(graph.Xw, data.lm_idx)
@@ -1170,7 +1168,8 @@ def kernel_checks(problem, dev, label, reported=None, options=None, **robust) ->
         "gather_rows: not bit-exact against its twin",
     )
     check(torch.equal(k_pose, table[data.pose_idx]), "gather_rows: differs from table[idx]")
-    res["gather_rows"] = dict(
+    print(f"{label} B2 gather_rows [{table.shape[0]},12]->[{k_pose.shape[0]},12]: bit-exact")
+    return dict(
         max_abs_err=err,
         **timed(lambda: gather.gather_rows(table, data.pose_idx),
                 lambda: gather.gather_rows_plain(table, data.pose_idx),
@@ -1178,10 +1177,22 @@ def kernel_checks(problem, dev, label, reported=None, options=None, **robust) ->
                 full=reported is None or "gather_rows" in reported),
         **bound((table, data.pose_idx, k_pose), 0, "f64"),
     )
-    print(f"{label} B2 gather_rows [{table.shape[0]},12]->[{k_pose.shape[0]},12]: bit-exact")
 
-    # B6: within 1e-12 x max|block|.  Operations: W = Hpl inv(Hll) once an
-    # edge (108) and W Hpl^T once a triple (216)
+
+def pair_products_held(solver, sys_, lam, label, reported=None) -> tuple:
+    """B6 on the solver's triples within 1e-12 x max|block| (f32: one
+    rounding) of its twin and of the twin's products summed in the plan's
+    order, a second launch bit for bit.  Returns the row and the kernel's
+    blocks."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.kernels import lminv, pairprod
+
+    plan = solver.plan
+    near = F32_ROUND if sys_.bp.dtype == torch.float32 else F64_TOL
+    E, T = solver.packed.pose_idx.shape[0], plan.tri_ei.shape[0]
+    # Operations: W = Hpl inv(Hll) once an edge (108) and W Hpl^T once a
+    # triple (216)
     invHll, _ = lminv.damped_inverse(sys_.Hll, sys_.bl, lam)
     args = (sys_.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets)
     pair_plan = plan.pair_plan
@@ -1193,10 +1204,11 @@ def kernel_checks(problem, dev, label, reported=None, options=None, **robust) ->
     p_pp = pairprod.schur_pair_products_plain(*args)
     err = (k_pp - p_pp).abs().max().item()
     scale = p_pp.abs().max().item()
+    del p_pp
     check(err <= near * scale, f"schur_pair_products: err {err} > {near} x {scale}")
     check(torch.equal(k_pp, pair_products()), f"{label} schur_pair_products: a second launch differs")
     # the function's inputs as the kernel reads them: the plan's int32 indices
-    res["schur_pair_products"] = dict(
+    row = dict(
         max_abs_err=err,
         **timed(pair_products, lambda: pairprod.schur_pair_products_plain(*args),
                 full=reported is None or "schur_pair_products" in reported),
@@ -1209,6 +1221,29 @@ def kernel_checks(problem, dev, label, reported=None, options=None, **robust) ->
     check(err_o <= near * scale, f"schur_pair_products: err {err_o} against the sum in the plan's order")
     print(f"{label} B6 schur_pair_products: max_abs_err {err:.3e} (max|block| {scale:.3e}, tol {near:.3g} "
           f"rel); {err_o:.3e} against the twin's products summed in the plan's order")
+    return row, k_pp
+
+
+def kernel_checks(problem, dev, label, reported=None, options=None, **robust) -> dict:
+    """Phase 3: each of the ten kernels against its twin at the shapes and
+    values of one configuration's first linearisation.  ``reported``: the
+    kernels whose ``device_ms`` and ``host_ms`` are read at this input (all
+    by default).  ``options``: the solver's; in f32 mode the eight retyped
+    kernels are held (B7 and B8 take f32 in either mode and are held at the
+    f64 inputs)."""
+    import torch
+
+    solver, sys_, lam = first_linearisation(problem, dev, options, **robust)
+    f32 = solver.dtype == torch.float32
+    plan = solver.plan
+    E, T = solver.packed.pose_idx.shape[0], plan.tri_ei.shape[0]
+    print(
+        f"{label} shapes: P={solver.P} Pa={solver.Pa} L={solver.L} La={solver.La} E={E} "
+        f"nnz={plan.blk_row.shape[0]} T={T} bw={plan.band.bw} SB={plan.band.sb}"
+    )
+    res = path_kernel_checks(solver, sys_, lam, label, reported)
+    res["gather_rows"] = gather_held(solver, label, reported)
+    res["schur_pair_products"], _ = pair_products_held(solver, sys_, lam, label, reported)
 
     if not f32 and plan.route == "band":
         res.update(band_kernel_checks(solver, sys_, lam, label, reported))
@@ -1683,7 +1718,7 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
         f"[{nvidia_smi_line()}]"
     )
     return dict(counts=counts, trace=trace, solver=opt.solver, stages=stages, peak_gib=peak_gib,
-                warm_s=statistics.median(warm) if warm else None, cold_s=cold_s,
+                warm_s=statistics.median(warm) if warm else None, cold_s=cold_s, host_s=host_s,
                 loop_stats=st, host_counts=host_counts)
 
 
@@ -2669,6 +2704,438 @@ def two_cams_phase(kitti07, dev) -> dict:
     return dict(run, terms=res)
 
 
+CITY_SCALE_LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                              "CITY_SCALE.log")
+# the LM iterations of the distributed cells (the JAX package's logged run)
+DIST_ITERS = 5
+
+
+def once_ms(fn) -> tuple:
+    """``(fn(), ms)``: one call timed by CUDA events, for a twin too slow
+    to call twice."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def band_held_once(solver, sys_, lam, label) -> dict:
+    """B7 and B8 against their twins at a large band (the city-scale
+    replicated solve, Pa=9999): each twin called once and timed as it runs
+    (B7's takes tens of seconds there), the kernels over five calls after a
+    warm-up, the library yardstick (cuSOLVER's dense f32 Cholesky of the same
+    scaled system, and the dense solve with it) once after a warm-up, and the
+    bounds as in ``band_kernel_checks``."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.kernels import bandchol
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    plan = solver.plan
+    Pa, SB, bw = solver.Pa, plan.band.sb, plan.band.bw
+    blocks, bsc, _ = bs.schur_reduce(sys_, lam, plan)
+    band, _, bv, _ = bs.scaled_band(blocks, bsc, plan)
+    del blocks, bsc
+    b32 = bv.to(torch.float32)
+    res = {}
+    k_L = bandchol.band_factor(band, Pa, SB)
+    p_L, p_ms = once_ms(lambda: bandchol.band_factor_plain(band, Pa, SB))
+    err = (k_L - p_L).abs().max().item()
+    scale = p_L.abs().max().item()
+    del p_L
+    check(bool(torch.isfinite(k_L).all()), f"{label} band_factor: non-finite factor")
+    check(err <= F32_TOL * scale, f"{label} band_factor: err {err} > {F32_TOL} x {scale}")
+    check(torch.equal(k_L, bandchol.band_factor(band, Pa, SB)),
+          f"{label} band_factor: a second launch differs")
+    res["band_factor"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: bandchol.band_factor(band, Pa, SB), reps=5),
+        plain_ms=p_ms, **bound((band, k_L), Pa * (300 + 432 * (bw + bw * (bw + 1) // 2)), "f32"))
+    print(f"{label} B7 band_factor Pa={Pa} SB={SB}: max_abs_err {err:.3e} (max|L| {scale:.3e}, "
+          f"tol {F32_TOL} rel); the twin once {p_ms:.1f} ms")
+    k_x = bandchol.band_solve(k_L, b32, Pa, SB, bw)
+    p_x, p_ms = once_ms(lambda: bandchol.band_solve_plain(k_L, b32, Pa, SB, bw))
+    err = (k_x - p_x).abs().max().item()
+    scale = p_x.abs().max().item()
+    check(err <= F32_TOL * scale, f"{label} band_solve: err {err} > {F32_TOL} x {scale}")
+    check(torch.equal(k_x, bandchol.band_solve(k_L, b32, Pa, SB, bw)),
+          f"{label} band_solve: a second launch differs")
+    res["band_solve"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: bandchol.band_solve(k_L, b32, Pa, SB, bw), reps=5),
+        plain_ms=p_ms, **bound((k_L, b32, k_x), Pa * 72 * 2 * (1 + bw), "f32"))
+    print(f"{label} B8 band_solve Pa={Pa} SB={SB}: max_abs_err {err:.3e} (max|x| {scale:.3e}, "
+          f"tol {F32_TOL} rel); the twin once {p_ms:.1f} ms")
+    # the library yardsticks on the dense [6 Pa, 6 Pa] f32 matrix (14.4 GB at
+    # Pa=9999), freed before the rank goes on
+    dense = dense_from_band(band, Pa, SB)
+    res["band_factor"]["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky(dense), reps=1)
+    lib_L = torch.linalg.cholesky(dense)
+    del dense
+    rhs = b32.reshape(-1, 1)
+    res["band_solve"]["library_ms"] = cuda_ms(lambda: torch.cholesky_solve(rhs, lib_L), reps=1)
+    del lib_L
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        report(f"{label} SB={SB}", name, r)
+    return res
+
+
+def shard_kernel_checks(rs, sys_, lam, label) -> dict:
+    """Every kernel of one rank's shard at the first linearisation of the
+    distributed path, against its twin: ``path_kernel_checks`` (B1, B3, B4,
+    B5 with the summed ``bp``, B9, B10, and the one-card reduce and solve of
+    the rank's share, which must be taken) and B2, then the two inputs only
+    this path gives: B5 with a zero ``bp`` (a rank's ``-sum Hpl y``, within
+    1e-12 of its twin and bit for bit the products summed in the plan's
+    order) and B6 on the rank's triples over the global pattern
+    (``pair_products_held``; the blocks without a triple on this rank exact
+    zeros); and the replicated solve every rank repeats, B7 and B8 at the
+    global band (``band_held_once``).  Timed briefly (five calls, the twin
+    once)."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.kernels import lminv, schurvec
+
+    res = path_kernel_checks(rs, sys_, lam, label, reported=set())
+    res["gather_rows"] = gather_held(rs, label, reported=set())
+    plan = rs.plan
+    E = rs.packed.pose_idx.shape[0]
+    invHll, y = lminv.damped_inverse(sys_.Hll, sys_.bl, lam)
+    mv = (sys_.Hpl, y, plan.ba_lm_idx, rs.zero_bp, plan.pose_seg)
+    part = {}
+    _held_timed(part, "hpl_mv_segment_sum", lambda: schurvec.hpl_mv_segment_sum(*mv, plan.lin_plan),
+                lambda: schurvec.hpl_mv_segment_sum_plain(*mv), ["-sum Hpl y"],
+                (*mv[:4], *plan.pose_seg), 36 * E, F64_TOL, set())
+    check(torch.equal(schurvec.hpl_mv_segment_sum(*mv, plan.lin_plan),
+                      hpl_mv_in_plan_order(*mv, plan.lin_plan)),
+          f"{label} hpl_mv_segment_sum (zero bp): not the products summed in the plan's order")
+    res["hpl_mv_segment_sum_zero_bp"] = part["hpl_mv_segment_sum"]
+    del invHll, y, mv
+    res["schur_pair_products"], k_pp = pair_products_held(rs, sys_, lam, label, reported=set())
+    empty = (plan.tri_offsets[1:] == plan.tri_offsets[:-1])
+    check(bool((k_pp[empty] == 0).all()), f"{label} schur_pair_products: a block without a "
+          f"triple on this rank is not an exact zero")
+    print(f"{label} rank 0: B5 with a zero bp bit for bit the products in the plan's order; B6 on "
+          f"{plan.tri_ei.shape[0]} triples over {k_pp.shape[0]} global blocks, "
+          f"{int(empty.sum())} of them without a triple on this rank (exact zeros)")
+    del k_pp
+    for name in ("gather_rows", "hpl_mv_segment_sum_zero_bp", "schur_pair_products"):
+        report(label, name, res[name])
+    torch.cuda.empty_cache()
+    res.update(band_held_once(rs, sys_, lam, label))
+    print(f"[{nvidia_smi_line()}]")
+    return res
+
+
+class AllReduceTimer:
+    """``torch.distributed.all_reduce`` wrapped while in the block: ``ms``
+    adds the host-clock time inside each call, the device synchronised on
+    each side (what a trial waits for its collectives)."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self.dist, self.orig, self.ms = dist, dist.all_reduce, 0.0
+
+        def timed_call(tensor, *args, **kwargs):
+            if tensor.is_cuda:
+                torch.cuda.synchronize(tensor.device)
+            t0 = time.perf_counter()
+            out = self.orig(tensor, *args, **kwargs)
+            if tensor.is_cuda:
+                torch.cuda.synchronize(tensor.device)
+            self.ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+        dist.all_reduce = timed_call
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.orig
+
+
+def timed_run(rs, niter: int) -> tuple:
+    """``rs.optimize(niter)`` under :class:`AllReduceTimer`: ``(trace,
+    graph, stats)`` with the ms inside ``all_reduce`` in the stats' count
+    of the run's collectives."""
+    with AllReduceTimer() as timer:
+        trace, graph = rs.optimize(niter)
+    return trace, graph, dict(rs.stats, all_reduce=dict(rs.stats["all_reduce"], ms=timer.ms))
+
+
+def distributed_rank(rank: int, world: int, init: str, cells, out_dir: str) -> None:
+    """One gloo rank of the distributed phase on the card: for each
+    ``(label, ShardedProblem)`` of ``cells`` a ``RankSolver`` (the rank's
+    shard uploaded, its plan made); on the first cell rank 0 holds its
+    shard's kernels against their twins at the first linearisation
+    (``shard_kernel_checks``) while rank 1 waits; then the launch counters
+    zeroed, ``optimize(DIST_ITERS)`` (the cold run), the counters read, and
+    a second run (warm) that must repeat the first bit for bit.  Writes what
+    it holds to a pickle; a failure raises and ends the rank, and the
+    parent's spawn with it."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from cuda_bundle_adjustment_tpu_torch import kernels
+    from cuda_bundle_adjustment_tpu_torch.parallel import RankSolver
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    out = {}
+    try:
+        for i, (label, sp) in enumerate(cells):
+            rs = RankSolver(None, sp)
+            dev = rs.device
+            checks = None
+            if i == 0:
+                chi, sys_ = rs.head(rs.graph)
+                _, lam = rs.first_damping(chi, sys_)
+                if rank == 0:
+                    checks = shard_kernel_checks(
+                        rs, sys_, torch.full((), lam, dtype=torch.float64, device=rs.device), label)
+                del sys_
+                torch.cuda.empty_cache()
+                dist.barrier()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            trace, graph = rs.optimize(DIST_ITERS)
+            counts = kernels.launch_counts()
+            cold = rs.stats
+            trace_w, graph_w, warm = timed_run(rs, DIST_ITERS)
+            check(trace_w == trace and all(torch.equal(a, b) for a, b in zip(graph, graph_w)),
+                  f"{label} rank {rank}: the warm run differs from the cold run")
+            q, t = rs.caller_poses(graph)
+            sh = sp.shards[rank]
+            out[label] = dict(
+                trace=trace, q=q.cpu().numpy(), t=t.cpu().numpy(), Xw=graph.Xw.cpu().numpy(),
+                counts=counts, cold=cold, warm=warm, route=rs.plan.route, checks=checks,
+                E=int(sh.pose_idx.shape[0]), L=int(sh.Xw.shape[0]), T=int(sh.tri_ei.shape[0]),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            del rs, graph, graph_w
+            torch.cuda.empty_cache()
+        # the collective alone: a trial's all-reduce of the Schur blocks and
+        # bsc (the largest of the three), both ranks lined up by a barrier
+        sp = cells[0][1]
+        buf = torch.zeros(36 * sp.nnz_blocks + 6 * sp.num_active_poses, dtype=torch.float64,
+                          device=dev)
+        times = []
+        for _ in range(6):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["all_reduce_alone"] = dict(mb=buf.numel() * 8 / 1e6, ms=times[1:])
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _dist_solver(route: str):
+    """What ``expected_launches`` reads of a solver: the route, f64 "mixed"."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(plan=SimpleNamespace(route=route), mixed=True)
+
+
+def distributed_phase(city, kitti07, runs: dict) -> dict:
+    """Phase 9, the distributed path (``parallel/distributed.py``):
+
+    * ``city_scale_1card``: the city-scale graph (10k poses, 1M landmarks,
+      4.18M edges; ``city_scale_problem(scale=1)``) on one card through
+      ``main_path`` (``optimize(DIST_ITERS)``, fused and host loops), and
+      its kernels but B7/B8 held against their twins at its first
+      linearisation (B7/B8 are held on rank 0's replicated solve: the same
+      global band);
+    * ``city_scale_d2``: the same graph dealt to two gloo ranks sharing the
+      card (``shard_problem(city, 2)``, the band route), spawned after the
+      kernels were built (``distributed_rank``): rank 0's ten kernels held
+      against their twins at its shard's first linearisation
+      (``shard_kernel_checks``), each rank's
+      cold run counted (launches as the host loop's rule says) and its warm
+      run timed; the ranks' traces and poses bit for bit one another's, the
+      trace within rtol 1e-7 of the one-card run's;
+    * ``city_scale_d2_pcg``: the same with ``pose_solver="pcg"``, its trace
+      within rtol 1e-6 of the JAX package's logged PCG run
+      (``artifacts/CITY_SCALE.log``, a virtual 8-device CPU mesh);
+    * ``kitti07_nccl_d1``: ``kitti07_mono`` on one NCCL rank in this
+      process, its trace and final state bit for bit the one-card run's
+      (whose host loop ``main_path`` held bit for bit its fused loop).
+
+    Prints each rank's launch counts, warm wall time, the all-reduces a
+    trial (calls, bytes, the host-clock ms inside ``all_reduce`` with the
+    device synchronised on each side) and the allocator's peak."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from cuda_bundle_adjustment_tpu_torch import kernels
+    from cuda_bundle_adjustment_tpu_torch.parallel import (
+        RankSolver,
+        gather_landmarks,
+        shard_problem,
+    )
+    from cuda_bundle_adjustment_tpu_torch.solver.block_solver import band_meta
+
+    # the collectives' sockets on the loopback device: the ranks share a host
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    smi = nvidia_smi_line()
+    one = main_path(city, "city_scale_1card", warm_runs=1, profiled=False, niter=DIST_ITERS)
+    one_trace = one["trace"]
+    del one["solver"]
+    torch.cuda.empty_cache()
+    # the one-card run's kernels at its first linearisation (4.18M edges):
+    # every kernel but B7/B8, which rank 0 holds below on the same global
+    # band (Pa=9999, SB=16), the system every rank solves
+    solver, sys_, lam = first_linearisation(city, "cuda")
+    one["checks"] = path_kernel_checks(solver, sys_, lam, "city_scale_1card", reported=set())
+    one["checks"]["gather_rows"] = gather_held(solver, "city_scale_1card", reported=set())
+    one["checks"]["schur_pair_products"], _ = pair_products_held(
+        solver, sys_, lam, "city_scale_1card", reported=set())
+    for name in ("gather_rows", "schur_pair_products"):
+        report("city_scale_1card", name, one["checks"][name])
+    del solver, sys_, lam
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sp = shard_problem(city, 2)
+    shard_s = time.perf_counter() - t0
+    sp_pcg = shard_problem(city, 2, pose_solver="pcg")
+    band = band_meta(sp.blk_row, sp.blk_col)
+    check(sp.route == "band" and band.sb == 16 and sp_pcg.route == "pcg",
+          f"city_scale: routes {sp.route} (SB {band.sb}) and {sp_pcg.route}, not band and pcg")
+    print(f"city_scale_d2: shard_problem {shard_s:.2f} s; P={city.pose_q.shape[0]} "
+          f"Pa={sp.num_active_poses} L={sp.num_landmarks} E={city.meas.shape[0]}, {sp.nnz_blocks} "
+          f"Hsc blocks, bw={band.bw} SB={band.sb}; a rank's edges {sp.edges_per_shard}, "
+          f"landmarks {sp.lms_per_shard}, triples {sp.tris_per_shard}")
+    cells = (("city_scale_d2", sp), ("city_scale_d2_pcg", sp_pcg))
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as out_dir:
+        t0 = time.perf_counter()
+        mp.spawn(distributed_rank, args=(2, "file://" + os.path.join(out_dir, "store"), cells,
+                                         out_dir), nprocs=2, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    print(f"distributed ranks: two spawned gloo ranks on one card ran both cells in "
+          f"{spawn_s:.1f} s (spawn, CUDA start, upload, plans, rank 0's checks, four runs each)")
+    for r, rk in enumerate(ranks):
+        alone = rk["all_reduce_alone"]
+        print(f"gloo all_reduce of {alone['mb']:.3f} MB of CUDA tensors alone (after a barrier), "
+              f"rank {r}: {json.dumps([round(x, 3) for x in alone['ms']])} ms [{smi}]")
+    logged = logged_trace(CITY_SCALE_LOG)
+    out = {}
+    for label, cell in cells:
+        r0, r1 = ranks[0][label], ranks[1][label]
+        check(r0["trace"] == r1["trace"], f"{label}: the ranks' traces differ")
+        check(np.array_equal(r0["q"], r1["q"]) and np.array_equal(r0["t"], r1["t"]),
+              f"{label}: rank 1's poses are not rank 0's bit for bit")
+        trace = r0["trace"]
+        check(len(trace) == DIST_ITERS and np.all(np.isfinite(trace)) and trace[-1] < trace[0],
+              f"{label}: trace {trace}")
+        Xw = gather_landmarks(cell, [r["Xw"] for r in (r0, r1)])
+        check(Xw.shape == city.landmarks.shape and np.all(np.isfinite(Xw)),
+              f"{label}: the gathered landmarks")
+        for r, rk in enumerate((r0, r1)):
+            st = rk["cold"]
+            want = expected_launches(rk["counts"], st["iterations"], st["trials"], False, False,
+                                     _dist_solver(rk["route"]))
+            check(rk["counts"] == want, f"{label} rank {r}: launch counts {rk['counts']} do not "
+                  f"follow from {st['iterations']} iterations and {st['trials']} trials")
+            for name, n in rk["counts"].items():
+                check(n > 0 or rk["route"] == "pcg" and name.startswith("band_"),
+                      f"{label} rank {r}: kernel {name} was not launched")
+            ar, w = rk["warm"]["all_reduce"], rk["warm"]
+            print(f"{label} rank {r}: E={rk['E']} L={rk['L']} triples={rk['T']}, route "
+                  f"{rk['route']}; cold run launch counts {json.dumps(rk['counts'])}; cold "
+                  f"{st['seconds']:.4f} s, warm {w['seconds']:.4f} s ({w['iterations']} "
+                  f"iterations, {w['trials']} trials); all-reduce a trial: "
+                  f"{ar['calls'] / w['trials']:.2f} calls, {ar['bytes'] / w['trials'] / 1e6:.3f} "
+                  f"MB, {ar['ms'] / w['trials']:.3f} ms inside all_reduce (the run's "
+                  f"{ar['ms']:.1f} of {w['seconds'] * 1e3:.1f} ms); CG iterations "
+                  f"{json.dumps(w['cg_iterations'])}; allocator peak {rk['peak_gib']:.2f} GiB "
+                  f"[{smi}]")
+        if label == "city_scale_d2":
+            check(len(one_trace) == len(trace), f"{label}: {len(trace)} iterations, one card "
+                  f"{len(one_trace)}")
+            np.testing.assert_allclose(trace, one_trace, rtol=1e-7)
+            diff = rel_diff(trace, one_trace)
+            print(f"{label} chi2 trace {json.dumps(trace)}; the one-card run's "
+                  f"{json.dumps(one_trace)}: max rel diff {diff:.3e} (tol 1e-7)")
+        else:
+            check(len(logged) == len(trace), f"{label}: {len(trace)} iterations, the log "
+                  f"{len(logged)}")
+            np.testing.assert_allclose(trace, logged, rtol=1e-6)
+            diff = rel_diff(trace, logged)
+            print(f"{label} chi2 trace {json.dumps(trace)}; the JAX package's logged PCG trace "
+                  f"({os.path.relpath(CITY_SCALE_LOG)}) {json.dumps(logged)}: max rel diff "
+                  f"{diff:.3e} (tol 1e-6); against the one-card band run "
+                  f"{rel_diff(trace, one_trace):.3e}")
+        out[label] = dict(counts=r0["counts"], counts_rank1=r1["counts"], trace=trace,
+                          rel_diff=diff, warm_s=[r0["warm"]["seconds"], r1["warm"]["seconds"]],
+                          all_reduce=[r0["warm"]["all_reduce"], r1["warm"]["all_reduce"]],
+                          trials=r0["warm"]["trials"], checks=r0["checks"])
+    out["city_scale_1card"] = one
+
+    # one NCCL rank in this process: the binding a user with several cards runs
+    label = "kitti07_nccl_d1"
+    run = runs["kitti07_mono"]
+    sp1 = shard_problem(kitti07, 1)
+    with tempfile.TemporaryDirectory(dir=build) as store:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(store, "store"),
+                                rank=0, world_size=1)
+        try:
+            check(dist.get_backend() == "nccl", f"{label}: backend {dist.get_backend()}")
+            rs = RankSolver(None, sp1)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            trace, graph = rs.optimize(10)
+            counts = kernels.launch_counts()
+            cold_s = rs.stats["seconds"]
+            # the warm run: NCCL's communicator is made at the first collective
+            trace_w, graph_w, st = timed_run(rs, 10)
+        finally:
+            dist.destroy_process_group()
+    check(trace_w == trace and all(torch.equal(a, b) for a, b in zip(graph, graph_w)),
+          f"{label}: the warm run differs from the cold run")
+    check(trace == run["trace"], f"{label}: trace {trace} is not the one-card run's "
+          f"{run['trace']}")
+    q, t = rs.caller_poses(graph)
+    oq, ot = run["solver"].result_poses()
+    check(np.array_equal(q.cpu().numpy(), oq) and np.array_equal(t.cpu().numpy(), ot)
+          and np.array_equal(graph.Xw.cpu().numpy(), run["solver"].result_landmarks()),
+          f"{label}: the final state is not the one-card run's bit for bit")
+    check(counts == expected_launches(counts, st["iterations"], st["trials"], False, False),
+          f"{label}: launch counts {counts} do not follow from the run")
+    ar = st["all_reduce"]
+    print(f"{label}: one NCCL rank, trace and final state bit for bit the one-card run's; "
+          f"launch counts {json.dumps(counts)}; cold {cold_s:.4f} s, warm {st['seconds']:.4f} s "
+          f"for {st['trials']} trials (the one-card fused loop's warm run {run['warm_s']:.4f} s, "
+          f"its host loop's {run['host_s']:.4f} s), the warm run's all-reduce a trial "
+          f"{ar['calls'] / st['trials']:.2f} calls, {ar['bytes'] / st['trials'] / 1e6:.3f} MB, "
+          f"{ar['ms'] / st['trials']:.3f} ms [{smi}]")
+    out[label] = dict(counts=counts, trace=trace, cold_s=cold_s, warm_s=st["seconds"],
+                      all_reduce=ar)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2685,6 +3152,7 @@ def main() -> int:
     from cuda_bundle_adjustment_tpu_torch import GraphOptimisationOptions
     from cuda_bundle_adjustment_tpu_torch.io.synthetic import (
         kitti00_scale_mixed_problem,
+        city_scale_problem,
         kitti00_scale_problem,
         kitti07_scale_problem,
         make_loop_closure_problem,
@@ -2831,6 +3299,14 @@ def main() -> int:
     runs["kitti07_two_cams"] = two_cams_phase(kitti07, dev)
     lap("kitti07_two_cams")
 
+    # the distributed path: the city-scale graph on two gloo ranks sharing the
+    # card, and one NCCL rank
+    dist_out = distributed_phase(city_scale_problem(kind="mono", seed=0, scale=1.0), kitti07,
+                                 runs)
+    runs.update(dist_out)
+    runs["city_scale_d2_rank1"] = dict(counts=dist_out["city_scale_d2"]["counts_rank1"])
+    lap("the distributed phase")
+
     def path_count(label, name):
         """One optimize() of a later path, counters zeroed just before."""
         c = runs[label]["counts"]
@@ -2851,7 +3327,8 @@ def main() -> int:
             path_launches={label: path_count(label, name) for label in (
                 "loop5000_pcg", "kitti00_motion_only", "kitti00_mono_outliers", "kitti00_depth",
                 "kitti00_mono_depth", "kitti00_mixed_orbslam", "kitti00_mono_percam",
-                "kitti07_two_cams")},
+                "kitti07_two_cams", "city_scale_1card", "city_scale_d2", "city_scale_d2_rank1",
+                "city_scale_d2_pcg", "kitti07_nccl_d1")},
             max_abs_err=r["max_abs_err"],
             ms=r["ms"], device_ms=r["device_ms"], host_ms=r["host_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -2877,6 +3354,22 @@ def main() -> int:
             row["depth_f32"] = dict(config="kitti00_depth_f32", **{
                 k: t[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms")})
+        one_card = runs["city_scale_1card"]["checks"]
+        if name in one_card:
+            # the one-card city-scale run at its first linearisation
+            row["city_scale_1card"] = dict(
+                config="city_scale_1card", launches=path_count("city_scale_1card", name),
+                **{k: one_card[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")})
+        shard = runs["city_scale_d2"]["checks"]
+        for key, check_name in ((name, "city_scale_d2_shard"),
+                                (f"{name}_zero_bp", "city_scale_d2_shard_zero_bp")):
+            if key in shard:
+                # rank 0's shard of the distributed path, at its first linearisation
+                row[check_name] = dict(
+                    config="city_scale_d2 rank 0", launches=path_count("city_scale_d2", name),
+                    **{k: shard[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")})
         if name in ("band_factor", "band_solve"):
             # the same kernel at the wide-band path's height (the v1 range)
             w = wide_res[name]

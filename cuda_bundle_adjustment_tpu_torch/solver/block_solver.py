@@ -203,6 +203,12 @@ class BandMeta(NamedTuple):
     sb: int  # band height: bw + 1 rounded up to a multiple of 8
 
 
+def band_meta(blk_row: np.ndarray, blk_col: np.ndarray) -> BandMeta:
+    """The band of a reduced-system block pattern (host arrays)."""
+    bw = int(np.max(blk_col.astype(np.int64) - blk_row)) if blk_row.size else 0
+    return BandMeta(bw=bw, sb=-(-(bw + 1) // 8) * 8)
+
+
 def reduced_route(bw: int, Pa: int, target: torch.dtype) -> str:
     """How the reduced system of a structure is solved, decided once a
     structure:
@@ -273,6 +279,73 @@ def _solver_plan(cached: SchurPlan, packed: Optional[PackedEdges]) -> SchurPlan:
     if packed is None:
         return cached
     return cached._replace(ba_pose_idx=packed.pose_idx, ba_lm_idx=packed.lm_idx, lin_plan=lin)
+
+
+def make_schur_plan(
+    set_idx: Sequence[tuple[np.ndarray, np.ndarray]], ba: Optional[int], Pa: int, La: int,
+    device, target: torch.dtype, pattern=None, triples=None,
+    ba_lm_idx: Optional[torch.Tensor] = None, route: Optional[str] = None,
+) -> SchurPlan:
+    """The device plan of a structure (the rest of stages "1: Build
+    Structure" and "5: Symbolic Decomposition", after the symbolic pass),
+    shared by :meth:`BlockSolver.build_structure` and a rank of the
+    distributed path (``parallel/distributed.py``).
+
+    ``set_idx``: each packed set's ``(pose_idx, lm_idx)`` on the host, ``ba``
+    the landmark pack's position (None without one), whose ``La`` landmarks
+    get their segment plan and, on the card, B3's plan.  ``pattern``: the
+    reduced system's ``(blk_row, blk_col, diag_pos)`` (None without free
+    landmarks: the pose-only solve); ``triples``: ``(tri_ei, tri_ej,
+    offsets [nnz + 1])`` sorted by block, over the landmark pack's edges
+    (a rank's own triples on the global pattern on the distributed path),
+    with B6's plan over ``ba_lm_idx`` (the pack's landmark index on the
+    device); ``route``: the reduced route, :func:`reduced_route` of the
+    pattern's bandwidth and ``target`` (the reduced factor's type) by
+    default."""
+    dev = torch.device(device)
+    set_segs = tuple(make_segments(pi, Pa, dev) for pi, _ in set_idx)
+    pose_seg = lm_seg = lin_plan = None
+    if ba is not None:
+        pose_idx, lm_idx = set_idx[ba]
+        pose_seg, lm_seg = set_segs[ba], make_segments(lm_idx, La, dev)
+        if dev.type == "cuda":
+            lin_plan = make_linearise_plan(pose_seg, lm_seg, pose_idx.shape[0])
+    plan = SchurPlan(
+        ba_pose_idx=None, ba_lm_idx=None, blk_row=None, blk_col=None, diag_pos=None,
+        tri_ei=None, tri_ej=None, tri_offsets=None, pose_seg=pose_seg, lm_seg=lm_seg,
+        row_seg=None, col_seg=None, band=None, route="pose_only", target=target,
+        lin_plan=lin_plan, pair_plan=None, pcg=None, set_segs=set_segs,
+    )
+    if pattern is None:
+        return plan
+    blk_row, blk_col, diag_pos = pattern
+    # banded Hsc in an f32 factor -> band kernels (B7/B8); else dense or, for
+    # a wide pattern on many poses, PCG
+    band = band_meta(blk_row, blk_col)
+    route = route or reduced_route(band.bw, Pa, target)
+
+    def up(a, dtype=np.int64):
+        return torch.as_tensor(np.asarray(a, dtype=dtype), device=dev)
+
+    # int32 triples: on the card make_pair_plan keeps these very tensors, so
+    # no int64 copy of the ~1.7M triples stays beside them
+    tri_ei, tri_ej, tri_off = triples
+    tri_ei, tri_ej, tri_off = up(tri_ei, np.int32), up(tri_ej, np.int32), up(tri_off)
+    return plan._replace(
+        blk_row=up(blk_row),
+        blk_col=up(blk_col),
+        diag_pos=up(diag_pos),
+        tri_ei=tri_ei,
+        tri_ej=tri_ej,
+        tri_offsets=tri_off,
+        row_seg=make_segments(blk_row, Pa, dev),
+        col_seg=make_segments(blk_col, Pa, dev),
+        band=band,
+        route=route,
+        pair_plan=(make_pair_plan(ba_lm_idx, tri_ei, tri_ej, tri_off)
+                   if dev.type == "cuda" else None),
+        pcg=_pcg.build_pcg_plan(blk_row, blk_col, Pa, dev) if route == "pcg" else None,
+    )
 
 
 def _ids_to_indices(sets, ids) -> np.ndarray:
@@ -489,28 +562,46 @@ def as_lam(lam, ref: torch.Tensor) -> torch.Tensor:
     return torch.full((), lam, dtype=ref.dtype, device=ref.device)
 
 
+def schur_terms(sys: SystemBlocks, lam: torch.Tensor, plan: SchurPlan, bp: torch.Tensor):
+    """The kernels of the Schur stage on the plan's edges and triples:
+    the damped landmark inverse and ``y = inv(Hll) bl`` (kernel B4),
+    ``bp - sum Hpl y`` per pose (kernel B5; ``bp`` zero gives a rank's
+    share ``-sum Hpl y`` on the distributed path) and the Schur pair
+    products summed per block (kernel B6).  ``lam``: a 0-d tensor.  Returns
+    ``(invHll [La, 9], bsc [Pa, 6], pairs [nnz, 36])``."""
+    # bsc re-associates as Hpl (inv(Hll) bl), as on the kernel path of the
+    # JAX package, so no per-edge W is materialised for it either
+    invHll, y = damped_inverse(sys.Hll, sys.bl, lam)
+    bsc = hpl_mv_segment_sum(sys.Hpl, y, plan.ba_lm_idx, bp, plan.pose_seg, plan.lin_plan)
+    pairs = schur_pair_products(
+        sys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets,
+        plan.pair_plan,
+    )
+    return invHll, bsc, pairs
+
+
+def damp_blocks(blocks: torch.Tensor, Hpp: torch.Tensor, lam: torch.Tensor,
+                plan: SchurPlan) -> torch.Tensor:
+    """``blocks`` (the negated pair products) with ``Hpp + lam I`` added on
+    the diagonal blocks, in place; returns ``blocks``."""
+    Pa = Hpp.shape[0]
+    Hpp_d = Hpp + lam * torch.eye(6, dtype=Hpp.dtype, device=Hpp.device)
+    blocks[plan.diag_pos] = blocks[plan.diag_pos] + Hpp_d.reshape(Pa, 36)
+    return blocks
+
+
 def schur_reduce(
     sys: SystemBlocks, lam, plan: SchurPlan
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stage "4: Schur Complement": damp, invert the Hll blocks (kernel
-    B4), form ``bsc = bp - Hpl inv(Hll) bl`` and the Hsc blocks
-    ``(Hpp + lam I) - Hpl inv(Hll) Hpl^T`` on the symbolic block pattern.
-    ``lam``: a 0-d tensor on the system's device or a Python float.
-    Returns ``(blocks [nnz, 36], bsc [Pa, 6], invHll [La, 9])``."""
-    Pa = sys.bp.shape[0]
-    dtype, dev = sys.bp.dtype, sys.bp.device
+    B4), form ``bsc = bp - Hpl inv(Hll) bl`` (kernel B5) and the Hsc blocks
+    ``(Hpp + lam I) - Hpl inv(Hll) Hpl^T`` on the symbolic block pattern
+    (kernel B6) (:func:`schur_terms`, :func:`damp_blocks`).  ``lam``: a 0-d
+    tensor on the system's device or a Python float.  Returns ``(blocks
+    [nnz, 36], bsc [Pa, 6], invHll [La, 9])``."""
     lam = as_lam(lam, sys.bp)
-    Hpp_d = sys.Hpp + lam * torch.eye(6, dtype=dtype, device=dev)
-    # bsc re-associates as Hpl (inv(Hll) bl), as on the kernel path of the
-    # JAX package, so no per-edge W is materialised for it either
-    invHll, y = damped_inverse(sys.Hll, sys.bl, lam)
-    bsc = hpl_mv_segment_sum(sys.Hpl, y, plan.ba_lm_idx, sys.bp, plan.pose_seg, plan.lin_plan)
-    blocks = -schur_pair_products(
-        sys.Hpl, invHll, plan.ba_lm_idx, plan.tri_ei, plan.tri_ej, plan.tri_offsets,
-        plan.pair_plan,
-    )
-    blocks[plan.diag_pos] = blocks[plan.diag_pos] + Hpp_d.reshape(Pa, 36)
-    return blocks, bsc, invHll
+    invHll, bsc, pairs = schur_terms(sys, lam, plan, sys.bp)
+    return damp_blocks(-pairs, sys.Hpp, lam, plan), bsc, invHll
 
 
 def scaled_blocks(blocks: torch.Tensor, bsc: torch.Tensor, plan: SchurPlan):
@@ -714,6 +805,12 @@ def apply_update(graph: GraphArrays, xp: torch.Tensor, xl: Optional[torch.Tensor
     )
 
 
+def landmark_scale(xl: torch.Tensor, bl: torch.Tensor, lam) -> torch.Tensor:
+    """The landmark term of the gain-ratio denominator, ``sum xl (lam xl +
+    bl)``."""
+    return torch.sum(xl * (lam * xl + bl))
+
+
 def compute_scale(xp: torch.Tensor, xl: Optional[torch.Tensor], sys: SystemBlocks,
                   lam) -> torch.Tensor:
     """LM gain-ratio denominator ``sum x (lam x + b)`` (``lam``: a 0-d
@@ -722,7 +819,7 @@ def compute_scale(xp: torch.Tensor, xl: Optional[torch.Tensor], sys: SystemBlock
     scale = torch.sum(xp * (lam * xp + sys.bp))
     if xl is None:
         return scale
-    return scale + torch.sum(xl * (lam * xl + sys.bl))
+    return scale + landmark_scale(xl, sys.bl, lam)
 
 
 # ---------------------------------------------------------------------------
@@ -1151,61 +1248,24 @@ class BlockSolver:
             return
         _STRUCT_STATS["misses"] += 1
 
-        Pa, La, dev = self.Pa, self.La, self.device
-        set_segs = tuple(make_segments(pi, Pa, dev) for pi, _ in self._host_idx)
-        pose_seg = lm_seg = lin_plan = None
-        if self.ba is not None:
-            pose_idx, lm_idx = self._host_idx[self.ba]
-            pose_seg, lm_seg = set_segs[self.ba], make_segments(lm_idx, La, dev)
-            if dev.type == "cuda":
-                lin_plan = make_linearise_plan(pose_seg, lm_seg, pose_idx.shape[0])
-        target = torch.float32 if self.mixed else self.dtype
-        plan = SchurPlan(
-            ba_pose_idx=None, ba_lm_idx=None, blk_row=None, blk_col=None, diag_pos=None,
-            tri_ei=None, tri_ej=None, tri_offsets=None, pose_seg=pose_seg, lm_seg=lm_seg,
-            row_seg=None, col_seg=None, band=None, route="pose_only", target=target,
-            lin_plan=lin_plan, pair_plan=None, pcg=None, set_segs=set_segs,
-        )
-        s = None
+        Pa, La = self.Pa, self.La
+        s = triples = None
         self.symbolic_ms = 0.0
         if self.ba is not None and La > 0:
+            pose_idx, lm_idx = self._host_idx[self.ba]
             t0 = time.perf_counter()
             s = build_schur_structure(pose_idx, lm_idx, Pa, La)
-            tri_ei, tri_ej, tri_off = sort_triples(s)
+            triples = sort_triples(s)
             self.symbolic_ms = (time.perf_counter() - t0) * 1e3
-
-            # banded Hsc in an f32 factor -> band kernels (B7/B8); else dense
-            # or, for a wide pattern on many poses, PCG
-            bw = int(np.max(s.blk_col.astype(np.int64) - s.blk_row))
-            route = reduced_route(bw, Pa, target)
-            sb = -(-(bw + 1) // 8) * 8
-
-            def up(a, dtype=np.int64):
-                return torch.as_tensor(np.asarray(a, dtype=dtype), device=dev)
-
-            # int32 triples: on the card make_pair_plan keeps these very
-            # tensors, so no int64 copy of the ~1.7M triples stays beside them
-            tri_ei, tri_ej = up(tri_ei, np.int32), up(tri_ej, np.int32)
-            tri_off = up(tri_off)
-            plan = plan._replace(
-                blk_row=up(s.blk_row),
-                blk_col=up(s.blk_col),
-                diag_pos=up(s.diag_pos),
-                tri_ei=tri_ei,
-                tri_ej=tri_ej,
-                tri_offsets=tri_off,
-                row_seg=make_segments(s.blk_row, Pa, dev),
-                col_seg=make_segments(s.blk_col, Pa, dev),
-                band=BandMeta(bw=bw, sb=sb),
-                route=route,
-                pair_plan=(make_pair_plan(self.packed.lm_idx, tri_ei, tri_ej, tri_off)
-                           if dev.type == "cuda" else None),
-                pcg=(_pcg.build_pcg_plan(s.blk_row, s.blk_col, Pa, dev)
-                     if route == "pcg" else None),
-            )
-            for a in s:
-                if isinstance(a, np.ndarray):
-                    _frozen(a)
+        plan = make_schur_plan(
+            self._host_idx, self.ba, Pa, La, self.device,
+            torch.float32 if self.mixed else self.dtype,
+            pattern=None if s is None else (s.blk_row, s.blk_col, s.diag_pos), triples=triples,
+            ba_lm_idx=None if self.ba is None else self.packed.lm_idx,
+        )
+        for a in s or ():
+            if isinstance(a, np.ndarray):
+                _frozen(a)
         plans[knobs] = (s, plan)
         while len(plans) > _PLANS_PER_STRUCTURE:
             plans.popitem(last=False)

@@ -26,6 +26,7 @@ from torch_fragile import (
 )
 from cuda_bundle_adjustment_tpu_torch import GraphOptimisationOptions
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
+from cuda_bundle_adjustment_tpu_torch.io import synthetic
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_loop_closure_problem
 from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_mixed_ba_problem
@@ -1146,3 +1147,25 @@ def test_cpu_and_card_solvers_of_one_graph_keep_their_plans():
             optimizer_from_problem(p, device=d).solver.build_structure()
     info = bs.structure_cache_info()
     assert (info["hits"], info["misses"]) == (4, 2)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_the_card_replicate_the_poses(tmp_path):
+    """The distributed path (``parallel/distributed.py``) with two gloo ranks
+    sharing the card, at sample size: every rank ends with rank 0's poses bit
+    for bit (the pose solve is replicated), and the trace is the one-card
+    run's within 1e-7."""
+    import torch_dist_cases as tdc
+
+    _cuda()
+    tdc.join(tdc.run_ranks(2, ("mono", "mixed"), str(tmp_path), device="cuda"), 300)
+    ranks = tdc.read_ranks(2, str(tmp_path))
+    for case in ("mono", "mixed"):
+        got = ranks[0][case]
+        for key in ("trace", "q", "t"):
+            assert np.array_equal(np.asarray(got[key]), np.asarray(ranks[1][case][key])), key
+        opt = optimizer_from_problem(tdc.problem(case, synthetic))
+        opt.optimize(tdc.NITER)
+        want = [s.chi2 for s in opt.batch_statistics().get()]
+        assert len(got["trace"]) == len(want)
+        np.testing.assert_allclose(got["trace"], want, rtol=1e-7)
