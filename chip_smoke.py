@@ -1147,36 +1147,55 @@ def band_from_dense_factor(L, Pa: int, SB: int, bw: int):
 
 
 def gather_held(solver, label, reported=None) -> dict:
-    """B2 bit for bit against its masked-gather twin and ``table[idx]`` on
-    the solver's pose table (``reported`` as in ``path_kernel_checks``)."""
+    """B2 on the solver's two tables, the pose state ``[P, 12]`` and the
+    landmarks ``graph.Xw`` ``[L, 3]``, each bit for bit against its masked
+    gather twin and ``table[idx]``, timed beside ``index_select``, and the
+    pose table again 8 bytes off a 16-byte boundary (the kernel's element
+    loads), bit for bit.  Returns the pose gather's row with the landmark
+    gather's under ``landmark`` (``reported`` as in ``path_kernel_checks``)."""
     import torch
 
     from cuda_bundle_adjustment_tpu_torch.kernels import gather
     from cuda_bundle_adjustment_tpu_torch.models.ba import _pose_state_table
 
     data, graph = solver.packed, solver.graph
+    full = reported is None or "gather_rows" in reported
+    rows = {}
+    for name, table, idx in (("pose", _pose_state_table(graph), data.pose_idx),
+                             ("landmark", graph.Xw, data.lm_idx)):
+        k = gather.gather_rows(table, idx)
+        p = gather.gather_rows_plain(table, idx)
+        check(torch.equal(k, p), f"{label} gather_rows ({name}): not bit-exact against its twin")
+        check(torch.equal(k, table[idx]), f"{label} gather_rows ({name}): differs from table[idx]")
+        rows[name] = dict(
+            max_abs_err=(k - p).abs().max().item(),
+            **timed(lambda t=table, i=idx: gather.gather_rows(t, i),
+                    lambda t=table, i=idx: gather.gather_rows_plain(t, i),
+                    lambda t=table, i=idx: torch.index_select(t, 0, i), full=full),
+            **bound((table, idx, k), 0, "f64"),
+        )
+        print(f"{label} B2 gather_rows ({name}) [{table.shape[0]},{table.shape[1]}]->"
+              f"[{k.shape[0]},{k.shape[1]}] {table.dtype}: bit-exact")
+        del k, p
+    # the pose table 8 bytes off a 16-byte boundary: element loads, same bits
     table = _pose_state_table(graph)
-    k_pose = gather.gather_rows(table, data.pose_idx)
-    k_lm = gather.gather_rows(graph.Xw, data.lm_idx)
-    err = max(
-        (k_pose - gather.gather_rows_plain(table, data.pose_idx)).abs().max().item(),
-        (k_lm - gather.gather_rows_plain(graph.Xw, data.lm_idx)).abs().max().item(),
-    )
-    check(
-        torch.equal(k_pose, gather.gather_rows_plain(table, data.pose_idx))
-        and torch.equal(k_lm, gather.gather_rows_plain(graph.Xw, data.lm_idx)),
-        "gather_rows: not bit-exact against its twin",
-    )
-    check(torch.equal(k_pose, table[data.pose_idx]), "gather_rows: differs from table[idx]")
-    print(f"{label} B2 gather_rows [{table.shape[0]},12]->[{k_pose.shape[0]},12]: bit-exact")
-    return dict(
-        max_abs_err=err,
-        **timed(lambda: gather.gather_rows(table, data.pose_idx),
-                lambda: gather.gather_rows_plain(table, data.pose_idx),
-                lambda: torch.index_select(table, 0, data.pose_idx),
-                full=reported is None or "gather_rows" in reported),
-        **bound((table, data.pose_idx, k_pose), 0, "f64"),
-    )
+    skip = 8 // table.element_size()
+    off = torch.empty(table.numel() + skip, dtype=table.dtype, device=table.device)
+    off = off[skip:].view(table.shape)
+    off.copy_(table)
+    check(off.data_ptr() % 16 == 8, f"{label} gather_rows: the offset table is not 8 bytes off")
+    check(torch.equal(gather.gather_rows(off, data.pose_idx),
+                      gather.gather_rows(table, data.pose_idx)),
+          f"{label} gather_rows: a table 8 bytes off a 16-byte boundary gives other bits")
+    misaligned = ""
+    if full:
+        ms = device_ms(lambda: gather.gather_rows(off, data.pose_idx))
+        rows["pose"]["misaligned_device_ms"] = ms
+        misaligned = f", on the device {ms:.4f} ms"
+    print(f"{label} B2 gather_rows (pose) from a table 8 bytes off a 16-byte boundary: "
+          f"bit-exact{misaligned}")
+    report(f"{label} (landmark)", "gather_rows", rows["landmark"])
+    return dict(rows["pose"], landmark=rows["landmark"])
 
 
 def pair_products_held(solver, sys_, lam, label, reported=None) -> tuple:
@@ -3175,8 +3194,9 @@ def main() -> int:
         print(f"kernel build: {time.perf_counter() - start:.2f} s")
         print(f"native symbolic library build ({native.compiler_version()}): "
               f"{native_s.result():.2f} s, {native.library_path().name}")
-    with ThreadPoolExecutor(5) as pool:  # five more compiles, side by side
-        for lines in pool.map(ptxas_report, ("terms", "lminv", "schurvec", "pairprod", "bandchol")):
+    with ThreadPoolExecutor(6) as pool:  # six more compiles, side by side
+        for lines in pool.map(ptxas_report, ("gather", "terms", "lminv", "schurvec", "pairprod",
+                                             "bandchol")):
             print("\n".join(lines))
 
     def lap(what: str) -> None:
@@ -3317,6 +3337,20 @@ def main() -> int:
                   "two_weights": "kitti00_mixed_orbslam", "per_edge_camera": "kitti00_mono_percam",
                   "two_cams": "kitti07_two_cams"}
     counts = runs["kitti00_mono"]["counts"]
+    timed_keys = ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms")
+    brief_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def numbers(r, keys):
+        """A row's numbers; B2's landmark gather beside its pose gather, and
+        the pose gather's device time from a misaligned table."""
+        out = {k: r[k] for k in keys}
+        if "misaligned_device_ms" in r:
+            out["misaligned_device_ms"] = r["misaligned_device_ms"]
+        if "landmark" in r:
+            out["landmark"] = {k: r["landmark"][k] for k in keys}
+        return out
+
     rows = []
     for name, (src, replaces) in KERNEL_INFO.items():
         r = res[name]
@@ -3329,38 +3363,28 @@ def main() -> int:
                 "kitti00_mono_depth", "kitti00_mixed_orbslam", "kitti00_mono_percam",
                 "kitti07_two_cams", "city_scale_1card", "city_scale_d2", "city_scale_d2_rank1",
                 "city_scale_d2_pcg", "kitti07_nccl_d1")},
-            max_abs_err=r["max_abs_err"],
-            ms=r["ms"], device_ms=r["device_ms"], host_ms=r["host_ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            **numbers(r, timed_keys),
         )
         if name in res32:
             # the same kernel in f32 mode (kitti00_huber_f32)
-            r32 = res32[name]
             row["f32"] = dict(
                 config="kitti00_huber_f32", launches=runs["kitti00_huber_f32"]["counts"][name],
-                max_abs_err=r32["max_abs_err"], ms=r32["ms"], device_ms=r32["device_ms"],
-                host_ms=r32["host_ms"], plain_ms=r32["plain_ms"], bound_ms=r32["bound_ms"],
-                bound_by=r32["bound_by"], library_ms=r32["library_ms"],
+                **numbers(res32[name], timed_keys),
             )
         if name in ("chi_edges", "linearise"):
             # the instantiations of the new paths, at their first linearisation
             for key, label in terms_rows.items():
                 t = runs[label]["terms"][name]
                 row[key] = dict(config=label, launches=path_count(label, name),
-                                **{k: t[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms",
-                                                     "plain_ms", "bound_ms", "bound_by",
-                                                     "library_ms")})
+                                **numbers(t, timed_keys))
             t = runs["kitti00_depth"]["terms_f32"][name]
-            row["depth_f32"] = dict(config="kitti00_depth_f32", **{
-                k: t[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")})
+            row["depth_f32"] = dict(config="kitti00_depth_f32", **numbers(t, timed_keys))
         one_card = runs["city_scale_1card"]["checks"]
         if name in one_card:
             # the one-card city-scale run at its first linearisation
             row["city_scale_1card"] = dict(
                 config="city_scale_1card", launches=path_count("city_scale_1card", name),
-                **{k: one_card[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                  "bound_by", "library_ms")})
+                **numbers(one_card[name], brief_keys))
         shard = runs["city_scale_d2"]["checks"]
         for key, check_name in ((name, "city_scale_d2_shard"),
                                 (f"{name}_zero_bp", "city_scale_d2_shard_zero_bp")):
@@ -3368,8 +3392,7 @@ def main() -> int:
                 # rank 0's shard of the distributed path, at its first linearisation
                 row[check_name] = dict(
                     config="city_scale_d2 rank 0", launches=path_count("city_scale_d2", name),
-                    **{k: shard[key][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                  "bound_by", "library_ms")})
+                    **numbers(shard[key], brief_keys))
         if name in ("band_factor", "band_solve"):
             # the same kernel at the wide-band path's height (the v1 range)
             w = wide_res[name]

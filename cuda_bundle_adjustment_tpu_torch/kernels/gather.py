@@ -16,6 +16,9 @@ import torch
 from . import _build
 from ._types import check_floats, f32_flag
 
+# the kernel indexes the output's elements and the table's rows in 32 bits
+_INT32_MAX = 2**31 - 1
+
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin: masked ``table[idx]``."""
@@ -40,7 +43,9 @@ def _lib():
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``[M, K] f64 or f32, [E] int64 -> [E, K]`` in the table's type
-    (kernel B2 on CUDA)."""
+    (kernel B2 on CUDA; ``E * K`` and ``M`` below 2^31 there).  A contiguous
+    table is read in place at any address: one that is not 16-byte aligned
+    takes the kernel's element loads."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
     if table.device.type != "cuda":
@@ -50,10 +55,13 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise TypeError("gather_rows: expects int64 indices")
     if table.dim() != 2 or idx.dim() != 1 or idx.device != table.device:
         raise ValueError("gather_rows: expects table [M, K] and idx [E] on one device")
-    table = table.contiguous()
-    idx = idx.contiguous()
     M, K = table.shape
     E = idx.shape[0]
+    if E * K > _INT32_MAX or M > _INT32_MAX:
+        raise ValueError(f"gather_rows: [{M}, {K}] rows for {E} edges exceed the kernel's "
+                         "32-bit indices")
+    table = table.contiguous()
+    idx = idx.contiguous()
     out = torch.empty((E, K), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out

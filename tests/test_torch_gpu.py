@@ -384,6 +384,74 @@ def test_gather_kernel_matches_twin():
     assert torch.equal(gather.gather_rows(table, idx), gather.gather_rows_plain(table, idx))
 
 
+def _table_at(values: torch.Tensor, offset: int) -> torch.Tensor:
+    """``values`` copied into a table whose first element lies ``offset``
+    bytes past a 16-byte boundary."""
+    M, K = values.shape
+    skip = offset // values.element_size()
+    buf = torch.empty(M * K + 4, dtype=values.dtype, device=values.device)
+    table = buf[skip:skip + M * K].view(M, K)
+    table.copy_(values)
+    assert table.data_ptr() % 16 == offset
+    return table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [0, 1, 2, 3, 7, 50001])
+@pytest.mark.parametrize("K", [1, 3, 5, 12])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gather_kernel_edges(dtype, K, E):
+    """B2 at the edges of its chunked design, each call ``torch.equal`` its
+    twin and ``table[idx]``: row widths with and without a compile-time
+    instantiation (3 and 12; 1 and 5), output lengths that end inside a
+    16-byte chunk, a table at and 8 bytes off a 16-byte boundary, the
+    sentinels -1, M and +-2^40 (a zero row), one launch counted a call, and
+    a CUDA-graph capture replayed after the table changed in place (as the
+    fused loop replays B2)."""
+    dev = _cuda()
+    rng = np.random.default_rng(100 * K + E)
+    M = 1322 if K == 12 else 997
+    values = torch.as_tensor(rng.standard_normal((M, K)), dtype=dtype, device=dev)
+    idx = rng.integers(0, M, E)
+    idx[: min(E, 4)] = [-1, M, 2**40, -2**40][: min(E, 4)]
+    idx = torch.as_tensor(idx, device=dev)
+    valid = (idx >= 0) & (idx < M)
+    for offset in (0, 8):
+        table = _table_at(values, offset)
+        before = gather.gather_rows.launches
+        got = gather.gather_rows(table, idx)
+        assert gather.gather_rows.launches - before == (1 if E else 0)
+        assert got.dtype == dtype and got.shape == (E, K)
+        assert torch.equal(got, gather.gather_rows_plain(table, idx))
+        assert torch.equal(got[valid], table[idx[valid]])
+        assert not got[~valid].any()
+    if E == 0:
+        return
+    table = _table_at(values, 8)
+    got = gather.gather_rows(table, idx)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = gather.gather_rows(table, idx)
+    table.mul_(-3.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, gather.gather_rows_plain(table, idx))
+    assert not valid.any() or not torch.equal(replayed, got)
+
+
+@pytest.mark.gpu
+def test_gather_kernel_refuses_what_it_does_not_take():
+    """A gather whose elements or rows a 32-bit index cannot reach is
+    refused before anything is allocated; so are other index types."""
+    dev = _cuda()
+    table = torch.zeros((4, 12), dtype=torch.float64, device=dev)
+    wide = torch.zeros((1,), dtype=torch.int64, device=dev).expand(2**31 // 12 + 1)
+    with pytest.raises(ValueError, match="32-bit"):
+        gather.gather_rows(table, wide)
+    with pytest.raises(TypeError):
+        gather.gather_rows(table, torch.zeros(3, dtype=torch.int32, device=dev))
+
+
 @pytest.mark.gpu
 def test_pairprod_kernel_matches_twin():
     """Within 1e-12 x max|block| (same products, different summation order),

@@ -57,18 +57,37 @@ def _systems(problem):
 # -- B2 ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("M,K,E", [(40, 12, 300), (300, 3, 2000)])
-def test_gather_twin_matches_pallas_expand(M, K, E):
-    """Bit-exact against ``onehot.expand`` (interpret), sentinel rows included."""
+def _expand_case(M, K, E, dtype=np.float64):
+    """The twin bit for bit ``onehot.expand`` (interpret) on a seeded table
+    of ``dtype``, the sentinel index ``M`` (a zero row) included."""
     from cuda_bundle_adjustment_tpu.pallas.onehot import build_expand_plan, expand
 
     rng = np.random.default_rng(M)
-    table = rng.standard_normal((M, K))
+    table = rng.standard_normal((M, K)).astype(dtype)
     idx = rng.integers(0, M + 1, E)  # == M: the zero-row sentinel
+    idx[0] = M
     plan = build_expand_plan(idx, M, chunk=1024)
     want = np.asarray(expand(jnp.asarray(table), plan, interpret=True))  # [K, E]
     got = gather.gather_rows(_t(table), _t(idx)).numpy()  # [E, K]
+    assert got.dtype == want.dtype == dtype
     np.testing.assert_array_equal(got.T, want)
+
+
+@pytest.mark.parametrize("M,K,E", [(40, 12, 300), (300, 3, 2000)])
+def test_gather_twin_matches_pallas_expand(M, K, E):
+    """Bit-exact against ``onehot.expand`` (interpret), sentinel rows included."""
+    _expand_case(M, K, E)
+
+
+@pytest.mark.parametrize("M,K,E,dtype", [
+    (40, 12, 300, np.float32),  # expand's f32 table: one f32 summand (onehot.py:274-277)
+    (300, 3, 2001, np.float64),  # the landmark width, an odd number of rows
+    (300, 3, 2001, np.float32),
+])
+def test_gather_twin_matches_pallas_expand_f32_and_odd_rows(M, K, E, dtype):
+    """As above for an f32 table and the landmark table's K = 3 at an odd E
+    (an output that ends inside the kernel's 16-byte chunk)."""
+    _expand_case(M, K, E, dtype)
 
 
 # -- B6 ---------------------------------------------------------------------
