@@ -118,11 +118,15 @@ caught):
    kernels held against their twins at its shard's first linearisation, B5
    with a zero ``bp``, B6 on the shard's triples and B7/B8 at the global
    band among them; each rank's launches
-   counted, its trace and poses bit for bit the other's, the trace within
+   counted, its fused loop's eager steps (gloo: 0 captures) bit for bit its
+   host loop, its trace and poses bit for bit the other's, the trace within
    rtol 1e-7 of the one-card run's) and with ``pose_solver="pcg"``
    (``city_scale_d2_pcg``, within rtol 1e-6 of the JAX package's logged
-   trace, ``artifacts/CITY_SCALE.log``), and ``kitti07_mono`` on one NCCL
-   rank (``kitti07_nccl_d1``), bit for bit the one-card run.
+   trace, ``artifacts/CITY_SCALE.log``), and one NCCL rank in this process
+   running the fused loop captured into CUDA graphs beside its host loop:
+   ``kitti07_mono`` (``kitti07_nccl_d1``) and the city-scale graph
+   (``city_scale_nccl_d1``) bit for bit the one-card runs, and its PCG
+   route (``city_scale_nccl_d1_pcg``) within rtol 1e-6 of the log.
 
 The last two lines are a JSON line describing the kernels and the JSON
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -1972,6 +1976,25 @@ def dense_cells(runs: dict) -> dict:
     return out
 
 
+def exact_route_check(runs: dict) -> None:
+    """The f64 factor's route rule (``block_solver.reduced_route``): the two
+    ``"exact"`` cells keep the dense route, ``kitti00_mono_exact`` because
+    its band passes the JAX package's VMEM test and ``loop800_exact``
+    because it has fewer than ``PCG_MIN_POSES`` poses."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
+
+    for label in ("kitti00_mono_exact", "loop800_exact"):
+        s = runs[label]["solver"]
+        Pa, sb = s.Pa, s.plan.band.sb
+        check(s.plan.route == "dense" and s.plan.target == torch.float64,
+              f"{label}: route {s.plan.route} with a {s.plan.target} factor, not dense in f64")
+        print(f"{label}: the f64 factor's route dense (Pa={Pa}, SB={sb}: (Pa + SB) SB 512 B = "
+              f"{(Pa + sb) * sb * 512} against {bs.DENSE_BAND_BYTES}; PCG_MIN_POSES "
+              f"{bs.PCG_MIN_POSES})")
+
+
 def graph_nodes(graph) -> dict:
     """A captured CUDA graph's node count, and its nodes by type (kernel,
     memcpy, memset, other), read with ``cuGraphGetNodes`` and
@@ -2894,10 +2917,12 @@ def distributed_rank(rank: int, world: int, init: str, cells, out_dir: str) -> N
     shard uploaded, its plan made); on the first cell rank 0 holds its
     shard's kernels against their twins at the first linearisation
     (``shard_kernel_checks``) while rank 1 waits; then the launch counters
-    zeroed, ``optimize(DIST_ITERS)`` (the cold run), the counters read, and
-    a second run (warm) that must repeat the first bit for bit.  Writes what
-    it holds to a pickle; a failure raises and ends the rank, and the
-    parent's spawn with it."""
+    zeroed, ``optimize(DIST_ITERS)`` (the cold run: the fused loop, its
+    steps eager under gloo, 0 captures), the counters read, a second run
+    (warm) that must repeat the first bit for bit, and a run of the host
+    loop (``use_fused_loop = False``) whose trace and final state must be
+    the fused loop's bit for bit.  Writes what it holds to a pickle; a
+    failure raises and ends the rank, and the parent's spawn with it."""
     import pickle
 
     import torch
@@ -2928,17 +2953,31 @@ def distributed_rank(rank: int, world: int, init: str, cells, out_dir: str) -> N
             trace, graph = rs.optimize(DIST_ITERS)
             counts = kernels.launch_counts()
             cold = rs.stats
+            check(cold["fused"] and not cold["capture"] and cold["captures"] == 0
+                  and cold["reads"] == cold["trials"] + 1 + cold["cg_reads"],
+                  f"{label} rank {rank}: not the fused loop's eager steps: {cold}")
+            graph = [a.clone() for a in graph]
             trace_w, graph_w, warm = timed_run(rs, DIST_ITERS)
             check(trace_w == trace and all(torch.equal(a, b) for a, b in zip(graph, graph_w)),
                   f"{label} rank {rank}: the warm run differs from the cold run")
+            rs.use_fused_loop = False
+            trace_h, graph_h, host = timed_run(rs, DIST_ITERS)
+            check(trace_h == trace and all(torch.equal(a, b) for a, b in zip(graph, graph_h)),
+                  f"{label} rank {rank}: the host loop's trace or final state is not the fused "
+                  f"loop's bit for bit")
+            check(host["all_reduce"]["calls"] == warm["all_reduce"]["calls"]
+                  and host["all_reduce"]["bytes"] == warm["all_reduce"]["bytes"],
+                  f"{label} rank {rank}: the fused loop's collectives are not the host loop's")
+            graph = type(graph_h)(*graph)
             q, t = rs.caller_poses(graph)
             sh = sp.shards[rank]
             out[label] = dict(
                 trace=trace, q=q.cpu().numpy(), t=t.cpu().numpy(), Xw=graph.Xw.cpu().numpy(),
-                counts=counts, cold=cold, warm=warm, route=rs.plan.route, checks=checks,
+                counts=counts, cold=cold, warm=warm, host=host, route=rs.plan.route,
+                checks=checks,
                 E=int(sh.pose_idx.shape[0]), L=int(sh.Xw.shape[0]), T=int(sh.tri_ei.shape[0]),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-            del rs, graph, graph_w
+            del rs, graph, graph_w, graph_h
             torch.cuda.empty_cache()
         # the collective alone: a trial's all-reduce of the Schur blocks and
         # bsc (the largest of the three), both ranks lined up by a barrier
@@ -2987,9 +3026,13 @@ def distributed_phase(city, kitti07, runs: dict) -> dict:
     * ``city_scale_d2_pcg``: the same with ``pose_solver="pcg"``, its trace
       within rtol 1e-6 of the JAX package's logged PCG run
       (``artifacts/CITY_SCALE.log``, a virtual 8-device CPU mesh);
-    * ``kitti07_nccl_d1``: ``kitti07_mono`` on one NCCL rank in this
-      process, its trace and final state bit for bit the one-card run's
-      (whose host loop ``main_path`` held bit for bit its fused loop).
+    * one NCCL rank in this process (``nccl_rank_cell``: the fused loop
+      captured, cold and warm, beside the host loop, bit for bit):
+      ``kitti07_nccl_d1`` (``kitti07_mono``) and ``city_scale_nccl_d1``
+      (``shard_problem(city, 1)``), their traces and final states bit for
+      bit the one-card runs' (whose host loops ``main_path`` held bit for
+      bit their fused loops), and ``city_scale_nccl_d1_pcg`` (PCG forced),
+      within rtol 1e-6 of the JAX package's logged trace.
 
     Prints each rank's launch counts, warm wall time, the all-reduces a
     trial (calls, bytes, the host-clock ms inside ``all_reduce`` with the
@@ -3016,6 +3059,7 @@ def distributed_phase(city, kitti07, runs: dict) -> dict:
     smi = nvidia_smi_line()
     one = main_path(city, "city_scale_1card", warm_runs=1, profiled=False, niter=DIST_ITERS)
     one_trace = one["trace"]
+    one_state = (*one["solver"].result_poses(), one["solver"].result_landmarks())
     del one["solver"]
     torch.cuda.empty_cache()
     # the one-card run's kernels at its first linearisation (4.18M edges):
@@ -3083,8 +3127,11 @@ def distributed_phase(city, kitti07, runs: dict) -> dict:
                       f"{label} rank {r}: kernel {name} was not launched")
             ar, w = rk["warm"]["all_reduce"], rk["warm"]
             print(f"{label} rank {r}: E={rk['E']} L={rk['L']} triples={rk['T']}, route "
-                  f"{rk['route']}; cold run launch counts {json.dumps(rk['counts'])}; cold "
-                  f"{st['seconds']:.4f} s, warm {w['seconds']:.4f} s ({w['iterations']} "
+                  f"{rk['route']}; cold run launch counts {json.dumps(rk['counts'])}; the fused "
+                  f"loop, its steps eager under gloo: {w['captures']} captures, {w['reads']} host "
+                  f"reads; cold {st['seconds']:.4f} s, warm {w['seconds']:.4f} s (eager "
+                  f"{w['eager_ms']:.1f} ms), the host loop warm {rk['host']['seconds']:.4f} s, "
+                  f"bit for bit ({w['iterations']} "
                   f"iterations, {w['trials']} trials); all-reduce a trial: "
                   f"{ar['calls'] / w['trials']:.2f} calls, {ar['bytes'] / w['trials'] / 1e6:.3f} "
                   f"MB, {ar['ms'] / w['trials']:.3f} ms inside all_reduce (the run's "
@@ -3109,50 +3156,114 @@ def distributed_phase(city, kitti07, runs: dict) -> dict:
                   f"{rel_diff(trace, one_trace):.3e}")
         out[label] = dict(counts=r0["counts"], counts_rank1=r1["counts"], trace=trace,
                           rel_diff=diff, warm_s=[r0["warm"]["seconds"], r1["warm"]["seconds"]],
+                          host_s=[r0["host"]["seconds"], r1["host"]["seconds"]],
                           all_reduce=[r0["warm"]["all_reduce"], r1["warm"]["all_reduce"]],
                           trials=r0["warm"]["trials"], checks=r0["checks"])
     out["city_scale_1card"] = one
 
-    # one NCCL rank in this process: the binding a user with several cards runs
-    label = "kitti07_nccl_d1"
-    run = runs["kitti07_mono"]
-    sp1 = shard_problem(kitti07, 1)
+    # one NCCL rank in this process, the binding a user with a card a rank
+    # runs: the captured loop beside the host loop on each cell
+    sp1 = shard_problem(city, 1)
     with tempfile.TemporaryDirectory(dir=build) as store:
         dist.init_process_group("nccl", init_method="file://" + os.path.join(store, "store"),
                                 rank=0, world_size=1)
         try:
-            check(dist.get_backend() == "nccl", f"{label}: backend {dist.get_backend()}")
-            rs = RankSolver(None, sp1)
-            torch.cuda.synchronize()
-            kernels.reset_launch_counts()
-            trace, graph = rs.optimize(10)
-            counts = kernels.launch_counts()
-            cold_s = rs.stats["seconds"]
-            # the warm run: NCCL's communicator is made at the first collective
-            trace_w, graph_w, st = timed_run(rs, 10)
+            check(dist.get_backend() == "nccl", f"NCCL rank: backend {dist.get_backend()}")
+            nccl = {
+                "kitti07_nccl_d1": nccl_rank_cell("kitti07_nccl_d1", shard_problem(kitti07, 1),
+                                                  10, smi),
+                "city_scale_nccl_d1": nccl_rank_cell("city_scale_nccl_d1", sp1, DIST_ITERS, smi),
+                "city_scale_nccl_d1_pcg": nccl_rank_cell(
+                    "city_scale_nccl_d1_pcg", sp1._replace(route="pcg"), DIST_ITERS, smi),
+            }
         finally:
             dist.destroy_process_group()
-    check(trace_w == trace and all(torch.equal(a, b) for a, b in zip(graph, graph_w)),
-          f"{label}: the warm run differs from the cold run")
-    check(trace == run["trace"], f"{label}: trace {trace} is not the one-card run's "
-          f"{run['trace']}")
-    q, t = rs.caller_poses(graph)
+    run = runs["kitti07_mono"]
     oq, ot = run["solver"].result_poses()
-    check(np.array_equal(q.cpu().numpy(), oq) and np.array_equal(t.cpu().numpy(), ot)
-          and np.array_equal(graph.Xw.cpu().numpy(), run["solver"].result_landmarks()),
-          f"{label}: the final state is not the one-card run's bit for bit")
-    check(counts == expected_launches(counts, st["iterations"], st["trials"], False, False),
-          f"{label}: launch counts {counts} do not follow from the run")
-    ar = st["all_reduce"]
-    print(f"{label}: one NCCL rank, trace and final state bit for bit the one-card run's; "
-          f"launch counts {json.dumps(counts)}; cold {cold_s:.4f} s, warm {st['seconds']:.4f} s "
-          f"for {st['trials']} trials (the one-card fused loop's warm run {run['warm_s']:.4f} s, "
-          f"its host loop's {run['host_s']:.4f} s), the warm run's all-reduce a trial "
-          f"{ar['calls'] / st['trials']:.2f} calls, {ar['bytes'] / st['trials'] / 1e6:.3f} MB, "
-          f"{ar['ms'] / st['trials']:.3f} ms [{smi}]")
-    out[label] = dict(counts=counts, trace=trace, cold_s=cold_s, warm_s=st["seconds"],
-                      all_reduce=ar)
+    for label, (trace, state, name) in {
+            "kitti07_nccl_d1": (run["trace"], (oq, ot, run["solver"].result_landmarks()),
+                                "the one-card run"),
+            "city_scale_nccl_d1": (one_trace, one_state, "city_scale_1card")}.items():
+        cell = nccl[label]
+        check(cell["trace"] == trace, f"{label}: trace {cell['trace']} is not {name}'s {trace}")
+        check(all(np.array_equal(a, b) for a, b in zip(cell["state"], state)),
+              f"{label}: the final state is not {name}'s bit for bit")
+        print(f"{label}: trace and final state bit for bit {name}'s")
+    pcg_trace = nccl["city_scale_nccl_d1_pcg"]["trace"]
+    check(len(logged) == len(pcg_trace), f"city_scale_nccl_d1_pcg: {len(pcg_trace)} iterations, "
+          f"the log {len(logged)}")
+    np.testing.assert_allclose(pcg_trace, logged, rtol=1e-6)
+    print(f"city_scale_nccl_d1_pcg chi2 trace {json.dumps(pcg_trace)}: max rel diff "
+          f"{rel_diff(pcg_trace, logged):.3e} from the JAX package's logged PCG trace (tol 1e-6)")
+    for label, cell in nccl.items():
+        del cell["state"]
+        out[label] = cell
     return out
+
+
+def nccl_rank_cell(label: str, sp, niter: int, smi: str) -> dict:
+    """One NCCL rank (the caller's group of one) over ``sp``: the fused
+    loop, its steps captured into CUDA graphs with their all-reduces, cold
+    (launches counted) then warm, and the host loop (``use_fused_loop =
+    False``) warm under :class:`AllReduceTimer` on the same ``RankSolver``.
+    The three runs' traces and final states are one another's bit for bit;
+    the fused runs capture and replay, read one flag a trial and the trace
+    once (and one a CG block), and make the host loop's all-reduces
+    (``comm``, counted per replay: one a linearisation, two a trial, one
+    MAX); the launch counts follow the host loop's rule (a rank's head
+    computes chi every iteration).  Prints warm seconds, the loop's eager,
+    capture and replay ms and the all-reduces a trial.  Returns the trace,
+    the final state in the caller's order (numpy), the counts and the
+    stats."""
+    import torch
+
+    from cuda_bundle_adjustment_tpu_torch import kernels
+    from cuda_bundle_adjustment_tpu_torch.parallel import RankSolver
+
+    rs = RankSolver(None, sp)
+    check(rs.capturable, f"{label}: the steps of an NCCL rank on the card are not capturable")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    trace, graph = rs.optimize(niter)
+    counts = kernels.launch_counts()
+    cold = dict(rs.stats)
+    graph = [a.clone() for a in graph]
+    trace_w, graph_w = rs.optimize(niter)
+    warm = dict(rs.stats)
+    rs.use_fused_loop = False
+    kernels.reset_launch_counts()
+    trace_h, graph_h, host = timed_run(rs, niter)
+    host_counts = kernels.launch_counts()
+    for what, tr, g in (("the warm run", trace_w, graph_w), ("the host loop", trace_h, graph_h)):
+        check(tr == trace and all(torch.equal(a, b) for a, b in zip(graph, g)),
+              f"{label}: {what}'s trace or final state is not the cold run's bit for bit")
+    iters, trials = cold["iterations"], cold["trials"]
+    for st in (cold, warm):
+        check(st["capture"] and st["captures"] >= min(1, iters - 1)
+              and st["replays"] >= iters - 1 and st["reads"] == st["trials"] + 1 + st["cg_reads"],
+              f"{label}: the fused loop did not capture and replay with one read a trial: {st}")
+        check(st["all_reduce"] == {k: host["all_reduce"][k] for k in ("calls", "bytes")}
+              and st["all_reduce"]["calls"] == iters + 2 * trials + 1
+              and st["cg_iterations"] == host["cg_iterations"],
+              f"{label}: the fused loop's collectives {st['all_reduce']} are not the host "
+              f"loop's {host['all_reduce']}")
+    want = expected_launches(counts, iters, trials, False, False, _dist_solver(rs.plan.route))
+    check(counts == want == host_counts, f"{label}: launch counts {counts} (host loop "
+          f"{host_counts}) do not follow from {iters} iterations and {trials} trials")
+    ar = warm["all_reduce"]
+    print(f"{label}: one NCCL rank, route {rs.plan.route}, the fused loop captured ({iters} "
+          f"iterations, {trials} trials; {warm['captures']} captures, {warm['replays']} replays, "
+          f"{warm['reads']} host reads), bit for bit the host loop; launch counts "
+          f"{json.dumps(counts)}; cold {cold['seconds']:.4f} s, warm {warm['seconds']:.4f} s "
+          f"(eager {warm['eager_ms']:.2f} ms, capture {warm['capture_ms']:.2f}, replays "
+          f"{warm['replay_ms']:.2f}), the host loop warm {host['seconds']:.4f} s "
+          f"({host['all_reduce']['ms'] / trials:.3f} ms a trial inside all_reduce); all-reduce a "
+          f"trial {ar['calls'] / trials:.2f} calls, {ar['bytes'] / trials / 1e6:.3f} MB; CG "
+          f"iterations {json.dumps(warm['cg_iterations'])} [{smi}]")
+    q, t = rs.caller_poses(type(graph_h)(*graph))
+    return dict(trace=trace, state=(q.cpu().numpy(), t.cpu().numpy(), graph[2].cpu().numpy()),
+                counts=counts, cold=cold, warm=warm, host=host, cold_s=cold["seconds"],
+                warm_s=warm["seconds"], host_s=host["seconds"], all_reduce=ar, route=rs.plan.route)
 
 
 def main() -> int:
@@ -3283,6 +3394,7 @@ def main() -> int:
     check(runs["loop800_mixed"]["solver"].plan.band.bw + 1 > 48,
           "loop800: the band after RCM is not over 48")
     dense = dense_cells(runs)
+    exact_route_check(runs)
     lap("the dense cells")
     cpu_twin_agreement(kitti07, runs["kitti07_mono"], "kitti07_mono")
     wide_band_agreement(runs["kitti07_mono"], runs["kitti07_mono_wide"], rename)
@@ -3362,7 +3474,8 @@ def main() -> int:
                 "loop5000_pcg", "kitti00_motion_only", "kitti00_mono_outliers", "kitti00_depth",
                 "kitti00_mono_depth", "kitti00_mixed_orbslam", "kitti00_mono_percam",
                 "kitti07_two_cams", "city_scale_1card", "city_scale_d2", "city_scale_d2_rank1",
-                "city_scale_d2_pcg", "kitti07_nccl_d1")},
+                "city_scale_d2_pcg", "kitti07_nccl_d1", "city_scale_nccl_d1",
+                "city_scale_nccl_d1_pcg")},
             **numbers(r, timed_keys),
         )
         if name in res32:

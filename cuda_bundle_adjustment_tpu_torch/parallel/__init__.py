@@ -6,6 +6,7 @@ from .distributed import (
     distributed_optimize,
     gather_landmarks,
     make_distributed_lm_step,
+    make_distributed_optimize_fused,
     make_distributed_update_edges,
     shard_problem,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "distributed_optimize",
     "gather_landmarks",
     "make_distributed_lm_step",
+    "make_distributed_optimize_fused",
     "make_distributed_update_edges",
     "shard_problem",
 ]

@@ -29,14 +29,35 @@ the global block pattern (``block_solver.make_schur_plan``), so on the card
 a rank runs kernels B1-B6, B9 and B10, and B7/B8 on the band route.  At one
 rank the arithmetic is the one-card host loop's, bit for bit.
 
-The LM loop (:meth:`RankSolver.optimize`) is a host loop with the JAX
+The LM loop (:meth:`RankSolver.optimize`, and
+:func:`make_distributed_optimize_fused` with the JAX package's signature)
+runs by default as the one-card device-resident loop does
+(``solver/fused.py FusedLoop``, driving the rank's own steps): the LM state
+as 0-d device tensors, iteration 0 eager (its head's all-reduce gives F,
+one ``all_reduce(MAX)`` the first damping, no host read), then one flag
+read a trial.  Under NCCL on the card each later step is captured into a
+CUDA graph at its first use and replayed, its all-reduces with it (on the
+PCG route the first and the third graph of a step's cut hold them).  Torch
+needs nothing more for that than NCCL's communicator before the first
+capture, which iteration 0's eager collectives make (no ``device_id`` at
+``init_process_group``, no environment; checked with torch 2.11 and NCCL
+2.28 at one rank).  Under gloo, whose collectives a CUDA graph cannot
+hold, and on the CPU the same steps run eagerly (``stats["capture"]`` is
+False, 0 captures).  A capture that fails raises: nothing falls back.  A
+run makes exactly the host loop's collectives on the same buffers: one sum
+a linearisation (the head keeps its chi, which only iteration 0 reads),
+two a trial and one MAX a run, so at every D and on either backend the
+trace and the final state are the host loop's bit for bit.  The collective
+counts (``comm``) are kept as the launch counts are: a capture's are taken
+back and added again on every replay.
+
+``use_fused_loop = False`` runs the host loop, the oracle: the JAX
 distributed loop's semantics (``MAXQ`` trials, ``TAU``, the ``+1e-3``
 scale, the ``Fdiff < 1e-4`` bail, ``rho < 1e-6`` done, F carried from the
-accepted trial) and the one-card host loop's update rule
-(``optimizer.lm_update``, ``lm_done``).  It reads one small tensor on the
-host a trial; every rank takes the same branch because every value read
-comes from an all-reduce.  It is not captured into CUDA graphs as the
-one-card fused loop is: gloo's collectives cannot be captured.
+accepted trial) with the one-card host loop's update rule
+(``optimizer.lm_update``, ``lm_done``), one small read on the host a trial.
+In either loop every rank takes the same branch because every value read
+comes from an all-reduce.
 
 Backends: gloo reduces CPU tensors and CUDA tensors (through the host), and
 several ranks may share one card; NCCL takes a card a rank.  The device is
@@ -76,7 +97,7 @@ from ..solver.block_solver import (
     set_chi,
     solve_reduced,
 )
-from ..solver.fused import MAXQ, TAU
+from ..solver.fused import MAXQ, TAU, FusedLoop
 from ..solver.ordering import plan_pose_order
 from ..solver.pcg import CgRunner
 from ..solver.symbolic import build_schur_structure, sort_triples
@@ -269,8 +290,14 @@ class RankSolver:
     rank of ``group`` (None: the default group) makes one over the same
     :class:`ShardedProblem` and calls the same methods in the same order.
 
+    The steps the fused loop drives work on the rank's state ``graph`` and
+    the run's edge masks: :meth:`linearise` (the head, its all-reduced chi
+    kept in ``head_chi``), :meth:`trial`, :meth:`accept`, with the hooks
+    :meth:`start_chi`, :meth:`top_diagonal` and :attr:`capturable`.
+
     ``comm`` counts the all-reduces since :meth:`optimize` began (or since
-    it was last emptied): calls and bytes."""
+    it was last emptied): calls and bytes.  ``use_fused_loop = False``
+    runs the host loop."""
 
     def __init__(self, group, sp: ShardedProblem, rk: int = 0, delta: float = 1.0,
                  device: Union[str, torch.device] = "cuda"):
@@ -315,6 +342,9 @@ class RankSolver:
         self.cg = CgRunner()
         self.comm = dict(calls=0, bytes=0)
         self.graph = self.state()
+        self.run_packs = self.packs  # the edge masks of the run
+        self.head_chi: Optional[torch.Tensor] = None
+        self.use_fused_loop = True
         self.stats: dict = {}
 
     @property
@@ -366,13 +396,19 @@ class RankSolver:
         self.comm["bytes"] += t.numel() * t.element_size()
         return t
 
-    def head(self, graph: GraphArrays, packs=None) -> tuple[torch.Tensor, SystemBlocks]:
-        """Chi2 and the linearised system at ``graph``: the rank's chi
-        (B2, B1) and system (B2, B3), then one all-reduce of chi with the
-        ``[Pa, 42]`` pose stacks.  Returns the total chi2 (0-d) and the
+    @property
+    def capturable(self) -> bool:
+        """Whether the fused loop may capture the steps: on the card under
+        NCCL (gloo's collectives cannot be captured)."""
+        return self.device.type == "cuda" and "nccl" in str(dist.get_backend(self.group))
+
+    def head(self, graph: GraphArrays) -> tuple[torch.Tensor, SystemBlocks]:
+        """Chi2 and the linearised system at ``graph`` under the run's edge
+        masks (``run_packs``): the rank's chi (B2, B1) and system (B2, B3),
+        then one all-reduce of chi with the ``[Pa, 42]`` pose stacks.  Returns the total chi2 (0-d) and the
         system with the summed ``Hpp``/``bp`` and the rank's ``Hll``,
         ``bl``, ``Hpl``."""
-        packs = packs or self.packs
+        packs = self.run_packs
         chi = compute_chi(graph, packs, self.metas)
         sys = build_system(graph, packs, self.metas, self.plan)
         Pa = self.Pa
@@ -392,15 +428,34 @@ class RankSolver:
         F, top = torch.cat([chi.reshape(1), m]).tolist()
         return F, TAU * top
 
-    def trial(self, graph: GraphArrays, sys: SystemBlocks, lam, packs=None):
-        """One damped trial: ``(new_graph, Fhat, scale, success)`` on the
-        device, as ``BlockSolver.trial``.  The rank's B4, B5 (zero ``bp``)
+    def linearise(self) -> SystemBlocks:
+        """The head at the rank's state: the system, with the total chi2
+        kept in ``head_chi`` (0-d, on the device)."""
+        self.head_chi, sys = self.head(self.graph)
+        return sys
+
+    def start_chi(self) -> None:
+        """None: the fused loop takes its first F from iteration 0's head
+        (``head_chi``), which every rank all-reduces anyway."""
+        return None
+
+    def top_diagonal(self, sys: SystemBlocks) -> torch.Tensor:
+        """The largest diagonal entry over every rank, 0-d on the device:
+        one ``all_reduce(MAX)``, no host read."""
+        return self.all_reduce(max_diagonal(sys).reshape(1).clone(), dist.ReduceOp.MAX)[0]
+
+    def accept(self, new_graph: GraphArrays) -> None:
+        self.graph = new_graph
+
+    def trial(self, sys: SystemBlocks, lam):
+        """One damped trial at the rank's state: ``(new_graph, Fhat, scale,
+        success)`` on the device, as ``BlockSolver.trial``.  The rank's B4, B5 (zero ``bp``)
         and B6, one all-reduce of ``-sum Hpl y`` with the negated pair
         products, ``bsc = bp + that`` and ``Hpp + lam I`` on the diagonal
         (the one-card ``schur_reduce``'s arithmetic); the replicated solve;
         the rank's B9, B10 and update; one all-reduce of the trial chi with
         the landmark half of the scale."""
-        packs = packs or self.packs
+        graph, packs = self.graph, self.run_packs
         lam = as_lam(lam, sys.bp)
         Pa, plan = self.Pa, self.plan
         invHll, part, pairs = schur_terms(sys, lam, plan, self.zero_bp)
@@ -421,41 +476,57 @@ class RankSolver:
 
     def optimize(self, niterations: int, q=None, t=None, Xw=None, active=None):
         """The LM loop from the caller's state (None: the problem's) with
-        ``active`` the rank's edge mask (None: the shard's).  Returns the
-        chi2 trace and the final state (the solve's pose order); ``stats``
-        holds the trials, the wall time and the all-reduces of the run."""
+        ``active`` the rank's edge mask (None: the shard's): the fused loop,
+        or the host loop under ``use_fused_loop = False``.  Returns the chi2
+        trace and the final state (the solve's pose order); ``stats`` holds
+        the trials, the iterations, the wall time, the all-reduces, the CG
+        iterations and, for the fused loop, its ``FusedLoop.stats`` (host
+        reads, captures, replays, eager / capture / replay ms) and whether
+        its steps were captured (``capture``)."""
         t_start = time.perf_counter()
-        graph = self.state(q, t, Xw)
-        packs = self._packs(active)
-        self.cg = CgRunner()
+        self.graph = self.state(q, t, Xw)
+        self.run_packs = self._packs(active)
         self.comm = dict(calls=0, bytes=0)
+        if self.use_fused_loop:
+            loop = FusedLoop(self, niterations)
+            trace = loop.run()
+            run = dict(loop.stats, fused=True, capture=loop.capture)
+        else:
+            trace, trials = self._optimize_host(niterations)
+            run = dict(trials=trials, reads=trials + 1 + self.cg.reads, fused=False,
+                       capture=False)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats = dict(run, iterations=len(trace), seconds=time.perf_counter() - t_start,
+                          all_reduce=dict(self.comm), cg_iterations=list(self.cg.iterations))
+        return trace, self.graph
+
+    def _optimize_host(self, niterations: int) -> tuple[list, int]:
+        """The host loop: one read a trial and one at iteration 0.
+        Returns the trace and the trials."""
+        self.cg = CgRunner()
         nu, lam, F = 2.0, 0.0, 0.0
         trials = 0
         trace = []
         for it in range(niterations):
-            chi, sys = self.head(graph, packs)
+            chi, sys = self.head(self.graph)
             if it == 0:
                 F, lam = self.first_damping(chi, sys)
             qq, rho = 0, -1.0
             while qq < MAXQ and rho < 0:
-                new_graph, Fhat, scale, success = self.trial(graph, sys, lam, packs)
+                new_graph, Fhat, scale, success = self.trial(sys, lam)
                 trials += 1
                 Fhat, scale, ok = torch.stack([Fhat, scale, success.to(self.dtype)]).tolist()
                 accept, stop, rho, lam, nu, qq = lm_update(F, Fhat, scale, ok > 0, lam, nu, qq)
                 if accept:
-                    F, graph = Fhat, new_graph
+                    F = Fhat
+                    self.accept(new_graph)
                 if stop:
                     break
             trace.append(F)
             if lm_done(qq, rho, lam):
                 break
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.graph = graph
-        self.stats = dict(trials=trials, iterations=len(trace),
-                          seconds=time.perf_counter() - t_start, all_reduce=dict(self.comm),
-                          cg_iterations=list(self.cg.iterations))
-        return trace, graph
+        return trace, trials
 
     def update_edges(self, graph: GraphArrays, active) -> tuple[torch.Tensor, int]:
         """Outlier thresholding on the rank: the robustified per-edge chi2
@@ -494,13 +565,41 @@ def make_distributed_lm_step(group, sp: ShardedProblem, rk: int = 0, delta: floa
     rs = _solver(group, sp, rk, delta, device, solver)
 
     def step(q, t, Xw, lam):
-        graph = rs.state(q, t, Xw)
-        chi0, sys = rs.head(graph)
-        new_graph, chi1, scale, success = rs.trial(graph, sys, lam)
+        rs.accept(rs.state(q, t, Xw))
+        rs.run_packs = rs.packs
+        chi0, sys = rs.head(rs.graph)
+        new_graph, chi1, scale, success = rs.trial(sys, lam)
         q2, t2 = rs.caller_poses(new_graph)
         return q2, t2, new_graph.Xw, chi0, chi1, scale, success
 
     return step
+
+
+def make_distributed_optimize_fused(group, sp: ShardedProblem, niterations: int, rk: int = 0,
+                                    delta: float = 1.0,
+                                    device: Union[str, torch.device] = "cuda",
+                                    solver: Optional[RankSolver] = None):
+    """The whole distributed LM loop on every rank of ``group``, device
+    resident (``RankSolver.optimize``: captured into CUDA graphs under NCCL
+    on the card, its steps eager under gloo and on the CPU; the host loop
+    only where ``solver.use_fused_loop`` is False).  Returns
+    ``optimize(q, t, Xw, active=None) -> (q, t, Xw, trace, n_done)``, the
+    JAX package's results: poses ``[P, 4]``/``[P, 3]`` in the caller's
+    order, ``Xw`` the rank's landmarks ``[Ls, 3]`` (None: the shard's),
+    ``active`` the rank's edge mask (None: the shard's), ``trace`` the chi2
+    of each iteration as an f64 tensor ``[niterations]`` on the host (the
+    loop's one trace read; zeros past the ``n_done`` iterations run).
+    ``solver``: as for :func:`make_distributed_lm_step`."""
+    rs = _solver(group, sp, rk, delta, device, solver)
+    n = int(niterations)
+
+    def optimize(q, t, Xw, active=None):
+        trace, graph = rs.optimize(n, q, t, Xw, active=active)
+        out = torch.zeros(n, dtype=torch.float64)
+        out[: len(trace)] = torch.tensor(trace, dtype=torch.float64)
+        return (*rs.caller_poses(graph), graph.Xw, out, len(trace))
+
+    return optimize
 
 
 def distributed_optimize(group, sp: ShardedProblem, niterations: int, rk: int = 0,
@@ -508,14 +607,15 @@ def distributed_optimize(group, sp: ShardedProblem, niterations: int, rk: int = 
                          device: Union[str, torch.device] = "cuda",
                          solver: Optional[RankSolver] = None):
     """The distributed LM loop on every rank of ``group`` from the
-    problem's state (``active``: the rank's edge mask, None: the shard's):
-    ``(trace, (q, t, Xw))`` with the poses in the caller's order and ``Xw``
-    the rank's landmarks (:func:`gather_landmarks` puts the ranks' together).
-    A caller that runs the loop again, or thresholds outliers between runs,
-    passes one ``solver`` to every call."""
-    rs = _solver(group, sp, rk, delta, device, solver)
-    trace, graph = rs.optimize(niterations, active=active)
-    return trace, (*rs.caller_poses(graph), graph.Xw)
+    problem's state (``active``: the rank's edge mask, None: the shard's),
+    through :func:`make_distributed_optimize_fused`: ``(trace, (q, t,
+    Xw))`` with the poses in the caller's order and ``Xw`` the rank's
+    landmarks (:func:`gather_landmarks` puts the ranks' together).  A caller
+    that runs the loop again, or thresholds outliers between runs, passes
+    one ``solver`` to every call."""
+    opt = make_distributed_optimize_fused(group, sp, niterations, rk, delta, device, solver)
+    q, t, Xw, trace, n_done = opt(sp.pose_q, sp.pose_t, None, active)
+    return trace[:n_done].tolist(), (q, t, Xw)
 
 
 def make_distributed_update_edges(group, sp: ShardedProblem, rk: int = 0, delta: float = 1.0,

@@ -3,7 +3,8 @@ counterpart of the JAX package's ``samples/sample_distributed_schur.py``).
 
 Deals a graph's landmarks, and the edges with them, to ``num_devices``
 ranks (``parallel/distributed.py``), spawns the ranks with gloo, runs the
-LM loop and prints the chi2 trace::
+LM loop (the fused loop, its steps eager under gloo) and prints the chi2
+trace beside the loop's captures, replays and host reads::
 
     python -m cuda_bundle_adjustment_tpu_torch.samples.sample_distributed_schur \
         [num_devices] [niterations] [--city SCALE] [--scaling] [--band] [--cpu]
@@ -115,8 +116,12 @@ def main(argv: list[str]) -> int:
     print(f"ranks: {want} on the {device} (gloo) | P={P} L={L} E={E} | a rank's E "
           f"{list(sp.edges_per_shard)} | reduced route {sp.route}")
     t0 = time.perf_counter()
-    trace = run(sp, niter, device)[0]["trace"]
+    rank0 = run(sp, niter, device)[0]
+    trace, st = rank0["trace"], rank0["stats"]
     print(f"\n{niter} LM iterations in {time.perf_counter() - t0:.2f}s (spawn included)")
+    print(f"the loop, rank 0: {st['trials']} trials, {st['captures']} captures, "
+          f"{st['replays']} replays, {st['reads']} host reads "
+          f"({'captured' if st['capture'] else 'eager steps'})")
     for i, c in enumerate(trace, 1):
         print(f"iter= {i:2d}   chi2= {c:.1f}")
     assert trace[-1] < trace[0], "chi2 did not decrease"

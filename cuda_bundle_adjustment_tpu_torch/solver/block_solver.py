@@ -17,11 +17,10 @@ path, in plain PyTorch around ten hand-written kernels:
   fixes (:func:`reduced_route`): the band factor and solves through kernels
   B7 and B8 (:func:`solve_reduced_band`) for a band height up to
   ``MAX_BAND`` where the factor's type is f32, a dense Cholesky in plain
-  torch (:func:`solve_reduced_dense`) under ``solver_precision="exact"`` at
-  f64 on a band and for wider patterns on fewer than ``PCG_MIN_POSES``
-  poses, and block-Jacobi preconditioned CG in plain torch
-  (:func:`solve_reduced_pcg`, ``solver/pcg.py``) for wider patterns from
-  there; under ``"mixed"`` at f64 the f32 band or dense factor is followed
+  torch (:func:`solve_reduced_dense`) on fewer than ``PCG_MIN_POSES``
+  poses, and under ``solver_precision="exact"`` at f64 on a band that
+  passes the JAX package's VMEM test, and block-Jacobi preconditioned CG in
+  plain torch (:func:`solve_reduced_pcg`, ``solver/pcg.py``) for the rest; under ``"mixed"`` at f64 the f32 band or dense factor is followed
   by exactly two f64 refinement rounds and the ``1e-8 ||b||`` residual
   check, elsewhere the one solve is returned as it is;
 * the back-substitution products through kernels B9 and B10
@@ -106,6 +105,11 @@ MAX_BAND = 48
 # pose count from which a wide Hsc pattern is solved by PCG instead of the
 # dense solve (the JAX package's constant of the same name)
 PCG_MIN_POSES = 1024
+# the band (``(Pa + SB) SB`` rows of 512 bytes) above which an f64 factor
+# from PCG_MIN_POSES poses goes to PCG: the JAX package's VMEM budget for its
+# band kernels (its solver/block_solver.py:2426), which decides there where
+# the dense branch runs
+DENSE_BAND_BYTES = 11 * 2**20
 # the options the solver takes, and the torch type of each working dtype
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
 PRECISIONS = ("mixed", "exact")
@@ -215,22 +219,30 @@ def reduced_route(bw: int, Pa: int, target: torch.dtype) -> str:
 
     * ``"band"`` (kernels B7/B8) where the band fits ``MAX_BAND`` (``bw + 1
       <= 48``) and the factor's type ``target`` is f32;
-    * ``"dense"`` (a Cholesky of the whole scaled matrix) where the band
-      fits and the factor is f64 (``"exact"``), and for any wider pattern
-      on fewer than ``PCG_MIN_POSES`` poses;
-    * ``"pcg"`` (``solver/pcg.py``) for a wider pattern on ``PCG_MIN_POSES``
-      poses or more.
+    * ``"dense"`` (a Cholesky of the whole scaled matrix) under an f64
+      factor (``"exact"``) where the JAX package keeps its dense branch:
+      below ``PCG_MIN_POSES`` poses, or where the band fits ``MAX_BAND``
+      and passes the JAX package's VMEM test ``(Pa + SB) SB 512 B <=
+      DENSE_BAND_BYTES`` (SB as :func:`band_meta` rounds it: Pa up to 1392
+      at SB 16, 672 at SB 32, 421 at SB 48); and for an f32 factor, for
+      any wider pattern below ``PCG_MIN_POSES`` poses;
+    * ``"pcg"`` (``solver/pcg.py``) for the rest: an f64 factor from
+      ``PCG_MIN_POSES`` poses past the VMEM test, whose two ``[6 Pa, 6
+      Pa]`` matrices would outgrow the card (~58 GB at Pa = 9999), and a
+      wider pattern from ``PCG_MIN_POSES`` poses.
 
-    The JAX package also holds the band against VMEM (``(Pa + SB) SB 512 B
-    <= 11 MiB``), because its band kernels keep the whole band in VMEM; a
-    graph past it goes dense or to PCG there (Pa over 1392 at SB 16, over
-    672 at SB 32, over 421 at SB 48).  Kernels B7/B8 stream the band, so the
-    port keeps the band wherever it fits 48: on the card they are the faster
-    solve, and an f32 band factor with two f64 rounds behind the ``1e-8
-    ||b||`` residual test is at least as exact as CG at ``1e-10``."""
-    if bw + 1 <= MAX_BAND and target == torch.float32:
+    Under an f32 factor the port keeps the band wherever it fits 48, past
+    the VMEM test the JAX package also holds its band kernels to: kernels
+    B7/B8 stream the band, on the card they are the faster solve, and an
+    f32 band factor with two f64 rounds behind the ``1e-8 ||b||`` residual
+    test is at least as exact as CG at ``1e-10``."""
+    fits = bw + 1 <= MAX_BAND
+    if fits and target == torch.float32:
         return "band"
-    if bw + 1 <= MAX_BAND or Pa < PCG_MIN_POSES:
+    if Pa < PCG_MIN_POSES:
+        return "dense"
+    sb = -(-(bw + 1) // 8) * 8
+    if target != torch.float32 and fits and (Pa + sb) * sb * 512 <= DENSE_BAND_BYTES:
         return "dense"
     return "pcg"
 
@@ -1302,6 +1314,21 @@ class BlockSolver:
     def chi(self, graph: GraphArrays) -> torch.Tensor:
         """Total chi2 of ``graph`` over every edge set."""
         return compute_chi(graph, self.packs, self.metas)
+
+    # the fused loop's hooks (solver/fused.py): the chi2 it starts from, the
+    # first damping's diagonal entry, whether its steps may be captured and
+    # the collectives it counts (none on one card)
+    comm = None
+
+    def start_chi(self) -> torch.Tensor:
+        return self.chi(self.graph)
+
+    def top_diagonal(self, sys: SystemBlocks) -> torch.Tensor:
+        return max_diagonal(sys)
+
+    @property
+    def capturable(self) -> bool:
+        return self.device.type == "cuda"
 
     def linearise(self) -> SystemBlocks:
         """The linearised system at the current state."""

@@ -10,8 +10,9 @@ int32 -- and each step is a function of those tensors alone:
 
 * :meth:`FusedLoop.linearise_and_trial`: the linearisation
   (``build_system`` only: F is carried from the accepted trial, as in the
-  JAX package, so the head runs no chi pass), lambda's first value
-  ``TAU * max_diagonal`` on iteration 0, one damped trial and the LM update;
+  JAX package, so the head runs no chi pass), one damped trial and the LM
+  update; on iteration 0 (eager) also lambda's first value ``TAU *
+  max_diagonal``, so the captured graphs hold no such reduction;
 * :meth:`FusedLoop.retry`: one more damped trial on the same system and the
   LM update.
 
@@ -38,11 +39,25 @@ iteration count: one read a trial and one a run.  A capture or a replay
 that fails raises: nothing goes on eagerly or on the host loop.  On the CPU
 the same step functions run eagerly and nothing is captured.
 
+The loop drives any solver with this step interface: ``graph``,
+``device``, ``dtype``, ``cg``, ``accept``, ``linearise``, ``trial(sys,
+lam)`` on its own graph, and what differs between one card and a rank of
+the distributed path (``parallel/distributed.py RankSolver``):
+``start_chi()`` (the chi2 the loop starts from, or None where iteration 0's
+linearisation gives it, as a rank's all-reduced head does: then the
+solver's ``head_chi``), ``top_diagonal(sys)`` (the largest diagonal entry
+of the whole system, a 0-d tensor: over every rank there, through one
+``all_reduce(MAX)``), ``capturable`` (whether its steps may be captured: on
+the card, and for a rank only under NCCL, whose collectives a CUDA graph
+can hold; gloo's run eagerly) and ``comm`` (the collectives it counts, or
+None).
+
 A rejected trial leaks nothing: its candidate is selected away by
 ``torch.where`` into the loop's own ``q``/``t``/``Xw`` buffers, which the
 next linearisation reads.  Launch counters (``kernels.launch_counts``)
-count what the device runs: a capture's increments are taken back and added
-again on every replay.
+and the solver's collectives (``comm``: calls and bytes) count what the
+device runs: a capture's increments are taken back and added again on every
+replay.
 
 Control flow of the JAX package's ``optimize_fused``, operation for
 operation (its ``while_loop`` of trials inside a ``fori_loop`` of
@@ -66,7 +81,6 @@ import torch
 
 from .. import kernels
 from ..types import GraphArrays
-from . import block_solver as bs
 from . import pcg
 
 MAXQ = 10  # inner trials at most
@@ -131,7 +145,7 @@ class FusedLoop:
     solver whose structure is built.  :meth:`run` returns the chi2 trace and
     leaves the final state in ``solver.graph``; ``stats`` then holds the
     trials, host reads, captures and replays, and the host-clock ms of the
-    eager iteration, the captures and the replays (each ending in its
+    eager steps, the captures and the replays (each ending in its
     trial's flag read), and on the PCG route the CG iterations of every
     trial and the reads of their blocks (counted in the host reads).
     ``graphs`` holds the captured graphs of each step by name, in replay
@@ -145,7 +159,10 @@ class FusedLoop:
         # the loop's own state buffers, written in place: a captured graph
         # reads and writes them at the addresses it was captured with
         solver.accept(GraphArrays(*(a.clone() for a in solver.graph)))
-        self.F = solver.chi(solver.graph)
+        F = solver.start_chi()
+        # None: F is iteration 0's head chi (the solver's ``head_chi``)
+        self._head_F = F is None
+        self.F = torch.zeros((), dtype=dt, device=dev) if F is None else F
         self.lam = torch.zeros((), dtype=dt, device=dev)
         self.nu = torch.full((), 2.0, dtype=dt, device=dev)
         self.q = torch.zeros((), dtype=i32, device=dev)
@@ -156,6 +173,7 @@ class FusedLoop:
         self._q0 = torch.zeros((), dtype=i32, device=dev)
         self.sys = None  # the current linearisation
         self.card = dev.type == "cuda"
+        self.capture = solver.capturable
         self._host_flags = (
             torch.empty(2, dtype=torch.bool, pin_memory=True) if self.card else None
         )
@@ -175,10 +193,14 @@ class FusedLoop:
 
     # -- the two steps ----------------------------------------------------------
 
-    def linearise_and_trial(self) -> None:
+    def linearise_and_trial(self, first: bool = False) -> None:
         s = self.solver
         self.sys = s.linearise()
-        lam = torch.where(self.it == 0, TAU * bs.max_diagonal(self.sys), self.lam)
+        lam = self.lam
+        if first:  # iteration 0, never captured
+            if self._head_F:
+                self.F.copy_(s.head_chi)
+            lam = TAU * s.top_diagonal(self.sys)
         self._trial(lam, self._q0)
 
     def retry(self) -> None:
@@ -205,7 +227,7 @@ class FusedLoop:
         iterations = 0
         for it in range(self.n):
             iterations += 1
-            more, done = self._step("linearise_and_trial", eager=it == 0)
+            more, done = self._step("linearise_and_trial", eager=it == 0, first=it == 0)
             while more:
                 more, done = self._step("retry", eager=it == 0)
             if done:
@@ -222,11 +244,14 @@ class FusedLoop:
         self.sys = None
         return trace
 
-    def _step(self, name: str, eager: bool) -> list[bool]:
+    def _step(self, name: str, eager: bool, first: bool = False) -> list[bool]:
         self.stats["trials"] += 1
         t0 = time.perf_counter()
-        if eager or not self.card:
-            getattr(self, name)()
+        if eager or not self.capture:
+            if first:
+                self.linearise_and_trial(first=True)
+            else:
+                getattr(self, name)()
             key = "eager_ms"
         else:
             parts = self._parts.get(name)
@@ -238,7 +263,7 @@ class FusedLoop:
                     graph.replay()
                 else:  # a CG block, until it reports done
                     self.solver.cg(graph.replay, status)
-                kernels.add_launch_counts(delta)
+                self._add_counts(delta)
             self.stats["replays"] += 1
             key = "replay_ms"
         flags = self._read()
@@ -254,14 +279,29 @@ class FusedLoop:
         torch.cuda.current_stream(self.solver.device).synchronize()
         return self._host_flags.tolist()
 
+    def _counts(self) -> dict:
+        """The launch counts and the solver's collectives (``comm.`` keys)."""
+        counts = kernels.launch_counts()
+        for k, n in (self.solver.comm or {}).items():
+            counts["comm." + k] = n
+        return counts
+
+    def _add_counts(self, delta: dict) -> None:
+        kernels.add_launch_counts({k: n for k, n in delta.items() if not k.startswith("comm.")})
+        comm = self.solver.comm
+        for k, n in delta.items():
+            if k.startswith("comm."):
+                comm[k[5:]] += n
+
     def _capture(self, name: str) -> list[tuple]:
         """Capture one step on the device's capture stream into its pool.
         On the PCG route the solver's CG runner is replaced for the capture
         by one that ends the graph captured so far, captures one CG block
         into a graph of its own and begins the next: the step becomes the
-        graphs ``(graph, launch counts, None)`` and ``(block, launch counts,
-        status)`` in replay order.  Capture launches nothing, so the launch
-        counts it moved are taken back and kept per graph for every replay.
+        graphs ``(graph, counts, None)`` and ``(block, counts, status)`` in
+        replay order.  Capture launches nothing, so the launch and
+        collective counts it moved are taken back and kept per graph for
+        every replay.
         A failure raises (after the capture is ended, so the stream is
         usable)."""
         t0 = time.perf_counter()
@@ -276,13 +316,13 @@ class FusedLoop:
             nonlocal graph, before
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             graph.capture_begin(pool=pool)
-            before = kernels.launch_counts()
+            before = self._counts()
 
         def end(status=None):
             nonlocal graph
             graph.capture_end()
-            delta = {k: n - before[k] for k, n in kernels.launch_counts().items()}
-            kernels.add_launch_counts({k: -d for k, d in delta.items()})
+            delta = {k: n - before[k] for k, n in self._counts().items()}
+            self._add_counts({k: -d for k, d in delta.items()})
             parts.append((graph, delta, status))
             graph = None
 
@@ -306,8 +346,7 @@ class FusedLoop:
                         graph.capture_end()
                     except RuntimeError:
                         pass  # the capture was invalidated by the error raised below
-                    kernels.add_launch_counts(
-                        {k: before[k] - n for k, n in kernels.launch_counts().items()})
+                    self._add_counts({k: before[k] - n for k, n in self._counts().items()})
                 # a capture that failed may stay registered with the allocator
                 # as recording to its pool, which then refuses every later
                 # capture: the next loop takes a new pool and stream

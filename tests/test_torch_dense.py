@@ -207,9 +207,9 @@ def test_indefinite_system_fails_on_the_device(monkeypatch, dtype, precision):
 def test_the_route_table():
     """Which route each input takes, decided once a structure: the band
     (B7/B8) only where the factor is f32 and the band fits; the dense route
-    under ``"exact"`` at f64 at any band and any size, and for wider bands
-    below 1024 poses; a wider band on 1024 poses takes PCG (ROADMAP A6),
-    on both sides of the limit."""
+    below 1024 poses at any band, and under ``"exact"`` at f64 from there
+    only on a band that passes the JAX package's VMEM test; a wider band on
+    1024 poses takes PCG (ROADMAP A6), on both sides of the limit."""
     banded = make_ba_problem(num_poses=10, num_landmarks=50, seed=5)
     cases = [
         (banded, "float64", "mixed", "band", torch.float32),
@@ -243,12 +243,32 @@ def test_the_route_table():
 def test_the_band_rule_on_both_sides_of_each_boundary(height, Pa, target):
     """``reduced_route`` at band height 48 and 49, on 1023 and 1024 poses,
     for an f32 factor (f64 ``"mixed"``, f32) and an f64 one (``"exact"``):
-    the band where it fits and the factor is f32, dense where it fits and
-    the factor is f64 or below 1024 poses, else PCG."""
+    the band where it fits and the factor is f32, dense below 1024 poses,
+    else PCG.  An f64 factor at height 48 on 1024 poses is past the JAX
+    package's VMEM test (``(1024 + 48) 48 512 B`` over 11 MiB), so it takes
+    PCG there as in the JAX package."""
     fits = height <= tbs.MAX_BAND
-    want = ("band" if target == torch.float32 else "dense") if fits else (
-        "dense" if Pa < tbs.PCG_MIN_POSES else "pcg")
+    if fits and target == torch.float32:
+        want = "band"
+    else:
+        want = "dense" if Pa < tbs.PCG_MIN_POSES else "pcg"
     assert tbs.reduced_route(height - 1, Pa, target) == want
+
+
+@pytest.mark.parametrize("Pa, want", [(1321, "dense"), (1392, "dense"), (1393, "pcg"),
+                                      (9999, "pcg")])
+def test_the_exact_route_at_the_jax_vmem_test(Pa, want):
+    """An f64 factor on a band of height 12 (SB 16) from 1024 poses: dense
+    where ``(Pa + 16) 16 512 B`` is within 11 MiB (``kitti00_mono_exact``'s
+    1321 poses; 1392 the last), PCG past it (1393, and the city-scale
+    graph's 9999, whose two dense ``[6 Pa, 6 Pa]`` f64 matrices would take
+    ~58 GB), as the JAX package's dense branch runs; an f32 factor keeps the
+    band."""
+    bw = 11
+    assert tbs.band_meta(np.array([0]), np.array([bw])).sb == 16
+    assert ((Pa + 16) * 16 * 512 <= 11 * 2**20) == (want == "dense")
+    assert tbs.reduced_route(bw, Pa, torch.float64) == want
+    assert tbs.reduced_route(bw, Pa, torch.float32) == "band"
 
 
 def test_a_graph_past_the_jax_vmem_limit_keeps_the_band():
@@ -263,3 +283,22 @@ def test_a_graph_past_the_jax_vmem_limit_keeps_the_band():
     assert Pa >= tbs.PCG_MIN_POSES and sb == 16
     assert (Pa + sb) * sb * 512 > 11 * 2**20
     assert s.plan.route == "band" and s.plan.pcg is None
+
+
+def test_exact_past_the_jax_vmem_limit_takes_pcg_as_the_jax_package():
+    """The same 1401-pose graph under ``"exact"``: past the VMEM test an f64
+    factor takes PCG, as in the JAX package (whose CPU path takes PCG from
+    1024 poses); the 3-iteration trace at rtol 1e-6 of the JAX package's,
+    the bar ``tests/test_torch_pcg.py`` holds PCG to."""
+    problem = make_ba_problem(num_poses=1401, num_landmarks=3000, mean_obs_per_landmark=4.0,
+                              seed=5)
+    opt = optimizer_from_problem(problem, options=GraphOptimisationOptions(**EXACT),
+                                 device="cpu")
+    opt.optimize(3)
+    assert opt.solver.plan.route == "pcg" and opt.solver.plan.pcg is not None
+    assert opt.solver.plan.target == torch.float64
+    jopt = jax_optimizer(problem, options=JaxOptions(**EXACT))
+    jopt.optimize(3)
+    assert jopt.solver.plan.pcg is not None and jopt.solver.plan.band is None
+    assert len(_trace(opt)) == len(_trace(jopt)) == 3
+    np.testing.assert_allclose(_trace(opt), _trace(jopt), rtol=1e-6)

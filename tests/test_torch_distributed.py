@@ -6,7 +6,11 @@ the JAX package's ``parallel/distributed.py`` at the same number of shards
 * one LM step at D = 2 and 4 (chi0 at rtol 1e-10, chi1 and the scale at
   1e-8, q at atol 1e-10, t and the gathered landmarks at 1e-9);
 * the LM loop's trace at D = 2 and 4 on a mono, a merged mono + stereo and
-  a depth graph (rtol 1e-7);
+  a depth graph (rtol 1e-7) through ``make_distributed_optimize_fused``
+  against the JAX package's, its ``n_done`` the JAX package's;
+* the fused loop's eager steps (gloo) at D = 1, 2 and 4, on the band and
+  PCG routes and around the outlier thresholding: trace, poses, landmarks
+  and the collectives (op, size, order) bit for bit the host loop's;
 * the band route against PCG (rtol 1e-7), and against the JAX package's
   band route with its kernels in interpret mode;
 * the outlier masks and counts;
@@ -134,10 +138,62 @@ def test_distributed_loop_matches_jax(runs, case, D):
     ranks, jax_out = runs
     got, want = ranks[D][0][case], jax_out[(case, D)]
     _same_on_every_rank(ranks[D], case, ("trace", "q", "t"))
-    assert len(got["trace"]) == len(want["trace"])
+    assert len(got["trace"]) == len(want["trace"]) == got["n_done"] == want["n_done"]
+    assert got["padded"] == [0.0] * (tdc.NITER - got["n_done"])
     np.testing.assert_allclose(got["trace"], want["trace"], rtol=1e-7)
     assert got["sums"] == len(got["trace"]) + 2 * got["trials"] and got["maxes"] == 1
     assert got["comm"]["calls"] == got["sums"] + got["maxes"]
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_fused_loop_is_the_host_loop_on_gloo_ranks(runs, case, D):
+    """``make_distributed_optimize_fused`` on gloo ranks (its steps eager:
+    gloo's collectives cannot be captured) against the host loop on the same
+    ``RankSolver``: trace, poses and the rank's landmarks bit for bit, and
+    the same all-reduces (op and size) in the same order; one flag read a
+    trial and one for the trace."""
+    ranks, _ = runs
+    for r in ranks[D]:
+        fused, host = r[case], r[case]["host"]
+        for key in ("trace", "n_done", "trials", "calls", "comm"):
+            assert fused[key] == host[key], key
+        for key in ("q", "t", "Xw"):
+            assert np.array_equal(fused[key], host[key]), key
+        st = fused["stats"]
+        assert st["fused"] and not host["stats"]["fused"]
+        assert not st["capture"] and st["captures"] == st["replays"] == 0
+        assert st["reads"] == st["trials"] + 1 == host["stats"]["reads"]
+
+
+def test_fused_band_and_pcg_routes_are_the_host_loop(runs):
+    """The band and PCG routes at D = 2: the fused loop's trace, final state
+    and CG iterations bit for bit the host loop's on every rank."""
+    ranks, _ = runs
+    for r in ranks[2]:
+        for route in ("band", "pcg"):
+            got = r["band_pcg"][route]
+            host = got["host"]
+            assert got["trace"] == host["trace"] and got["cg"] == host["cg"], route
+            assert all(np.array_equal(a, b) for a, b in zip(got["state"], host["state"]))
+            assert got["stats"]["all_reduce"] == host["stats"]["all_reduce"]
+
+
+def test_fused_outlier_runs_are_the_host_loops(runs):
+    """``make_distributed_optimize_fused`` twice around
+    ``make_distributed_update_edges`` (the JAX package's outliers case):
+    both traces, the mask, the count, the final state and the collectives
+    bit for bit the host loop's on every rank, ``n_done`` the JAX
+    package's."""
+    ranks, jax_out = runs
+    want = jax_out[("outliers", 2)]
+    for r in ranks[2]:
+        got, host = r["outliers"], r["outliers"]["host"]
+        for key in ("trace", "trace2", "n_done", "n_new", "calls"):
+            assert got[key] == host[key], key
+        assert np.array_equal(got["active"], host["active"])
+        assert all(np.array_equal(a, b) for a, b in zip(got["state"], host["state"]))
+        assert got["n_done"] == (len(want["trace"]), len(want["trace2"]))
 
 
 def test_band_pose_solve_matches_pcg(runs):
@@ -274,9 +330,26 @@ def test_default_device_is_the_card():
 
 
 def test_parallel_imports_no_jax():
-    """No module under ``parallel/`` imports jax or the JAX package."""
+    """No module under ``parallel/`` imports jax or the JAX package, and
+    importing every name ``parallel`` exports (``__all__``: each public
+    function of ``distributed.py``, ``make_distributed_optimize_fused``
+    among them) pulls in neither."""
+    import cuda_bundle_adjustment_tpu_torch.parallel as par
+    import cuda_bundle_adjustment_tpu_torch.parallel.distributed as pd
+
     files = sorted((REPO / "cuda_bundle_adjustment_tpu_torch" / "parallel").glob("*.py"))
     assert files
     bad = re.compile(r"^\s*(import|from)\s+(jax|cuda_bundle_adjustment_tpu)(\s|\.|$)", re.M)
     for f in files:
         assert not bad.search(f.read_text()), f"{f.name} imports jax or the JAX package"
+    public = {n for n, v in vars(pd).items() if not n.startswith("_")
+              and getattr(v, "__module__", None) == pd.__name__}
+    assert "make_distributed_optimize_fused" in par.__all__
+    assert public - {"Shard"} == set(par.__all__)
+    code = ("import sys; from cuda_bundle_adjustment_tpu_torch.parallel import *; "
+            "from cuda_bundle_adjustment_tpu_torch.parallel import "
+            "make_distributed_optimize_fused; "
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'cuda_bundle_adjustment_tpu')], 'jax imported'")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   env=dict(os.environ, PYTHONPATH=str(REPO)))

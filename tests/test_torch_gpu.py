@@ -1232,8 +1232,121 @@ def test_two_gloo_ranks_on_the_card_replicate_the_poses(tmp_path):
         got = ranks[0][case]
         for key in ("trace", "q", "t"):
             assert np.array_equal(np.asarray(got[key]), np.asarray(ranks[1][case][key])), key
+        for r in ranks:  # the fused loop's steps eager under gloo, the host loop's bit for bit
+            st = r[case]["stats"]
+            assert st["fused"] and not st["capture"] and st["captures"] == 0
+            assert r[case]["trace"] == r[case]["host"]["trace"]
+            assert all(np.array_equal(r[case][k], r[case]["host"][k]) for k in ("q", "t", "Xw"))
         opt = optimizer_from_problem(tdc.problem(case, synthetic))
         opt.optimize(tdc.NITER)
         want = [s.chi2 for s in opt.batch_statistics().get()]
         assert len(got["trace"]) == len(want)
         np.testing.assert_allclose(got["trace"], want, rtol=1e-7)
+
+
+# -- the distributed loop on one NCCL rank ----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_rank(tmp_path_factory):
+    """One NCCL rank in this process (the default group), for the module."""
+    import os
+
+    import torch.distributed as dist
+
+    _cuda()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    yield dist
+    dist.destroy_process_group()
+
+
+def _nccl_rank_solver(pose_solver="auto"):
+    from cuda_bundle_adjustment_tpu_torch.parallel import RankSolver, shard_problem
+
+    problem = make_ba_problem(num_poses=16, num_landmarks=120, seed=13)
+    return RankSolver(None, shard_problem(problem, 1, pose_solver=pose_solver))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pose_solver", ["auto", "pcg"], ids=["band", "pcg"])
+def test_nccl_rank_captures_the_loop_and_equals_the_host_loop(nccl_rank, pose_solver):
+    """One NCCL rank: the fused loop captures its steps (their all-reduces
+    with them; on the PCG route in three graphs) and replays them; trace,
+    final state, CG iterations, launch counts and all-reduces (calls and
+    bytes, counted per replay) bit for bit the host loop's on the same
+    ``RankSolver``; one flag read a trial."""
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    rs = _nccl_rank_solver(pose_solver)
+    assert rs.capturable and rs.plan.route == ("band" if pose_solver == "auto" else "pcg")
+    out = {}
+    for fused in (True, False):
+        rs.use_fused_loop = fused
+        kernels.reset_launch_counts()
+        trace, graph = rs.optimize(6)
+        out[fused] = (trace, [a.clone() for a in graph], dict(rs.stats), kernels.launch_counts())
+    (tf, gf, sf, cf), (th, gh, sh, ch) = out[True], out[False]
+    assert tf == th and len(tf) == 6
+    assert all(torch.equal(a, b) for a, b in zip(gf, gh))
+    assert sf["capture"] and sf["captures"] >= 1 and sf["replays"] >= 5
+    assert sf["reads"] == sf["trials"] + 1 + sf["cg_reads"]
+    assert sf["trials"] == sh["trials"] and sf["cg_iterations"] == sh["cg_iterations"]
+    assert sf["all_reduce"] == sh["all_reduce"]
+    assert sf["all_reduce"]["calls"] == len(tf) + 2 * sf["trials"] + 1
+    assert cf == ch
+
+
+@pytest.mark.gpu
+def test_nccl_rank_graphs_hold_the_host_loops_collectives(nccl_rank):
+    """What a captured step adds to ``comm`` on every replay: the head's
+    all-reduce of ``[chi, Pa x 42]`` and a trial's two (``6 Pa + 36 nnz``
+    and 2 values) for ``linearise_and_trial``; a trial's two for
+    ``retry``; the MAX of the first damping is in no graph."""
+    from cuda_bundle_adjustment_tpu_torch.solver.fused import FusedLoop
+
+    rs = _nccl_rank_solver()
+    rs.comm = dict(calls=0, bytes=0)
+    loop = FusedLoop(rs, 6)
+    trace = loop.run()
+    assert loop.stats["captures"] >= 1
+    Pa, nnz = rs.Pa, rs.sp.nnz_blocks
+    trial = 8 * (6 * Pa + 36 * nnz) + 16
+    want = {"linearise_and_trial": dict(calls=3, bytes=8 * (1 + 42 * Pa) + trial),
+            "retry": dict(calls=2, bytes=trial)}
+    for name, parts in loop._parts.items():
+        got = {k: sum(d.get("comm." + k, 0) for _, d, _ in parts) for k in ("calls", "bytes")}
+        assert got == want[name], name
+    assert rs.comm["calls"] == len(trace) + 2 * loop.stats["trials"] + 1
+
+
+@pytest.mark.gpu
+def test_a_host_read_in_a_rank_trial_under_capture_raises(nccl_rank, monkeypatch):
+    """A rank's trial that reads a device value on the host (``.item()``)
+    cannot be captured: ``optimize()`` raises after the eager iteration 0,
+    and it does not finish on the host loop or eagerly.  The card works
+    afterwards."""
+    from cuda_bundle_adjustment_tpu_torch.parallel import distributed as pd
+
+    rs = _nccl_rank_solver()
+    real = pd.RankSolver.trial
+
+    def reads_back(self, sys_, lam):
+        out = real(self, sys_, lam)
+        out[1].item()
+        return out
+
+    def no_host_loop(self, niterations):
+        raise AssertionError("the host loop ran")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(pd.RankSolver, "trial", reads_back)
+        mp.setattr(pd.RankSolver, "_optimize_host", no_host_loop)
+        with pytest.raises(RuntimeError, match="capturing|capture"):
+            rs.optimize(4)
+        assert rs.stats == {}
+    torch.cuda.synchronize()
+    opt = optimizer_from_problem(make_ba_problem(num_poses=16, num_landmarks=120, seed=13))
+    opt.optimize(4)
+    assert opt.loop_stats["replays"] >= 3 and len(opt.batch_statistics().get()) == 4

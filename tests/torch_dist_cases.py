@@ -53,14 +53,15 @@ def problem(case: str, synthetic):
 
 
 class _Counted:
-    """``torch.distributed.all_reduce`` wrapped to count its calls by op."""
+    """``torch.distributed.all_reduce`` wrapped to list its calls in order:
+    the op and the size, as ``"SUM[43]"``."""
 
     def __init__(self, dist):
         self.dist, self.orig, self.calls = dist, dist.all_reduce, []
 
     def __enter__(self):
         def counted(tensor, op=self.dist.ReduceOp.SUM, group=None, async_op=False):
-            self.calls.append(str(op).rsplit(".", 1)[-1])
+            self.calls.append(str(op).rsplit(".", 1)[-1] + f"[{tensor.numel()}]")
             return self.orig(tensor, op=op, group=group, async_op=async_op)
 
         self.dist.all_reduce = counted
@@ -70,7 +71,7 @@ class _Counted:
         self.dist.all_reduce = self.orig
 
     def count(self, op: str) -> int:
-        return sum(c == op for c in self.calls)
+        return sum(c.startswith(op + "[") for c in self.calls)
 
 
 def _np(x):
@@ -97,34 +98,56 @@ def _rank_case(case: str, D: int, device: str) -> dict:
         for solver in ("band", "pcg"):
             sp = pd.shard_problem(p, D, pose_solver=solver)
             rs = pd.RankSolver(None, sp, device=device)
-            trace, graph = rs.optimize(NITER)
-            out[solver] = dict(trace=trace, route=rs.plan.route,
-                               cg=rs.stats["cg_iterations"])
+            runs = {}
+            for fused in (True, False):
+                rs.use_fused_loop = fused
+                trace, graph = rs.optimize(NITER)
+                runs[fused] = dict(trace=trace, state=[_np(a) for a in graph],
+                                   cg=rs.stats["cg_iterations"], stats=dict(rs.stats))
+            out[solver] = dict(runs[True], route=rs.plan.route, host=runs[False])
         return out
     if case == "outliers":
         sp = pd.shard_problem(problem("outliers", synthetic), D,
                               outlier_threshold=OUTLIER_THRESHOLD)
         rs = pd.RankSolver(None, sp, device=device)
-        trace, graph = rs.optimize(NITER)
         update = pd.make_distributed_update_edges(None, sp, solver=rs)
-        q, t = rs.caller_poses(graph)
-        active, n_new = update(q, t, graph.Xw, rs.packed.active)
-        trace2, _ = rs.optimize(NITER, q, t, graph.Xw, active=active)
+        out = {}
+        for fused in (True, False):
+            # as the JAX case: the loop, the thresholding, the loop on the inliers
+            rs.use_fused_loop = fused
+            opt = pd.make_distributed_optimize_fused(None, sp, NITER, solver=rs)
+            with _Counted(dist) as c:
+                q, t, Xw, trace, n = opt(sp.pose_q, sp.pose_t, None, rs.packed.active)
+                active, n_new = update(q, t, Xw, rs.packed.active)
+                q2, t2, Xw2, trace2, n2 = opt(q, t, Xw, active=active)
+            out[fused] = dict(trace=trace[:n].tolist(), trace2=trace2[:n2].tolist(),
+                              n_done=(n, n2), active=_np(active), n_new=n_new,
+                              state=[_np(a) for a in (q2, t2, Xw2)], calls=c.calls,
+                              stats=dict(rs.stats))
         try:  # a solver is bound to the ShardedProblem it was made for
             pd.distributed_optimize(None, pd.shard_problem(problem("outliers", synthetic), D),
                                     NITER, solver=rs)
             refused = False
         except ValueError:
             refused = True
-        return dict(trace=trace, trace2=trace2, active=_np(active), n_new=n_new,
-                    edge_ids=sp.shards[dist.get_rank()].edge_ids, refused=refused)
+        return dict(out[True], host=out[False], edge_ids=sp.shards[dist.get_rank()].edge_ids,
+                    refused=refused)
+    # the loop cases: the fused loop through make_distributed_optimize_fused,
+    # then the host loop on the same RankSolver
     sp = pd.shard_problem(problem(case, synthetic), D)
     rs = pd.RankSolver(None, sp, device=device)
-    with _Counted(dist) as c:
-        trace, graph = rs.optimize(NITER)
-    q, t = rs.caller_poses(graph)
-    return dict(trace=trace, q=_np(q), t=_np(t), Xw=_np(graph.Xw), trials=rs.stats["trials"],
-                sums=c.count("SUM"), maxes=c.count("MAX"), comm=rs.stats["all_reduce"])
+    out = {}
+    for fused in (True, False):
+        rs.use_fused_loop = fused
+        with _Counted(dist) as c:
+            q, t, Xw, trace, n_done = pd.make_distributed_optimize_fused(None, sp, NITER,
+                                                                         solver=rs)(
+                sp.pose_q, sp.pose_t, None)
+        out[fused] = dict(trace=trace[:n_done].tolist(), n_done=n_done,
+                          padded=trace[n_done:].tolist(), q=_np(q), t=_np(t), Xw=_np(Xw),
+                          trials=rs.stats["trials"], sums=c.count("SUM"), maxes=c.count("MAX"),
+                          calls=c.calls, comm=rs.stats["all_reduce"], stats=dict(rs.stats))
+    return dict(out[True], host=out[False])
 
 
 def rank_main(rank: int, world: int, init_method: str, cases, out_dir: str,
@@ -244,5 +267,8 @@ def jax_case(case: str, D: int, cache_dir=None) -> dict:
                     trace2=[float(x) for x in np.asarray(trace2)[: int(n2)]], active=mask,
                     n_new=int(n_new))
     sp = jd.shard_problem(p, D)
-    trace, (q, t, Xw) = jd.distributed_optimize(mesh, sp, NITER)
-    return dict(trace=trace, q=np.asarray(q), t=np.asarray(t), Xw=jd.gather_landmarks(sp, Xw))
+    q, t, Xw, trace, n_done = jd.make_distributed_optimize_fused(mesh, sp, NITER)(
+        sp.pose_q, sp.pose_t, sp.Xw)
+    n = int(n_done)
+    return dict(trace=[float(x) for x in np.asarray(trace)[:n]], n_done=n, q=np.asarray(q),
+                t=np.asarray(t), Xw=jd.gather_landmarks(sp, Xw))
