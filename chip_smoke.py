@@ -86,21 +86,14 @@ caught):
    over 48 after RCM under ``"mixed"`` and ``"exact"`` (against each other),
    each dense cell's factor, build and solve ms at one trial and its
    allocator peak printed (``dense_cells``);
-6. times the LM loop of ``kitti00_mono``, ``kitti00_huber_f32`` and
-   ``kitti00_mono`` under ``"exact"`` through the fused loop (split into
-   its eager iteration 0, captures and replays, with the captured graphs'
-   node counts) and through the host loop, traces each with
-   ``torch.profiler`` and prints its device busy time, its count of device
-   kernels, idle share, host reads per run, largest kernels and each hand
-   kernel's time and calls in the loop;
-7. runs the paths of PCG, the pose-only solve and outlier thresholding:
+6. runs the paths of PCG, the pose-only solve and outlier thresholding:
    ``loop5000_pcg`` (the JAX package's 5000-pose loop-closure acceptance
    graph on the PCG route: its kernels held against their twins, the fused
    loop's three graphs a step with the CG block replayed until it reports
    done, the CG iterations of every trial, the device ms of a CG iteration,
    the trace within rtol 1e-6 of the port's f64 dense route forced on the
-   same graph and printed beside the JAX package's logged trace, and its LM
-   loop profiled as in phase 6); ``pcg1000_oracle`` (the stored dense
+   same graph and printed beside the JAX package's logged trace);
+   ``pcg1000_oracle`` (the stored dense
    oracle of ``tests/data/pcg_1000pose_oracle.json`` at rtol 1e-6);
    ``kitti00_mono_outliers`` (every 100th measurement moved by 30 px,
    Huber and a threshold of 5.991: ``optimize(5)``, the mask held against
@@ -110,7 +103,7 @@ caught):
    motion-only trace against the CPU; and ``icp_scan`` (one scan against
    50 000 planes and 5 000 lines, the pose recovered to the noise).  Every
    path's fused loop is held bit for bit against its host loop;
-8. runs the distributed path (``parallel/distributed.py``,
+7. runs the distributed path (``parallel/distributed.py``,
    ``distributed_phase``): the city-scale graph (10k poses, 1M landmarks,
    4.18M edges) on one card (its kernels but B7/B8 held against their
    twins at its first linearisation), then dealt to two gloo ranks spawned
@@ -2019,85 +2012,6 @@ def graph_nodes(graph) -> dict:
     return out
 
 
-def loop_device_profile(problem, label: str, options=None, niter: int = 10, **robust) -> None:
-    """Phase 6: the LM loop after the structure, through the fused loop and
-    through the host loop: each timed on the host clock without the
-    profiler, then traced with torch.profiler; busy = the sum of the device
-    kernels' times, idle = its complement in the untraced loop time.  The
-    fused loop's time is split into the eager iteration 0, the captures and
-    the replays (each ending in its trial's flag read), its idle share
-    inside the replays estimated as busy a trial x replays over the replay
-    time; host reads per run: the fused loop's counted, the host loop's
-    from its code (chi an iteration, the first lambda, Fhat, scale and the
-    verdict a trial, and one a CG block on the PCG route).  ``options`` and
-    ``robust``: the configuration's; ``niter``: the iterations a run."""
-    import contextlib
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from cuda_bundle_adjustment_tpu_torch import kernels
-    from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
-    from cuda_bundle_adjustment_tpu_torch.solver.fused import FusedLoop
-
-    def loop(fused_loop: bool, traced: bool):
-        opt = optimizer_from_problem(problem, options=options, **robust)
-        opt.solver.build_structure()
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        fl = None
-        t0 = time.perf_counter()
-        with (profile(activities=[ProfilerActivity.CUDA]) if traced
-              else contextlib.nullcontext()) as prof:
-            if fused_loop:  # as _optimize_fused runs it, the loop kept
-                fl = FusedLoop(opt.solver, niter)
-                iters = len(fl.run())
-            else:
-                opt._optimize_host(niter)
-                iters = len(opt.batch_statistics().get())
-            torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        trials = kernels.launch_counts()["sym3x3_mv"]  # B10: once a trial, on every route
-        return ms, prof, fl, iters, trials, opt.solver.cg.reads
-
-    for fused_loop, name in ((True, "fused"), (False, "host")):
-        loop(fused_loop, True)  # the first trace pays the profiler's start-up
-        loop_ms, _, fl, iters, trials, cg_reads = loop(fused_loop, False)
-        traced_ms, prof, _, _, _, _ = loop(fused_loop, True)
-        rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-        busy = sum(r[1] for r in rows)
-        check(busy > 0, f"{label}: the profiler saw no device time")
-        top = sorted(rows, key=lambda r: -r[1])[:12]
-        # the hand kernels (each at the top of an anonymous namespace;
-        # PyTorch's own sit in namespaces of theirs) as the loop runs them,
-        # their inputs where the stages before left them, not resident in L2
-        hand = {k.split("(anonymous namespace)::", 1)[1].split("(")[0]: [round(ms, 4), n]
-                for k, ms, n in rows
-                if k.removeprefix("void ").startswith("(anonymous namespace)::")}
-        if fused_loop:
-            st = fl.stats
-            check(st["reads"] == trials + 1 + cg_reads,
-                  f"{label}: {st['reads']} host reads for {trials} trials and {cg_reads} CG blocks")
-            reads = st["reads"]
-            split = (f", of it eager iteration 0 {st['eager_ms']:.1f} ms, captures "
-                     f"{st['capture_ms']:.1f} ms ({st['captures']}), replays {st['replay_ms']:.1f} ms "
-                     f"({st['replays']}, idle inside them ~"
-                     f"{100 * (1 - busy / trials * st['replays'] / st['replay_ms']):.1f}%)")
-            print(f"{label} fused loop graph nodes (each step's graphs in replay order):",
-                  json.dumps({k: [graph_nodes(g) for g in gs] for k, gs in fl.graphs.items()}))
-        else:
-            reads, split = iters + 1 + 3 * trials + cg_reads, ""
-        print(f"{label} LM loop, {name}: {loop_ms:.1f} ms untraced ({traced_ms:.1f} ms traced)"
-              f"{split}; {iters} iterations, {trials} trials, {reads} host reads; device busy "
-              f"{busy:.1f} ms in {sum(r[2] for r in rows)} kernels, idle "
-              f"{100 * (1 - busy / loop_ms):.1f}% [{nvidia_smi_line()}]")
-        print(f"{label} {name} loop, largest device kernels (ms, calls):",
-              json.dumps([[k[:60], round(ms, 3), n] for k, ms, n in top]))
-        print(f"{label} {name} loop, hand kernels (ms in all, calls):", json.dumps(hand))
-
-
 # the 5000-pose loop-closure graph's trace as the JAX package's acceptance run
 # logged it (tools/loop_closure_demo.py; a TPU run, history: printed beside
 # the port's trace, not held)
@@ -3007,7 +2921,7 @@ def _dist_solver(route: str):
 
 
 def distributed_phase(city, kitti07, runs: dict) -> dict:
-    """Phase 9, the distributed path (``parallel/distributed.py``):
+    """Phase 7, the distributed path (``parallel/distributed.py``):
 
     * ``city_scale_1card``: the city-scale graph (10k poses, 1M landmarks,
       4.18M edges; ``city_scale_problem(scale=1)``) on one card through
@@ -3398,16 +3312,11 @@ def main() -> int:
     lap("the dense cells")
     cpu_twin_agreement(kitti07, runs["kitti07_mono"], "kitti07_mono")
     wide_band_agreement(runs["kitti07_mono"], runs["kitti07_mono_wide"], rename)
-    loop_device_profile(mono, "kitti00_mono")
-    loop_device_profile(mono, "kitti00_huber_f32", options=f32, **huber)
-    loop_device_profile(mono, "kitti00_mono_exact", options=exact)
-    lap("agreement and LM-loop profiles")
+    lap("agreement")
 
     # PCG, the pose-only solve and outlier thresholding
     runs["loop5000_pcg"] = pcg_phase(loop5000, "loop5000_pcg", dev)
     lap("loop5000_pcg")
-    loop_device_profile(loop5000, "loop5000_pcg", niter=8)
-    lap("loop5000_pcg LM-loop profile")
     pcg_oracle_phase()
     lap("pcg1000_oracle")
     runs["kitti00_mono_outliers"] = outliers_phase(mono)

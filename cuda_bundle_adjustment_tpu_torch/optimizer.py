@@ -86,7 +86,8 @@ class TorchGraphOptimisation:
         self.should_profile = False
         self.use_fused_loop = True
         # the last fused run's FusedLoop.stats (trials, host reads, captures,
-        # replays, host-clock ms, CG iterations); None before one
+        # replays, host-clock ms and read waits, device ms by stage under a
+        # profiler, CG iterations); None before one
         self.loop_stats: Optional[dict] = None
         # the CG iterations of every trial of the last optimize() on the PCG
         # route, through either loop (empty on the other routes)
@@ -132,22 +133,26 @@ class TorchGraphOptimisation:
         if solver.graph is None:
             raise RuntimeError("optimize() called before the graph was packed")
 
-        t0 = time.perf_counter()
+        # stages 1 + 5: the structure span of this build_structure()
+        total_ms = solver.spans.get("structure", 0.0)
         solver.build_structure()
-        total_ms = (time.perf_counter() - t0) * 1e3
+        total_ms = solver.spans["structure"] - total_ms
         self.timer.add(prof.PROF_SYMBOLIC_DECOMP, solver.symbolic_ms)
         self.timer.add(prof.PROF_BUILD_STRUCTURE, total_ms - solver.symbolic_ms)
         # the device-resident loop unless the caller asks to see every
         # iteration or stage (verbose, profile): the host loop, same trace
-        if self.use_fused_loop and not (self.verbose or self.should_profile):
+        fused = self.use_fused_loop and not (self.verbose or self.should_profile)
+        if fused:
             self._optimize_fused(niterations)
         else:
             self._optimize_host(niterations)
+        prof.record_solve(solver.spans, self.loop_stats if fused else None)
 
     def _optimize_fused(self, niterations: int) -> None:
         loop = FusedLoop(self.solver, niterations)
         for it, chi2 in enumerate(loop.run()):
             self.stats.add_stat(BatchInfo(it, chi2))
+        self.solver.spans.add(loop.spans)
         self.loop_stats = loop.stats
         self.cg_iterations = loop.stats["cg_iterations"]
         self.solver.update_edges()
@@ -212,6 +217,16 @@ class TorchGraphOptimisation:
 
     def time_profile(self) -> prof.TimeProfile:
         return dict(self.timer.profile)
+
+    def span_profile(self) -> dict:
+        """Host-clock ms by span name since the graph was packed
+        (``utils/profiling.py``): ``pack/arrays``, ``pack/upload``,
+        ``structure/digest``, ``structure/order`` (a structure-cache miss),
+        ``structure``, ``structure/symbolic`` and ``structure/plan`` (a
+        miss), and the fused loop's ``loop/eager``, ``loop/capture``,
+        ``loop/replay`` and ``loop/read``, summed over the optimize()
+        calls.  A span that did not run is absent."""
+        return dict(self.solver.spans)
 
     def set_verbose(self, flag: bool = True) -> None:
         self.verbose = bool(flag)

@@ -102,6 +102,7 @@ from ..solver.ordering import plan_pose_order
 from ..solver.pcg import CgRunner
 from ..solver.symbolic import build_schur_structure, sort_triples
 from ..types import GraphArrays, PackedEdges, SystemBlocks
+from ..utils import profiling as prof
 
 # what shard_problem's pose_solver takes: the band rule of one card, the
 # band route forced, or PCG forced
@@ -428,9 +429,10 @@ class RankSolver:
         F, top = torch.cat([chi.reshape(1), m]).tolist()
         return F, TAU * top
 
-    def linearise(self) -> SystemBlocks:
+    def linearise(self, marks=None) -> SystemBlocks:
         """The head at the rank's state: the system, with the total chi2
         kept in ``head_chi`` (0-d, on the device)."""
+        prof.mark(marks, "linearise")
         self.head_chi, sys = self.head(self.graph)
         return sys
 
@@ -447,17 +449,19 @@ class RankSolver:
     def accept(self, new_graph: GraphArrays) -> None:
         self.graph = new_graph
 
-    def trial(self, sys: SystemBlocks, lam):
+    def trial(self, sys: SystemBlocks, lam, marks=None):
         """One damped trial at the rank's state: ``(new_graph, Fhat, scale,
         success)`` on the device, as ``BlockSolver.trial``.  The rank's B4, B5 (zero ``bp``)
         and B6, one all-reduce of ``-sum Hpl y`` with the negated pair
         products, ``bsc = bp + that`` and ``Hpp + lam I`` on the diagonal
         (the one-card ``schur_reduce``'s arithmetic); the replicated solve;
         the rank's B9, B10 and update; one all-reduce of the trial chi with
-        the landmark half of the scale."""
+        the landmark half of the scale.  ``marks``: the fused loop's stage
+        boundaries, as ``BlockSolver.trial`` takes them."""
         graph, packs = self.graph, self.run_packs
         lam = as_lam(lam, sys.bp)
         Pa, plan = self.Pa, self.plan
+        prof.mark(marks, "schur")
         invHll, part, pairs = schur_terms(sys, lam, plan, self.zero_bp)
         nnz, buf = pairs.shape[0], self.reduce_buf
         buf[: 6 * Pa].view(Pa, 6).copy_(part)
@@ -465,8 +469,11 @@ class RankSolver:
         self.all_reduce(buf)
         bsc = sys.bp + buf[: 6 * Pa].view(Pa, 6)
         blocks = damp_blocks(buf[6 * Pa:].view(nnz, 36), sys.Hpp, lam, plan)
+        prof.mark(marks, "solve")
         xp, success = solve_reduced(blocks, bsc, plan, self.cg)
+        prof.mark(marks, "back")
         xl = schur_back_substitute(sys, invHll, xp, plan)
+        prof.mark(marks, "update")
         new_graph = apply_update(graph, xp, xl)
         out = self.all_reduce(torch.stack(
             [compute_chi(new_graph, packs, self.metas), landmark_scale(xl, sys.bl, lam)]))

@@ -64,7 +64,6 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
-import time
 from collections import OrderedDict
 from typing import NamedTuple, Optional, Sequence
 
@@ -870,7 +869,12 @@ class BlockSolver:
         self.schur: Optional[SchurStructure] = None
         self.plan: Optional[SchurPlan] = None
         self.pose_perm = None  # RCM pose order; None = identity
+        # the ms of the last build_structure()'s symbolic pass (its span
+        # "structure/symbolic"); 0 on a cache hit
         self.symbolic_ms = 0.0
+        # host-clock ms of packing, the structure pass and the loop by span
+        # name (utils/profiling.py), from the last packing on
+        self.spans = prof.Spans()
         # each set's (pose_idx, lm_idx) as packed, on the host
         self._host_idx: list[tuple[np.ndarray, np.ndarray]] = []
         self._struct_bundle: Optional[dict] = None  # this structure's cache entry
@@ -1069,33 +1073,40 @@ class BlockSolver:
         (:func:`_merge_ba_specs`); the sets with landmarks are packed as one
         (:meth:`_pack`), each ICP set on its own, in the order given, and
         edges in the order given.  An object graph packed before is
-        forgotten: ``finalize`` writes nothing back."""
+        forgotten: ``finalize`` writes nothing back.  The spans start anew
+        (:attr:`spans`): ``pack/arrays`` (the host arrays), ``pack/upload``
+        (their copies to the device), and the structure layer's
+        ``structure/digest`` and ``structure/order`` (the RCM order, on a
+        cache miss), which run here."""
+        spans = self.spans
+        spans.clear()
         self._pose_sets, self._lm_sets, self._edge_sets = [], [], []
-        edge_specs = [
-            dict(s, lm_idx=s.get("lm_idx", np.zeros(np.asarray(s["meas"]).shape[0], np.int64)))
-            for s in _merge_ba_specs(edge_specs)
-        ]
-        if not edge_specs:
-            raise ValueError("the graph has no edges")
-        for spec in edge_specs:
-            if spec["kind"] not in SET_KINDS:
-                raise ValueError(f"unknown edge kind {spec['kind']!r} (one of {SET_KINDS})")
-            if int(spec.get("rk", 0)) not in tuple(RobustKernelType):
-                raise ValueError(f"unknown robust kernel rk={spec.get('rk')}")
-        has_lm = [MODEL_REGISTRY[sp["kind"]].HAS_LANDMARK for sp in edge_specs]
+        with spans.span("pack/arrays"):
+            edge_specs = [
+                dict(s, lm_idx=s.get("lm_idx", np.zeros(np.asarray(s["meas"]).shape[0], np.int64)))
+                for s in _merge_ba_specs(edge_specs)
+            ]
+            if not edge_specs:
+                raise ValueError("the graph has no edges")
+            for spec in edge_specs:
+                if spec["kind"] not in SET_KINDS:
+                    raise ValueError(f"unknown edge kind {spec['kind']!r} (one of {SET_KINDS})")
+                if int(spec.get("rk", 0)) not in tuple(RobustKernelType):
+                    raise ValueError(f"unknown robust kernel rk={spec.get('rk')}")
+            has_lm = [MODEL_REGISTRY[sp["kind"]].HAS_LANDMARK for sp in edge_specs]
 
-        self.P = pose_q.shape[0]
-        self.Pa = int(num_active_poses)
-        self.L = landmarks.shape[0]
-        self.La = int(num_active_landmarks)
-        pose_q = np.asarray(pose_q, dtype=np.float64)
-        pose_t = np.asarray(pose_t, dtype=np.float64)
-        landmarks = np.asarray(landmarks, dtype=np.float64).reshape(-1, 3)
+            self.P = pose_q.shape[0]
+            self.Pa = int(num_active_poses)
+            self.L = landmarks.shape[0]
+            self.La = int(num_active_landmarks)
+            pose_q = np.asarray(pose_q, dtype=np.float64)
+            pose_t = np.asarray(pose_t, dtype=np.float64)
+            landmarks = np.asarray(landmarks, dtype=np.float64).reshape(-1, 3)
 
         # the structure's cache entry, keyed on the index arrays as given
-        self._struct_bundle = bundle = _struct_bundle(
-            _struct_digest(edge_specs, self.P, self.Pa, self.L, self.La)
-        )
+        with spans.span("structure/digest"):
+            digest = _struct_digest(edge_specs, self.P, self.Pa, self.L, self.La)
+        self._struct_bundle = bundle = _struct_bundle(digest)
         # bandwidth-reducing pose ordering over every set's edges, applied as
         # in the JAX package (trajectory graphs keep the identity order):
         # where every set has landmarks and some landmark is free
@@ -1104,24 +1115,27 @@ class BlockSolver:
             if "pose_perm" not in bundle:
                 from .ordering import plan_pose_order
 
-                bundle["pose_perm"] = _frozen(plan_pose_order(
-                    np.concatenate([np.asarray(sp["pose_idx"], np.int64) for sp in edge_specs]),
-                    np.concatenate([np.asarray(sp["lm_idx"], np.int64) for sp in edge_specs]),
-                    self.Pa, self.La)[0])
+                with spans.span("structure/order"):
+                    bundle["pose_perm"] = _frozen(plan_pose_order(
+                        np.concatenate([np.asarray(sp["pose_idx"], np.int64) for sp in edge_specs]),
+                        np.concatenate([np.asarray(sp["lm_idx"], np.int64) for sp in edge_specs]),
+                        self.Pa, self.La)[0])
             self.pose_perm = perm = bundle["pose_perm"]
         new_of_old = None
         if perm is not None:  # perm[i] = old pose at new position i
-            new_of_old = np.empty(self.Pa, dtype=np.int64)
-            new_of_old[perm] = np.arange(self.Pa)
-            pose_q = np.concatenate([pose_q[perm], pose_q[self.Pa :]])
-            pose_t = np.concatenate([pose_t[perm], pose_t[self.Pa :]])
+            with spans.span("pack/arrays"):
+                new_of_old = np.empty(self.Pa, dtype=np.int64)
+                new_of_old[perm] = np.arange(self.Pa)
+                pose_q = np.concatenate([pose_q[perm], pose_q[self.Pa :]])
+                pose_t = np.concatenate([pose_t[perm], pose_t[self.Pa :]])
 
         dev, dt = self.device, self.dtype
-        self.graph = GraphArrays(
-            q=torch.as_tensor(pose_q, dtype=dt, device=dev),
-            t=torch.as_tensor(pose_t, dtype=dt, device=dev),
-            Xw=torch.as_tensor(landmarks, dtype=dt, device=dev),
-        )
+        with spans.span("pack/upload"):
+            self.graph = GraphArrays(
+                q=torch.as_tensor(pose_q, dtype=dt, device=dev),
+                t=torch.as_tensor(pose_t, dtype=dt, device=dev),
+                Xw=torch.as_tensor(landmarks, dtype=dt, device=dev),
+            )
         # one pack of every landmark set, in set order, where the first of
         # them stands; each ICP set a pack of its own
         lm_sets = [i for i, h in enumerate(has_lm) if h]
@@ -1157,69 +1171,71 @@ class BlockSolver:
         several sets' model is :func:`pack_kind`'s, a mono set's measurement
         padded with a zero third row where the pack's rows are three."""
         dev, dt, Pa = self.device, self.dtype, self.Pa
-        kind = pack_kind([sp["kind"] for sp in specs])
-        rows = MODEL_REGISTRY[kind].MDIM
-        meas_p, pi_p, li_p, om_p, cam_p, act_p, code_p, parts = ([] for _ in range(8))
-        start = 0
-        for spec in specs:
-            meas = np.asarray(spec["meas"], dtype=np.float64)
-            E = meas.shape[0]
-            if meas.shape[1] < rows:
-                meas = np.concatenate([meas, np.zeros((E, rows - meas.shape[1]))], axis=1)
-            pose_idx = np.asarray(spec["pose_idx"], dtype=np.int64)
-            lm_idx = np.asarray(spec["lm_idx"], dtype=np.int64)
-            if E and (pose_idx.min() < 0 or pose_idx.max() >= self.P or (
-                    MODEL_REGISTRY[spec["kind"]].HAS_LANDMARK
-                    and (lm_idx.min() < 0 or lm_idx.max() >= self.L))):
-                raise ValueError(f"{spec['kind']} edges name a vertex outside the graph's "
-                                 f"{self.P} poses and {self.L} landmarks")
-            if new_of_old is not None:
-                pose_idx = np.where(pose_idx < Pa, new_of_old[np.minimum(pose_idx, Pa - 1)],
-                                    pose_idx)
-            active = np.broadcast_to(
-                np.asarray(spec.get("active", 1.0), dtype=np.float64), (E,))
-            # each edge's kind: the set's, or a merged set's from its mask3
-            code = np.full(E, KIND_CODES.get(spec["kind"], 0), dtype=np.uint8)
-            if spec.get("mask3") is not None:
-                code[np.asarray(spec["mask3"]) <= 0] = KIND_CODES["mono"]
-            meas_p.append(meas)
-            pi_p.append(pose_idx)
-            li_p.append(lm_idx)
-            om_p.append(np.asarray(spec["omega"], np.float64).reshape(-1, 1))
-            cam_p.append(np.asarray(spec.get("cam", np.zeros(5)), np.float64).reshape(-1, 5))
-            act_p.append(active)
-            code_p.append(code)
-            parts.append((EdgeSetMeta(kind=spec["kind"], rk=int(spec.get("rk", 0)),
-                                      delta=float(spec.get("delta", 1.0)),
-                                      nedges=int(np.sum(active > 0))), start, start + E))
-            start += E
-        cat = (lambda a: a[0]) if len(specs) == 1 else np.concatenate
-        meas, pose_idx, lm_idx, active = cat(meas_p), cat(pi_p), cat(li_p), cat(act_p)
-        sizes = [b - a for _, a, b in parts]
-        # a uniform weight and a uniform camera broadcast from one row
-        omega = _uniform_rows(om_p, sizes)[:, 0]
-        cam = _uniform_rows(cam_p, sizes)
-        # the per-edge kind: a code where depth rows stand beside others, the
-        # third-row mask where mono rows stand beside stereo ones
-        mask3 = code = None
-        if kind == "mixed":
-            code = torch.as_tensor(cat(code_p), device=dev)
-        elif kind == "stereo" and any(sp["kind"] == "mono" or "mask3" in sp for sp in specs):
-            mask3 = torch.as_tensor(cat(code_p) != KIND_CODES["mono"], device=dev).to(dt)
-        pose_idx_d = torch.as_tensor(pose_idx, device=dev)
-        lm_idx_d = torch.as_tensor(lm_idx, device=dev)
-        pack = PackedEdges(
-            meas=torch.as_tensor(np.ascontiguousarray(meas.T), dtype=dt, device=dev),
-            omega=torch.as_tensor(omega, dtype=dt, device=dev),
-            cam=torch.as_tensor(np.ascontiguousarray(cam.T), dtype=dt, device=dev),
-            pose_idx=pose_idx_d,
-            lm_idx=lm_idx_d,
-            both_free=((pose_idx_d < Pa) & (lm_idx_d < self.La)).to(dt),
-            active=torch.as_tensor(active > 0, device=dev).to(dt),
-            kind=kind,
-            mask3=mask3,
-            code=code,
-        )
+        with self.spans.span("pack/arrays"):
+            kind = pack_kind([sp["kind"] for sp in specs])
+            rows = MODEL_REGISTRY[kind].MDIM
+            meas_p, pi_p, li_p, om_p, cam_p, act_p, code_p, parts = ([] for _ in range(8))
+            start = 0
+            for spec in specs:
+                meas = np.asarray(spec["meas"], dtype=np.float64)
+                E = meas.shape[0]
+                if meas.shape[1] < rows:
+                    meas = np.concatenate([meas, np.zeros((E, rows - meas.shape[1]))], axis=1)
+                pose_idx = np.asarray(spec["pose_idx"], dtype=np.int64)
+                lm_idx = np.asarray(spec["lm_idx"], dtype=np.int64)
+                if E and (pose_idx.min() < 0 or pose_idx.max() >= self.P or (
+                        MODEL_REGISTRY[spec["kind"]].HAS_LANDMARK
+                        and (lm_idx.min() < 0 or lm_idx.max() >= self.L))):
+                    raise ValueError(f"{spec['kind']} edges name a vertex outside the graph's "
+                                     f"{self.P} poses and {self.L} landmarks")
+                if new_of_old is not None:
+                    pose_idx = np.where(pose_idx < Pa, new_of_old[np.minimum(pose_idx, Pa - 1)],
+                                        pose_idx)
+                active = np.broadcast_to(
+                    np.asarray(spec.get("active", 1.0), dtype=np.float64), (E,))
+                # each edge's kind: the set's, or a merged set's from its mask3
+                code = np.full(E, KIND_CODES.get(spec["kind"], 0), dtype=np.uint8)
+                if spec.get("mask3") is not None:
+                    code[np.asarray(spec["mask3"]) <= 0] = KIND_CODES["mono"]
+                meas_p.append(meas)
+                pi_p.append(pose_idx)
+                li_p.append(lm_idx)
+                om_p.append(np.asarray(spec["omega"], np.float64).reshape(-1, 1))
+                cam_p.append(np.asarray(spec.get("cam", np.zeros(5)), np.float64).reshape(-1, 5))
+                act_p.append(active)
+                code_p.append(code)
+                parts.append((EdgeSetMeta(kind=spec["kind"], rk=int(spec.get("rk", 0)),
+                                          delta=float(spec.get("delta", 1.0)),
+                                          nedges=int(np.sum(active > 0))), start, start + E))
+                start += E
+            cat = (lambda a: a[0]) if len(specs) == 1 else np.concatenate
+            meas, pose_idx, lm_idx, active = cat(meas_p), cat(pi_p), cat(li_p), cat(act_p)
+            sizes = [b - a for _, a, b in parts]
+            # a uniform weight and a uniform camera broadcast from one row
+            omega = _uniform_rows(om_p, sizes)[:, 0]
+            cam = _uniform_rows(cam_p, sizes)
+            # the per-edge kind: a code where depth rows stand beside others, the
+            # third-row mask where mono rows stand beside stereo ones
+            mask3 = code = None
+        with self.spans.span("pack/upload"):
+            if kind == "mixed":
+                code = torch.as_tensor(cat(code_p), device=dev)
+            elif kind == "stereo" and any(sp["kind"] == "mono" or "mask3" in sp for sp in specs):
+                mask3 = torch.as_tensor(cat(code_p) != KIND_CODES["mono"], device=dev).to(dt)
+            pose_idx_d = torch.as_tensor(pose_idx, device=dev)
+            lm_idx_d = torch.as_tensor(lm_idx, device=dev)
+            pack = PackedEdges(
+                meas=torch.as_tensor(np.ascontiguousarray(meas.T), dtype=dt, device=dev),
+                omega=torch.as_tensor(omega, dtype=dt, device=dev),
+                cam=torch.as_tensor(np.ascontiguousarray(cam.T), dtype=dt, device=dev),
+                pose_idx=pose_idx_d,
+                lm_idx=lm_idx_d,
+                both_free=((pose_idx_d < Pa) & (lm_idx_d < self.La)).to(dt),
+                active=torch.as_tensor(active > 0, device=dev).to(dt),
+                kind=kind,
+                mask3=mask3,
+                code=code,
+            )
         if len(specs) == 1:
             meta = parts[0][0]
         else:
@@ -1247,7 +1263,13 @@ class BlockSolver:
         (``symbolic_ms = 0``), no plan made and nothing uploaded.  Without
         free landmarks no Schur pattern, triples, band or PCG plan is made:
         the pose-only solve needs the per-set pose segments alone (and, for
-        a landmark pack, B3's plan)."""
+        a landmark pack, B3's plan).  Spans (:attr:`spans`): ``structure``
+        round the whole, ``structure/symbolic`` (the symbolic pass) and
+        ``structure/plan`` (the plan made and uploaded) on a miss."""
+        with self.spans.span("structure"):
+            self._build_structure()
+
+    def _build_structure(self) -> None:
         knobs = self._plan_knobs()
         plans = self._struct_bundle.setdefault("plans", OrderedDict())
         ba_packed = None if self.ba is None else self.packed
@@ -1265,16 +1287,17 @@ class BlockSolver:
         self.symbolic_ms = 0.0
         if self.ba is not None and La > 0:
             pose_idx, lm_idx = self._host_idx[self.ba]
-            t0 = time.perf_counter()
-            s = build_schur_structure(pose_idx, lm_idx, Pa, La)
-            triples = sort_triples(s)
-            self.symbolic_ms = (time.perf_counter() - t0) * 1e3
-        plan = make_schur_plan(
-            self._host_idx, self.ba, Pa, La, self.device,
-            torch.float32 if self.mixed else self.dtype,
-            pattern=None if s is None else (s.blk_row, s.blk_col, s.diag_pos), triples=triples,
-            ba_lm_idx=None if self.ba is None else self.packed.lm_idx,
-        )
+            with self.spans.span("structure/symbolic") as symbolic:
+                s = build_schur_structure(pose_idx, lm_idx, Pa, La)
+                triples = sort_triples(s)
+            self.symbolic_ms = symbolic.ms
+        with self.spans.span("structure/plan"):
+            plan = make_schur_plan(
+                self._host_idx, self.ba, Pa, La, self.device,
+                torch.float32 if self.mixed else self.dtype,
+                pattern=None if s is None else (s.blk_row, s.blk_col, s.diag_pos),
+                triples=triples, ba_lm_idx=None if self.ba is None else self.packed.lm_idx,
+            )
         for a in s or ():
             if isinstance(a, np.ndarray):
                 _frozen(a)
@@ -1304,7 +1327,10 @@ class BlockSolver:
 
     # -- stage API used by the LM loop -----------------------------------------
     # With a ``timer`` (profile mode) each stage is timed and ends in a device
-    # synchronise; the arithmetic is the same either way.
+    # synchronise; with ``marks`` (the fused loop's StageEvents, while it
+    # captures under a profiler) each device stage of utils/profiling.py
+    # DEVICE_STAGES is marked where it begins.  The arithmetic is the same
+    # either way.
 
     def _stage(self, timer, name: str):
         if timer is None:
@@ -1330,8 +1356,9 @@ class BlockSolver:
     def capturable(self) -> bool:
         return self.device.type == "cuda"
 
-    def linearise(self) -> SystemBlocks:
+    def linearise(self, marks=None) -> SystemBlocks:
         """The linearised system at the current state."""
+        prof.mark(marks, "linearise")
         return build_system(self.graph, self.packs, self.metas, self.plan)
 
     def head(self, timer=None):
@@ -1345,7 +1372,7 @@ class BlockSolver:
     def max_diagonal(self, sys: SystemBlocks) -> float:
         return float(max_diagonal(sys))
 
-    def trial(self, sys: SystemBlocks, lam, timer=None):
+    def trial(self, sys: SystemBlocks, lam, timer=None, marks=None):
         """One damped trial: ``(new_graph, Fhat, scale, success)`` in the
         order of the JAX package's trial stage, all on the device.  ``lam``:
         the host loop's Python float or the fused loop's 0-d device tensor
@@ -1353,17 +1380,22 @@ class BlockSolver:
         pose-only solve takes the place of the Schur stages."""
         lam = as_lam(lam, sys.bp)
         if self.plan.route == "pose_only":
+            prof.mark(marks, "solve")
             with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):
                 xp, success = solve_pose_only(sys, lam)
             xl = None
         else:
+            prof.mark(marks, "schur")
             with self._stage(timer, prof.PROF_SCHUR_COMPLEMENT):
                 blocks, bsc, invHll = schur_reduce(sys, lam, self.plan)
+            prof.mark(marks, "solve")
             with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):
                 xp, success = solve_reduced(blocks, bsc, self.plan, self.cg)
         with self._stage(timer, prof.PROF_UPDATE):
             if self.plan.route != "pose_only":
+                prof.mark(marks, "back")
                 xl = schur_back_substitute(sys, invHll, xp, self.plan)
+            prof.mark(marks, "update")
             new_graph = apply_update(self.graph, xp, xl)
         with self._stage(timer, prof.PROF_COMPUTE_ERROR):
             Fhat = self.chi(new_graph)

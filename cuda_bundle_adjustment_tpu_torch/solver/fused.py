@@ -39,10 +39,20 @@ iteration count: one read a trial and one a run.  A capture or a replay
 that fails raises: nothing goes on eagerly or on the host loop.  On the CPU
 the same step functions run eagerly and nothing is captured.
 
+The loop's host time is kept in spans (``utils/profiling.py``):
+``loop/eager``, ``loop/capture`` and ``loop/replay``, each step's flag read
+and the trace read in ``loop/read``.  A step captured while a torch
+profiler is running also holds a timing event at each of its device
+stages' boundaries (``profiling.StageEvents``, an event-record node each),
+and every replay adds each stage's device time to ``stats["stage_ms"]``;
+captured without a profiler, a step's graphs are what they would be
+without this.
+
 The loop drives any solver with this step interface: ``graph``,
 ``device``, ``dtype``, ``cg``, ``accept``, ``linearise``, ``trial(sys,
-lam)`` on its own graph, and what differs between one card and a rank of
-the distributed path (``parallel/distributed.py RankSolver``):
+lam)`` on its own graph (each with a stage recorder ``marks=`` while a
+step is captured under a profiler), and what differs between one
+card and a rank of the distributed path (``parallel/distributed.py RankSolver``):
 ``start_chi()`` (the chi2 the loop starts from, or None where iteration 0's
 linearisation gives it, as a rank's all-reduced head does: then the
 solver's ``head_chi``), ``top_diagonal(sys)`` (the largest diagonal entry
@@ -75,12 +85,11 @@ loop does: in f32 the two loops are not bit for bit in either package.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from .. import kernels
 from ..types import GraphArrays
+from ..utils import profiling as prof
 from . import pcg
 
 MAXQ = 10  # inner trials at most
@@ -144,13 +153,16 @@ class FusedLoop:
     """One ``optimize(niterations)`` of the device-resident loop over a
     solver whose structure is built.  :meth:`run` returns the chi2 trace and
     leaves the final state in ``solver.graph``; ``stats`` then holds the
-    trials, host reads, captures and replays, and the host-clock ms of the
-    eager steps, the captures and the replays (each ending in its
-    trial's flag read), and on the PCG route the CG iterations of every
-    trial and the reads of their blocks (counted in the host reads).
-    ``graphs`` holds the captured graphs of each step by name, in replay
-    order (``keep_graph=True``: their nodes can be inspected) until the loop
-    is dropped."""
+    trials, host reads, captures and replays, and the host-clock ms (the
+    readings of :attr:`spans`) of the eager steps, the captures and the
+    replays (each ending in its trial's flag read) and of the host's waits
+    in its reads (``read_wait_ms``), the device ms of each stage over the
+    replays of steps captured under a profiler (``stage_ms``, by
+    ``profiling.DEVICE_STAGES`` key; empty without), and on the PCG route
+    the CG iterations of every trial and the reads of their blocks (counted
+    in the host reads).  ``graphs`` holds the captured graphs of each step
+    by name, in replay order (``keep_graph=True``: their nodes can be
+    inspected) until the loop is dropped."""
 
     def __init__(self, solver, niterations: int):
         self.solver = solver
@@ -180,11 +192,16 @@ class FusedLoop:
         # each step's captured graphs in replay order, with the launch counts
         # each adds a replay and, for a CG block, the status its runner reads
         self._parts: dict[str, list[tuple]] = {}
+        # each step's stage events, where it was captured under a profiler;
+        # the step being captured's while it is
+        self._events: dict[str, prof.StageEvents] = {}
+        self._marks = None
+        self.spans = prof.Spans()
         # the CG runner of this run: every PCG solve's iterations and reads
         solver.cg = pcg.CgRunner()
         self.stats = dict(trials=0, reads=0, captures=0, replays=0,
-                          eager_ms=0.0, capture_ms=0.0, replay_ms=0.0,
-                          cg_iterations=solver.cg.iterations, cg_reads=0)
+                          eager_ms=0.0, capture_ms=0.0, replay_ms=0.0, read_wait_ms=0.0,
+                          stage_ms={}, cg_iterations=solver.cg.iterations, cg_reads=0)
 
     @property
     def graphs(self) -> dict[str, list[torch.cuda.CUDAGraph]]:
@@ -195,7 +212,7 @@ class FusedLoop:
 
     def linearise_and_trial(self, first: bool = False) -> None:
         s = self.solver
-        self.sys = s.linearise()
+        self.sys = s.linearise(**self._marked())
         lam = self.lam
         if first:  # iteration 0, never captured
             if self._head_F:
@@ -208,7 +225,7 @@ class FusedLoop:
 
     def _trial(self, lam, q) -> None:
         s = self.solver
-        new, Fhat, scale, success = s.trial(self.sys, lam)
+        new, Fhat, scale, success = s.trial(self.sys, lam, **self._marked())
         accept, F, lam, nu, _, q, more, done = lm_update(
             self.F, Fhat, scale, success, lam, self.nu, q)
         for dst, cand in zip(s.graph, new):
@@ -220,6 +237,14 @@ class FusedLoop:
         self.trace.copy_(torch.where(self._iota == self.it, F, self.trace))
         self.it.add_((~more).to(torch.int32))
         self.flags.copy_(torch.stack([more, done]))
+        if self._marks is not None:
+            self._marks.end()
+
+    def _marked(self) -> dict:
+        """The stage boundaries' recorder for ``linearise`` and ``trial``
+        (``marks=``) while a step is captured under a profiler; else no
+        argument."""
+        return {} if self._marks is None else {"marks": self._marks}
 
     # -- host side ----------------------------------------------------------------
 
@@ -236,8 +261,12 @@ class FusedLoop:
         # runner's reads (one a CG block) count as host reads too
         self.stats["cg_reads"] = self.solver.cg.reads
         self.stats["reads"] += 1 + self.solver.cg.reads
-        *trace, n_done = torch.cat(
-            [self.trace[:iterations], self.it.view(1).to(self.trace.dtype)]).tolist()
+        with self.spans.span("loop/read"):
+            *trace, n_done = torch.cat(
+                [self.trace[:iterations], self.it.view(1).to(self.trace.dtype)]).tolist()
+        for key, name in (("eager_ms", "loop/eager"), ("capture_ms", "loop/capture"),
+                          ("replay_ms", "loop/replay"), ("read_wait_ms", "loop/read")):
+            self.stats[key] = self.spans.get(name, 0.0)
         if int(n_done) != iterations:
             raise RuntimeError(
                 f"fused loop: {int(n_done)} iterations on the device, {iterations} on the host")
@@ -246,18 +275,17 @@ class FusedLoop:
 
     def _step(self, name: str, eager: bool, first: bool = False) -> list[bool]:
         self.stats["trials"] += 1
-        t0 = time.perf_counter()
         if eager or not self.capture:
-            if first:
-                self.linearise_and_trial(first=True)
-            else:
-                getattr(self, name)()
-            key = "eager_ms"
-        else:
-            parts = self._parts.get(name)
-            if parts is None:
-                parts = self._capture(name)
-                t0 = time.perf_counter()
+            with self.spans.span("loop/eager"):
+                if first:
+                    self.linearise_and_trial(first=True)
+                else:
+                    getattr(self, name)()
+                return self._read()
+        parts = self._parts.get(name)
+        if parts is None:
+            parts = self._capture(name)
+        with self.spans.span("loop/replay"):
             for graph, delta, status in parts:
                 if status is None:
                     graph.replay()
@@ -265,18 +293,20 @@ class FusedLoop:
                     self.solver.cg(graph.replay, status)
                 self._add_counts(delta)
             self.stats["replays"] += 1
-            key = "replay_ms"
-        flags = self._read()
-        self.stats[key] += (time.perf_counter() - t0) * 1e3
+            flags = self._read()
+        events = self._events.get(name)
+        if events is not None:  # the read has synchronised: the events are done
+            events.add_to(self.stats["stage_ms"])
         return flags
 
     def _read(self) -> list[bool]:
         """The two flags on the host: through pinned memory on the card."""
         self.stats["reads"] += 1
-        if not self.card:
-            return self.flags.tolist()
-        self._host_flags.copy_(self.flags, non_blocking=True)
-        torch.cuda.current_stream(self.solver.device).synchronize()
+        with self.spans.span("loop/read"):
+            if not self.card:
+                return self.flags.tolist()
+            self._host_flags.copy_(self.flags, non_blocking=True)
+            torch.cuda.current_stream(self.solver.device).synchronize()
         return self._host_flags.tolist()
 
     def _counts(self) -> dict:
@@ -301,10 +331,17 @@ class FusedLoop:
         graphs ``(graph, counts, None)`` and ``(block, counts, status)`` in
         replay order.  Capture launches nothing, so the launch and
         collective counts it moved are taken back and kept per graph for
-        every replay.
+        every replay.  Under a running profiler the step's stage boundaries
+        are captured too (:class:`profiling.StageEvents`).
         A failure raises (after the capture is ended, so the stream is
         usable)."""
-        t0 = time.perf_counter()
+        with self.spans.span("loop/capture"):
+            parts = self._capture_step(name)
+        self._parts[name] = parts
+        self.stats["captures"] += 1
+        return parts
+
+    def _capture_step(self, name: str) -> list[tuple]:
         dev = self.solver.device
         pool, stream = _capture_pool(dev)
         if name == "linearise_and_trial":
@@ -335,6 +372,8 @@ class FusedLoop:
 
         stream.wait_stream(torch.cuda.current_stream(dev))
         runner, self.solver.cg = self.solver.cg, split
+        if prof.profiling():
+            self._marks = self._events[name] = prof.StageEvents()
         with torch.cuda.stream(stream):
             begin()
             try:
@@ -354,9 +393,7 @@ class FusedLoop:
                 raise
             finally:
                 self.solver.cg = runner
+                self._marks = None
         for g, _, _ in parts:
             g.instantiate()
-        self._parts[name] = parts
-        self.stats["captures"] += 1
-        self.stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
         return parts

@@ -1,15 +1,36 @@
 """Stage timing with the reference's nine TimeProfile keys (counterpart of
-``utils/profiling.py``).
+``utils/profiling.py``), and the port's own spans.
 
 A stage is timed on the host clock; when its device is a CUDA card the timer
 synchronises that device before reading the clock, so the time covers the
 stage's kernels and not only their enqueue.
+
+A span (:meth:`Spans.span`) times one piece of the port's work where it
+runs: packing, the structure pass and the LM loop.  It always adds its
+host-clock ms to a per-optimiser dict (``TorchGraphOptimisation.span_profile``);
+only while a torch profiler is running does it also open
+``record_function("ba/" + name)``, so that the trace names what the host
+does beside the device's work.  No profiler, no ``record_function``: one
+costs microseconds even with nothing recording, the check a tenth of one.
+
+Inside the fused loop's captured graphs the device time of each stage of a
+trial is counted by :class:`StageEvents`: while a profiler is running, a
+timing event is captured at every stage boundary (an event-record node of
+the graph, placed by :func:`mark`) and read after each replay; without a
+profiler the graphs hold no such node.  Each event times the device's wall
+clock between two boundaries, so a tracer that adds gaps between kernels
+(CUPTI's activity tracing) adds them to the stages too.  Each
+``optimize()`` leaves its span readings and the fused loop's scalar
+counters in :func:`solve_history`, for a caller that does not keep the
+optimiser.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from contextlib import contextmanager
+from typing import Optional
 
 import torch
 
@@ -35,7 +56,21 @@ ALL_STAGES = [
     PROF_SOLVE_HPP,
 ]
 
+# the device stages of one LM step, in order: the linearisation, the Schur
+# reduce, the reduced solve, the back-substitution, and the update (the SE3
+# update, the trial chi2, the gain ratio's scale, the LM update and the
+# state selects, up to the step's flag write)
+DEVICE_STAGES = ("linearise", "schur", "solve", "back", "update")
+
+# a span's name in a profiler trace: this prefix and its own name
+SPAN_PREFIX = "ba/"
+
 TimeProfile = dict
+
+
+def profiling() -> bool:
+    """Whether a torch profiler is recording (about 0.1 us to ask)."""
+    return torch.autograd._profiler_enabled()
 
 
 class StageTimer:
@@ -56,3 +91,93 @@ class StageTimer:
 
     def add(self, name: str, millis: float) -> None:
         self.profile[name] = self.profile.get(name, 0.0) + millis
+
+
+class Spans(dict):
+    """Host-clock ms by span name, summed over every run of each span."""
+
+    def span(self, name: str) -> "Span":
+        return Span(self, name)
+
+    def add(self, other: dict) -> None:
+        for k, ms in other.items():
+            self[k] = self.get(k, 0.0) + ms
+
+
+class Span:
+    """One run of a span (a context manager): its ms go into its
+    :class:`Spans` at the end, and stay in ``ms``."""
+
+    __slots__ = ("_spans", "_name", "_t0", "_rf", "ms")
+
+    def __init__(self, spans: Spans, name: str):
+        self._spans, self._name, self.ms = spans, name, 0.0
+
+    def __enter__(self) -> "Span":
+        self._rf = None
+        if profiling():
+            self._rf = torch.profiler.record_function(SPAN_PREFIX + self._name)
+            self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.ms = (time.perf_counter() - self._t0) * 1e3
+        self._spans[self._name] = self._spans.get(self._name, 0.0) + self.ms
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+
+class StageEvents:
+    """The device stages' boundaries in one captured step of the fused loop:
+    a timing event recorded where each stage begins (:meth:`mark`) and where
+    the step ends (:meth:`end`).  Recorded while a CUDA graph captures, each
+    becomes an event-record node of the graph (``external=True``), so each
+    replay times every stage on the device."""
+
+    def __init__(self):
+        self.marks: list[tuple[Optional[str], torch.cuda.Event]] = []
+
+    def mark(self, key: Optional[str]) -> None:
+        """The stage ``key`` (one of :data:`DEVICE_STAGES`) begins here."""
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record()
+        self.marks.append((key, event))
+
+    def end(self) -> None:
+        self.mark(None)
+
+    def add_to(self, ms: dict) -> None:
+        """Add each stage's device ms, from its event to the next, into
+        ``ms``; the events must have completed (a replay read after)."""
+        for (key, a), (_, b) in zip(self.marks, self.marks[1:]):
+            ms[key] = ms.get(key, 0.0) + a.elapsed_time(b)
+
+
+def mark(marks: Optional[StageEvents], key: str) -> None:
+    """Where a step's recorder is given (a capture under a profiler), the
+    device stage ``key`` begins here; else nothing."""
+    if marks is not None:
+        marks.mark(key)
+
+
+# the span readings and the fused loop's scalar counters of the newest
+# optimize() calls of the process, oldest first
+SOLVE_HISTORY = 4096
+_HISTORY: deque = deque(maxlen=SOLVE_HISTORY)
+
+
+def record_solve(spans: dict, loop: Optional[dict]) -> None:
+    counters = None if loop is None else {
+        k: v for k, v in loop.items() if isinstance(v, (int, float))}
+    _HISTORY.append(dict(spans=dict(spans), loop=counters))
+
+
+def solve_history() -> list[dict]:
+    """One dict for each of the process's last ``SOLVE_HISTORY``
+    ``optimize()`` calls, oldest first: ``spans`` (the optimiser's span
+    readings so far, :meth:`TorchGraphOptimisation.span_profile`) and
+    ``loop`` (the scalar counters of the fused loop's ``loop_stats``:
+    trials, reads, captures, replays and host ms; None on the host loop)."""
+    return list(_HISTORY)

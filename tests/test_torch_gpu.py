@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    graph_nodes,
     hpl_mtv_in_plan_order,
     hpl_mv_in_plan_order,
     random_banded_spd,
@@ -1073,6 +1074,65 @@ def test_fused_pcg_step_is_three_graphs(monkeypatch):
     assert loop.graphs and all(len(g) == 3 for g in loop.graphs.values())
     for parts in loop._parts.values():
         assert [status is not None for _, _, status in parts] == [False, True, False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["band", "pcg"])
+def test_stage_events_are_captured_under_a_profiler_alone(monkeypatch, route):
+    """A step captured while a profiler runs holds one event-record node a
+    device-stage boundary more than the same step captured without one, in
+    each of its graphs together, and every replay adds each stage's device
+    time to ``stats["stage_ms"]``; without a profiler no stage counter is
+    kept.  The trace and the final state are the same bits either way, and
+    the loop's spans time its captures and replays."""
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_bundle_adjustment_tpu_torch.solver.fused import FusedLoop
+    from cuda_bundle_adjustment_tpu_torch.utils import profiling as prof
+
+    _cuda()
+    if route == "pcg":
+        monkeypatch.setattr(bs, "PCG_MIN_POSES", 0)
+        problem = make_loop_closure_problem(num_poses=160, num_landmarks=500,
+                                            mean_obs_per_landmark=4.0, long_range_fraction=0.3,
+                                            seed=21)
+    else:
+        problem = make_mixed_ba_problem(num_poses=16, num_landmarks=200, seed=13)
+
+    def run(traced):
+        opt = optimizer_from_problem(problem)
+        opt.solver.build_structure()
+        assert opt.solver.plan.route == route
+        loop = FusedLoop(opt.solver, 6)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced \
+                else nullcontext():
+            trace = loop.run()
+        return opt.solver.graph, loop, trace
+
+    g0, plain, t0 = run(False)
+    g1, timed, t1 = run(True)
+    assert t0 == t1 and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert plain.stats["stage_ms"] == {} and plain._events == {}
+    assert plain.stats["replays"] == timed.stats["replays"] >= 5
+    assert set(timed.stats["stage_ms"]) == set(prof.DEVICE_STAGES)
+    assert all(ms > 0 for ms in timed.stats["stage_ms"].values()), timed.stats["stage_ms"]
+    for loop in (plain, timed):
+        assert loop.stats["capture_ms"] == loop.spans["loop/capture"] > 0
+        assert loop.stats["replay_ms"] == loop.spans["loop/replay"] > 0
+        assert 0 < loop.stats["read_wait_ms"] == loop.spans["loop/read"]
+    assert set(plain.graphs) == set(timed.graphs) and plain.graphs
+    for name, graphs in plain.graphs.items():
+        marks = len(timed._events[name].marks)
+        assert marks == (6 if name == "linearise_and_trial" else 5), name
+        without = [graph_nodes(g) for g in graphs]
+        with_ = [graph_nodes(g) for g in timed.graphs[name]]
+        assert len(with_) == len(without) == (3 if route == "pcg" else 1)
+        assert sum(w["nodes"] for w in with_) - sum(w["nodes"] for w in without) == marks
+        # CU_GRAPH_NODE_TYPE_EVENT_RECORD: the boundaries alone
+        assert sum(w.get("type 7", 0) for w in with_) - sum(
+            w.get("type 7", 0) for w in without) == marks
 
 
 @pytest.mark.gpu
