@@ -3,220 +3,292 @@
 // Enumerates, per landmark, every ordered pair (i <= j) of its observing
 // both-free edges: the multiply plan of the Schur complement
 //   Hsc(p_i, p_j) -= Hpl(e_i) inv(Hll) Hpl(e_j)^T,
-// indexes the Hsc block pattern by a counting pass over the Pa^2 key space
-// and emits the triples counting-sorted by target block, with the per-block
-// offsets kernel B6 walks.  Also the O(E) pose-bandwidth bound of the RCM
+// indexes the Hsc block pattern over the Pa^2 key space and emits the
+// triples sorted by target block, with the per-block offsets kernel B6
+// walks.  Also the stable counting sort of the segment plans
+// (solver/segments.py) and the O(E) pose-bandwidth bound of the RCM
 // pre-check (solver/ordering.py).
 //
-// A copy of the JAX package's native/symbolic.cpp (tba_count_pairs,
-// tba_enumerate_pairs, tba_index_pairs_count, tba_emit_sorted,
-// tba_index_pairs_emit) and native/layout.cpp (tba_pose_band_bound), kept
-// statement for statement, emission order included: within a target block
-// the triples come in enumeration order, and a pair of distinct edges on one
-// pose emits its swapped copy right after it.
+// Every sort here is a counting sort over a known key range, so the pass is
+// linear in the edges, the triples and the Pa^2 table:
+//   tba_structure_count  masks the both-free edges, counting-sorts them by
+//                        landmark (edge order within a landmark), orders each
+//                        landmark's group by (pose, edge id), and counts the
+//                        triples of every Hsc block;
+//   tba_structure_emit   indexes the blocks row-major and writes each triple
+//                        straight into its block's next slot.
+// The JAX package's native/symbolic.cpp does the same job in other steps (a
+// numpy lexsort of the edges, then int64 pair keys it indexes and sorts); this
+// file is no longer a copy of it, but its output arrays are the same element
+// for element: within a target block the triples come in enumeration order,
+// and a pair of distinct edges on one pose emits its swapped copy right after
+// it.  tba_pose_band_bound is still the JAX package's native/layout.cpp one.
 //
-// Inputs are pre-sorted by (landmark, pose, edge id); the Python binding
-// (solver/native_symbolic.py) sorts with numpy, validates and owns all
-// memory.  native/build.py builds this file with g++ at first use.
+// The Python binding (solver/native_symbolic.py) validates what it can
+// before the call and owns all memory.  native/build.py builds this file with
+// g++ at first use.
 
 #include <cstdint>
 
+namespace {
+
+// A both-free edge in its landmark's group: its pose in the high 32 bits and
+// its edge id in the low 32, so ordering the values orders by (pose, edge id).
+inline int64_t pose_of(int64_t v) { return v >> 32; }
+inline int32_t edge_of(int64_t v) { return static_cast<int32_t>(v & 0xffffffff); }
+
+}  // namespace
+
 extern "C" {
 
-// Count pairs sum_g n_g*(n_g+1)/2 over contiguous groups of equal landmark id,
-// plus one extra per same-pose distinct-edge pair (diagonal blocks need both
-// multiply orders since densification does not mirror them).
-int64_t tba_count_pairs(const int64_t* pose_sorted, const int64_t* lm_sorted, int64_t n)
-{
-    int64_t total = 0;
-    int64_t i = 0;
-    while (i < n)
-    {
-        int64_t j = i + 1;
-        while (j < n && lm_sorted[j] == lm_sorted[i])
-        {
-            ++j;
-        }
-        const int64_t g = j - i;
-        total += g * (g + 1) / 2;
-        // same-pose runs inside the (already pose-sorted) group
-        int64_t a = i;
-        while (a < j)
-        {
-            int64_t b = a + 1;
-            while (b < j && pose_sorted[b] == pose_sorted[a])
-            {
-                ++b;
-            }
-            const int64_t r = b - a;
-            total += r * (r - 1) / 2;  // swapped copies of distinct-edge pairs
-            a = b;
-        }
-        i = j;
-    }
-    return total;
-}
-
-// Emit pair keys (p_i * Pa + p_j) and the edge-id pairs, in group order.
-void tba_enumerate_pairs(
-    const int64_t* eid_sorted,
-    const int64_t* pose_sorted,
-    const int64_t* lm_sorted,
-    int64_t n,
+// Pass 1.  For the E edges (pose_idx, lm_idx), Pa free poses and La free
+// landmarks: refuse a negative id (returns -1, the outputs unfinished), mask
+// the both-free edges (pose < Pa and landmark < La), counting-sort them by
+// landmark into group (start[l] .. start[l + 1] holds landmark l's edges),
+// insertion-sort each group by (pose, edge id): exactly np.lexsort((eid,
+// pose, landmark)) of the JAX package's pass.  Then enumerate every pair
+// (a <= b) of a group, with a swapped copy of each pair of distinct edges on
+// one pose, and count the triples of each key p_a * Pa + p_b in table.
+//
+// start [La + 1] and table [Pa * Pa] must come in zeroed; group holds E
+// values, E < 2^31 (the edge ids are packed in 32 bits).  out = {triples T,
+// stored blocks nnz} (the Pa diagonal blocks are always stored).  Returns 0.
+int64_t tba_structure_count(
+    const int64_t* pose_idx,
+    const int64_t* lm_idx,
+    int64_t E,
     int64_t Pa,
-    int64_t* out_pair_keys,
-    int64_t* out_tri_ei,
-    int64_t* out_tri_ej)
+    int64_t La,
+    int64_t* start,   // [La + 1], zeroed
+    int64_t* group,   // [E]
+    uint32_t* table,  // [Pa * Pa], zeroed: triples a key
+    int64_t* out)     // [2]
 {
-    int64_t out = 0;
-    int64_t i = 0;
-    while (i < n)
+    for (int64_t e = 0; e < E; ++e)
     {
-        int64_t j = i + 1;
-        while (j < n && lm_sorted[j] == lm_sorted[i])
+        const int64_t p = pose_idx[e];
+        const int64_t l = lm_idx[e];
+        if (p < 0 || l < 0)
         {
-            ++j;
+            return -1;
         }
-        for (int64_t a = i; a < j; ++a)
+        if (p < Pa && l < La)
         {
-            const int64_t pa = pose_sorted[a];
-            const int64_t ea = eid_sorted[a];
-            for (int64_t b = a; b < j; ++b)
+            ++start[l + 1];
+        }
+    }
+    for (int64_t l = 0; l < La; ++l)
+    {
+        start[l + 1] += start[l];
+    }
+    // scatter in edge order with start[l] as the cursor, then shift back
+    for (int64_t e = 0; e < E; ++e)
+    {
+        const int64_t p = pose_idx[e];
+        const int64_t l = lm_idx[e];
+        if (p < Pa && l < La)
+        {
+            group[start[l]++] = (p << 32) | e;
+        }
+    }
+    for (int64_t l = La; l > 0; --l)
+    {
+        start[l] = start[l - 1];
+    }
+    start[0] = 0;
+
+    int64_t T = 0;
+    for (int64_t l = 0; l < La; ++l)
+    {
+        const int64_t b = start[l];
+        const int64_t e = start[l + 1];
+        // groups are short (a track's observations): insertion sort
+        for (int64_t a = b + 1; a < e; ++a)
+        {
+            const int64_t v = group[a];
+            int64_t c = a;
+            while (c > b && group[c - 1] > v)
             {
-                out_pair_keys[out] = pa * Pa + pose_sorted[b];
-                out_tri_ei[out] = ea;
-                out_tri_ej[out] = eid_sorted[b];
-                ++out;
-                if (b != a && pose_sorted[b] == pa)
+                group[c] = group[c - 1];
+                --c;
+            }
+            group[c] = v;
+        }
+        int64_t run_end = b;  // end of the run of a's pose
+        for (int64_t a = b; a < e; ++a)
+        {
+            const int64_t pa = pose_of(group[a]);
+            uint32_t* row = table + pa * Pa;
+            for (int64_t c = a; c < e; ++c)
+            {
+                ++row[pose_of(group[c])];
+            }
+            if (run_end <= a)
+            {
+                for (run_end = a + 1; run_end < e && pose_of(group[run_end]) == pa; ++run_end)
                 {
-                    // diagonal block: also emit the swapped order
-                    out_pair_keys[out] = pa * Pa + pa;
-                    out_tri_ei[out] = eid_sorted[b];
-                    out_tri_ej[out] = ea;
-                    ++out;
                 }
             }
+            // the swapped copies of a's pairs with the later edges on its pose
+            row[pa] += static_cast<uint32_t>(run_end - a - 1);
+            T += (e - a) + (run_end - a - 1);
         }
-        i = j;
-    }
-}
-
-// Index the Hsc block pattern from raw pair keys in O(T + Pa^2) via a
-// counting pass over the dense key space (keys = p1*Pa + p2 < Pa^2, which is
-// ~2M for KITTI-scale pose counts — cheaper than any comparison sort).
-// Replaces np.unique + np.searchsorted over the T ~ 1.7M multiply triples.
-//
-// Pass 1 (tba_index_pairs_count): mark present keys (pairs + all diagonals),
-//   fill pos[key] = running unique index, return nnz.
-// Pass 2 (tba_index_pairs_emit): emit blk_row/col per unique key, diag_pos,
-//   and tri_k[i] = pos[pair_keys[i]].
-int64_t tba_index_pairs_count(
-    const int64_t* pair_keys,
-    int64_t T,
-    int64_t Pa,
-    int32_t* pos /* size Pa*Pa, scratch+output */)
-{
-    const int64_t n_keys = Pa * Pa;
-    for (int64_t k = 0; k < n_keys; ++k)
-    {
-        pos[k] = 0;
-    }
-    for (int64_t i = 0; i < T; ++i)
-    {
-        pos[pair_keys[i]] = 1;
-    }
-    for (int64_t p = 0; p < Pa; ++p)
-    {
-        pos[p * Pa + p] = 1;  // diagonal blocks always stored
     }
     int64_t nnz = 0;
-    for (int64_t k = 0; k < n_keys; ++k)
+    for (int64_t r = 0; r < Pa; ++r)
     {
-        if (pos[k])
+        const uint32_t* row = table + r * Pa;
+        for (int64_t c = r + 1; c < Pa; ++c)
         {
-            pos[k] = static_cast<int32_t>(nnz++);
-        }
-        else
-        {
-            pos[k] = -1;
+            nnz += row[c] != 0;
         }
     }
-    return nnz;
+    out[0] = T;
+    out[1] = nnz + Pa;
+    return 0;
 }
 
-// Counting-sort emission: given the pos[] map from tba_index_pairs_count,
-// rewrite the triples sorted by target block (tri_k ascending, enumeration
-// order within a block) and emit the per-block rowptr.  Spares the host a
-// 1.7M-element argsort of the triples.
-void tba_emit_sorted(
-    const int64_t* pair_keys,
-    const int64_t* tri_ei,
-    const int64_t* tri_ej,
-    int64_t T,
+// Pass 2, over tba_structure_count's start, group and table.  Indexes the
+// stored blocks row-major (upper triangle, every diagonal): blk_row, blk_col,
+// rowptr [Pa + 1] (a row's first block), diag_pos [Pa]; the per-block offsets
+// of the triples [nnz + 1]; then enumerates the pairs again in the same order
+// and writes each (e_i, e_j) into its block's next slot, so a block's triples
+// keep enumeration order.  tri_k [T] is each slot's block.
+void tba_structure_emit(
+    const int64_t* start,
+    const int64_t* group,
+    int64_t La,
     int64_t Pa,
-    const int32_t* pos,
-    int64_t nnz,
-    int64_t* rowptr,     // [nnz + 1]
-    int32_t* out_ei,     // [T]
-    int32_t* out_ej,     // [T]
-    int32_t* out_k)      // [T]
+    int32_t* table,     // [Pa * Pa]: counts in, block positions out
+    int64_t* rowptr,    // [Pa + 1]
+    int32_t* blk_row,   // [nnz]
+    int32_t* blk_col,   // [nnz]
+    int32_t* diag_pos,  // [Pa]
+    int64_t* offsets,   // [nnz + 1]
+    int32_t* tri_ei,    // [T]
+    int32_t* tri_ej,    // [T]
+    int32_t* tri_k)     // [T]
 {
-    for (int64_t k = 0; k <= nnz; ++k)
+    int64_t nnz = 0;
+    int64_t run = 0;
+    for (int64_t r = 0; r < Pa; ++r)
     {
-        rowptr[k] = 0;
+        rowptr[r] = nnz;
+        int32_t* row = table + r * Pa;
+        for (int64_t c = r; c < Pa; ++c)
+        {
+            const int64_t count = static_cast<uint32_t>(row[c]);
+            if (count > 0 || c == r)
+            {
+                blk_row[nnz] = static_cast<int32_t>(r);
+                blk_col[nnz] = static_cast<int32_t>(c);
+                offsets[nnz] = run;
+                run += count;
+                row[c] = static_cast<int32_t>(nnz++);
+            }
+        }
+        diag_pos[r] = row[r];
     }
-    for (int64_t i = 0; i < T; ++i)
+    rowptr[Pa] = nnz;
+    offsets[nnz] = run;
+
+    // offsets[k] is block k's cursor here, then shifted back
+    for (int64_t l = 0; l < La; ++l)
     {
-        ++rowptr[pos[pair_keys[i]] + 1];
-    }
-    for (int64_t k = 0; k < nnz; ++k)
-    {
-        rowptr[k + 1] += rowptr[k];
-    }
-    // cursor pass (restore rowptr afterwards by shifting)
-    for (int64_t i = 0; i < T; ++i)
-    {
-        const int32_t k = pos[pair_keys[i]];
-        const int64_t o = rowptr[k]++;
-        out_ei[o] = static_cast<int32_t>(tri_ei[i]);
-        out_ej[o] = static_cast<int32_t>(tri_ej[i]);
-        out_k[o] = k;
+        const int64_t b = start[l];
+        const int64_t e = start[l + 1];
+        int64_t run_end = b;
+        for (int64_t a = b; a < e; ++a)
+        {
+            const int64_t pa = pose_of(group[a]);
+            const int32_t ea = edge_of(group[a]);
+            const int32_t* row = table + pa * Pa;
+            if (run_end <= a)
+            {
+                for (run_end = a + 1; run_end < e && pose_of(group[run_end]) == pa; ++run_end)
+                {
+                }
+            }
+            // the diagonal block: (a, a), then each later edge c on a's pose
+            // as (a, c) and its swapped copy (c, a)
+            int64_t o = offsets[row[pa]];
+            tri_ei[o] = ea;
+            tri_ej[o] = ea;
+            ++o;
+            for (int64_t c = a + 1; c < run_end; ++c)
+            {
+                const int32_t ec = edge_of(group[c]);
+                tri_ei[o] = ea;
+                tri_ej[o] = ec;
+                tri_ei[o + 1] = ec;
+                tri_ej[o + 1] = ea;
+                o += 2;
+            }
+            offsets[row[pa]] = o;
+            for (int64_t c = run_end; c < e; ++c)
+            {
+                const int64_t k = row[pose_of(group[c])];
+                o = offsets[k]++;
+                tri_ei[o] = ea;
+                tri_ej[o] = edge_of(group[c]);
+            }
+        }
     }
     for (int64_t k = nnz; k > 0; --k)
     {
-        rowptr[k] = rowptr[k - 1];
+        offsets[k] = offsets[k - 1];
     }
-    rowptr[0] = 0;
-}
-
-void tba_index_pairs_emit(
-    const int64_t* pair_keys,
-    int64_t T,
-    int64_t Pa,
-    const int32_t* pos,
-    int32_t* out_tri_k,     // [T]
-    int32_t* out_blk_row,   // [nnz]
-    int32_t* out_blk_col,   // [nnz]
-    int32_t* out_diag_pos)  // [Pa]
-{
-    for (int64_t i = 0; i < T; ++i)
+    offsets[0] = 0;
+    for (int64_t k = 0; k < nnz; ++k)
     {
-        out_tri_k[i] = pos[pair_keys[i]];
-    }
-    const int64_t n_keys = Pa * Pa;
-    for (int64_t k = 0; k < n_keys; ++k)
-    {
-        const int32_t p = pos[k];
-        if (p >= 0)
+        for (int64_t o = offsets[k]; o < offsets[k + 1]; ++o)
         {
-            out_blk_row[p] = static_cast<int32_t>(k / Pa);
-            out_blk_col[p] = static_cast<int32_t>(k % Pa);
+            tri_k[o] = static_cast<int32_t>(k);
         }
     }
-    for (int64_t p = 0; p < Pa; ++p)
+}
+
+// ---------------------------------------------------------------------------
+// Stable counting sort of n segment ids into nseg segments: order [n] lists
+// the rows of segment 0, then 1, ..., each in row order, and offsets
+// [nseg + 1] bounds them (np.argsort(ids, kind="stable") and
+// np.searchsorted(sorted, arange(nseg + 1))).  Rows with ids >= nseg (fixed
+// vertices) are left out.  offsets must come in zeroed.  Returns the rows
+// kept (offsets[nseg]), or -1 for a negative id, before order is written.
+int64_t tba_counting_sort(
+    const int64_t* ids, int64_t n, int64_t nseg, int64_t* offsets /* [nseg + 1] */,
+    int64_t* order /* [n] */)
+{
+    for (int64_t i = 0; i < n; ++i)
     {
-        out_diag_pos[p] = pos[p * Pa + p];
+        const int64_t s = ids[i];
+        if (s < 0)
+        {
+            return -1;
+        }
+        if (s < nseg)
+        {
+            ++offsets[s + 1];
+        }
     }
+    for (int64_t s = 0; s < nseg; ++s)
+    {
+        offsets[s + 1] += offsets[s];
+    }
+    for (int64_t i = 0; i < n; ++i)
+    {
+        const int64_t s = ids[i];
+        if (s < nseg)
+        {
+            order[offsets[s]++] = i;
+        }
+    }
+    for (int64_t s = nseg; s > 0; --s)
+    {
+        offsets[s] = offsets[s - 1];
+    }
+    offsets[0] = 0;
+    return offsets[nseg];
 }
 
 // ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """ctypes binding of the C++ symbolic analysis (``native/symbolic.cpp``).
 
-Counterpart of the JAX package's ``solver/native_symbolic.py``: the
-landmark-pair enumeration, the Hsc pattern indexing and the triples
-counting-sorted by target block, and the pose-bandwidth bound.  There is no
-fallback: if the library cannot be built or loaded, the call raises.  The
+Counterpart of the JAX package's ``solver/native_symbolic.py``: the Schur
+structure (the landmark-pair enumeration, the Hsc pattern indexing and the
+triples sorted by target block) in two linear passes over the edges, the
+segment plans' stable counting sort, and the pose-bandwidth bound.  There is
+no fallback: if the library cannot be built or loaded, the call raises.  The
 numpy passes of :mod:`.symbolic` and :mod:`.ordering` (``use_native=False``)
-are the oracles the tests hold these against.
+and ``np.argsort`` are the oracles the tests hold these against.
 """
 
 from __future__ import annotations
@@ -19,16 +20,17 @@ from ..native import build
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64 = ctypes.c_int64
+_INT32_MAX = 2**31 - 1
 _SIGNATURES = {
-    "tba_count_pairs": (_I64, [_I64P, _I64P, _I64]),
-    # sorted edge ids, poses, landmarks | n | Pa | out pair_keys, tri_ei, tri_ej
-    "tba_enumerate_pairs": (None, [_I64P, _I64P, _I64P, _I64, _I64, _I64P, _I64P, _I64P]),
-    "tba_index_pairs_count": (_I64, [_I64P, _I64, _I64, _I32P]),
-    # pair_keys | T | Pa | pos | out tri_k, blk_row, blk_col, diag_pos
-    "tba_index_pairs_emit": (None, [_I64P, _I64, _I64, _I32P, _I32P, _I32P, _I32P, _I32P]),
-    # pair_keys tri_ei tri_ej | T | Pa | pos | nnz | out rowptr, ei, ej, k
-    "tba_emit_sorted": (
-        None, [_I64P, _I64P, _I64P, _I64, _I64, _I32P, _I64, _I64P, _I32P, _I32P, _I32P]),
+    # pose_idx lm_idx | E Pa La | start, group, table | out [T, nnz]
+    "tba_structure_count": (_I64, [_I64P, _I64P, _I64, _I64, _I64, _I64P, _I64P, _I32P, _I64P]),
+    # start group | La Pa | table | out rowptr, blk_row, blk_col, diag_pos, offsets,
+    # tri_ei, tri_ej, tri_k
+    "tba_structure_emit": (
+        None, [_I64P, _I64P, _I64, _I64, _I32P, _I64P, _I32P, _I32P, _I32P, _I64P, _I32P, _I32P,
+               _I32P]),
+    # ids | n nseg | out offsets, order
+    "tba_counting_sort": (_I64, [_I64P, _I64, _I64, _I64P, _I64P]),
     # pose_idx lm_idx | E Pa La | scratch pmin, pmax
     "tba_pose_band_bound": (_I64, [_I64P, _I64P, _I64, _I64, _I64, _I64P, _I64P]),
 }
@@ -55,64 +57,66 @@ def _p32(a: np.ndarray):
     return a.ctypes.data_as(_I32P)
 
 
-def native_build(eids: np.ndarray, ep: np.ndarray, el: np.ndarray, Pa: int):
-    """The pair enumeration over the both-free edges ``eids`` with poses
-    ``ep < Pa`` and landmarks ``el``, sorted here by (landmark, pose, edge
-    id).  Returns ``(pair_keys, tri_ei, tri_ej)``, int64, in enumeration
-    order."""
+def native_structure(pose_idx, lm_idx, Pa: int, La: int):
+    """The Schur structure of the edges ``(pose_idx, lm_idx)`` with ``Pa``
+    free poses and ``La`` free landmarks (an edge on a pose ``>= Pa`` or a
+    landmark ``>= La`` is not both-free and drops out).  Returns ``(tri_ei,
+    tri_ej, tri_k, blk_row, blk_col, diag_pos, rowptr, tri_offsets)``: int32
+    triples in target-block order (enumeration order within a block), the
+    int32 pattern sorted by ``row * Pa + col``, int64 ``rowptr [Pa + 1]`` and
+    ``tri_offsets [nnz + 1]``.  Raises ValueError for a negative id, more
+    edges than int32 edge ids hold, or more blocks than int32 positions."""
     lib = _lib()
-    eids, ep, el = _i64(eids), _i64(ep), _i64(el)
-    if not eids.shape == ep.shape == el.shape or eids.ndim != 1:
-        raise ValueError("native_build: expects three index arrays of one length")
-    if ep.size and (ep.min() < 0 or ep.max() >= Pa or el.min() < 0):
-        raise ValueError("native_build: pose ids outside [0, Pa) or negative landmark ids")
-    order = np.lexsort((eids, ep, el))
-    eid_s, ep_s, el_s = eids[order], ep[order], el[order]
-    n = eid_s.size
-    T = lib.tba_count_pairs(_p64(ep_s), _p64(el_s), n)
-    pair_keys = np.empty(T, dtype=np.int64)
-    tri_ei = np.empty(T, dtype=np.int64)
-    tri_ej = np.empty(T, dtype=np.int64)
-    lib.tba_enumerate_pairs(
-        _p64(eid_s), _p64(ep_s), _p64(el_s), n, Pa,
-        _p64(pair_keys), _p64(tri_ei), _p64(tri_ej),
-    )
-    return pair_keys, tri_ei, tri_ej
-
-
-def native_structure(pair_keys, tri_ei, tri_ej, Pa: int):
-    """The Hsc pattern indexed by a counting pass over the ``Pa^2`` key
-    space, and the triples counting-sorted by target block.  Returns
-    ``(tri_ei, tri_ej, tri_k, blk_row, blk_col, diag_pos, tri_offsets)``:
-    int32 triples in target-block order (enumeration order within a block)
-    and their ``[nnz + 1]`` int64 per-block offsets."""
-    lib = _lib()
-    keys, ei, ej = _i64(pair_keys), _i64(tri_ei), _i64(tri_ej)
-    T = keys.size
-    if not keys.shape == ei.shape == ej.shape or keys.ndim != 1:
-        raise ValueError("native_structure: expects three arrays of one length")
-    if T and (keys.min() < 0 or keys.max() >= Pa * Pa):
-        raise ValueError("native_structure: pair keys outside [0, Pa^2)")
-    if T and (min(ei.min(), ej.min()) < 0 or max(ei.max(), ej.max()) >= 2**31):
-        raise ValueError("native_structure: edge ids outside the int32 triples' range")
-    pos = np.empty(Pa * Pa, dtype=np.int32)
-    nnz = lib.tba_index_pairs_count(_p64(keys), T, Pa, _p32(pos))
-    tri_k = np.empty(T, dtype=np.int32)
+    pi, li = np.asarray(pose_idx), np.asarray(lm_idx)
+    if pi.shape != li.shape or pi.ndim != 1:
+        raise ValueError("native_structure: expects two index arrays of one length")
+    E = pi.size
+    if E > _INT32_MAX:
+        raise ValueError("native_structure: edge ids past the int32 triples' range")
+    pi, li = _i64(pi), _i64(li)
+    start = np.zeros(La + 1, dtype=np.int64)
+    group = np.empty(E, dtype=np.int64)
+    table = np.zeros(Pa * Pa, dtype=np.int32)
+    counts = np.zeros(2, dtype=np.int64)
+    if lib.tba_structure_count(
+        _p64(pi), _p64(li), E, Pa, La, _p64(start), _p64(group), _p32(table), _p64(counts),
+    ) < 0:
+        raise ValueError("native_structure: negative pose or landmark ids")
+    T, nnz = (int(c) for c in counts)
+    if nnz > _INT32_MAX:
+        raise ValueError("native_structure: more blocks than int32 positions hold")
+    rowptr = np.empty(Pa + 1, dtype=np.int64)
     blk_row = np.empty(nnz, dtype=np.int32)
     blk_col = np.empty(nnz, dtype=np.int32)
     diag_pos = np.empty(Pa, dtype=np.int32)
-    lib.tba_index_pairs_emit(
-        _p64(keys), T, Pa, _p32(pos), _p32(tri_k), _p32(blk_row), _p32(blk_col), _p32(diag_pos),
-    )
     offsets = np.empty(nnz + 1, dtype=np.int64)
-    ei_s = np.empty(T, dtype=np.int32)
-    ej_s = np.empty(T, dtype=np.int32)
-    k_s = np.empty(T, dtype=np.int32)
-    lib.tba_emit_sorted(
-        _p64(keys), _p64(ei), _p64(ej), T, Pa, _p32(pos), nnz,
-        _p64(offsets), _p32(ei_s), _p32(ej_s), _p32(k_s),
+    tri_ei = np.empty(T, dtype=np.int32)
+    tri_ej = np.empty(T, dtype=np.int32)
+    tri_k = np.empty(T, dtype=np.int32)
+    lib.tba_structure_emit(
+        _p64(start), _p64(group), La, Pa, _p32(table), _p64(rowptr), _p32(blk_row),
+        _p32(blk_col), _p32(diag_pos), _p64(offsets), _p32(tri_ei), _p32(tri_ej), _p32(tri_k),
     )
-    return ei_s, ej_s, k_s, blk_row, blk_col, diag_pos, offsets
+    return tri_ei, tri_ej, tri_k, blk_row, blk_col, diag_pos, rowptr, offsets
+
+
+def counting_sort(ids, nseg: int):
+    """The rows of ``ids`` by segment, stably, and the segments' bounds:
+    ``(order [m], offsets [nseg + 1])``, int64, ``m`` the rows with ``id <
+    nseg`` (rows of fixed vertices, ``id >= nseg``, drop out).  Equal to
+    ``np.argsort(ids, kind="stable")[:m]`` and ``np.searchsorted`` of the
+    sorted ids at ``arange(nseg + 1)``.  Raises ValueError for a negative
+    id."""
+    lib = _lib()
+    ids = _i64(ids)
+    if ids.ndim != 1:
+        raise ValueError("counting_sort: expects one index array")
+    offsets = np.zeros(nseg + 1, dtype=np.int64)
+    order = np.empty(ids.size, dtype=np.int64)
+    m = lib.tba_counting_sort(_p64(ids), ids.size, nseg, _p64(offsets), _p64(order))
+    if m < 0:
+        raise ValueError("counting_sort: negative segment ids")
+    return order[:m], offsets
 
 
 def pose_band_bound(pose_idx, lm_idx, Pa: int, La: int):

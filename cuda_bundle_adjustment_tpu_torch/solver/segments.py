@@ -4,6 +4,9 @@ The JAX package reduces per-edge rows through bucket plans and the
 co-visibility group layout.  The port sorts the rows by target once per
 structure and sums each target's run in that order, so every per-pose,
 per-landmark and per-block-row sum is deterministic without float atomics.
+The sort is a stable counting sort over the known range of targets, in C++
+(``native/symbolic.cpp`` through :mod:`.native_symbolic`): linear in the
+rows, and the order ``np.argsort(ids, kind="stable")`` gives.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .native_symbolic import counting_sort
 
 
 class Segments(NamedTuple):
@@ -25,12 +30,12 @@ class Segments(NamedTuple):
 
 
 def make_segments(ids: np.ndarray, nseg: int, device) -> Segments:
-    ids = np.asarray(ids, dtype=np.int64)
-    order = np.argsort(ids, kind="stable")
-    offsets = np.searchsorted(ids[order], np.arange(nseg + 1), side="left")
+    """The plan of rows with targets ``ids`` into ``nseg`` segments; ids
+    ``>= nseg`` drop out, a negative id raises ValueError."""
+    order, offsets = counting_sort(ids, nseg)
     return Segments(
-        order=torch.as_tensor(order[: offsets[-1]], device=device),
-        offsets=torch.as_tensor(offsets.astype(np.int64), device=device),
+        order=torch.as_tensor(order, device=device),
+        offsets=torch.as_tensor(offsets, device=device),
     )
 
 

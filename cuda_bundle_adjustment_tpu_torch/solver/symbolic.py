@@ -1,11 +1,13 @@
 """Host-side symbolic analysis of the Schur-complement structure.
 
 Counterpart of the JAX package's ``solver/symbolic.py``.  By default
-(``use_native=True``) the enumeration, the pattern indexing and the sort of
-the triples by target block run in C++ (``native/symbolic.cpp`` through
-:mod:`.native_symbolic`), as the JAX package's default does; there is no
-fallback.  ``use_native=False`` is a numpy copy of the JAX numpy path, the
-oracle of the tests.  One pass over the packed edge arrays gives:
+(``use_native=True``) the whole pass runs in C++ (``native/symbolic.cpp``
+through :mod:`.native_symbolic`): the both-free mask, a counting sort of the
+edges by (landmark, pose, edge id), the enumeration, the pattern indexing
+and the triples written in target-block order, all linear in the edges and
+triples; there is no fallback.  ``use_native=False`` is a numpy copy of the
+JAX numpy path, the oracle of the tests.  One pass over the packed edge
+arrays gives:
 
 * ``(blk_row, blk_col)``: upper-triangular block coordinates of Hsc's nonzero
   6x6 blocks (diagonal blocks always present), sorted by ``row * Pa + col``;
@@ -14,6 +16,7 @@ oracle of the tests.  One pass over the packed edge arrays gives:
   its observing both-free edges, ``W[ei] @ Hpl[ej]^T`` goes into block
   ``tri_k``.
 
+The native pass gives the JAX package's native arrays element for element.
 The two passes list the same triples per block, and in the same order
 except where two both-free edges share a pose and a landmark: the native
 pass emits such a pair's swapped copy right after it, the numpy pass
@@ -79,29 +82,26 @@ def build_schur_structure(
     ``pose_idx``/``lm_idx`` are the dense indices of all packed BA edges;
     edges touching a fixed pose (``pose_idx >= num_poses``) or fixed
     landmark (``lm_idx >= num_landmarks``) are excluded.  ``use_native``:
-    the C++ pass (raises if its library cannot be built), else the numpy
-    copy.
+    the C++ pass (raises if its library cannot be built, and ValueError for
+    a negative index), else the numpy copy.
     """
-    pose_idx = np.asarray(pose_idx, dtype=np.int64)
-    lm_idx = np.asarray(lm_idx, dtype=np.int64)
     Pa, La = int(num_poses), int(num_landmarks)
-
-    valid = (pose_idx >= 0) & (pose_idx < Pa) & (lm_idx >= 0) & (lm_idx < La)
-    eids = np.nonzero(valid)[0].astype(np.int64)
-    ep = pose_idx[eids]
-    el = lm_idx[eids]
-
     if use_native:
-        from .native_symbolic import native_build, native_structure
+        from .native_symbolic import native_structure
 
-        indexed = native_structure(*native_build(eids, ep, el, Pa), Pa)
-        tri_ei, tri_ej, tri_k, blk_row, blk_col, diag_pos, tri_offsets = indexed
+        indexed = native_structure(pose_idx, lm_idx, Pa, La)
+        tri_ei, tri_ej, tri_k, blk_row, blk_col, diag_pos, rowptr, tri_offsets = indexed
     else:
-        tri_ei, tri_ej, tri_k, blk_row, blk_col, diag_pos = _numpy_pass(eids, ep, el, Pa)
+        pose_idx = np.asarray(pose_idx, dtype=np.int64)
+        lm_idx = np.asarray(lm_idx, dtype=np.int64)
+        valid = (pose_idx >= 0) & (pose_idx < Pa) & (lm_idx >= 0) & (lm_idx < La)
+        eids = np.nonzero(valid)[0].astype(np.int64)
+        tri_ei, tri_ej, tri_k, blk_row, blk_col, diag_pos = _numpy_pass(
+            eids, pose_idx[eids], lm_idx[eids], Pa)
         tri_offsets = None
-    rowptr = np.zeros(Pa + 1, dtype=np.int64)
-    np.add.at(rowptr, blk_row + 1, 1)
-    rowptr = np.cumsum(rowptr)
+        rowptr = np.zeros(Pa + 1, dtype=np.int64)
+        np.add.at(rowptr, blk_row + 1, 1)
+        rowptr = np.cumsum(rowptr)
 
     return SchurStructure(
         num_poses=Pa,

@@ -1,22 +1,25 @@
 """The port's native symbolic analysis (``native/symbolic.cpp``) against the
-JAX package's native pass and against the port's numpy copy, the native
-band bound and pose order against their numpy bodies, and the library's
-build (content-addressed name, a failed build leaves nothing, one library
-for concurrent loads)."""
+JAX package's native pass and against the port's numpy copy, the segment
+plans' counting sort against ``np.argsort``, the native band bound and pose
+order against their numpy bodies, and the library's build (content-addressed
+name, a failed build leaves nothing, one library for concurrent loads)."""
 
+import functools
 import threading
 
 import numpy as np
 import pytest
+import torch
 
 from chip_smoke import structure_agreement
 from torch_fragile import fragile_pair_problem
 from cuda_bundle_adjustment_tpu.io import synthetic as jsyn
 from cuda_bundle_adjustment_tpu.solver import ordering as jord
 from cuda_bundle_adjustment_tpu.solver import symbolic as jsym
-from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem
+from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem, make_mixed_ba_problem
 from cuda_bundle_adjustment_tpu_torch.native import build
 from cuda_bundle_adjustment_tpu_torch.solver import native_symbolic, ordering, symbolic
+from cuda_bundle_adjustment_tpu_torch.solver.segments import make_segments
 
 
 def _unique_edges(rng, E, P, L):
@@ -24,9 +27,35 @@ def _unique_edges(rng, E, P, L):
     return keys // L, keys % L
 
 
+@functools.lru_cache(maxsize=1)
+def _grown_kitti07():
+    """A mono + stereo graph at KITTI-07's size (248 poses, 26,127
+    landmarks), its two sets concatenated, cut to the map as it stood when
+    its landmark ``m - 1`` was created: the landmarks ``< m``, the keyframes
+    up to the newest that had created one, the observations among them (the
+    growing map a mapping back end re-solves)."""
+    p = make_mixed_ba_problem(num_poses=248, num_landmarks=26127,
+                              mean_obs_per_landmark=95037 / 26127, seed=0)
+    P, Pa = p.pose_q.shape[0], p.num_active_poses
+    pi = np.concatenate([np.asarray(s["pose_idx"], dtype=np.int64) for s in p.specs])
+    li = np.concatenate([np.asarray(s["lm_idx"], dtype=np.int64) for s in p.specs])
+    seq = np.where(pi < Pa, pi + P - Pa, pi - Pa)  # sequence order: fixed poses first
+    first = np.full(p.landmarks.shape[0], P, dtype=np.int64)
+    np.minimum.at(first, li, seq)
+    first[first == P] = 0  # a landmark no pose sees was there from the start
+    m = int(0.95 * p.landmarks.shape[0])
+    newest = int(np.max(first[:m]))
+    keep = (li < m) & (seq <= newest)
+    new_Pa = newest + 1 - (P - Pa)
+    pi, li = pi[keep], li[keep]
+    return np.where(pi < Pa, pi, pi - Pa + new_Pa), li, new_Pa, m
+
+
 def _graph(case):
     """``(pose_idx, lm_idx, Pa, La)`` of a small edge set; fixed vertices
     are ``Pa..`` and ``La..``."""
+    if case == "synthetic_grown_kitti07":
+        return _grown_kitti07()
     rng = np.random.default_rng(sorted(CASES).index(case))
     if case == "random":  # fixed poses and landmarks, no duplicate observation
         pi, li = _unique_edges(rng, 500, 14, 90)
@@ -57,8 +86,9 @@ def _graph(case):
     return p.pose_idx, p.lm_idx, p.num_active_poses, p.num_active_landmarks
 
 
+# a new case sorts after the others: a case's rng is seeded by its position
 CASES = ("random", "duplicates", "shuffled", "landmark_seen_once", "one_free_pose",
-         "no_both_free", "synthetic", "fragile_duplicates")
+         "no_both_free", "synthetic", "fragile_duplicates", "synthetic_grown_kitti07")
 WITH_DUPLICATES = {"duplicates", "shuffled", "synthetic", "fragile_duplicates"}
 
 
@@ -135,17 +165,57 @@ def test_plan_pose_order_native_matches_numpy_and_jax(long_range, monkeypatch):
 
 
 @pytest.mark.parametrize(
+    "ids, nseg",
+    [
+        (np.array([3, 0, 5, 1, 3, 7, 0, 2, 9, 1]), 4),  # ids >= nseg drop out
+        (np.zeros(0, dtype=np.int64), 3),
+        (np.array([0, 2, 1]), 0),
+        (np.full(50, 2), 3),
+        (np.random.default_rng(4).permutation(np.repeat(np.arange(40), 7)), 40),
+        (np.random.default_rng(5).integers(0, 1300, 20000, dtype=np.int32), 1250),
+    ],
+    ids=["fixed_ids", "empty", "no_segments", "all_equal", "shuffled", "int32_poses"],
+)
+def test_segments_match_the_stable_argsort(ids, nseg):
+    """The counting sort's plan is the stable argsort's, rows past ``nseg``
+    cut off by the last offset."""
+    order = np.argsort(ids, kind="stable")
+    offsets = np.searchsorted(ids[order], np.arange(nseg + 1), side="left")
+    seg = make_segments(ids, nseg, "cpu")
+    assert seg.order.dtype == seg.offsets.dtype == torch.int64
+    np.testing.assert_array_equal(seg.order.numpy(), order[: offsets[-1]])
+    np.testing.assert_array_equal(seg.offsets.numpy(), offsets)
+
+
+def test_segments_refuse_a_negative_id():
+    with pytest.raises(ValueError, match="negative"):
+        make_segments(np.array([0, 1, -1, 2]), 3, "cpu")
+
+
+def _past_int32():
+    """An index array of 2^31 entries that takes no memory (one element,
+    stride 0)."""
+    return np.broadcast_to(np.int64(0), (2**31,))
+
+
+@pytest.mark.parametrize(
     "call",
     [
-        lambda: native_symbolic.native_build(np.arange(3), np.array([0, 1, 5]), np.zeros(3), 4),
-        lambda: native_symbolic.native_build(np.arange(2), np.array([0, 1]), np.array([0, -1]), 4),
-        lambda: native_symbolic.native_structure(np.array([16]), np.zeros(1), np.zeros(1), 4),
+        lambda: native_symbolic.native_structure(np.array([0, 1, -1]), np.zeros(3), 4, 4),
+        lambda: native_symbolic.native_structure(np.arange(2), np.array([0, -1]), 4, 4),
+        lambda: native_symbolic.native_structure(_past_int32(), _past_int32(), 4, 4),
+        lambda: native_symbolic.native_structure(np.arange(3), np.arange(2), 4, 4),
         lambda: native_symbolic.pose_band_bound(np.array([0, -1]), np.array([0, 0]), 4, 4),
         lambda: native_symbolic.pose_band_bound(np.arange(3), np.arange(2), 4, 4),
     ],
-    ids=["pose_outside_Pa", "negative_landmark", "key_outside_Pa2", "negative_pose", "lengths"],
+    ids=["pose_outside_Pa", "negative_landmark", "edge_ids_past_int32", "structure_lengths",
+         "negative_pose", "lengths"],
 )
 def test_binding_refuses_indices_the_library_would_overrun(call):
+    """A pose at or past ``Pa`` is a fixed pose and drops out; below 0 it
+    would index the block table before its start.  The pair keys are made
+    inside the pass from poses in ``[0, Pa)``, so none can fall outside the
+    table; the triples' edge ids must fit int32."""
     with pytest.raises(ValueError):
         call()
 
