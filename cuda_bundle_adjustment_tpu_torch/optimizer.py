@@ -9,7 +9,9 @@ termination tests.  By default ``optimize`` runs the device-resident loop
 functions run eagerly on the CPU), as the JAX package does; under
 ``verbose`` or ``set_profile(True)``, or with ``use_fused_loop = False``,
 it runs the host loop, which reads every value on the host where it is
-made.  The two give the same trace and final state bit for bit.
+made.  The two give the same trace and final state bit for bit.  A graph
+whose structure the structure cache holds replays the fused loop an earlier
+solve of that structure kept: no eager iteration and no capture.
 
 A graph is given as vertex and edge sets (``add_vertex_set``,
 ``add_edge_set``, then ``initialize()``), or as arrays
@@ -29,7 +31,7 @@ import torch
 
 from .graph import EdgeSet, GraphOptimisationOptions, VertexSet
 from .solver.block_solver import BlockSolver
-from .solver.fused import MAXQ, RHO_DONE, TAU, FusedLoop
+from .solver.fused import MAXQ, RHO_DONE, TAU, FusedLoop, loop_key
 from .solver.pcg import CgRunner
 from .utils import profiling as prof
 from .utils.stats import BatchInfo, BatchStatistics
@@ -86,8 +88,9 @@ class TorchGraphOptimisation:
         self.should_profile = False
         self.use_fused_loop = True
         # the last fused run's FusedLoop.stats (trials, host reads, captures,
-        # replays, host-clock ms and read waits, device ms by stage under a
-        # profiler, CG iterations); None before one
+        # replays, whether it replayed a kept loop, host-clock ms and read
+        # waits, device ms by stage under a profiler, CG iterations); None
+        # before one
         self.loop_stats: Optional[dict] = None
         # the CG iterations of every trial of the last optimize() on the PCG
         # route, through either loop (empty on the other routes)
@@ -149,10 +152,22 @@ class TorchGraphOptimisation:
         prof.record_solve(solver.spans, self.loop_stats if fused else None)
 
     def _optimize_fused(self, niterations: int) -> None:
-        loop = FusedLoop(self.solver, niterations)
-        for it, chi2 in enumerate(loop.run()):
+        solver = self.solver
+        # a structure the cache holds keeps its loop for its next solve, which
+        # replays it (FusedLoop.bind); a miss runs a loop of its own and keeps
+        # nothing
+        key = loop_key(solver, niterations) if solver.structure_hit else None
+        loop = None if key is None else solver.take_loop(key)
+        if loop is None:
+            loop = FusedLoop(solver, niterations, keep=key is not None)
+        else:
+            loop.bind(solver)
+        trace = loop.run()
+        if key is not None:
+            solver.keep_loop(key, loop)
+        for it, chi2 in enumerate(trace):
             self.stats.add_stat(BatchInfo(it, chi2))
-        self.solver.spans.add(loop.spans)
+        solver.spans.add(loop.spans)
         self.loop_stats = loop.stats
         self.cg_iterations = loop.stats["cg_iterations"]
         self.solver.update_edges()
@@ -224,8 +239,9 @@ class TorchGraphOptimisation:
         ``structure/digest``, ``structure/order`` (a structure-cache miss),
         ``structure``, ``structure/symbolic`` and ``structure/plan`` (a
         miss), and the fused loop's ``loop/eager``, ``loop/capture``,
-        ``loop/replay`` and ``loop/read``, summed over the optimize()
-        calls.  A span that did not run is absent."""
+        ``loop/replay``, ``loop/read`` and ``loop/bind`` (a kept loop's
+        copies in and out), summed over the optimize() calls.  A span that
+        did not run is absent."""
         return dict(self.solver.spans)
 
     def set_verbose(self, flag: bool = True) -> None:

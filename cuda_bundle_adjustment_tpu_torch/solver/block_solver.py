@@ -133,10 +133,26 @@ _STRUCT_CACHE_MAX = 8
 _PLANS_PER_STRUCTURE = 4
 # plans reused (hits) and built (misses) by build_structure
 _STRUCT_STATS = {"hits": 0, "misses": 0}
+# fused loops one structure keeps for its next solves (``solver/fused.py``
+# ``loop_key``: an iteration count, with and without a profiler), the least
+# recently used going first; each holds its graphs, its system and a copy of
+# the edge data on the device
+_LOOPS_PER_STRUCTURE = 2
+# the edge tensors a kept loop holds copies of and takes each solve's values
+# into (:meth:`BlockSolver.load`); the index tensors are the structure's
+LOOP_EDGE_DATA = ("meas", "omega", "cam", "both_free", "active", "mask3", "code")
+
+
+def _drop_loops(bundle: dict) -> None:
+    """A structure's kept loops go with its cache entry, though a solver
+    still holds the entry."""
+    bundle.pop("loops", None)
 
 
 def clear_structure_cache() -> None:
     """Empty the structure cache and zero its hit and miss counts."""
+    for b in _STRUCT_CACHE.values():
+        _drop_loops(b)
     _STRUCT_CACHE.clear()
     _STRUCT_STATS.update(hits=0, misses=0)
 
@@ -156,7 +172,7 @@ def _struct_bundle(key: str) -> dict:
         b = {}
         _STRUCT_CACHE[key] = b
         while len(_STRUCT_CACHE) > _STRUCT_CACHE_MAX:
-            _STRUCT_CACHE.popitem(last=False)
+            _drop_loops(_STRUCT_CACHE.popitem(last=False)[1])
     else:
         _STRUCT_CACHE.move_to_end(key)
     return b
@@ -878,6 +894,9 @@ class BlockSolver:
         # each set's (pose_idx, lm_idx) as packed, on the host
         self._host_idx: list[tuple[np.ndarray, np.ndarray]] = []
         self._struct_bundle: Optional[dict] = None  # this structure's cache entry
+        self._digest: Optional[str] = None  # its key
+        # whether the last build_structure() found its plan in the cache
+        self.structure_hit = False
         # runs the PCG route's CG blocks: iterations of every solve and host
         # reads (the fused loop's capture takes its place while it captures)
         self.cg = _pcg.CgRunner()
@@ -1107,6 +1126,7 @@ class BlockSolver:
         with spans.span("structure/digest"):
             digest = _struct_digest(edge_specs, self.P, self.Pa, self.L, self.La)
         self._struct_bundle = bundle = _struct_bundle(digest)
+        self._digest = digest
         # bandwidth-reducing pose ordering over every set's edges, applied as
         # in the JAX package (trajectory graphs keep the identity order):
         # where every set has landmarks and some landmark is free
@@ -1273,7 +1293,8 @@ class BlockSolver:
         knobs = self._plan_knobs()
         plans = self._struct_bundle.setdefault("plans", OrderedDict())
         ba_packed = None if self.ba is None else self.packed
-        if knobs in plans:
+        self.structure_hit = knobs in plans
+        if self.structure_hit:
             _STRUCT_STATS["hits"] += 1
             plans.move_to_end(knobs)
             self.schur, cached = plans[knobs]
@@ -1324,6 +1345,67 @@ class BlockSolver:
             MAX_BAND, PCG_MIN_POSES, _pairprod.ITEM, _terms.TILE,
             float(_pcg.CG_TOL), int(_pcg.CG_MAXITER),
         )
+
+    # -- fused loops kept across the solvers of a structure ---------------------
+
+    def take_loop(self, key):
+        """The fused loop this structure's cache entry keeps under ``key``
+        (``solver/fused.py loop_key``), taken out of it, or None: a run that
+        raises leaves nothing kept, and :meth:`keep_loop` puts it back."""
+        return self._struct_bundle.setdefault("loops", OrderedDict()).pop(key, None)
+
+    def keep_loop(self, key, loop) -> None:
+        """Keep ``loop`` for the next solver of this structure under ``key``,
+        while the structure is in the cache."""
+        if _STRUCT_CACHE.get(self._digest) is not self._struct_bundle:
+            return  # evicted since it was packed
+        loops = self._struct_bundle.setdefault("loops", OrderedDict())
+        loops[key] = loop
+        while len(loops) > _LOOPS_PER_STRUCTURE:
+            loops.popitem(last=False)
+
+    def loop_layout(self) -> tuple:
+        """What a fused loop's graphs read of this solver by value, beyond
+        its structure: the plan knobs, each pack's kind, robust kernels and
+        their parameters (:class:`EdgeSetMeta` without its active count),
+        and each edge tensor's shape, strides and type (a weight or a camera
+        is one column for every edge, or a column an edge)."""
+        def meta(m):
+            return (m.kind, m.rk, m.delta, tuple((meta(p), a, b) for p, a, b in m.parts))
+
+        def layout(t):
+            return None if t is None else (tuple(t.shape), t.stride(), t.dtype)
+
+        return (self._plan_knobs(), tuple(meta(m) for m in self.metas),
+                tuple((p.kind,) + tuple(layout(getattr(p, f)) for f in LOOP_EDGE_DATA)
+                      for p in self.packs))
+
+    def loop_shell(self) -> "BlockSolver":
+        """A solver of this structure over copies of this one's edge data,
+        for a fused loop kept across solves (which copies the state in turn):
+        its graphs read them by address, and each later solver's are copied
+        in (:meth:`load`).  The metas, the edge index tensors and the cached
+        plan are shared (nothing writes them); the B5/B9 counters and
+        scratch are its own."""
+        shell = BlockSolver(self.options, self.device)
+        shell.P, shell.Pa, shell.L, shell.La = self.P, self.Pa, self.L, self.La
+        shell.packs = tuple(p._replace(**{f: getattr(p, f).clone() for f in LOOP_EDGE_DATA
+                                          if getattr(p, f) is not None}) for p in self.packs)
+        shell.metas, shell.ba = self.metas, self.ba
+        shell.plan = _solver_plan(self.plan, None if self.ba is None else shell.packed)
+        shell.graph = self.graph
+        return shell
+
+    def load(self, other: "BlockSolver") -> None:
+        """Copy ``other``'s state and edge data into this solver's tensors in
+        place (``other``: a solver of the same structure and
+        :meth:`loop_layout`)."""
+        for dst, src in zip(self.graph, other.graph):
+            dst.copy_(src)
+        for dst, src in zip(self.packs, other.packs):
+            for f in LOOP_EDGE_DATA:
+                if getattr(dst, f) is not None:
+                    getattr(dst, f).copy_(getattr(src, f))
 
     # -- stage API used by the LM loop -----------------------------------------
     # With a ``timer`` (profile mode) each stage is timed and ends in a device

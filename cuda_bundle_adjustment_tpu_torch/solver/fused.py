@@ -6,52 +6,73 @@ trial, and makes every one of a trial's ~800 launches from Python.  Here
 the LM state lives on the solver's device as 0-d tensors -- lambda, nu, F
 and the chi2 trace in the working type (f64, or f32 in f32 mode, as in the
 JAX package's fused loop), the trial count and the iteration counter in
-int32 -- and each step is a function of those tensors alone:
+int32 -- and each step is made of pieces, each a function of those tensors
+alone (:data:`STEPS`):
 
-* :meth:`FusedLoop.linearise_and_trial`: the linearisation
-  (``build_system`` only: F is carried from the accepted trial, as in the
-  JAX package, so the head runs no chi pass), one damped trial and the LM
-  update; on iteration 0 (eager) also lambda's first value ``TAU *
-  max_diagonal``, so the captured graphs hold no such reduction;
-* :meth:`FusedLoop.retry`: one more damped trial on the same system and the
-  LM update.
+* ``linearise``: the linearisation (``build_system`` only: F is carried
+  from the accepted trial, as in the JAX package, so the head runs no chi
+  pass) into the loop's system ``sys``;
+* ``damp``: iteration 0's F (the chi2 the loop starts from) and lambda's
+  first value ``TAU * max_diagonal`` into the loop's ``F`` and ``lam``;
+* ``trial``: one damped trial on ``sys`` with the loop's ``lam`` and the LM
+  update; ``retry``: the same, one more trial of this iteration.
 
-On the card each step is captured once an ``optimize()`` into a CUDA graph
-and replayed.  On the PCG route a step's CG runs in blocks of iterations
-whose number depends on the data (``solver/pcg.py``), so its capture is cut
-in three graphs: up to the first CG block, one CG block, and the rest.  A
-replay runs the first, then the CG block through the solver's
-``pcg.CgRunner`` (one host read of ``[done, iterations]`` a block, as the
-eager steps and the host loop run the blocks) until it reports done, then
-the rest.  Iteration 0 runs the two steps eagerly: that is the warm-up
-every capture needs (kernel modules loaded, shared-memory attributes set,
-the library's lazy state made) and it is iteration 0's own work, so nothing
-runs twice and the trace cannot move.  From iteration 1 on each step is a
-graph captured at its first use.  Both capture into one memory pool, and
-the loop holds the system the first one made, so the second is never given
-its memory.  That pool is the process's for the device
-(:func:`_capture_pool`), shared by every loop: a loop's graphs are never
-replayed after its run, so the next loop may take their blocks, and a
-capture allocates no device memory once a loop of that size has run.  After
-every trial the host reads two flags (another trial of this iteration? is
-the loop done?) through pinned memory, and at the end the trace and the
-iteration count: one read a trial and one a run.  A capture or a replay
-that fails raises: nothing goes on eagerly or on the host loop.  On the CPU
-the same step functions run eagerly and nothing is captured.
+Iteration 0 is the step ``first`` (linearise, damp, trial), every later
+iteration ``linearise_and_trial`` (linearise, trial), and every further
+trial of an iteration ``retry``.
+
+On the card each piece is captured once into a CUDA graph and a step
+replays its pieces' graphs in order, so ``first`` and
+``linearise_and_trial`` share the linearisation's graph, and a retry reads
+the system where that one graph writes it.  On the PCG route a trial's CG
+runs in blocks of iterations whose number depends on the data
+(``solver/pcg.py``), so its capture is cut in three graphs: up to the first
+CG block, one CG block, and the rest.  A replay runs the first, then the CG
+block through the solver's ``pcg.CgRunner`` (one host read of ``[done,
+iterations]`` a block, as the eager steps and the host loop run the blocks)
+until it reports done, then the rest.  A new loop runs iteration 0
+eagerly: that is the warm-up every capture needs (kernel modules loaded,
+shared-memory attributes set, the library's lazy state made) and it is
+iteration 0's own work, so nothing runs twice and the trace cannot move.
+From iteration 1 on each piece is captured at its first use.  Every capture
+goes into one memory pool, and the loop holds the system the captured
+linearisation made (the one tensor of the pool that a step passes on to
+the next), so no later capture is given its memory.  That pool is the process's for the
+device (:func:`_capture_pool`), shared by every loop: loops run one at a
+time and a graph writes every other block it uses before it reads it, so
+the next loop may take the blocks a loop gave back, and a capture allocates
+no device memory once a loop of that size has run.
+
+A loop may be kept across solves of one structure (``keep=True``; the
+optimiser keeps one where the structure cache hit, ``optimizer.py``): it
+then runs over copies of its solver's state and edge data
+(``BlockSolver.loop_shell``), captures ``first`` too at the end of its run,
+keeps its system, and copies the final state out into new tensors for its
+solver.  :meth:`FusedLoop.bind` hands it the next solver of the structure:
+that solver's state and edge data are copied into the loop's tensors, the
+LM state is reset on the device, and the run replays every step, iteration
+0 included, with no eager step and no capture.  The same kernels run on the
+same values, so the trace and the final state are a new loop's bit for bit.
+
+After every trial the host reads two flags (another trial of this
+iteration? is the loop done?) through pinned memory, and at the end the
+trace and the iteration count: one read a trial and one a run.  A capture
+or a replay that fails raises: nothing goes on eagerly or on the host
+loop.  On the CPU the same pieces run eagerly and nothing is captured.
 
 The loop's host time is kept in spans (``utils/profiling.py``):
-``loop/eager``, ``loop/capture`` and ``loop/replay``, each step's flag read
-and the trace read in ``loop/read``.  A step captured while a torch
-profiler is running also holds a timing event at each of its device
-stages' boundaries (``profiling.StageEvents``, an event-record node each),
-and every replay adds each stage's device time to ``stats["stage_ms"]``;
-captured without a profiler, a step's graphs are what they would be
-without this.
+``loop/eager``, ``loop/capture`` and ``loop/replay``, a kept loop's copies
+in and out in ``loop/bind``, each step's flag read and the trace read in
+``loop/read``.  A piece captured while a torch profiler is running also
+holds a timing event at each of its device stages' boundaries
+(``profiling.StageEvents``, an event-record node each), and every replay
+adds each stage's device time to ``stats["stage_ms"]``; captured without a
+profiler, a piece's graphs are what they would be without this.
 
 The loop drives any solver with this step interface: ``graph``,
 ``device``, ``dtype``, ``cg``, ``accept``, ``linearise``, ``trial(sys,
 lam)`` on its own graph (each with a stage recorder ``marks=`` while a
-step is captured under a profiler), and what differs between one
+piece is captured under a profiler), and what differs between one
 card and a rank of the distributed path (``parallel/distributed.py RankSolver``):
 ``start_chi()`` (the chi2 the loop starts from, or None where iteration 0's
 linearisation gives it, as a rank's all-reduced head does: then the
@@ -97,6 +118,13 @@ TAU = 1e-5  # initial lambda factor
 # outer-termination rho threshold; the host loop (optimizer.py) imports these
 # three constants from here, so the two loops cannot drift
 RHO_DONE = 1e-6
+
+# the pieces of each step, in the order they run (and their graphs replay)
+STEPS = {
+    "first": ("linearise", "damp", "trial"),
+    "linearise_and_trial": ("linearise", "trial"),
+    "retry": ("retry",),
+}
 
 # the capture memory pool and side stream of each CUDA device, made at the
 # first capture on it and kept for the process, as the caching allocator
@@ -149,32 +177,51 @@ def lm_update(F, Fhat, scale, success, lam, nu, q):
     return accept, torch.where(accept, Fhat, F), lam, nu, rho, q, more, done
 
 
+def loop_key(solver, niterations: int) -> tuple:
+    """What a kept loop's graphs read by value, beyond its structure: the
+    solver's (``BlockSolver.loop_layout``: the plan knobs, the edge sets'
+    kinds, robust kernels and their parameters, the edge tensors' shapes),
+    the iterations (the length of the trace), whether stage events are
+    captured (a running profiler) and the LM constants.  A kept loop serves
+    a later solver of its structure only under the same key."""
+    return (solver.loop_layout(), int(niterations), prof.profiling(), TAU, MAXQ, RHO_DONE)
+
+
 class FusedLoop:
     """One ``optimize(niterations)`` of the device-resident loop over a
     solver whose structure is built.  :meth:`run` returns the chi2 trace and
     leaves the final state in ``solver.graph``; ``stats`` then holds the
-    trials, host reads, captures and replays, and the host-clock ms (the
-    readings of :attr:`spans`) of the eager steps, the captures and the
-    replays (each ending in its trial's flag read) and of the host's waits
-    in its reads (``read_wait_ms``), the device ms of each stage over the
-    replays of steps captured under a profiler (``stage_ms``, by
-    ``profiling.DEVICE_STAGES`` key; empty without), and on the PCG route
-    the CG iterations of every trial and the reads of their blocks (counted
-    in the host reads).  ``graphs`` holds the captured graphs of each step
-    by name, in replay order (``keep_graph=True``: their nodes can be
-    inspected) until the loop is dropped."""
+    trials, host reads, captures and replays, whether the run replayed a
+    kept loop (``reused``: 1 or 0), and the host-clock ms (the readings of
+    :attr:`spans`) of the eager steps with a kept loop's copies in and out
+    (``eager_ms``), the captures and the replays (each ending in its trial's
+    flag read) and of the host's waits in its reads (``read_wait_ms``), the
+    device ms of each stage over the replays of pieces captured under a
+    profiler (``stage_ms``, by ``profiling.DEVICE_STAGES`` key; empty
+    without), and on the PCG route the CG iterations of every trial and the
+    reads of their blocks (counted in the host reads).  ``graphs`` holds the
+    captured graphs of each step by name, in replay order
+    (``keep_graph=True``: their nodes can be inspected) until the loop is
+    dropped.
 
-    def __init__(self, solver, niterations: int):
+    ``keep=True``: the loop runs over ``solver.loop_shell()``, its own
+    copies of the solver's state and edge data, copies the final state out
+    into ``solver.graph`` and stays fit for :meth:`bind` and another run."""
+
+    def __init__(self, solver, niterations: int, keep: bool = False):
+        # the solver whose graph the run solves and which takes the result;
+        # a kept loop runs over its own shell of it
+        self.owner = solver
+        self.keep = keep
+        if keep:
+            solver = solver.loop_shell()
         self.solver = solver
         self.n = int(niterations)
         dev, dt, i32 = solver.device, solver.dtype, torch.int32
         # the loop's own state buffers, written in place: a captured graph
         # reads and writes them at the addresses it was captured with
         solver.accept(GraphArrays(*(a.clone() for a in solver.graph)))
-        F = solver.start_chi()
-        # None: F is iteration 0's head chi (the solver's ``head_chi``)
-        self._head_F = F is None
-        self.F = torch.zeros((), dtype=dt, device=dev) if F is None else F
+        self.F = torch.zeros((), dtype=dt, device=dev)
         self.lam = torch.zeros((), dtype=dt, device=dev)
         self.nu = torch.full((), 2.0, dtype=dt, device=dev)
         self.q = torch.zeros((), dtype=i32, device=dev)
@@ -189,36 +236,63 @@ class FusedLoop:
         self._host_flags = (
             torch.empty(2, dtype=torch.bool, pin_memory=True) if self.card else None
         )
-        # each step's captured graphs in replay order, with the launch counts
-        # each adds a replay and, for a CG block, the status its runner reads
+        # each captured piece's graphs in replay order, with the launch counts
+        # each adds a replay and, for a CG block, the status its runner reads;
+        # each captured step's graphs, its pieces' in order
+        self._pieces: dict[str, list[tuple]] = {}
         self._parts: dict[str, list[tuple]] = {}
-        # each step's stage events, where it was captured under a profiler;
-        # the step being captured's while it is
+        # the stage events of each piece captured under a profiler, and of
+        # each step made of such pieces; the piece being captured's while it is
+        self._piece_events: dict[str, prof.StageEvents] = {}
         self._events: dict[str, prof.StageEvents] = {}
         self._marks = None
+        self._new_run(reused=False)
+
+    def _new_run(self, reused: bool) -> None:
+        """The counters, spans and CG runner of one run."""
         self.spans = prof.Spans()
         # the CG runner of this run: every PCG solve's iterations and reads
-        solver.cg = pcg.CgRunner()
-        self.stats = dict(trials=0, reads=0, captures=0, replays=0,
+        self.solver.cg = pcg.CgRunner()
+        self.stats = dict(trials=0, reads=0, captures=0, replays=0, reused=int(reused),
                           eager_ms=0.0, capture_ms=0.0, replay_ms=0.0, read_wait_ms=0.0,
-                          stage_ms={}, cg_iterations=solver.cg.iterations, cg_reads=0)
+                          stage_ms={}, cg_iterations=self.solver.cg.iterations, cg_reads=0)
+
+    def bind(self, solver) -> None:
+        """Make the next run of this kept loop solve ``solver``'s graph:
+        ``solver`` is a later solver of the structure the loop was kept for,
+        under the same :func:`loop_key`.  Its state and the edge data the
+        graphs read by address are copied into the loop's tensors
+        (``BlockSolver.load``), and the LM state is reset on the device; the
+        copies are the span ``loop/bind``."""
+        self.owner = solver
+        self._new_run(reused=True)
+        with self.spans.span("loop/bind"):
+            self.solver.load(solver)
+            for t in (self.F, self.lam, self.q, self.it, self.trace, self.flags):
+                t.zero_()
+            self.nu.fill_(2.0)
 
     @property
     def graphs(self) -> dict[str, list[torch.cuda.CUDAGraph]]:
         """Each captured step's graphs by name, in replay order."""
         return {name: [g for g, _, _ in parts] for name, parts in self._parts.items()}
 
-    # -- the two steps ----------------------------------------------------------
+    # -- the pieces of the steps ----------------------------------------------------
 
-    def linearise_and_trial(self, first: bool = False) -> None:
+    def linearise(self) -> None:
+        self.sys = self.solver.linearise(**self._marked())
+
+    def damp(self) -> None:
+        """Iteration 0's F and first lambda: F the chi2 the solver starts
+        from (``start_chi``, or its ``head_chi`` where that is None) and
+        ``lam = TAU * top_diagonal(sys)``."""
         s = self.solver
-        self.sys = s.linearise(**self._marked())
-        lam = self.lam
-        if first:  # iteration 0, never captured
-            if self._head_F:
-                self.F.copy_(s.head_chi)
-            lam = TAU * s.top_diagonal(self.sys)
-        self._trial(lam, self._q0)
+        F = s.start_chi()
+        self.F.copy_(s.head_chi if F is None else F)
+        self.lam.copy_(TAU * s.top_diagonal(self.sys))
+
+    def trial(self) -> None:
+        self._trial(self.lam, self._q0)
 
     def retry(self) -> None:
         self._trial(self.lam, self.q)
@@ -242,7 +316,7 @@ class FusedLoop:
 
     def _marked(self) -> dict:
         """The stage boundaries' recorder for ``linearise`` and ``trial``
-        (``marks=``) while a step is captured under a profiler; else no
+        (``marks=``) while a piece is captured under a profiler; else no
         argument."""
         return {} if self._marks is None else {"marks": self._marks}
 
@@ -250,11 +324,15 @@ class FusedLoop:
 
     def run(self) -> list[float]:
         iterations = 0
+        # iteration 0 warms the captures up, eagerly, unless a kept loop
+        # replays it
+        warm = bool(self.stats["reused"])
         for it in range(self.n):
             iterations += 1
-            more, done = self._step("linearise_and_trial", eager=it == 0, first=it == 0)
+            eager = it == 0 and not warm
+            more, done = self._step("first" if it == 0 else "linearise_and_trial", eager)
             while more:
-                more, done = self._step("retry", eager=it == 0)
+                more, done = self._step("retry", eager)
             if done:
                 break
         # one read for the trace and the device's iteration count; the CG
@@ -264,23 +342,33 @@ class FusedLoop:
         with self.spans.span("loop/read"):
             *trace, n_done = torch.cat(
                 [self.trace[:iterations], self.it.view(1).to(self.trace.dtype)]).tolist()
+        if self.keep:
+            # what the next run replays: iteration 0, and the step whose
+            # pieces it shares, where this run did not reach it
+            for name in ("linearise_and_trial", "first") if self.capture else ():
+                if name not in self._parts:
+                    self._capture(name)
+            # the result in tensors of the caller's own, which no later run
+            # of this loop writes
+            with self.spans.span("loop/bind"):
+                self.owner.accept(GraphArrays(*(a.clone() for a in self.solver.graph)))
+        else:
+            self.sys = None
         for key, name in (("eager_ms", "loop/eager"), ("capture_ms", "loop/capture"),
                           ("replay_ms", "loop/replay"), ("read_wait_ms", "loop/read")):
             self.stats[key] = self.spans.get(name, 0.0)
+        self.stats["eager_ms"] += self.spans.get("loop/bind", 0.0)
         if int(n_done) != iterations:
             raise RuntimeError(
                 f"fused loop: {int(n_done)} iterations on the device, {iterations} on the host")
-        self.sys = None
         return trace
 
-    def _step(self, name: str, eager: bool, first: bool = False) -> list[bool]:
+    def _step(self, name: str, eager: bool) -> list[bool]:
         self.stats["trials"] += 1
         if eager or not self.capture:
             with self.spans.span("loop/eager"):
-                if first:
-                    self.linearise_and_trial(first=True)
-                else:
-                    getattr(self, name)()
+                for piece in STEPS[name]:
+                    getattr(self, piece)()
                 return self._read()
         parts = self._parts.get(name)
         if parts is None:
@@ -324,28 +412,34 @@ class FusedLoop:
                 comm[k[5:]] += n
 
     def _capture(self, name: str) -> list[tuple]:
-        """Capture one step on the device's capture stream into its pool.
-        On the PCG route the solver's CG runner is replaced for the capture
-        by one that ends the graph captured so far, captures one CG block
-        into a graph of its own and begins the next: the step becomes the
-        graphs ``(graph, counts, None)`` and ``(block, counts, status)`` in
-        replay order.  Capture launches nothing, so the launch and
-        collective counts it moved are taken back and kept per graph for
-        every replay.  Under a running profiler the step's stage boundaries
-        are captured too (:class:`profiling.StageEvents`).
-        A failure raises (after the capture is ended, so the stream is
-        usable)."""
+        """Capture the pieces of step ``name`` that no step captured yet, on
+        the device's capture stream into its pool, and make the step's
+        graphs of its pieces'.  On the PCG route the solver's CG runner is
+        replaced for the capture by one that ends the graph captured so far,
+        captures one CG block into a graph of its own and begins the next: a
+        trial becomes the graphs ``(graph, counts, None)`` and ``(block,
+        counts, status)`` in replay order.  Capture launches nothing, so the
+        launch and collective counts it moved are taken back and kept per
+        graph for every replay.  Under a running profiler the pieces' stage
+        boundaries are captured too (:class:`profiling.StageEvents`), and a
+        step's events are its pieces' in order.  A failure raises (after the
+        capture is ended, so the stream is usable)."""
         with self.spans.span("loop/capture"):
-            parts = self._capture_step(name)
-        self._parts[name] = parts
+            self._pieces.update(
+                self._capture_pieces([p for p in STEPS[name] if p not in self._pieces]))
+        parts = self._parts[name] = [part for p in STEPS[name] for part in self._pieces[p]]
+        events = [self._piece_events[p] for p in STEPS[name] if p in self._piece_events]
+        if events:
+            self._events[name] = prof.StageEvents([m for e in events for m in e.marks])
         self.stats["captures"] += 1
         return parts
 
-    def _capture_step(self, name: str) -> list[tuple]:
+    def _capture_pieces(self, pieces: list[str]) -> dict[str, list[tuple]]:
         dev = self.solver.device
         pool, stream = _capture_pool(dev)
-        if name == "linearise_and_trial":
+        if "linearise" in pieces:
             self.sys = None  # the eager iteration's system is not the graph's
+        captured: dict[str, list[tuple]] = {}
         parts: list[tuple] = []
         graph = before = None  # the graph being captured, the counts at its start
 
@@ -372,13 +466,16 @@ class FusedLoop:
 
         stream.wait_stream(torch.cuda.current_stream(dev))
         runner, self.solver.cg = self.solver.cg, split
-        if prof.profiling():
-            self._marks = self._events[name] = prof.StageEvents()
+        profiled = prof.profiling()
         with torch.cuda.stream(stream):
-            begin()
             try:
-                getattr(self, name)()
-                end()
+                for piece in pieces:
+                    parts = captured[piece] = []
+                    if profiled:
+                        self._marks = self._piece_events[piece] = prof.StageEvents()
+                    begin()
+                    getattr(self, piece)()
+                    end()
             except BaseException:
                 if graph is not None:
                     try:
@@ -394,6 +491,7 @@ class FusedLoop:
             finally:
                 self.solver.cg = runner
                 self._marks = None
-        for g, _, _ in parts:
-            g.instantiate()
-        return parts
+        for piece_parts in captured.values():
+            for g, _, _ in piece_parts:
+                g.instantiate()
+        return captured

@@ -134,10 +134,11 @@ class StageEvents:
     a timing event recorded where each stage begins (:meth:`mark`) and where
     the step ends (:meth:`end`).  Recorded while a CUDA graph captures, each
     becomes an event-record node of the graph (``external=True``), so each
-    replay times every stage on the device."""
+    replay times every stage on the device.  ``marks``: boundaries recorded
+    before, for the events of a step made of several captured pieces."""
 
-    def __init__(self):
-        self.marks: list[tuple[Optional[str], torch.cuda.Event]] = []
+    def __init__(self, marks=()):
+        self.marks: list[tuple[Optional[str], torch.cuda.Event]] = list(marks)
 
     def mark(self, key: Optional[str]) -> None:
         """The stage ``key`` (one of :data:`DEVICE_STAGES`) begins here."""

@@ -3,26 +3,47 @@ its step functions run eagerly and nothing is captured: its trace and final
 state against the port's host loop bit for bit, as ``tests/test_fused.py``
 requires of the JAX loops; iteration counts against the host loop and the
 JAX package under early termination and under forced rejections; the
-device-scalar LM update against the host loop's float rule bit for bit; and
-which loop ``optimize`` takes.  (``tests/test_torch_slice.py`` holds the
-default loop, this one, against the JAX package's fused loop.)"""
+device-scalar LM update against the host loop's float rule bit for bit;
+which loop ``optimize`` takes; and the loop a structure keeps for its next
+solves: a re-sent graph replayed through it bit for bit a new loop and the
+host loop, under which keys it is reused, the results it leaves to earlier
+optimisers, and its eviction with the structure.
+(``tests/test_torch_slice.py`` holds the default loop, this one, against
+the JAX package's fused loop.)"""
 
+import gc
 import itertools
 import math
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
 from cuda_bundle_adjustment_tpu.io.arrays import optimizer_from_problem as jax_optimizer
-from cuda_bundle_adjustment_tpu_torch import TorchGraphOptimisation
+from cuda_bundle_adjustment_tpu_torch import GraphOptimisationOptions, TorchGraphOptimisation
 from cuda_bundle_adjustment_tpu_torch import optimizer as topt
 from cuda_bundle_adjustment_tpu_torch.io.arrays import optimizer_from_problem
-from cuda_bundle_adjustment_tpu_torch.io.synthetic import make_ba_problem, make_mixed_ba_problem
+from cuda_bundle_adjustment_tpu_torch.io.synthetic import (
+    MixedBAProblem,
+    make_ba_problem,
+    make_mixed_ba_problem,
+)
+from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
 from cuda_bundle_adjustment_tpu_torch.solver import fused
 from cuda_bundle_adjustment_tpu_torch.solver.block_solver import BlockSolver
+from cuda_bundle_adjustment_tpu_torch.utils import profiling as prof
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def empty_cache():
+    """Each test starts from an empty structure cache: a structure solved
+    before keeps its loop there."""
+    bs.clear_structure_cache()
+    yield
+    bs.clear_structure_cache()
 
 
 def _trace(opt):
@@ -40,17 +61,54 @@ def _same_state(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a.solver.graph, b.solver.graph))
 
 
+def _resent(problem, seed: int):
+    """The graph again over the same edges (one structure): new measurement
+    noise, new per-edge weights and a new initial state, as a window of the
+    same keyframes and points is sent again."""
+    rng = np.random.default_rng(seed)
+
+    def edges(meas, omega):
+        return dict(meas=meas + rng.normal(0.0, 0.5, np.shape(meas)),
+                    omega=rng.uniform(0.5, 2.0, np.shape(omega)))
+
+    state = dict(pose_t=problem.pose_t + rng.normal(0.0, 0.01, problem.pose_t.shape),
+                 landmarks=problem.landmarks + rng.normal(0.0, 0.05, problem.landmarks.shape))
+    if isinstance(problem, MixedBAProblem):
+        return problem._replace(
+            specs=tuple(dict(sp, **edges(sp["meas"], sp["omega"])) for sp in problem.specs),
+            **state)
+    return problem._replace(**edges(problem.meas, problem.omega), **state)
+
+
+def _reused(problem, niter: int = 4, **kw) -> int:
+    return _run(problem, True, niter, **kw)[1].loop_stats["reused"]
+
+
+@pytest.mark.parametrize("kept", [False, True], ids=["new", "kept"])
 @pytest.mark.parametrize("kind,rk", [("mono", 0), ("stereo", 0), ("mixed", 0), ("mono", 2)],
                          ids=["mono", "stereo", "mixed", "mono-cauchy"])
-def test_fused_trace_and_state_equal_the_host_loop_bit_for_bit(kind, rk):
+def test_fused_trace_and_state_equal_the_host_loop_bit_for_bit(kind, rk, kept):
     """Both loops run the same stages on the same values, and the fused
     loop's carried F is the chi of the state it accepted: the traces and the
     final states are equal, not close.  One flag read a trial and one for
-    the trace; nothing is captured on the CPU."""
+    the trace; nothing is captured on the CPU.  ``kept``: the graph is
+    re-sent (the same edges, new measurements, weights and initial state)
+    after two solves of its structure, and replays the loop the second one
+    kept: trace and state are a new loop's and the host loop's bit for
+    bit."""
     kw = dict(num_poses=10, num_landmarks=60, mean_obs_per_landmark=4.0, seed=6)
     problem = make_mixed_ba_problem(**kw) if kind == "mixed" else make_ba_problem(kind=kind, **kw)
     robust = dict(rk=rk, delta=3.0) if rk else {}
+    if kept:
+        for _ in range(2):  # a miss, then the first hit, which keeps its loop
+            _run(_resent(problem, 1), True, **robust)
+        problem = _resent(problem, 2)
     tf, of = _run(problem, True, **robust)
+    assert of.loop_stats["reused"] == int(kept)
+    if kept:  # a new loop of the same graph
+        bs.clear_structure_cache()
+        tn, on = _run(problem, True, **robust)
+        assert on.loop_stats["reused"] == 0 and tn == tf and _same_state(on, of)
     th, oh = _run(problem, False, **robust)
     assert len(tf) >= 5 and tf == th
     assert _same_state(of, oh)
@@ -203,3 +261,70 @@ def test_fused_is_the_default_and_verbose_or_profile_take_the_host_loop(monkeypa
     opt.use_fused_loop = False
     opt.optimize(3)
     assert opt.loop_stats is None and _trace(opt) == fused_trace
+
+
+def test_a_structure_keeps_its_loop_at_its_first_hit_and_replays_it_from_the_second():
+    """``reused`` is 0 on a structure-cache miss, which keeps nothing, and
+    on the first hit, which keeps its loop, and 1 from the second hit on.
+    A reused run's copies in and out are the span ``loop/bind``, counted in
+    ``eager_ms``; the solve history carries ``reused``."""
+    problem = make_ba_problem(num_poses=8, num_landmarks=40, seed=5)
+    got = []
+    for _ in range(4):
+        _, opt = _run(problem, True, 4)
+        got.append(opt.loop_stats["reused"])
+        if len(got) == 1:
+            assert not opt.solver._struct_bundle.get("loops")
+        assert prof.solve_history()[-1]["loop"]["reused"] == got[-1]
+    assert got == [0, 0, 1, 1]
+    sp, ls = opt.span_profile(), opt.loop_stats
+    assert sp["loop/bind"] > 0 and ls["eager_ms"] == sp["loop/eager"] + sp["loop/bind"]
+    assert ls["captures"] == ls["replays"] == 0
+
+
+def test_no_loop_is_reused_across_iterations_knobs_robust_kernels_or_weight_layouts():
+    """A kept loop serves only its key: another iteration count, another
+    plan knob (``solver_precision``: the structure misses its plan), another
+    robust kernel or a uniform weight where the kept loop's is per edge
+    each run a loop of their own; the kept one is reused between them."""
+    problem = _resent(make_ba_problem(num_poses=8, num_landmarks=40, seed=5), 1)
+    for _ in range(2):
+        _run(problem, True, 4)
+    others = [dict(niter=5), dict(rk=2, delta=3.0),
+              dict(options=GraphOptimisationOptions(solver_precision="exact")),
+              dict(problem=problem._replace(omega=np.full_like(problem.omega, 2.0)))]
+    for other in others:
+        assert _reused(**dict(dict(problem=problem), **other)) == 0, other
+        assert _reused(problem) == 1, other
+
+
+def test_an_earlier_result_is_not_written_by_a_later_solve_of_its_loop():
+    """The optimiser whose solve kept a loop, and the one that replayed it,
+    keep their results when a later solve replays the loop again: each gets
+    its final state in tensors of its own."""
+    problem = _resent(make_ba_problem(num_poses=8, num_landmarks=40, seed=5), 2)
+    _run(problem, True, 4)
+    earlier = [_run(problem, True, 4)[1]]  # the first hit, which keeps the loop
+    earlier.append(_run(_resent(problem, 3), True, 4)[1])
+    kept = [[a.clone() for a in o.solver.graph] for o in earlier]
+    later = _run(_resent(problem, 4), True, 4)[1]
+    assert [o.loop_stats["reused"] for o in earlier + [later]] == [0, 1, 1]
+    for o, state in zip(earlier, kept):
+        assert all(torch.equal(a, b) for a, b in zip(o.solver.graph, state))
+        assert not any(torch.equal(a, b) for a, b in zip(o.solver.graph, later.solver.graph))
+
+
+def test_evicting_a_structure_drops_its_kept_loop():
+    """A kept loop goes with its structure's cache entry, though the
+    optimiser that kept it lives on; the structure then misses again."""
+    problem = make_ba_problem(num_poses=8, num_landmarks=40, seed=5)
+    _run(problem, True, 3)
+    opt = _run(problem, True, 3)[1]
+    loop = weakref.ref(next(iter(opt.solver._struct_bundle["loops"].values())))
+    assert isinstance(loop(), fused.FusedLoop)
+    for seed in range(bs._STRUCT_CACHE_MAX):  # packing makes a structure's entry
+        optimizer_from_problem(make_ba_problem(num_poses=6, num_landmarks=20, seed=100 + seed),
+                               device="cpu")
+    gc.collect()
+    assert loop() is None and "loops" not in opt.solver._struct_bundle
+    assert _reused(problem, 3) == 0 and bs.structure_cache_info()["misses"] == 2

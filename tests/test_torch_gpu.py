@@ -48,6 +48,15 @@ def _cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def empty_structure_cache():
+    """Each test starts from an empty structure cache: a structure that an
+    earlier test solved twice would hand it a kept loop, whose runs capture
+    nothing and run no eager iteration."""
+    bs.clear_structure_cache()
+    yield
+
+
 CAM = (718.856, 718.856, 607.1928, 185.2157, 386.1448)
 
 
@@ -761,7 +770,9 @@ def test_repeated_optimize_reuses_the_capture_pool():
     """Every loop on a device captures into the device's one pool: once a
     loop of a size has run, the next one's graphs take the blocks the last
     one gave back, so repeated ``optimize()`` calls hold the allocator's
-    reservation where it was, and each later run replays again."""
+    reservation where it was, and each later run replays again.  The
+    structure cache hits from the second run: that run captures and keeps
+    its loop, the later ones replay it and capture nothing."""
     dev = _cuda()
     problem = make_ba_problem(num_poses=40, num_landmarks=1500, seed=2)
     reserved = []
@@ -769,10 +780,72 @@ def test_repeated_optimize_reuses_the_capture_pool():
         opt = optimizer_from_problem(problem, device=dev)
         opt.optimize(5)
         torch.cuda.synchronize()
-        assert opt.loop_stats["captures"] >= 1 and opt.loop_stats["replays"] >= 4
+        st = opt.loop_stats
+        assert st["captures"] + st["reused"] >= 1 and st["replays"] >= 4
         del opt
         reserved.append(torch.cuda.memory_reserved(dev))
     assert reserved[3] == reserved[2], reserved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["band", "pcg"])
+def test_a_resolved_graph_replays_its_kept_loop_bit_for_bit(monkeypatch, route):
+    """One graph solved three times: a miss, a first hit that captures and
+    keeps its loop (``first`` too), and a second hit that replays it, with
+    no capture, no eager step and one replay a trial; each run's trace and
+    final state the host loop's bit for bit, and the reused run's launch
+    counts a new loop's.  On the PCG route the kept CG blocks run under a
+    new runner: the CG iterations are the host loop's."""
+    from cuda_bundle_adjustment_tpu_torch import kernels
+
+    _cuda()
+    if route == "pcg":
+        monkeypatch.setattr(bs, "PCG_MIN_POSES", 0)
+        problem = make_loop_closure_problem(num_poses=160, num_landmarks=500,
+                                            mean_obs_per_landmark=4.0, long_range_fraction=0.3,
+                                            seed=21)
+    else:
+        problem = make_mixed_ba_problem(num_poses=16, num_landmarks=200, seed=13)
+    runs = []
+    for fused_loop in (True, True, True, False):
+        opt = optimizer_from_problem(problem)
+        opt.use_fused_loop = fused_loop
+        kernels.reset_launch_counts()
+        opt.optimize(6)
+        torch.cuda.synchronize()
+        runs.append((opt, kernels.launch_counts()))
+    (miss, c0), (keep, _), (hit, c2), (host, _) = runs
+    assert hit.solver.plan.route == route
+    want = [s.chi2 for s in host.batch_statistics().get()]
+    for o in (miss, keep, hit):
+        assert [s.chi2 for s in o.batch_statistics().get()] == want
+        assert all(torch.equal(a, b) for a, b in zip(o.solver.graph, host.solver.graph))
+        assert o.cg_iterations == host.cg_iterations
+    assert [o.loop_stats["reused"] for o in (miss, keep, hit)] == [0, 0, 1]
+    assert keep.loop_stats["captures"] >= 2  # "first" at the end of its run
+    st = hit.loop_stats
+    assert st["captures"] == 0 and st["replays"] == st["trials"] and st["reused"] == 1
+    assert st["reads"] == st["trials"] + 1 + st["cg_reads"] and c2 == c0
+    assert hit.span_profile().get("loop/eager", 0.0) == 0.0
+    assert 0 < st["eager_ms"] == hit.span_profile()["loop/bind"]
+
+
+@pytest.mark.gpu
+def test_reused_loops_hold_the_allocators_reservation():
+    """Twenty solves of one graph through its kept loop: the copies in and
+    out allocate only the result, so the allocator's reservation stays
+    where the first reused run left it."""
+    dev = _cuda()
+    problem = make_mixed_ba_problem(num_poses=16, num_landmarks=200, seed=13)
+    reserved = []
+    for i in range(22):
+        opt = optimizer_from_problem(problem, device=dev)
+        opt.optimize(5)
+        torch.cuda.synchronize()
+        assert opt.loop_stats["reused"] == int(i >= 2)
+        del opt
+        reserved.append(torch.cuda.memory_reserved(dev))
+    assert len(set(reserved[2:])) == 1, reserved
 
 
 # -- f32 mode and the dense route ----------------------------------------------
@@ -1058,8 +1131,9 @@ def test_pcg_route_in_the_fused_loop_on_the_card(monkeypatch):
 
 @pytest.mark.gpu
 def test_fused_pcg_step_is_three_graphs(monkeypatch):
-    """A PCG step's capture: the graph before the CG, the CG block (with the
-    status its runner reads) and the rest, in that order."""
+    """A PCG trial's capture: the graph before the CG, the CG block (with
+    the status its runner reads) and the rest, in that order, after the
+    linearisation's graph in ``linearise_and_trial``."""
     from cuda_bundle_adjustment_tpu_torch.solver.fused import FusedLoop
 
     _cuda()
@@ -1071,9 +1145,12 @@ def test_fused_pcg_step_is_three_graphs(monkeypatch):
     opt.solver.build_structure()
     loop = FusedLoop(opt.solver, 4)
     loop.run()
-    assert loop.graphs and all(len(g) == 3 for g in loop.graphs.values())
-    for parts in loop._parts.values():
-        assert [status is not None for _, _, status in parts] == [False, True, False]
+    # a trial is three graphs; linearise_and_trial the linearisation's first
+    blocks = {"linearise_and_trial": [False, False, True, False],
+              "retry": [False, True, False]}
+    assert loop.graphs and set(loop.graphs) <= set(blocks)
+    for name, parts in loop._parts.items():
+        assert [status is not None for _, _, status in parts] == blocks[name], name
 
 
 @pytest.mark.gpu
@@ -1128,7 +1205,9 @@ def test_stage_events_are_captured_under_a_profiler_alone(monkeypatch, route):
         assert marks == (6 if name == "linearise_and_trial" else 5), name
         without = [graph_nodes(g) for g in graphs]
         with_ = [graph_nodes(g) for g in timed.graphs[name]]
-        assert len(with_) == len(without) == (3 if route == "pcg" else 1)
+        # a trial's graphs (three on the PCG route), after the linearisation's
+        trial = 3 if route == "pcg" else 1
+        assert len(with_) == len(without) == trial + (name == "linearise_and_trial")
         assert sum(w["nodes"] for w in with_) - sum(w["nodes"] for w in without) == marks
         # CU_GRAPH_NODE_TYPE_EVENT_RECORD: the boundaries alone
         assert sum(w.get("type 7", 0) for w in with_) - sum(
@@ -1379,6 +1458,22 @@ def test_nccl_rank_graphs_hold_the_host_loops_collectives(nccl_rank):
         got = {k: sum(d.get("comm." + k, 0) for _, d, _ in parts) for k in ("calls", "bytes")}
         assert got == want[name], name
     assert rs.comm["calls"] == len(trace) + 2 * loop.stats["trials"] + 1
+
+
+@pytest.mark.gpu
+def test_a_rank_loop_captures_on_every_optimize(nccl_rank):
+    """A rank's fused loop is not kept: each ``optimize()`` of one
+    ``RankSolver`` runs iteration 0 eagerly and captures anew, and repeats
+    the trace and final state bit for bit."""
+    rs = _nccl_rank_solver()
+    runs = []
+    for _ in range(3):
+        trace, graph = rs.optimize(6)
+        runs.append((trace, [a.clone() for a in graph], dict(rs.stats)))
+    for trace, graph, st in runs:
+        assert st["capture"] and st["captures"] >= 1 and st["reused"] == 0
+        assert 0 < st["replays"] < st["trials"]  # iteration 0 runs eagerly
+        assert trace == runs[0][0] and all(torch.equal(a, b) for a, b in zip(graph, runs[0][1]))
 
 
 @pytest.mark.gpu
