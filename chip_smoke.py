@@ -1516,19 +1516,20 @@ def small_problem_checks(dev) -> None:
                       json.dumps({k: (len(v), v[-2], v[-1]) for k, v in long.items()}))
 
 
-def expected_launches(counts: dict, iters: int, trials: int, robust: bool, fused: bool,
+def expected_launches(counts: dict, iters: int, trials: int, robust: bool, carried: bool,
                       solver=None, thresholds: int = 0) -> dict:
     """The launch counts a run of ``iters`` iterations and ``trials`` trials
     must show: a trial launches B4-B7, B9, B10 once, B8 three times (once in
     f32 mode: no refinement round) and B1 once (its chi) with two B2
     gathers; on the dense and PCG routes no B7 or B8, on the pose-only
     solve none of B4-B10; an iteration's linearisation B3 once with two B2
-    (and B1 under a robust kernel).  The host loop adds a chi pass (B1 + 2
-    B2) at every iteration's head, the fused loop one before the first and
-    none after (F is carried).  ``thresholds``: the outlier passes of
+    (and B1 under a robust kernel).  ``carried``: F is carried from the
+    accepted trial, as both one-card loops do: one chi pass (B1 + 2 B2)
+    before the first iteration and none after; False: a rank's, whose head
+    makes a chi pass at every iteration.  ``thresholds``: the outlier passes of
     ``update_edges`` (B1 + 2 B2 each).  ``solver``: the run's, for its route
     and type (the f64 band route by default)."""
-    head = 1 if fused else iters
+    head = 1 if carried else iters
     route = "band" if solver is None else solver.plan.route
     solves = 3 if solver is None or solver.mixed else 1
     want = {k: 0 if route == "pose_only" else trials for k in counts}
@@ -1660,7 +1661,7 @@ def main_path(problem, label: str, warm_runs: int, options=None, profiled: bool 
               f"{label}: the host loop's CG iterations differ from the fused loop's")
         host_trials = st["trials"]
     check(host_counts == expected_launches(host_counts, len(host_trace), host_trials,
-                                           robust_run, False, ho.solver),
+                                           robust_run, True, ho.solver),
           f"{label}: host launch counts {host_counts} do not follow from its iterations")
 
     # separate profiled runs for the per-stage breakdown (each stage ends in
@@ -2169,8 +2170,8 @@ def pcg_oracle_phase() -> dict:
           and f.cg_iterations == h.cg_iterations, "pcg1000_oracle: the host loop differs")
     check(len(trace) == len(gold["oracle_trace"]), "pcg1000_oracle: another number of iterations")
     trials = f.loop_stats["trials"]
-    for c, fused, s in ((counts[0], True, f.solver), (counts[1], False, h.solver)):
-        check(c == expected_launches(c, len(trace), trials, False, fused, s),
+    for c, s in ((counts[0], f.solver), (counts[1], h.solver)):
+        check(c == expected_launches(c, len(trace), trials, False, True, s),
               f"pcg1000_oracle: launch counts {c} do not follow from {len(trace)} iterations and "
               f"{trials} trials")
     np.testing.assert_allclose(trace, gold["oracle_trace"], rtol=1e-6)
@@ -2265,7 +2266,7 @@ def outliers_phase(mono) -> dict:
               f"{label}: a trace did not fall ({first}, {second})")
         for c, n_iter, st in ((c1, len(first), None), (c2, len(second), opt.loop_stats)):
             trials = c["sym3x3_mv"]  # B10: once a trial on the band route
-            check(c == expected_launches(c, n_iter, trials, True, fused, s, thresholds=1),
+            check(c == expected_launches(c, n_iter, trials, True, True, s, thresholds=1),
                   f"{label}: launch counts {c} do not follow from {n_iter} iterations, "
                   f"{trials} trials and one threshold pass")
         out[fused] = dict(first=first, second=second, state=[a.clone() for a in s.graph],
@@ -2590,7 +2591,7 @@ def orbslam_phase(mixed, dev) -> dict:
               f"{label}: a trace did not fall ({first}, {second})")
         for c, n_iter in ((c1, len(first)), (c2, len(second))):
             trials = c["sym3x3_mv"]  # B10: once a trial on the band route
-            check(c == expected_launches(c, n_iter, trials, True, fused, s, thresholds=1),
+            check(c == expected_launches(c, n_iter, trials, True, True, s, thresholds=1),
                   f"{label}: launch counts {c} do not follow from {n_iter} iterations, "
                   f"{trials} trials and one threshold pass")
         out[fused] = dict(first=first, second=second, state=[a.clone() for a in s.graph],
@@ -2851,6 +2852,7 @@ def distributed_rank(rank: int, world: int, init: str, cells, out_dir: str) -> N
 
     from cuda_bundle_adjustment_tpu_torch import kernels
     from cuda_bundle_adjustment_tpu_torch.parallel import RankSolver
+    from cuda_bundle_adjustment_tpu_torch.solver.fused import TAU
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
@@ -2861,8 +2863,8 @@ def distributed_rank(rank: int, world: int, init: str, cells, out_dir: str) -> N
             dev = rs.device
             checks = None
             if i == 0:
-                chi, sys_ = rs.head(rs.graph)
-                _, lam = rs.first_damping(chi, sys_)
+                sys_ = rs.linearise()
+                lam = TAU * float(rs.top_diagonal(sys_))
                 if rank == 0:
                     checks = shard_kernel_checks(
                         rs, sys_, torch.full((), lam, dtype=torch.float64, device=rs.device), label)

@@ -8,8 +8,9 @@ termination tests.  By default ``optimize`` runs the device-resident loop
 (``solver/fused.py``: CUDA-graph replays on the card, the same step
 functions run eagerly on the CPU), as the JAX package does; under
 ``verbose`` or ``set_profile(True)``, or with ``use_fused_loop = False``,
-it runs the host loop, which reads every value on the host where it is
-made.  The two give the same trace and final state bit for bit.  A graph
+it runs the host loop (``solver/host_loop.py``), which reads every value on
+the host where it is made.  The two give the same trace and final state bit
+for bit.  A graph
 whose structure the structure cache holds replays the fused loop an earlier
 solve of that structure kept: no eager iteration and no capture.
 
@@ -23,7 +24,6 @@ estimates back into the vertex sets.
 
 from __future__ import annotations
 
-import math
 import time
 from typing import Optional, Sequence, Union
 
@@ -31,40 +31,10 @@ import torch
 
 from .graph import EdgeSet, GraphOptimisationOptions, VertexSet
 from .solver.block_solver import BlockSolver
-from .solver.fused import MAXQ, RHO_DONE, TAU, FusedLoop, loop_key
-from .solver.pcg import CgRunner
+from .solver.fused import FusedLoop, loop_key
+from .solver.host_loop import HostLoop
 from .utils import profiling as prof
 from .utils.stats import BatchInfo, BatchStatistics
-
-
-def attenuation(rho: float) -> float:
-    """Lambda attenuation on an accepted step."""
-    x = 2.0 * rho - 1.0
-    return 1.0 - x * x * x
-
-
-def lm_update(F: float, Fhat: float, scale: float, success: bool, lam: float, nu: float,
-              q: int):
-    """The host loop's verdict on one trial, in Python floats: returns
-    ``(accept, stop, rho, lam, nu, q)``.  ``stop``: no more trials this
-    iteration because the step was accepted or the damping bailed out
-    (``solver/fused.py lm_update`` is the same rule on device scalars)."""
-    scale = scale + 1e-3
-    Fdiff = Fhat - F
-    rho = (F - Fhat) / scale if success else -1.0
-    if rho > 0:
-        lam *= min(max(attenuation(rho), 1.0 / 3.0), 2.0 / 3.0)
-        return True, True, rho, lam, 2.0, q
-    lam *= nu
-    nu *= 2.0
-    if not math.isfinite(lam) or Fdiff < 1e-4:
-        return False, True, rho, lam, nu, q
-    return False, False, rho, lam, nu, q + 1
-
-
-def lm_done(q: int, rho: float, lam: float) -> bool:
-    """The host loop's outer termination test after an iteration."""
-    return q == MAXQ or rho < RHO_DONE or not math.isfinite(lam)
 
 
 class TorchGraphOptimisation:
@@ -89,8 +59,7 @@ class TorchGraphOptimisation:
         self.use_fused_loop = True
         # the last fused run's FusedLoop.stats (trials, host reads, captures,
         # replays, whether it replayed a kept loop, host-clock ms and read
-        # waits, device ms by stage under a profiler, CG iterations); None
-        # before one
+        # waits, CG iterations); None before one
         self.loop_stats: Optional[dict] = None
         # the CG iterations of every trial of the last optimize() on the PCG
         # route, through either loop (empty on the other routes)
@@ -146,12 +115,22 @@ class TorchGraphOptimisation:
         # iteration or stage (verbose, profile): the host loop, same trace
         fused = self.use_fused_loop and not (self.verbose or self.should_profile)
         if fused:
-            self._optimize_fused(niterations)
+            trace = self._optimize_fused(niterations)
         else:
-            self._optimize_host(niterations)
+            loop = HostLoop(solver, niterations, self._print_iteration if self.verbose else None)
+            solver.timer = self.timer if self.should_profile else None
+            try:
+                trace = loop.run()
+            finally:
+                solver.timer = None
+            self.cg_iterations = loop.stats["cg_iterations"]
+        for it, chi2 in enumerate(trace):
+            self.stats.add_stat(BatchInfo(it, chi2))
+        solver.update_edges()
+        solver.finalize()
         prof.record_solve(solver.spans, self.loop_stats if fused else None)
 
-    def _optimize_fused(self, niterations: int) -> None:
+    def _optimize_fused(self, niterations: int) -> list[float]:
         solver = self.solver
         # a structure the cache holds keeps its loop for its next solve, which
         # replays it (FusedLoop.bind); a miss runs a loop of its own and keeps
@@ -165,65 +144,20 @@ class TorchGraphOptimisation:
         trace = loop.run()
         if key is not None:
             solver.keep_loop(key, loop)
-        for it, chi2 in enumerate(trace):
-            self.stats.add_stat(BatchInfo(it, chi2))
         solver.spans.add(loop.spans)
         self.loop_stats = loop.stats
         self.cg_iterations = loop.stats["cg_iterations"]
-        self.solver.update_edges()
-        self.solver.finalize()
+        return trace
 
-    def _optimize_host(self, niterations: int) -> None:
-        solver = self.solver
-        solver.cg = CgRunner()
-
-        nu = 2.0
-        lam = 0.0
-        F = 0.0
-        rho = -1.0
-        q = 0
-
-        timer = self.timer if self.should_profile else None
-
-        for iteration in range(niterations):
-            it_t0 = time.perf_counter()
-
-            chi_dev, sys = solver.head(timer)
-            F = float(chi_dev)
-
-            if iteration == 0:
-                lam = TAU * solver.max_diagonal(sys)
-
-            q = 0
-            rho = -1.0
-            while q < MAXQ and rho < 0:
-                new_graph, Fhat_dev, scale_dev, success_dev = solver.trial(sys, lam, timer)
-                Fhat = float(Fhat_dev)
-                accept, stop, rho, lam, nu, q = lm_update(
-                    F, Fhat, float(scale_dev), bool(success_dev), lam, nu, q)
-                if accept:
-                    F = Fhat
-                    solver.accept(new_graph)
-                if stop:
-                    break
-
-            time_taken = (time.perf_counter() - it_t0) * 1e3
-            self.stats.add_stat(BatchInfo(iteration, F))
-
-            if self.verbose:
-                print(
-                    f"iteration= {iteration};   time(ms): {time_taken:.4f}   "
-                    f"chi2= {F:f};   lambda= {lam:f}   rho= {rho:f}\t   "
-                    f"nedges= {solver.nedges()}    levenberg iterations = {q}   "
-                    f"outliers = {sum(es.get_outlier_count() for es in self.edge_sets)}"
-                )
-
-            if lm_done(q, rho, lam):
-                break
-
-        self.cg_iterations = solver.cg.iterations
-        solver.update_edges()
-        solver.finalize()
+    def _print_iteration(self, iteration: int, F: float, lam: float, rho: float, q: int,
+                         ms: float) -> None:
+        """The verbose line of one host-loop iteration."""
+        print(
+            f"iteration= {iteration};   time(ms): {ms:.4f}   "
+            f"chi2= {F:f};   lambda= {lam:f}   rho= {rho:f}\t   "
+            f"nedges= {self.solver.nedges()}    levenberg iterations = {q}   "
+            f"outliers = {sum(es.get_outlier_count() for es in self.edge_sets)}"
+        )
 
     # -- introspection -------------------------------------------------------------
 

@@ -54,8 +54,8 @@ back and added again on every replay.
 ``use_fused_loop = False`` runs the host loop, the oracle: the JAX
 distributed loop's semantics (``MAXQ`` trials, ``TAU``, the ``+1e-3``
 scale, the ``Fdiff < 1e-4`` bail, ``rho < 1e-6`` done, F carried from the
-accepted trial) with the one-card host loop's update rule
-(``optimizer.lm_update``, ``lm_done``), one small read on the host a trial.
+accepted trial) through the one card's host loop (``solver/host_loop.py
+HostLoop``, over the same steps), one small read on the host a trial.
 In either loop every rank takes the same branch because every value read
 comes from an all-reduce.
 
@@ -75,7 +75,6 @@ import torch
 import torch.distributed as dist
 
 from ..models.ba import MODEL_REGISTRY
-from ..optimizer import lm_done, lm_update
 from ..solver.block_solver import (
     MAX_BAND,
     EdgeSetMeta,
@@ -97,12 +96,12 @@ from ..solver.block_solver import (
     set_chi,
     solve_reduced,
 )
-from ..solver.fused import MAXQ, TAU, FusedLoop
+from ..solver.fused import FusedLoop
+from ..solver.host_loop import HostLoop
 from ..solver.ordering import plan_pose_order
 from ..solver.pcg import CgRunner
 from ..solver.symbolic import build_schur_structure, sort_triples
 from ..types import GraphArrays, PackedEdges, SystemBlocks
-from ..utils import profiling as prof
 
 # what shard_problem's pose_solver takes: the band rule of one card, the
 # band route forced, or PCG forced
@@ -291,7 +290,7 @@ class RankSolver:
     rank of ``group`` (None: the default group) makes one over the same
     :class:`ShardedProblem` and calls the same methods in the same order.
 
-    The steps the fused loop drives work on the rank's state ``graph`` and
+    The steps both LM loops drive work on the rank's state ``graph`` and
     the run's edge masks: :meth:`linearise` (the head, its all-reduced chi
     kept in ``head_chi``), :meth:`trial`, :meth:`accept`, with the hooks
     :meth:`start_chi`, :meth:`top_diagonal` and :attr:`capturable`.
@@ -421,23 +420,14 @@ class RankSolver:
         self.all_reduce(buf)
         return buf[0], sys._replace(Hpp=acc[:, :36].view(Pa, 6, 6), bp=acc[:, 36:])
 
-    def first_damping(self, chi: torch.Tensor, sys: SystemBlocks) -> tuple[float, float]:
-        """``(F, lam)`` of iteration 0: the chi2 and ``TAU`` times the
-        largest diagonal entry over every rank (one ``all_reduce(MAX)``),
-        read in one host read."""
-        m = self.all_reduce(max_diagonal(sys).reshape(1).clone(), dist.ReduceOp.MAX)
-        F, top = torch.cat([chi.reshape(1), m]).tolist()
-        return F, TAU * top
-
-    def linearise(self, marks=None) -> SystemBlocks:
+    def linearise(self) -> SystemBlocks:
         """The head at the rank's state: the system, with the total chi2
         kept in ``head_chi`` (0-d, on the device)."""
-        prof.mark(marks, "linearise")
         self.head_chi, sys = self.head(self.graph)
         return sys
 
     def start_chi(self) -> None:
-        """None: the fused loop takes its first F from iteration 0's head
+        """None: the LM loops take their first F from iteration 0's head
         (``head_chi``), which every rank all-reduces anyway."""
         return None
 
@@ -449,19 +439,17 @@ class RankSolver:
     def accept(self, new_graph: GraphArrays) -> None:
         self.graph = new_graph
 
-    def trial(self, sys: SystemBlocks, lam, marks=None):
+    def trial(self, sys: SystemBlocks, lam):
         """One damped trial at the rank's state: ``(new_graph, Fhat, scale,
         success)`` on the device, as ``BlockSolver.trial``.  The rank's B4, B5 (zero ``bp``)
         and B6, one all-reduce of ``-sum Hpl y`` with the negated pair
         products, ``bsc = bp + that`` and ``Hpp + lam I`` on the diagonal
         (the one-card ``schur_reduce``'s arithmetic); the replicated solve;
         the rank's B9, B10 and update; one all-reduce of the trial chi with
-        the landmark half of the scale.  ``marks``: the fused loop's stage
-        boundaries, as ``BlockSolver.trial`` takes them."""
+        the landmark half of the scale."""
         graph, packs = self.graph, self.run_packs
         lam = as_lam(lam, sys.bp)
         Pa, plan = self.Pa, self.plan
-        prof.mark(marks, "schur")
         invHll, part, pairs = schur_terms(sys, lam, plan, self.zero_bp)
         nnz, buf = pairs.shape[0], self.reduce_buf
         buf[: 6 * Pa].view(Pa, 6).copy_(part)
@@ -469,11 +457,8 @@ class RankSolver:
         self.all_reduce(buf)
         bsc = sys.bp + buf[: 6 * Pa].view(Pa, 6)
         blocks = damp_blocks(buf[6 * Pa:].view(nnz, 36), sys.Hpp, lam, plan)
-        prof.mark(marks, "solve")
         xp, success = solve_reduced(blocks, bsc, plan, self.cg)
-        prof.mark(marks, "back")
         xl = schur_back_substitute(sys, invHll, xp, plan)
-        prof.mark(marks, "update")
         new_graph = apply_update(graph, xp, xl)
         out = self.all_reduce(torch.stack(
             [compute_chi(new_graph, packs, self.metas), landmark_scale(xl, sys.bl, lam)]))
@@ -494,46 +479,15 @@ class RankSolver:
         self.graph = self.state(q, t, Xw)
         self.run_packs = self._packs(active)
         self.comm = dict(calls=0, bytes=0)
-        if self.use_fused_loop:
-            loop = FusedLoop(self, niterations)
-            trace = loop.run()
-            run = dict(loop.stats, fused=True, capture=loop.capture)
-        else:
-            trace, trials = self._optimize_host(niterations)
-            run = dict(trials=trials, reads=trials + 1 + self.cg.reads, fused=False,
-                       capture=False)
+        fused = self.use_fused_loop
+        loop = FusedLoop(self, niterations) if fused else HostLoop(self, niterations)
+        trace = loop.run()
+        run = dict(loop.stats, fused=fused, capture=fused and loop.capture)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats = dict(run, iterations=len(trace), seconds=time.perf_counter() - t_start,
                           all_reduce=dict(self.comm), cg_iterations=list(self.cg.iterations))
         return trace, self.graph
-
-    def _optimize_host(self, niterations: int) -> tuple[list, int]:
-        """The host loop: one read a trial and one at iteration 0.
-        Returns the trace and the trials."""
-        self.cg = CgRunner()
-        nu, lam, F = 2.0, 0.0, 0.0
-        trials = 0
-        trace = []
-        for it in range(niterations):
-            chi, sys = self.head(self.graph)
-            if it == 0:
-                F, lam = self.first_damping(chi, sys)
-            qq, rho = 0, -1.0
-            while qq < MAXQ and rho < 0:
-                new_graph, Fhat, scale, success = self.trial(sys, lam)
-                trials += 1
-                Fhat, scale, ok = torch.stack([Fhat, scale, success.to(self.dtype)]).tolist()
-                accept, stop, rho, lam, nu, qq = lm_update(F, Fhat, scale, ok > 0, lam, nu, qq)
-                if accept:
-                    F = Fhat
-                    self.accept(new_graph)
-                if stop:
-                    break
-            trace.append(F)
-            if lm_done(qq, rho, lam):
-                break
-        return trace, trials
 
     def update_edges(self, graph: GraphArrays, active) -> tuple[torch.Tensor, int]:
         """Outlier thresholding on the rank: the robustified per-edge chi2

@@ -133,10 +133,11 @@ _STRUCT_CACHE_MAX = 8
 _PLANS_PER_STRUCTURE = 4
 # plans reused (hits) and built (misses) by build_structure
 _STRUCT_STATS = {"hits": 0, "misses": 0}
-# fused loops one structure keeps for its next solves (``solver/fused.py``
-# ``loop_key``: an iteration count, with and without a profiler), the least
-# recently used going first; each holds its graphs, its system and a copy of
-# the edge data on the device
+# fused loops one structure keeps for its next solves, one a
+# ``solver/fused.py`` ``loop_key`` (two iteration counts, as local BA's
+# ``optimize(5)`` then ``optimize(10)``), the least recently used going
+# first; each holds its graphs, its system and a copy of the edge data on
+# the device
 _LOOPS_PER_STRUCTURE = 2
 # the edge tensors a kept loop holds copies of and takes each solve's values
 # into (:meth:`BlockSolver.load`); the index tensors are the structure's
@@ -900,6 +901,10 @@ class BlockSolver:
         # runs the PCG route's CG blocks: iterations of every solve and host
         # reads (the fused loop's capture takes its place while it captures)
         self.cg = _pcg.CgRunner()
+        # the stage timer of profile mode (``utils/profiling.py StageTimer``),
+        # set by the optimiser around a host-loop run alone: each stage is then
+        # timed and ends in a device synchronise
+        self.timer: Optional[prof.StageTimer] = None
         # outliers: each edge spec's threshold (a scalar, or per edge for a
         # merged set), its sizes before a merge, and the last update_edges'
         # deactivations per spec
@@ -1407,29 +1412,27 @@ class BlockSolver:
                 if getattr(dst, f) is not None:
                     getattr(dst, f).copy_(getattr(src, f))
 
-    # -- stage API used by the LM loop -----------------------------------------
+    # -- stage API used by the LM loops -----------------------------------------
     # With a ``timer`` (profile mode) each stage is timed and ends in a device
-    # synchronise; with ``marks`` (the fused loop's StageEvents, while it
-    # captures under a profiler) each device stage of utils/profiling.py
-    # DEVICE_STAGES is marked where it begins.  The arithmetic is the same
-    # either way.
+    # synchronise; the arithmetic is the same either way.
 
-    def _stage(self, timer, name: str):
-        if timer is None:
+    def _stage(self, name: str):
+        if self.timer is None:
             return contextlib.nullcontext()
-        return timer.stage(name, self.device)
+        return self.timer.stage(name, self.device)
 
     def chi(self, graph: GraphArrays) -> torch.Tensor:
         """Total chi2 of ``graph`` over every edge set."""
         return compute_chi(graph, self.packs, self.metas)
 
-    # the fused loop's hooks (solver/fused.py): the chi2 it starts from, the
-    # first damping's diagonal entry, whether its steps may be captured and
-    # the collectives it counts (none on one card)
+    # the LM loops' hooks (solver/fused.py, solver/host_loop.py): the chi2
+    # they start from, the first damping's diagonal entry, whether the steps
+    # may be captured and the collectives they count (none on one card)
     comm = None
 
     def start_chi(self) -> torch.Tensor:
-        return self.chi(self.graph)
+        with self._stage(prof.PROF_COMPUTE_ERROR):
+            return self.chi(self.graph)
 
     def top_diagonal(self, sys: SystemBlocks) -> torch.Tensor:
         return max_diagonal(sys)
@@ -1438,23 +1441,19 @@ class BlockSolver:
     def capturable(self) -> bool:
         return self.device.type == "cuda"
 
-    def linearise(self, marks=None) -> SystemBlocks:
+    def linearise(self) -> SystemBlocks:
         """The linearised system at the current state."""
-        prof.mark(marks, "linearise")
-        return build_system(self.graph, self.packs, self.metas, self.plan)
+        with self._stage(prof.PROF_BUILD_SYSTEM):
+            return build_system(self.graph, self.packs, self.metas, self.plan)
 
-    def head(self, timer=None):
+    def head(self):
         """Chi2 and the linearised system at the current state."""
-        with self._stage(timer, prof.PROF_COMPUTE_ERROR):
-            chi = self.chi(self.graph)
-        with self._stage(timer, prof.PROF_BUILD_SYSTEM):
-            sys = self.linearise()
-        return chi, sys
+        return self.start_chi(), self.linearise()
 
     def max_diagonal(self, sys: SystemBlocks) -> float:
         return float(max_diagonal(sys))
 
-    def trial(self, sys: SystemBlocks, lam, timer=None, marks=None):
+    def trial(self, sys: SystemBlocks, lam):
         """One damped trial: ``(new_graph, Fhat, scale, success)`` in the
         order of the JAX package's trial stage, all on the device.  ``lam``:
         the host loop's Python float or the fused loop's 0-d device tensor
@@ -1462,24 +1461,19 @@ class BlockSolver:
         pose-only solve takes the place of the Schur stages."""
         lam = as_lam(lam, sys.bp)
         if self.plan.route == "pose_only":
-            prof.mark(marks, "solve")
-            with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):
+            with self._stage(prof.PROF_NUMERICAL_DECOMP):
                 xp, success = solve_pose_only(sys, lam)
             xl = None
         else:
-            prof.mark(marks, "schur")
-            with self._stage(timer, prof.PROF_SCHUR_COMPLEMENT):
+            with self._stage(prof.PROF_SCHUR_COMPLEMENT):
                 blocks, bsc, invHll = schur_reduce(sys, lam, self.plan)
-            prof.mark(marks, "solve")
-            with self._stage(timer, prof.PROF_NUMERICAL_DECOMP):
+            with self._stage(prof.PROF_NUMERICAL_DECOMP):
                 xp, success = solve_reduced(blocks, bsc, self.plan, self.cg)
-        with self._stage(timer, prof.PROF_UPDATE):
+        with self._stage(prof.PROF_UPDATE):
             if self.plan.route != "pose_only":
-                prof.mark(marks, "back")
                 xl = schur_back_substitute(sys, invHll, xp, self.plan)
-            prof.mark(marks, "update")
             new_graph = apply_update(self.graph, xp, xl)
-        with self._stage(timer, prof.PROF_COMPUTE_ERROR):
+        with self._stage(prof.PROF_COMPUTE_ERROR):
             Fhat = self.chi(new_graph)
         scale = compute_scale(xp, xl, sys, lam)
         return new_graph, Fhat, scale, success

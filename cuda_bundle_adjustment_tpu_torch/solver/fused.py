@@ -1,13 +1,12 @@
 """The device-resident LM loop (counterpart of ``solver/fused.py``).
 
-The host loop (``optimizer.py _optimize_host``) reads chi2 at the head of
-every iteration and Fhat, the scale and the solve's verdict after every
-trial, and makes every one of a trial's ~800 launches from Python.  Here
-the LM state lives on the solver's device as 0-d tensors -- lambda, nu, F
-and the chi2 trace in the working type (f64, or f32 in f32 mode, as in the
-JAX package's fused loop), the trial count and the iteration counter in
-int32 -- and each step is made of pieces, each a function of those tensors
-alone (:data:`STEPS`):
+The host loop (``solver/host_loop.py``) reads Fhat, the scale and the
+solve's verdict after every trial, and makes every one of a trial's ~800
+launches from Python.  Here the LM state lives on the solver's device as
+0-d tensors -- lambda, nu, F and the chi2 trace in the working type (f64,
+or f32 in f32 mode, as in the JAX package's fused loop), the trial count
+and the iteration counter in int32 -- and each step is made of pieces,
+each a function of those tensors alone (:data:`STEPS`):
 
 * ``linearise``: the linearisation (``build_system`` only: F is carried
   from the accepted trial, as in the JAX package, so the head runs no chi
@@ -63,17 +62,12 @@ loop.  On the CPU the same pieces run eagerly and nothing is captured.
 The loop's host time is kept in spans (``utils/profiling.py``):
 ``loop/eager``, ``loop/capture`` and ``loop/replay``, a kept loop's copies
 in and out in ``loop/bind``, each step's flag read and the trace read in
-``loop/read``.  A piece captured while a torch profiler is running also
-holds a timing event at each of its device stages' boundaries
-(``profiling.StageEvents``, an event-record node each), and every replay
-adds each stage's device time to ``stats["stage_ms"]``; captured without a
-profiler, a piece's graphs are what they would be without this.
+``loop/read``.
 
-The loop drives any solver with this step interface: ``graph``,
-``device``, ``dtype``, ``cg``, ``accept``, ``linearise``, ``trial(sys,
-lam)`` on its own graph (each with a stage recorder ``marks=`` while a
-piece is captured under a profiler), and what differs between one
-card and a rank of the distributed path (``parallel/distributed.py RankSolver``):
+The loop drives any solver with this step interface (as the host loop
+does): ``graph``, ``device``, ``dtype``, ``cg``, ``accept``,
+``linearise``, ``trial(sys, lam)`` on its own graph, and what differs
+between one card and a rank of the distributed path (``parallel/distributed.py RankSolver``):
 ``start_chi()`` (the chi2 the loop starts from, or None where iteration 0's
 linearisation gives it, as a rank's all-reduced head does: then the
 solver's ``head_chi``), ``top_diagonal(sys)`` (the largest diagonal entry
@@ -96,7 +90,7 @@ iterations): ``MAXQ`` trials at most, accept on ``rho > 0`` with
 ``lam *= clamp(1 - (2 rho - 1)^3, 1/3, 2/3)`` and ``nu = 2``, reject with
 ``lam *= nu`` and ``nu *= 2``, bail on a non-finite lambda or ``Fhat - F <
 1e-4``, stop on ``q == MAXQ``, ``rho < RHO_DONE`` or a non-finite lambda.
-The float rule of the host loop (``optimizer.py lm_update``) and
+The float rule of the host loop (``host_loop.lm_update``) and
 :func:`lm_update` here agree bit for bit at f64, so the two loops' traces
 do.  In f32 the constants stay weak (a Python float times an f32 tensor is
 f32), so the LM state stays f32 as in the JAX package's fused loop, while
@@ -115,7 +109,7 @@ from . import pcg
 
 MAXQ = 10  # inner trials at most
 TAU = 1e-5  # initial lambda factor
-# outer-termination rho threshold; the host loop (optimizer.py) imports these
+# outer-termination rho threshold; the host loop (host_loop.py) imports these
 # three constants from here, so the two loops cannot drift
 RHO_DONE = 1e-6
 
@@ -181,10 +175,9 @@ def loop_key(solver, niterations: int) -> tuple:
     """What a kept loop's graphs read by value, beyond its structure: the
     solver's (``BlockSolver.loop_layout``: the plan knobs, the edge sets'
     kinds, robust kernels and their parameters, the edge tensors' shapes),
-    the iterations (the length of the trace), whether stage events are
-    captured (a running profiler) and the LM constants.  A kept loop serves
-    a later solver of its structure only under the same key."""
-    return (solver.loop_layout(), int(niterations), prof.profiling(), TAU, MAXQ, RHO_DONE)
+    the iterations (the length of the trace) and the LM constants.  A kept
+    loop serves a later solver of its structure only under the same key."""
+    return (solver.loop_layout(), int(niterations), TAU, MAXQ, RHO_DONE)
 
 
 class FusedLoop:
@@ -195,11 +188,9 @@ class FusedLoop:
     kept loop (``reused``: 1 or 0), and the host-clock ms (the readings of
     :attr:`spans`) of the eager steps with a kept loop's copies in and out
     (``eager_ms``), the captures and the replays (each ending in its trial's
-    flag read) and of the host's waits in its reads (``read_wait_ms``), the
-    device ms of each stage over the replays of pieces captured under a
-    profiler (``stage_ms``, by ``profiling.DEVICE_STAGES`` key; empty
-    without), and on the PCG route the CG iterations of every trial and the
-    reads of their blocks (counted in the host reads).  ``graphs`` holds the
+    flag read) and of the host's waits in its reads (``read_wait_ms``), and
+    on the PCG route the CG iterations of every trial and the reads of
+    their blocks (counted in the host reads).  ``graphs`` holds the
     captured graphs of each step by name, in replay order
     (``keep_graph=True``: their nodes can be inspected) until the loop is
     dropped.
@@ -241,11 +232,6 @@ class FusedLoop:
         # each captured step's graphs, its pieces' in order
         self._pieces: dict[str, list[tuple]] = {}
         self._parts: dict[str, list[tuple]] = {}
-        # the stage events of each piece captured under a profiler, and of
-        # each step made of such pieces; the piece being captured's while it is
-        self._piece_events: dict[str, prof.StageEvents] = {}
-        self._events: dict[str, prof.StageEvents] = {}
-        self._marks = None
         self._new_run(reused=False)
 
     def _new_run(self, reused: bool) -> None:
@@ -255,7 +241,7 @@ class FusedLoop:
         self.solver.cg = pcg.CgRunner()
         self.stats = dict(trials=0, reads=0, captures=0, replays=0, reused=int(reused),
                           eager_ms=0.0, capture_ms=0.0, replay_ms=0.0, read_wait_ms=0.0,
-                          stage_ms={}, cg_iterations=self.solver.cg.iterations, cg_reads=0)
+                          cg_iterations=self.solver.cg.iterations, cg_reads=0)
 
     def bind(self, solver) -> None:
         """Make the next run of this kept loop solve ``solver``'s graph:
@@ -280,7 +266,7 @@ class FusedLoop:
     # -- the pieces of the steps ----------------------------------------------------
 
     def linearise(self) -> None:
-        self.sys = self.solver.linearise(**self._marked())
+        self.sys = self.solver.linearise()
 
     def damp(self) -> None:
         """Iteration 0's F and first lambda: F the chi2 the solver starts
@@ -299,7 +285,7 @@ class FusedLoop:
 
     def _trial(self, lam, q) -> None:
         s = self.solver
-        new, Fhat, scale, success = s.trial(self.sys, lam, **self._marked())
+        new, Fhat, scale, success = s.trial(self.sys, lam)
         accept, F, lam, nu, _, q, more, done = lm_update(
             self.F, Fhat, scale, success, lam, self.nu, q)
         for dst, cand in zip(s.graph, new):
@@ -311,14 +297,6 @@ class FusedLoop:
         self.trace.copy_(torch.where(self._iota == self.it, F, self.trace))
         self.it.add_((~more).to(torch.int32))
         self.flags.copy_(torch.stack([more, done]))
-        if self._marks is not None:
-            self._marks.end()
-
-    def _marked(self) -> dict:
-        """The stage boundaries' recorder for ``linearise`` and ``trial``
-        (``marks=``) while a piece is captured under a profiler; else no
-        argument."""
-        return {} if self._marks is None else {"marks": self._marks}
 
     # -- host side ----------------------------------------------------------------
 
@@ -381,11 +359,7 @@ class FusedLoop:
                     self.solver.cg(graph.replay, status)
                 self._add_counts(delta)
             self.stats["replays"] += 1
-            flags = self._read()
-        events = self._events.get(name)
-        if events is not None:  # the read has synchronised: the events are done
-            events.add_to(self.stats["stage_ms"])
-        return flags
+            return self._read()
 
     def _read(self) -> list[bool]:
         """The two flags on the host: through pinned memory on the card."""
@@ -420,17 +394,12 @@ class FusedLoop:
         trial becomes the graphs ``(graph, counts, None)`` and ``(block,
         counts, status)`` in replay order.  Capture launches nothing, so the
         launch and collective counts it moved are taken back and kept per
-        graph for every replay.  Under a running profiler the pieces' stage
-        boundaries are captured too (:class:`profiling.StageEvents`), and a
-        step's events are its pieces' in order.  A failure raises (after the
-        capture is ended, so the stream is usable)."""
+        graph for every replay.  A failure raises (after the capture is
+        ended, so the stream is usable)."""
         with self.spans.span("loop/capture"):
             self._pieces.update(
                 self._capture_pieces([p for p in STEPS[name] if p not in self._pieces]))
         parts = self._parts[name] = [part for p in STEPS[name] for part in self._pieces[p]]
-        events = [self._piece_events[p] for p in STEPS[name] if p in self._piece_events]
-        if events:
-            self._events[name] = prof.StageEvents([m for e in events for m in e.marks])
         self.stats["captures"] += 1
         return parts
 
@@ -466,13 +435,10 @@ class FusedLoop:
 
         stream.wait_stream(torch.cuda.current_stream(dev))
         runner, self.solver.cg = self.solver.cg, split
-        profiled = prof.profiling()
         with torch.cuda.stream(stream):
             try:
                 for piece in pieces:
                     parts = captured[piece] = []
-                    if profiled:
-                        self._marks = self._piece_events[piece] = prof.StageEvents()
                     begin()
                     getattr(self, piece)()
                     end()
@@ -490,7 +456,6 @@ class FusedLoop:
                 raise
             finally:
                 self.solver.cg = runner
-                self._marks = None
         for piece_parts in captured.values():
             for g, _, _ in piece_parts:
                 g.instantiate()

@@ -12,15 +12,7 @@ only while a torch profiler is running does it also open
 ``record_function("ba/" + name)``, so that the trace names what the host
 does beside the device's work.  No profiler, no ``record_function``: one
 costs microseconds even with nothing recording, the check a tenth of one.
-
-Inside the fused loop's captured graphs the device time of each stage of a
-trial is counted by :class:`StageEvents`: while a profiler is running, a
-timing event is captured at every stage boundary (an event-record node of
-the graph, placed by :func:`mark`) and read after each replay; without a
-profiler the graphs hold no such node.  Each event times the device's wall
-clock between two boundaries, so a tracer that adds gaps between kernels
-(CUPTI's activity tracing) adds them to the stages too.  Each
-``optimize()`` leaves its span readings and the fused loop's scalar
+Each ``optimize()`` leaves its span readings and the fused loop's scalar
 counters in :func:`solve_history`, for a caller that does not keep the
 optimiser.
 """
@@ -55,12 +47,6 @@ ALL_STAGES = [
     PROF_UPDATE,
     PROF_SOLVE_HPP,
 ]
-
-# the device stages of one LM step, in order: the linearisation, the Schur
-# reduce, the reduced solve, the back-substitution, and the update (the SE3
-# update, the trial chi2, the gain ratio's scale, the LM update and the
-# state selects, up to the step's flag write)
-DEVICE_STAGES = ("linearise", "schur", "solve", "back", "update")
 
 # a span's name in a profiler trace: this prefix and its own name
 SPAN_PREFIX = "ba/"
@@ -127,40 +113,6 @@ class Span:
         if self._rf is not None:
             self._rf.__exit__(*exc)
         return False
-
-
-class StageEvents:
-    """The device stages' boundaries in one captured step of the fused loop:
-    a timing event recorded where each stage begins (:meth:`mark`) and where
-    the step ends (:meth:`end`).  Recorded while a CUDA graph captures, each
-    becomes an event-record node of the graph (``external=True``), so each
-    replay times every stage on the device.  ``marks``: boundaries recorded
-    before, for the events of a step made of several captured pieces."""
-
-    def __init__(self, marks=()):
-        self.marks: list[tuple[Optional[str], torch.cuda.Event]] = list(marks)
-
-    def mark(self, key: Optional[str]) -> None:
-        """The stage ``key`` (one of :data:`DEVICE_STAGES`) begins here."""
-        event = torch.cuda.Event(enable_timing=True, external=True)
-        event.record()
-        self.marks.append((key, event))
-
-    def end(self) -> None:
-        self.mark(None)
-
-    def add_to(self, ms: dict) -> None:
-        """Add each stage's device ms, from its event to the next, into
-        ``ms``; the events must have completed (a replay read after)."""
-        for (key, a), (_, b) in zip(self.marks, self.marks[1:]):
-            ms[key] = ms.get(key, 0.0) + a.elapsed_time(b)
-
-
-def mark(marks: Optional[StageEvents], key: str) -> None:
-    """Where a step's recorder is given (a capture under a profiler), the
-    device stage ``key`` begins here; else nothing."""
-    if marks is not None:
-        marks.mark(key)
 
 
 # the span readings and the fused loop's scalar counters of the newest

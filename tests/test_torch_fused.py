@@ -30,7 +30,7 @@ from cuda_bundle_adjustment_tpu_torch.io.synthetic import (
     make_mixed_ba_problem,
 )
 from cuda_bundle_adjustment_tpu_torch.solver import block_solver as bs
-from cuda_bundle_adjustment_tpu_torch.solver import fused
+from cuda_bundle_adjustment_tpu_torch.solver import fused, host_loop
 from cuda_bundle_adjustment_tpu_torch.solver.block_solver import BlockSolver
 from cuda_bundle_adjustment_tpu_torch.utils import profiling as prof
 
@@ -147,11 +147,11 @@ def test_fused_carry_invariant_under_rejections(monkeypatch):
                               kind="mono", seed=91, noise_px=1.0, landmark_noise=0.3,
                               pose_noise=0.05, num_fixed_poses=2)
     monkeypatch.setattr(fused, "RHO_DONE", -2.0)
-    monkeypatch.setattr(topt, "RHO_DONE", -2.0)
+    monkeypatch.setattr(host_loop, "RHO_DONE", -2.0)
     real_trial = BlockSolver.trial
 
-    def failing_trial(self, sys, lam, timer=None):
-        new_graph, Fhat, scale, success = real_trial(self, sys, lam, timer)
+    def failing_trial(self, sys, lam):
+        new_graph, Fhat, scale, success = real_trial(self, sys, lam)
         return new_graph, Fhat, scale, success & (lam > 1000.0)
 
     monkeypatch.setattr(BlockSolver, "trial", failing_trial)
@@ -172,7 +172,7 @@ def test_retry_trials_equal_the_host_loop():
                               seed=7, pose_noise=0.05, landmark_noise=0.3)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fused, "TAU", 1e-12)
-        mp.setattr(topt, "TAU", 1e-12)
+        mp.setattr(host_loop, "TAU", 1e-12)
         tf, of = _run(problem, True)
         th, oh = _run(problem, False)
     assert tf == th and _same_state(of, oh)
@@ -198,7 +198,7 @@ def _lm_grid():
 
 def test_device_lm_update_equals_the_host_float_rule():
     """``solver/fused.py lm_update`` on f64 device scalars against
-    ``optimizer.py lm_update`` / ``lm_done`` in Python floats, bit for bit
+    ``solver/host_loop.py lm_update`` / ``lm_done`` in Python floats, bit for bit
     at every point of the grid (NaN where the host has NaN)."""
     rows = _lm_grid()
     cols = list(zip(*rows))
@@ -213,10 +213,10 @@ def test_device_lm_update_equals_the_host_float_rule():
 
     moved = set()
     for i, (F0, Fhat, scale, success, lam0, nu0, q0) in enumerate(rows):
-        h_acc, h_stop, h_rho, h_lam, h_nu, h_q = topt.lm_update(
+        h_acc, h_stop, h_rho, h_lam, h_nu, h_q = host_loop.lm_update(
             F0, Fhat, scale, success, lam0, nu0, q0)
         h_more = not h_stop and h_q < fused.MAXQ and h_rho < 0
-        h_done = topt.lm_done(h_q, h_rho, h_lam)
+        h_done = host_loop.lm_done(h_q, h_rho, h_lam)
         got = (bool(accept[i]), F[i].item(), lam[i].item(), nu[i].item(), rho[i].item(),
                int(q[i]), bool(more[i]), bool(done[i]))
         want = (h_acc, Fhat if h_acc else F0, h_lam, h_nu, h_rho, h_q, h_more, h_done)
@@ -280,6 +280,22 @@ def test_a_structure_keeps_its_loop_at_its_first_hit_and_replays_it_from_the_sec
     sp, ls = opt.span_profile(), opt.loop_stats
     assert sp["loop/bind"] > 0 and ls["eager_ms"] == sp["loop/eager"] + sp["loop/bind"]
     assert ls["captures"] == ls["replays"] == 0
+
+
+def test_a_profiled_solve_replays_the_loop_its_structure_kept():
+    """A solve under a running torch profiler replays the loop that the
+    unprofiled solves of its structure kept (the profiler is no part of a
+    kept loop's key), and its trace and final state are an unprofiled
+    replay's bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    problem = make_ba_problem(num_poses=8, num_landmarks=40, seed=5)
+    runs = [_run(problem, True, 4) for _ in range(3)]  # a miss, the keeping hit, a replay
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = _run(problem, True, 4)
+    assert [o.loop_stats["reused"] for _, o in runs] == [0, 0, 1]
+    assert traced[1].loop_stats["reused"] == 1 and traced[1].loop_stats["captures"] == 0
+    assert traced[0] == runs[2][0] and _same_state(traced[1], runs[2][1])
 
 
 def test_no_loop_is_reused_across_iterations_knobs_robust_kernels_or_weight_layouts():
