@@ -77,6 +77,14 @@ class TorchGraphOptimisation:
     def device(self) -> torch.device:
         return self.solver.device
 
+    @property
+    def pack_stats(self) -> Optional[dict]:
+        """The last packing's counters (``BlockSolver.pack_stats``): the
+        staging block's ``bytes``, its host-to-device ``copies`` (1 on a
+        card, 0 on the CPU) and ``pinned_new`` (1 where the pack had to
+        allocate a new pinned block); None before a packing."""
+        return self.solver.pack_stats
+
     def add_vertex_set(self, vset: VertexSet) -> None:
         self.vertex_sets.append(vset)
 
@@ -128,7 +136,7 @@ class TorchGraphOptimisation:
             self.stats.add_stat(BatchInfo(it, chi2))
         solver.update_edges()
         solver.finalize()
-        prof.record_solve(solver.spans, self.loop_stats if fused else None)
+        prof.record_solve(solver.spans, self.loop_stats if fused else None, solver.pack_stats)
 
     def _optimize_fused(self, niterations: int) -> list[float]:
         solver = self.solver

@@ -79,7 +79,6 @@ from ..solver.block_solver import (
     MAX_BAND,
     EdgeSetMeta,
     _merge_ba_specs,
-    _uniform_rows,
     apply_update,
     as_lam,
     band_meta,
@@ -163,6 +162,16 @@ class ShardedProblem(NamedTuple):
     @property
     def tris_per_shard(self) -> tuple:
         return tuple(int(s.tri_ei.shape[0]) for s in self.shards)
+
+
+def _uniform_rows(parts: Sequence[np.ndarray], sizes: Sequence[int]) -> np.ndarray:
+    """The rows of several sets' ``[1 or E, K]`` arrays as one array: one
+    row where every edge has the same, else a row an edge."""
+    if all(p.shape[0] == 1 for p in parts) and all(
+            np.array_equal(p, parts[0]) for p in parts[1:]):
+        return parts[0]
+    rows = np.concatenate([np.broadcast_to(p, (E, p.shape[1])) for p, E in zip(parts, sizes)])
+    return rows[:1] if rows.shape[0] and np.all(rows == rows[0]) else rows
 
 
 def _edge_spec(problem) -> dict:

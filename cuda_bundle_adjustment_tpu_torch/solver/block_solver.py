@@ -96,6 +96,7 @@ from ..types import KIND_CODES, GraphArrays, PackedEdges, SystemBlocks
 from ..utils import profiling as prof
 from . import pcg as _pcg
 from .segments import Segments, make_segments, segment_sum
+from .staging import FLOATS, INTS, Slot, Staging, own
 from .symbolic import SchurStructure, build_schur_structure, sort_triples
 
 # widest band the band kernels take (bw + 1 <= MAX_BAND); a wider Hsc takes
@@ -181,16 +182,18 @@ def _struct_bundle(key: str) -> dict:
 
 def _struct_digest(edge_specs, P, Pa, L, La) -> str:
     """Content digest of everything the host symbolic pipeline reads: the
-    vertex counts and each edge set's kind, bounds and index arrays (two
-    graphs whose sets split the same edges otherwise do not share it).  An
-    array is hashed as it comes, its dtype and shape with it (no int64 copy:
-    half the bytes for int32 indices), by SHA-256, which the host CPU
-    accelerates."""
+    vertex counts and each edge set's kind and index arrays as the caller
+    gave them (two graphs whose sets split the same edges otherwise do not
+    share it).  An array is hashed as it comes, its dtype and shape with it
+    (no int64 copy: half the bytes for int32 indices), by SHA-256, which the
+    host CPU accelerates; a set without ``lm_idx`` hashes a marker."""
     h = hashlib.sha256(np.array([P, Pa, L, La], dtype=np.int64).tobytes())
     for sp in edge_specs:
-        # a set's bounds are its arrays' shapes; a merged set's its sizes
-        h.update(f"|{sp['kind']}|{sp.get('merged_sizes')}".encode())
+        h.update(f"|{sp['kind']}|".encode())
         for key in ("pose_idx", "lm_idx"):
+            if sp.get(key) is None:
+                h.update(b"|-|")
+                continue
             a = np.ascontiguousarray(sp[key])
             h.update(f"|{a.dtype.str}{a.shape}|".encode())
             h.update(a)
@@ -401,34 +404,36 @@ def pack_kind(kinds: Sequence[str]) -> str:
     return "stereo" if kinds <= {"mono", "stereo"} else "mixed"
 
 
-def _uniform_rows(parts: Sequence[np.ndarray], sizes: Sequence[int]) -> np.ndarray:
-    """The rows of several sets' ``[1 or E, K]`` arrays as one array: one
-    row where every edge has the same, else a row an edge."""
-    if all(p.shape[0] == 1 for p in parts) and all(
-            np.array_equal(p, parts[0]) for p in parts[1:]):
-        return parts[0]
-    rows = np.concatenate([np.broadcast_to(p, (E, p.shape[1])) for p, E in zip(parts, sizes)])
-    return rows[:1] if rows.shape[0] and np.all(rows == rows[0]) else rows
+def _merges(edge_specs) -> bool:
+    """Whether the edge sets merge into one masked stereo set: two or more
+    mono and stereo sets under one robust kernel.  The mono residual and
+    Jacobian are the stereo model's rows 0-1, so a per-edge third-component
+    mask (``PackedEdges.mask3``) makes one stereo set equivalent to running
+    both sets.  Sets under differing robust kernels stay sets of their own."""
+    return (
+        len(edge_specs) >= 2
+        and all(s["kind"] in ("mono", "stereo") for s in edge_specs)
+        and len({(s.get("rk", 0), s.get("delta", 1.0)) for s in edge_specs}) == 1
+    )
+
+
+def _merged_threshold(edge_specs, sizes) -> Optional[np.ndarray]:
+    """The outlier threshold of merged sets: each set's, an edge, where some
+    set has one above 0; else None."""
+    thr = [np.asarray(s.get("outlier_threshold", 0.0), dtype=np.float64) for s in edge_specs]
+    if not any(np.any(t > 0) for t in thr):
+        return None
+    return np.concatenate([np.broadcast_to(t, (E,)) for t, E in zip(thr, sizes)])
 
 
 def _merge_ba_specs(edge_specs):
-    """Merge mono+stereo edge specs into one masked stereo spec.
-
-    The mono residual and Jacobian are the stereo model's rows 0-1, so a
-    per-edge third-component mask (``PackedEdges.mask3``) makes one stereo
-    set equivalent to running both sets.  Specs with differing robust
-    kernels stay unmerged.
-    """
-    kinds = [s["kind"] for s in edge_specs]
-    if (
-        len(edge_specs) < 2
-        or not all(k in ("mono", "stereo") for k in kinds)
-        or len({(s.get("rk", 0), s.get("delta", 1.0)) for s in edge_specs}) != 1
-    ):
+    """Mono+stereo edge specs merged into one masked stereo spec where they
+    merge (:func:`_merges`), as host arrays (the distributed path's
+    packing; the one-card solver merges on the device)."""
+    if not _merges(edge_specs):
         return edge_specs
 
     meas_p, mask_p, omega_p, cam_p, pi_p, li_p, act_p = [], [], [], [], [], [], []
-    thr = []
     for s in edge_specs:
         meas = np.asarray(s["meas"], dtype=np.float64)
         E = meas.shape[0]
@@ -445,10 +450,8 @@ def _merge_ba_specs(edge_specs):
         li_p.append(np.asarray(s["lm_idx"]))
         act = s.get("active")
         act_p.append(np.ones(E) if act is None else np.asarray(act, dtype=np.float64))
-        t = s.get("outlier_threshold", 0.0)
-        thr.append((np.asarray(t, dtype=np.float64), E))
     # uniform omega / camera stay one row
-    sizes = tuple(E for _, E in thr)
+    sizes = tuple(m.shape[0] for m in meas_p)
     if all(o.size == 1 for o in omega_p) and all(
         np.array_equal(o, omega_p[0]) for o in omega_p[1:]
     ):
@@ -473,12 +476,51 @@ def _merge_ba_specs(edge_specs):
         mask3=np.concatenate(mask_p),
         active=np.concatenate(act_p),
     )
-    if any(np.any(t > 0) for t, _ in thr):
-        merged["outlier_threshold"] = np.concatenate(
-            [np.broadcast_to(t, (E,)) for t, E in thr]
-        )
+    thr = _merged_threshold(edge_specs, sizes)
+    if thr is not None:
+        merged["outlier_threshold"] = thr
     merged["merged_sizes"] = sizes  # the un-merge map of update_edges
     return [merged]
+
+
+class _StagedSet(NamedTuple):
+    """One caller edge set as :meth:`BlockSolver._stage_set` staged it: its
+    kind, edges and measurement rows, and a slot of the staging block for
+    each array.  ``omega`` and ``cam`` hold one row where ``rows`` has it
+    (every edge's is the same); ``one``: whether each came as one row;
+    ``lm_idx`` None: landmark 0 for every edge; ``active`` None: every
+    edge ``on``; ``nedges``: its active edges."""
+
+    kind: str
+    E: int
+    K: int
+    meas: Slot
+    pose_idx: Slot
+    lm_idx: Optional[Slot]
+    omega: Slot
+    cam: Slot
+    rows: tuple  # (omega's one row or None, cam's one row or None), on the host
+    one: tuple
+    active: Optional[Slot]
+    on: bool
+    nedges: int
+
+
+def _pack_row(sets: Sequence[_StagedSet], which: int) -> Optional[_StagedSet]:
+    """The set whose one row of weight (``which`` 0) or camera (1) is the
+    whole pack's, where every edge of the pack has the same, else None: the
+    first set's where every set's came as one row and they are equal, else
+    the first set with edges' where every set with edges has one row and
+    they are equal (the sets' rows stacked and compared with ``==``)."""
+    def same(group):
+        r0 = group[0].rows[which]
+        return r0 is not None and all(
+            s.rows[which] is not None and np.array_equal(s.rows[which], r0) for s in group[1:])
+
+    if all(s.one[which] for s in sets) and same(sets):
+        return sets[0]
+    live = [s for s in sets if s.E]
+    return live[0] if live and same(live) else None
 
 
 # ---------------------------------------------------------------------------
@@ -892,8 +934,12 @@ class BlockSolver:
         # host-clock ms of packing, the structure pass and the loop by span
         # name (utils/profiling.py), from the last packing on
         self.spans = prof.Spans()
-        # each set's (pose_idx, lm_idx) as packed, on the host
-        self._host_idx: list[tuple[np.ndarray, np.ndarray]] = []
+        # each pack's (pose_idx, lm_idx) as packed, read back on the host
+        # where first asked for (:attr:`_host_idx`)
+        self._host_idx_read: Optional[list] = None
+        # the last packing's staging block: its bytes, host-to-device copies
+        # and whether it was a new pinned allocation (``Staging.stats``)
+        self.pack_stats: Optional[dict] = None
         self._struct_bundle: Optional[dict] = None  # this structure's cache entry
         self._digest: Optional[str] = None  # its key
         # whether the last build_structure() found its plan in the cache
@@ -1093,23 +1139,30 @@ class BlockSolver:
         pose-only ICP kind, ``"line"`` or ``"plane"`` (``lm_idx`` may be
         left out).  Vertices are active-first: the first ``num_active_*``
         rows are free, the rest fixed.  A mono and a stereo set under one
-        robust kernel merge into one masked stereo set
-        (:func:`_merge_ba_specs`); the sets with landmarks are packed as one
-        (:meth:`_pack`), each ICP set on its own, in the order given, and
-        edges in the order given.  An object graph packed before is
-        forgotten: ``finalize`` writes nothing back.  The spans start anew
-        (:attr:`spans`): ``pack/arrays`` (the host arrays), ``pack/upload``
-        (their copies to the device), and the structure layer's
-        ``structure/digest`` and ``structure/order`` (the RCM order, on a
-        cache miss), which run here."""
+        robust kernel merge into one masked stereo set (:func:`_merges`);
+        the sets with landmarks are packed as one (:meth:`_pack`), each ICP
+        set on its own, in the order given, and edges in the order given.
+        An object graph packed before is forgotten: ``finalize`` writes
+        nothing back.
+
+        The host checks each set and copies each array once, in its own
+        dtype, into one staging block (``solver/staging.py``), which goes
+        to the device in one copy; the merge, the padding, the RCM
+        renaming, the masks and the casts to the working type run there.
+        The caller's arrays are not read after this returns.  The spans
+        start anew (:attr:`spans`): ``pack/arrays`` (the host's checks and
+        its copies into the block), ``pack/upload`` (the block's copy and
+        the pack on the device, up to its last enqueue), and the structure
+        layer's ``structure/digest`` and ``structure/order`` (the RCM
+        order, on a cache miss), which run here.  :attr:`pack_stats`: the
+        block's bytes, its host-to-device copies and whether it was a new
+        pinned allocation."""
         spans = self.spans
         spans.clear()
         self._pose_sets, self._lm_sets, self._edge_sets = [], [], []
+        self._host_idx_read = None
+        staging = Staging(self.device)
         with spans.span("pack/arrays"):
-            edge_specs = [
-                dict(s, lm_idx=s.get("lm_idx", np.zeros(np.asarray(s["meas"]).shape[0], np.int64)))
-                for s in _merge_ba_specs(edge_specs)
-            ]
             if not edge_specs:
                 raise ValueError("the graph has no edges")
             for spec in edge_specs:
@@ -1117,15 +1170,28 @@ class BlockSolver:
                     raise ValueError(f"unknown edge kind {spec['kind']!r} (one of {SET_KINDS})")
                 if int(spec.get("rk", 0)) not in tuple(RobustKernelType):
                     raise ValueError(f"unknown robust kernel rk={spec.get('rk')}")
-            has_lm = [MODEL_REGISTRY[sp["kind"]].HAS_LANDMARK for sp in edge_specs]
-
             self.P = pose_q.shape[0]
             self.Pa = int(num_active_poses)
             self.L = landmarks.shape[0]
             self.La = int(num_active_landmarks)
-            pose_q = np.asarray(pose_q, dtype=np.float64)
-            pose_t = np.asarray(pose_t, dtype=np.float64)
-            landmarks = np.asarray(landmarks, dtype=np.float64).reshape(-1, 3)
+            sets = [self._stage_set(staging, spec) for spec in edge_specs]
+            state = [staging.add(own(a, FLOATS, np.float64)) for a in (pose_q, pose_t)]
+            state.append(staging.add(own(landmarks, FLOATS, np.float64).reshape(-1, 3)))
+            # the logical sets, (kind, rk, delta, their staged sets): merged
+            # mono and stereo sets are one
+            if _merges(edge_specs):
+                s0 = edge_specs[0]
+                logical = [("stereo", int(s0.get("rk", 0)), float(s0.get("delta", 1.0)), sets)]
+                sizes = tuple(s.E for s in sets)
+                thr = _merged_threshold(edge_specs, sizes)
+                self._spec_thresholds = [0.0 if thr is None else thr]
+                self._merged_sizes = [sizes]
+            else:
+                logical = [(sp["kind"], int(sp.get("rk", 0)), float(sp.get("delta", 1.0)), [s])
+                           for sp, s in zip(edge_specs, sets)]
+                self._spec_thresholds = [sp.get("outlier_threshold", 0.0) for sp in edge_specs]
+                self._merged_sizes = [None] * len(edge_specs)
+            has_lm = [MODEL_REGISTRY[kind].HAS_LANDMARK for kind, *_ in logical]
 
         # the structure's cache entry, keyed on the index arrays as given
         with spans.span("structure/digest"):
@@ -1146,21 +1212,16 @@ class BlockSolver:
                         np.concatenate([np.asarray(sp["lm_idx"], np.int64) for sp in edge_specs]),
                         self.Pa, self.La)[0])
             self.pose_perm = perm = bundle["pose_perm"]
-        new_of_old = None
-        if perm is not None:  # perm[i] = old pose at new position i
-            with spans.span("pack/arrays"):
-                new_of_old = np.empty(self.Pa, dtype=np.int64)
-                new_of_old[perm] = np.arange(self.Pa)
-                pose_q = np.concatenate([pose_q[perm], pose_q[self.Pa :]])
-                pose_t = np.concatenate([pose_t[perm], pose_t[self.Pa :]])
+        with spans.span("pack/arrays"):
+            # every pose's old index at its new position, and its new index
+            maps = None
+            if perm is not None:  # perm[i] = old pose at new position i
+                order = np.concatenate([perm, np.arange(self.Pa, self.P)])
+                new_of_old = np.empty(self.P, dtype=np.int64)
+                new_of_old[order] = np.arange(self.P)
+                maps = (staging.add(order), staging.add(new_of_old))
+            staging.stage()
 
-        dev, dt = self.device, self.dtype
-        with spans.span("pack/upload"):
-            self.graph = GraphArrays(
-                q=torch.as_tensor(pose_q, dtype=dt, device=dev),
-                t=torch.as_tensor(pose_t, dtype=dt, device=dev),
-                Xw=torch.as_tensor(landmarks, dtype=dt, device=dev),
-            )
         # one pack of every landmark set, in set order, where the first of
         # them stands; each ICP set a pack of its own
         lm_sets = [i for i, h in enumerate(has_lm) if h]
@@ -1173,100 +1234,146 @@ class BlockSolver:
                 groups.append(lm_sets)
         if not lm_sets:
             self.ba = None
-        packs, metas, self._host_idx = [], [], []
-        self._spec_thresholds = [sp.get("outlier_threshold", 0.0) for sp in edge_specs]
-        self._merged_sizes = [sp.get("merged_sizes") for sp in edge_specs]
         self._outlier_counts = []
         self._pack_specs = [tuple(m) for m in groups]
-        for members in groups:
-            pack, meta, host_idx = self._pack([edge_specs[i] for i in members], new_of_old)
-            packs.append(pack)
-            metas.append(meta)
-            self._host_idx.append(host_idx)
+        dt = self.dtype
+        with spans.span("pack/upload"):
+            buf = staging.upload()
+            q, t, Xw = (Staging.view(buf, s) for s in state)
+            new_of_old = None
+            if maps is not None:
+                order, new_of_old = (Staging.view(buf, m) for m in maps)
+                q, t = q.index_select(0, order), t.index_select(0, order)
+            self.graph = GraphArrays(q=q.to(dt, copy=True), t=t.to(dt, copy=True),
+                                     Xw=Xw.to(dt, copy=True))
+            packs, metas = zip(*(self._pack(buf, [logical[i] for i in m], new_of_old)
+                                 for m in groups))
         self.packs, self.metas = tuple(packs), tuple(metas)
+        self.pack_stats = staging.stats
         self.schur = None
         self.plan = None
 
-    def _pack(self, specs: list, new_of_old) -> tuple:
-        """One packed set of ``specs`` (one edge set, or several landmark
-        sets concatenated in their order): ``(PackedEdges, EdgeSetMeta,
-        (pose_idx, lm_idx) on the host)``.  ``new_of_old``: the RCM pose
-        renaming, None for the identity.  A uniform weight packs as ``[1]``
-        and a uniform camera as ``[5, 1]``, whatever shape they came in;
-        several sets' model is :func:`pack_kind`'s, a mono set's measurement
-        padded with a zero third row where the pack's rows are three."""
-        dev, dt, Pa = self.device, self.dtype, self.Pa
-        with self.spans.span("pack/arrays"):
-            kind = pack_kind([sp["kind"] for sp in specs])
-            rows = MODEL_REGISTRY[kind].MDIM
-            meas_p, pi_p, li_p, om_p, cam_p, act_p, code_p, parts = ([] for _ in range(8))
-            start = 0
-            for spec in specs:
-                meas = np.asarray(spec["meas"], dtype=np.float64)
-                E = meas.shape[0]
-                if meas.shape[1] < rows:
-                    meas = np.concatenate([meas, np.zeros((E, rows - meas.shape[1]))], axis=1)
-                pose_idx = np.asarray(spec["pose_idx"], dtype=np.int64)
-                lm_idx = np.asarray(spec["lm_idx"], dtype=np.int64)
-                if E and (pose_idx.min() < 0 or pose_idx.max() >= self.P or (
-                        MODEL_REGISTRY[spec["kind"]].HAS_LANDMARK
-                        and (lm_idx.min() < 0 or lm_idx.max() >= self.L))):
-                    raise ValueError(f"{spec['kind']} edges name a vertex outside the graph's "
-                                     f"{self.P} poses and {self.L} landmarks")
-                if new_of_old is not None:
-                    pose_idx = np.where(pose_idx < Pa, new_of_old[np.minimum(pose_idx, Pa - 1)],
-                                        pose_idx)
-                active = np.broadcast_to(
-                    np.asarray(spec.get("active", 1.0), dtype=np.float64), (E,))
-                # each edge's kind: the set's, or a merged set's from its mask3
-                code = np.full(E, KIND_CODES.get(spec["kind"], 0), dtype=np.uint8)
-                if spec.get("mask3") is not None:
-                    code[np.asarray(spec["mask3"]) <= 0] = KIND_CODES["mono"]
-                meas_p.append(meas)
-                pi_p.append(pose_idx)
-                li_p.append(lm_idx)
-                om_p.append(np.asarray(spec["omega"], np.float64).reshape(-1, 1))
-                cam_p.append(np.asarray(spec.get("cam", np.zeros(5)), np.float64).reshape(-1, 5))
-                act_p.append(active)
-                code_p.append(code)
-                parts.append((EdgeSetMeta(kind=spec["kind"], rk=int(spec.get("rk", 0)),
-                                          delta=float(spec.get("delta", 1.0)),
-                                          nedges=int(np.sum(active > 0))), start, start + E))
-                start += E
-            cat = (lambda a: a[0]) if len(specs) == 1 else np.concatenate
-            meas, pose_idx, lm_idx, active = cat(meas_p), cat(pi_p), cat(li_p), cat(act_p)
-            sizes = [b - a for _, a, b in parts]
-            # a uniform weight and a uniform camera broadcast from one row
-            omega = _uniform_rows(om_p, sizes)[:, 0]
-            cam = _uniform_rows(cam_p, sizes)
-            # the per-edge kind: a code where depth rows stand beside others, the
-            # third-row mask where mono rows stand beside stereo ones
-            mask3 = code = None
-        with self.spans.span("pack/upload"):
-            if kind == "mixed":
-                code = torch.as_tensor(cat(code_p), device=dev)
-            elif kind == "stereo" and any(sp["kind"] == "mono" or "mask3" in sp for sp in specs):
-                mask3 = torch.as_tensor(cat(code_p) != KIND_CODES["mono"], device=dev).to(dt)
-            pose_idx_d = torch.as_tensor(pose_idx, device=dev)
-            lm_idx_d = torch.as_tensor(lm_idx, device=dev)
-            pack = PackedEdges(
-                meas=torch.as_tensor(np.ascontiguousarray(meas.T), dtype=dt, device=dev),
-                omega=torch.as_tensor(omega, dtype=dt, device=dev),
-                cam=torch.as_tensor(np.ascontiguousarray(cam.T), dtype=dt, device=dev),
-                pose_idx=pose_idx_d,
-                lm_idx=lm_idx_d,
-                both_free=((pose_idx_d < Pa) & (lm_idx_d < self.La)).to(dt),
-                active=torch.as_tensor(active > 0, device=dev).to(dt),
-                kind=kind,
-                mask3=mask3,
-                code=code,
-            )
-        if len(specs) == 1:
-            meta = parts[0][0]
-        else:
-            meta = EdgeSetMeta(kind=kind, rk=0, delta=1.0, parts=tuple(parts),
-                               nedges=sum(m.nedges for m, _, _ in parts))
-        return pack, meta, (pose_idx, lm_idx)
+    def _stage_set(self, staging: Staging, spec: dict) -> _StagedSet:
+        """One caller edge set checked and given its slots in ``staging``:
+        its vertex indices within the graph (else ``ValueError``), its
+        weight and camera one row where every edge has the same, and its
+        active edges counted."""
+        kind = spec["kind"]
+        meas = own(spec["meas"], FLOATS, np.float64)
+        E = meas.shape[0]
+        pose_idx = own(spec["pose_idx"], INTS, np.int64)
+        lm_idx = None if spec.get("lm_idx") is None else own(spec["lm_idx"], INTS, np.int64)
+        # a set without lm_idx names landmark 0
+        if E and (pose_idx.min() < 0 or pose_idx.max() >= self.P or (
+                MODEL_REGISTRY[kind].HAS_LANDMARK and (
+                    self.L <= 0 if lm_idx is None else lm_idx.min() < 0 or lm_idx.max() >= self.L))):
+            raise ValueError(f"{kind} edges name a vertex outside the graph's "
+                             f"{self.P} poses and {self.L} landmarks")
+        omega = own(spec["omega"], FLOATS, np.float64).reshape(-1)
+        cam = own(spec.get("cam", np.zeros(5)), FLOATS, np.float64).reshape(-1, 5)
+        rows = tuple(a if a.shape[0] == 1 else a[:1] if E and np.all(a == a[0]) else None
+                     for a in (omega, cam))
+        active, on, nedges = spec.get("active"), True, E
+        if active is not None:
+            active = own(active, FLOATS, np.float64)
+            if active.size == 1 and active.ndim <= 1:  # one value for every edge
+                on, active = bool(active.reshape(-1)[0] > 0), None
+                nedges = E if on else 0
+            else:
+                nedges = int(np.count_nonzero(active > 0))
+        return _StagedSet(
+            kind=kind, E=E, K=meas.shape[1], meas=staging.add(meas),
+            pose_idx=staging.add(pose_idx),
+            lm_idx=None if lm_idx is None else staging.add(lm_idx),
+            omega=staging.add(omega if rows[0] is None else rows[0]),
+            cam=staging.add(cam if rows[1] is None else rows[1]),
+            rows=rows, one=(omega.shape[0] == 1, cam.shape[0] == 1),
+            active=None if active is None else staging.add(active), on=on, nedges=nedges,
+        )
+
+    def _pack(self, buf: torch.Tensor, members: list, new_of_old: Optional[torch.Tensor]) -> tuple:
+        """One packed set of ``members``, logical sets ``(kind, rk, delta,
+        staged sets)`` (one edge set, a merged pair, or several landmark
+        sets concatenated in their order), built on the device from the
+        uploaded block ``buf``: ``(PackedEdges, EdgeSetMeta)``.
+        ``new_of_old``: the RCM renaming of every pose on the device, None
+        for the identity.  A uniform weight packs as ``[1]`` and a uniform
+        camera as ``[5, 1]`` (:func:`_pack_row`), whatever shape they came
+        in; several sets' model is :func:`pack_kind`'s, a mono set's
+        measurement padded with a zero third row where the pack's rows are
+        three.  Every tensor is the pack's own, none a view of ``buf``."""
+        dev, dt = self.device, self.dtype
+        kind = pack_kind([k for k, *_ in members])
+        sets = [s for *_, ss in members for s in ss]
+        # the model's residual rows, or an ICP set's wider measurement
+        rows = max([MODEL_REGISTRY[kind].MDIM] + [s.K for s in sets])
+        E = sum(s.E for s in sets)
+        fl = dict(dtype=dt, device=dev)
+        meas = (torch.zeros if any(s.K < rows for s in sets) else torch.empty)((rows, E), **fl)
+        pose_idx = torch.empty(E, dtype=torch.int64, device=dev)
+        lm_idx = torch.empty(E, dtype=torch.int64, device=dev)
+        active = torch.empty(E, **fl)
+        # the per-edge kind: a code where depth rows stand beside others, the
+        # third-row mask where mono rows stand beside stereo ones (or in a
+        # merged set)
+        code = torch.empty(E, dtype=torch.uint8, device=dev) if kind == "mixed" else None
+        mask3 = None
+        if kind == "stereo" and (len(sets) > len(members) or any(s.kind == "mono" for s in sets)):
+            mask3 = torch.empty(E, **fl)
+        one = [_pack_row(sets, w) for w in (0, 1)]
+        omega = (Staging.view(buf, one[0].omega).to(dt, copy=True) if one[0]
+                 else torch.empty(E, **fl))
+        cam = (Staging.view(buf, one[1].cam).reshape(5).to(dt, copy=True).reshape(5, 1)
+               if one[1] else torch.empty((5, E), **fl))
+        a = 0
+        for s in sets:
+            b = a + s.E
+            meas[:s.K, a:b].copy_(Staging.view(buf, s.meas).t())
+            pose_idx[a:b].copy_(Staging.view(buf, s.pose_idx))
+            if s.lm_idx is None:
+                lm_idx[a:b].zero_()
+            else:
+                lm_idx[a:b].copy_(Staging.view(buf, s.lm_idx))
+            if s.active is None:
+                active[a:b].fill_(float(s.on))
+            else:
+                active[a:b].copy_(Staging.view(buf, s.active) > 0)
+            if code is not None:
+                code[a:b].fill_(KIND_CODES.get(s.kind, 0))
+            if mask3 is not None:
+                mask3[a:b].fill_(float(s.kind != "mono"))
+            if one[0] is None:
+                omega[a:b].copy_(Staging.view(buf, s.omega).expand(s.E))
+            if one[1] is None:
+                cam[:, a:b].copy_(Staging.view(buf, s.cam).t().expand(5, s.E))
+            a = b
+        if new_of_old is not None:
+            pose_idx = new_of_old.index_select(0, pose_idx)
+        pack = PackedEdges(
+            meas=meas, omega=omega, cam=cam, pose_idx=pose_idx, lm_idx=lm_idx,
+            both_free=((pose_idx < self.Pa) & (lm_idx < self.La)).to(dt),
+            active=active, kind=kind, mask3=mask3, code=code,
+        )
+        parts, start = [], 0
+        for k, rk, delta, ss in members:
+            stop = start + sum(s.E for s in ss)
+            nedges = sum(s.nedges for s in ss)
+            parts.append((EdgeSetMeta(kind=k, rk=rk, delta=delta, nedges=nedges), start, stop))
+            start = stop
+        if len(members) == 1:
+            return pack, parts[0][0]
+        return pack, EdgeSetMeta(kind=kind, rk=0, delta=1.0, parts=tuple(parts),
+                                 nedges=sum(m.nedges for m, _, _ in parts))
+
+    @property
+    def _host_idx(self) -> list:
+        """Each pack's ``(pose_idx, lm_idx)`` on the host, as packed (the RCM
+        renaming applied): read back from the device in one copy where
+        first asked for (a structure miss), then kept; a hit reads none."""
+        if self._host_idx_read is None:
+            self._host_idx_read = [tuple(torch.stack([p.pose_idx, p.lm_idx]).cpu().numpy())
+                                   for p in self.packs]
+        return self._host_idx_read
 
     @property
     def packed(self) -> Optional[PackedEdges]:

@@ -12,9 +12,9 @@ only while a torch profiler is running does it also open
 ``record_function("ba/" + name)``, so that the trace names what the host
 does beside the device's work.  No profiler, no ``record_function``: one
 costs microseconds even with nothing recording, the check a tenth of one.
-Each ``optimize()`` leaves its span readings and the fused loop's scalar
-counters in :func:`solve_history`, for a caller that does not keep the
-optimiser.
+Each ``optimize()`` leaves its span readings, the fused loop's scalar
+counters and the packing's counters in :func:`solve_history`, for a caller
+that does not keep the optimiser.
 """
 
 from __future__ import annotations
@@ -121,16 +121,19 @@ SOLVE_HISTORY = 4096
 _HISTORY: deque = deque(maxlen=SOLVE_HISTORY)
 
 
-def record_solve(spans: dict, loop: Optional[dict]) -> None:
+def record_solve(spans: dict, loop: Optional[dict], pack: Optional[dict] = None) -> None:
     counters = None if loop is None else {
         k: v for k, v in loop.items() if isinstance(v, (int, float))}
-    _HISTORY.append(dict(spans=dict(spans), loop=counters))
+    _HISTORY.append(dict(spans=dict(spans), loop=counters,
+                         pack=None if pack is None else dict(pack)))
 
 
 def solve_history() -> list[dict]:
     """One dict for each of the process's last ``SOLVE_HISTORY``
     ``optimize()`` calls, oldest first: ``spans`` (the optimiser's span
-    readings so far, :meth:`TorchGraphOptimisation.span_profile`) and
+    readings so far, :meth:`TorchGraphOptimisation.span_profile`),
     ``loop`` (the scalar counters of the fused loop's ``loop_stats``:
-    trials, reads, captures, replays and host ms; None on the host loop)."""
+    trials, reads, captures, replays and host ms; None on the host loop)
+    and ``pack`` (the packing's ``pack_stats``: bytes staged, copies,
+    ``pinned_new``)."""
     return list(_HISTORY)

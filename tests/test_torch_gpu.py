@@ -19,6 +19,8 @@ from chip_smoke import (
     random_banded_spd,
     reverse_pose_blocks,
 )
+from test_torch_pack import CASES as PACK_CASES
+from test_torch_pack import pack_case, packed_solver
 from torch_fragile import (
     FRAGILE_EDGE_PATTERNS,
     FRAGILE_PAIR_PROBLEMS,
@@ -1337,6 +1339,69 @@ def test_cpu_and_card_solvers_of_one_graph_keep_their_plans():
             optimizer_from_problem(p, device=d).solver.build_structure()
     info = bs.structure_cache_info()
     assert (info["hits"], info["misses"]) == (4, 2)
+
+
+@pytest.mark.gpu
+def test_a_pack_is_one_copy_from_a_pinned_block_the_next_pack_reuses():
+    """Packing a graph copies from the host to the card once (the
+    profiler's host-to-device copies while it packs, and ``pack_stats``); a
+    re-sent graph's pack takes the pinned block the first one gave back
+    (``pinned_new`` 0).  The very first pack of the process initialises
+    CUDA."""
+    dev = _cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p = make_mixed_ba_problem(num_poses=40, num_landmarks=600, mean_obs_per_landmark=3.5, seed=2)
+    first = optimizer_from_problem(p, device=dev)
+    torch.cuda.synchronize()
+    assert first.pack_stats["copies"] == 1 and first.pack_stats["bytes"] > 0
+    del first
+    # the profiler's trace has come back short (the B4 test above): device work
+    # without a copy goes first, and a trace without the copy is taken again,
+    # up to three times
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            opt = optimizer_from_problem(p, device=dev)
+            torch.cuda.synchronize()
+        device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        copies = [n for n in device if "HtoD" in n]
+        print(f"pack's host-to-device copies, attempt {attempt + 1}: {copies} "
+              f"({len(device)} device events)")
+        assert len(copies) <= 1, copies
+        assert opt.pack_stats == dict(bytes=opt.pack_stats["bytes"], copies=1, pinned_new=0)
+        del opt
+        if copies:
+            break
+    assert len(copies) == 1, (copies, sorted(set(device)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_the_cards_pack_equals_the_cpus(case):
+    """The pack built on the card, every field, the state, the metas and the
+    host indices a miss reads, bit for bit the CPU's (which
+    ``tests/test_torch_pack.py`` holds against the host packing)."""
+    dev = _cuda()
+    p, specs, options = pack_case(case)
+    cpu, card = (packed_solver(p, specs, d, **options) for d in ("cpu", dev))
+    for a, b in zip(cpu.graph, card.graph):
+        assert a.dtype == b.dtype and a.stride() == b.stride() and torch.equal(a, b.cpu())
+    assert len(cpu.packs) == len(card.packs) and cpu.metas == card.metas
+    for x, y in zip(cpu.packs, card.packs):
+        assert x.kind == y.kind
+        for f in ("meas", "omega", "cam", "pose_idx", "lm_idx", "both_free", "active", "mask3",
+                  "code"):
+            a, b = getattr(x, f), getattr(y, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                assert a.dtype == b.dtype and a.stride() == b.stride(), f
+                assert a.numpy().tobytes() == b.cpu().numpy().tobytes(), f
+    for (cp, cl), (gp, gl) in zip(cpu._host_idx, card._host_idx):
+        assert np.array_equal(cp, gp) and np.array_equal(cl, gl)
+    assert card.pack_stats["copies"] == 1 and cpu.pack_stats["copies"] == 0
 
 
 @pytest.mark.gpu

@@ -247,14 +247,15 @@ def test_orbslam_pair_matches_jax():
 
 
 def test_two_set_path_matches_the_merged_set(monkeypatch):
-    """``_merge_ba_specs`` made the identity, as JAX
-    ``tests/test_mixed_edge_sets.py`` does: the mono and stereo sets stay
-    two sets of one landmark pack, within 1e-9 of the merged set's trace."""
+    """The merge turned off (``_merges`` false; JAX
+    ``tests/test_mixed_edge_sets.py`` makes its ``_merge_ba_specs`` the
+    identity): the mono and stereo sets stay two sets of one landmark pack,
+    within 1e-9 of the merged set's trace."""
     mp = make_mixed_ba_problem(num_poses=16, num_landmarks=180, mean_obs_per_landmark=3.5, seed=11)
     merged = _opt("torch", mp, list(mp.specs))
     assert merged.solver.meta.parts == ()
     merged.optimize(6)
-    monkeypatch.setattr(tbs, "_merge_ba_specs", lambda specs: specs)
+    monkeypatch.setattr(tbs, "_merges", lambda specs: False)
     two = _opt("torch", mp, list(mp.specs))
     assert len(two.solver.meta.parts) == 2 and two.solver.packed.mask3 is not None
     two.optimize(6)
